@@ -1,13 +1,14 @@
 """Configuration dataclasses of the PyTorch port.
 
 A copy of the parts of ``repro.configs.base`` that the federated round
-uses, so the port imports nothing of the JAX package: ``ModelConfig``,
-``FrontendConfig``, ``LoRAConfig``, ``FLConfig`` and the ``ACT_*`` /
-``ATTN_*`` constants. Field names, defaults and derived properties are the
+and the serving engine use, so the port imports nothing of the JAX
+package: ``ModelConfig`` (with ``reduced()``), ``FrontendConfig``,
+``LoRAConfig``, ``FLConfig`` and the ``ACT_*`` / ``ATTN_*`` constants. Field names, defaults and derived properties are the
 reference's, so a config built on one side means the same on the other.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
 from typing import Any, Optional, Tuple
 
@@ -70,6 +71,55 @@ class ModelConfig:
             return self.head_dim
         return self.d_model // self.num_heads if self.num_heads else 0
 
+    @property
+    def is_encoder_only(self) -> bool:
+        return self.attn_type == ATTN_BIDIR
+
+    @property
+    def supports_decode(self) -> bool:
+        return not self.is_encoder_only
+
+    def reduced(self, num_layers: int = 2, d_model: int = 256,
+                vocab_size: int = 512) -> "ModelConfig":
+        """A smoke-test variant of the same family (<=2 layers, d<=512),
+        with the reference's numbers for every field the port knows. The
+        MoE / MLA / SSM sub-configs stay as they are: the port's model
+        refuses them."""
+        d_model = min(d_model, 512)
+        scale = d_model / self.d_model
+        num_heads = max(2, min(self.num_heads, 4))
+        num_kv = max(1, min(self.num_kv_heads, num_heads))
+        while num_heads % num_kv:
+            num_kv -= 1
+        head_dim = max(16, d_model // num_heads)
+        d_ff = max(32, int(self.d_ff * scale)) if self.d_ff else 0
+        frontend = self.frontend
+        if frontend.kind != "none":
+            frontend = dataclasses.replace(
+                frontend, embed_dim=d_model,
+                tokens_per_item=min(frontend.tokens_per_item, 16) or 16)
+        mrope_sections = self.mrope_sections
+        if self.rope_type == "mrope":
+            half = head_dim // 2
+            s1 = max(1, half // 4)
+            s2 = (half - s1) // 2
+            mrope_sections = (s1, s2, half - s1 - s2)
+        return dataclasses.replace(
+            self,
+            name=self.name + "-reduced",
+            num_layers=num_layers,
+            d_model=d_model,
+            num_heads=num_heads,
+            num_kv_heads=num_kv,
+            head_dim=head_dim,
+            d_ff=d_ff,
+            vocab_size=vocab_size,
+            sliding_window=(min(self.sliding_window, 64)
+                            if self.sliding_window else 0),
+            mrope_sections=mrope_sections,
+            frontend=frontend,
+        )
+
 
 @dataclass(frozen=True)
 class LoRAConfig:
@@ -128,7 +178,7 @@ def register(config: ModelConfig) -> ModelConfig:
 
 
 def get_config(name: str) -> ModelConfig:
-    from repro_torch.configs import paper_models  # noqa: F401  (registers)
+    from repro_torch.configs import paper_models, qwen2_7b  # noqa: F401
     if name not in _REGISTRY:
         raise KeyError(
             f"unknown architecture {name!r}; available: {sorted(_REGISTRY)}")

@@ -7,6 +7,12 @@ paths, tensors on ``device``. ``FederatedLoRA`` and ``build_experiment``
 accept the result as ``base_params``. The two frameworks' random streams
 differ, so every parity test starts both sides from one set of weights
 through this function.
+
+The same function carries an adapter tree of the JAX package (from
+``split_lora``, ``None`` at every base leaf) or a ``PublishedAdapters.pages``
+tree into the port's lora-only trees: ``None`` leaves are dropped, and so
+is every sub-tree left empty by that, so the result has the port's
+``split_lora`` / ``AdapterStore`` structure.
 """
 from __future__ import annotations
 
@@ -21,7 +27,9 @@ def params_from_numpy(tree, device=None) -> dict:
 
     def conv(x):
         if isinstance(x, dict):
-            return {k: conv(v) for k, v in x.items() if v is not None}
+            out = {k: conv(v) for k, v in x.items() if v is not None}
+            return {k: v for k, v in out.items()
+                    if not (isinstance(v, dict) and not v)}
         return torch.as_tensor(np.array(x, copy=True), device=dev)
 
     return conv(tree)

@@ -26,6 +26,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 # C signature of every exported kernel entry: (pointers..., ints..., stream)
 SIGNATURES = {
     "weighted_stack": {
@@ -35,6 +36,9 @@ SIGNATURES = {
     "gram": {
         "gram_left_f32": [_P, _P, _I, _I, _I, _P],
         "gram_right_f32": [_P, _P, _I, _I, _I, _P],
+    },
+    "lora_apply": {
+        "batched_lora_apply_f32": [_P] * 8 + [_I] * 5 + [_L, _L, _P],
     },
 }
 

@@ -1,8 +1,9 @@
-"""Public wrappers of the fused factored aggregation (DESIGN.md §4.3),
-the subset of ``repro/kernels/ops.py`` that the kernel backend's round
-path runs.
+"""Public wrappers of the port's kernels: the fused factored aggregation
+(DESIGN.md §4.3) that the kernel backend's round path runs, and the paged
+multi-adapter LoRA apply of the serving engine (``batched_lora_apply``,
+K4), the subset of ``repro/kernels/ops.py`` that the port runs.
 
-The Eq. 8 empty-partition fallback enters as one extra "client" whose
+For the aggregation: the Eq. 8 empty-partition fallback enters as one extra "client" whose
 omega row is the fallback indicator; client ranks are zero-padded to a
 multiple of 8 (zero columns are spectrum-inert) so R = M' * r8. The
 kernels handle ragged d / n extents themselves, so nothing else is padded.
@@ -15,9 +16,19 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.svd import check_fallback_globals
+from repro_torch.kernels import lora_apply, rank_partition_agg
+from repro_torch.kernels.lora_apply import batched_lora_apply  # noqa: F401
 from repro_torch.kernels.rank_partition_agg import (gram_left, gram_right,
                                                     weighted_stack_a,
                                                     weighted_stack_b)
+
+# every kernel wrapper of the port, each with its ``launches`` count
+KERNELS = rank_partition_agg.KERNELS + lora_apply.KERNELS
+
+
+def reset_launches() -> None:
+    for k in KERNELS:
+        k.launches = 0
 
 
 def _pad_to(x: torch.Tensor, axis: int, mult: int) -> torch.Tensor:

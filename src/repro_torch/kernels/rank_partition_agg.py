@@ -161,8 +161,3 @@ def gram_right(v_c: torch.Tensor) -> torch.Tensor:
 KERNELS = (weighted_stack_b, weighted_stack_a, gram_left, gram_right)
 for _k in KERNELS:
     _k.launches = 0
-
-
-def reset_launches() -> None:
-    for k in KERNELS:
-        k.launches = 0

@@ -1,5 +1,5 @@
-"""Card-only checks of the port's hand-written CUDA kernels and of the
-round on the card. They skip without CUDA (the kernels have no CPU mode)
+"""Card-only checks of the port's hand-written CUDA kernels, of the round
+and of the serving engine on the card. They skip without CUDA (the kernels have no CPU mode)
 and import nothing of JAX, so they run on a GPU machine without it:
 
     PYTHONPATH=src python -m pytest --noconftest tests/test_torch_cuda.py
@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import lora_apply as la
 from repro_torch.kernels import rank_partition_agg as rpa
 
 
@@ -98,3 +99,114 @@ def test_cuda_round_matches_cpu_round(cuda_device):
         gb, ga = fg[parent]
         np.testing.assert_allclose((gb @ ga).cpu().numpy(), (b @ a).numpy(),
                                    atol=2e-3 * scale)
+
+
+def _lora_case(seed, m, k, n, p, r, device, ranks=None):
+    rng = np.random.default_rng(seed)
+    ranks = ranks or [r] * p
+    mask = (np.arange(r)[None, :] < np.asarray(ranks)[:, None])
+    arrs = dict(
+        x=rng.normal(size=(m, k)), w=rng.normal(size=(k, n)) * k ** -0.5,
+        a_pages=rng.normal(size=(p, r, k)) * mask[:, :, None] * k ** -0.5,
+        b_pages=rng.normal(size=(p, n, r)) * mask[:, None, :],
+        scales=rng.uniform(0.5, 2.0, size=(p,)))
+    case = {key: torch.from_numpy(v.astype(np.float32)).to(device)
+            for key, v in arrs.items()}
+    case["ids"] = torch.from_numpy(
+        rng.integers(0, p, size=(m,)).astype(np.int32)).to(device)
+    return case
+
+
+def _lora_tol(case):
+    """(K + r) * eps * max(|x| @ |W| + |s| (|x| @ |A|^T) @ |B|^T): the
+    worst-case rounding of the f32 dot products, each side."""
+    k, r = case["w"].shape[0], case["a_pages"].shape[1]
+    mag = la.batched_lora_apply_plain(
+        **{key: (v if key == "ids" else v.abs()) for key, v in case.items()})
+    return (k + r) * torch.finfo(torch.float32).eps * float(mag.max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,p,r", [
+    (4, 3584, 3584, 4, 16), (4, 3584, 512, 4, 16),      # decode q/o, k/v
+    (128, 3584, 3584, 4, 16), (128, 3584, 512, 4, 16),  # prefill
+    (35, 72, 56, 3, 16), (7, 37, 23, 2, 5), (70, 37, 23, 2, 5),  # odd
+    (9, 300, 520, 9, 8)])                                # a page per row
+def test_cuda_lora_apply_matches_plain(cuda_device, m, k, n, p, r):
+    """K4 against its plain version at Qwen2-7B's decode (4 rows) and
+    prefill (128 rows) shapes, at odd K / N / r on both launch paths, and
+    with every row on a different page."""
+    case = _lora_case(10, m, k, n, p, r, cuda_device,
+                      ranks=[max(1, r - 2 * i) for i in range(p)])
+    if m == p:
+        case["ids"] = torch.arange(p, dtype=torch.int32,
+                                   device=cuda_device)
+    before = la.batched_lora_apply.launches
+    got = la.batched_lora_apply(**case)
+    want = la.batched_lora_apply_plain(**case)
+    torch.cuda.synchronize()
+    assert la.batched_lora_apply.launches == before + 1
+    assert float((got - want).abs().max()) <= _lora_tol(case)
+    # deterministic: no atomics, fixed reduction order
+    assert torch.equal(got, la.batched_lora_apply(**case))
+
+
+@pytest.mark.cuda
+def test_cuda_lora_apply_strided_pages_and_bad_ids(cuda_device):
+    """Per-layer page slices t[:, li] are read in place; a row whose page
+    id is out of range comes back NaN, the others unaffected."""
+    case = _lora_case(11, 6, 64, 40, 3, 8, cuda_device)
+    stacked_a = torch.stack([case["a_pages"] * 0, case["a_pages"]], dim=1)
+    stacked_b = torch.stack([case["b_pages"] * 0, case["b_pages"]], dim=1)
+    got = la.batched_lora_apply(case["x"], case["w"], stacked_a[:, 1],
+                                stacked_b[:, 1], case["scales"], case["ids"])
+    torch.testing.assert_close(got, la.batched_lora_apply(**case),
+                               rtol=0, atol=0)
+    bad = case["ids"].clone()
+    bad[2] = 7
+    out = la.batched_lora_apply(**dict(case, ids=bad))
+    assert torch.isnan(out[2]).all() and torch.isfinite(out[[0, 1, 3]]).all()
+
+
+@pytest.mark.cuda
+def test_cuda_serving_engine_matches_cpu(cuda_device):
+    """A reduced qwen2-7b (GQA 4/2) engine on the card with
+    ``use_kernels=True`` (K4 on every q/k/v/o projection) and the same
+    engine on the CPU from the same weights: equal greedy tokens, 4 K4
+    launches per layer per engine call."""
+    import dataclasses
+    from repro_torch.configs import LoRAConfig, get_config
+    from repro_torch.core.lora import flatten, unflatten
+    from repro_torch.models.transformer import Model
+    from repro_torch.serving import AdapterStore, ServingEngine
+    cfg = dataclasses.replace(get_config("qwen2-7b").reduced(),
+                              num_kv_heads=2)
+    lora = LoRAConfig(rank_levels=(4, 8, 16))
+    cpu = Model(cfg, lora, device="cpu")
+    params = cpu.init(torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(1)
+    tenants = {}
+    for name in ("hi", "lo"):
+        flat = {path: 0.05 * torch.randn(t.shape, generator=gen)
+                for path, t in flatten(params).items()
+                if path[-1] in ("lora_a", "lora_b")}
+        tenants[name] = unflatten(flat)
+    prompts = torch.randint(0, cfg.vocab_size, (2, 8), generator=gen)
+    runs = []
+    for dev, kern in (("cuda", True), ("cpu", False)):
+        model = Model(cfg, lora, device=dev, use_kernels=kern)
+        move = lambda tree: unflatten(  # noqa: E731
+            {p: t.to(dev) for p, t in flatten(tree).items()})
+        store = AdapterStore(lora.rank_levels)
+        store.put("hi", move(tenants["hi"]), 16)
+        store.put("lo", move(tenants["lo"]), 4)
+        store.publish()
+        eng = ServingEngine(model, move(params), store, max_len=14, slots=2)
+        before = la.batched_lora_apply.launches
+        toks = [eng.admit([0, 1], prompts, ["hi", "lo"]).cpu()]
+        for _ in range(4):
+            toks.append(eng.decode([True, True]).cpu())
+        grew = la.batched_lora_apply.launches - before
+        assert grew == (4 * cfg.num_layers * 5 if kern else 0)
+        runs.append(torch.stack(toks, dim=1))
+    torch.testing.assert_close(runs[0], runs[1], rtol=0, atol=0)

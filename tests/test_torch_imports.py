@@ -14,7 +14,7 @@ SRC = os.path.join(ROOT, "src")
 MODULES = [
     "repro_torch",
     "repro_torch.configs", "repro_torch.configs.base",
-    "repro_torch.configs.paper_models",
+    "repro_torch.configs.paper_models", "repro_torch.configs.qwen2_7b",
     "repro_torch.convert", "repro_torch.device",
     "repro_torch.core", "repro_torch.core.aggregation",
     "repro_torch.core.energy", "repro_torch.core.lora",
@@ -25,12 +25,16 @@ MODULES = [
     "repro_torch.federation.experiment", "repro_torch.federation.server",
     "repro_torch.federation.topology",
     "repro_torch.kernels", "repro_torch.kernels.build",
+    "repro_torch.kernels.lora_apply",
     "repro_torch.kernels.ops", "repro_torch.kernels.rank_partition_agg",
     "repro_torch.models", "repro_torch.models.transformer",
     "repro_torch.models.layers.attention", "repro_torch.models.layers.dense",
     "repro_torch.models.layers.mlp", "repro_torch.models.layers.norms",
+    "repro_torch.models.layers.rope",
     "repro_torch.optim", "repro_torch.optim.adamw",
     "repro_torch.optim.schedules",
+    "repro_torch.serving", "repro_torch.serving.adapter_store",
+    "repro_torch.serving.engine",
 ]
 
 
@@ -73,7 +77,7 @@ def test_module_list_is_complete():
 
 
 def test_default_device_raises_without_cuda(monkeypatch):
-    from repro_torch.configs.base import LoRAConfig
+    from repro_torch.configs.base import LoRAConfig, get_config
     from repro_torch.device import resolve_device
     from repro_torch.federation.experiment import build_experiment, fedvit_config
     from repro_torch.models.transformer import Model
@@ -82,6 +86,9 @@ def test_default_device_raises_without_cuda(monkeypatch):
         resolve_device(None)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         Model(fedvit_config(d_model=32), LoRAConfig())
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Model(get_config("qwen2-7b").reduced(), LoRAConfig(),
+              use_kernels=True)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         build_experiment("raflora", d_model=32, backend="kernel",
                          samples_per_class=10, num_classes=4)
@@ -105,3 +112,34 @@ def test_unported_options_name_their_roadmap_item():
         build_experiment("raflora", partial_up_to=4, **small)
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
         build_experiment("raflora", noisy_low_rank_std=0.5, **small)
+
+
+@pytest.mark.parametrize("change", [
+    dict(moe=object()), dict(attn_type="sliding", sliding_window=64),
+    dict(rope_type="mrope"), dict(tie_embeddings=True),
+    dict(logit_softcap=30.0), dict(name="gemma-2b-reduced"),
+    dict(attn_type="bidirectional")],
+    ids=["moe", "sliding", "mrope", "tied", "softcap", "gemma",
+         "frontend-free-encoder"])
+def test_unported_model_options_name_their_roadmap_item(change):
+    import dataclasses
+    from repro_torch.configs.base import LoRAConfig, get_config
+    from repro_torch.models.transformer import Model
+    cfg = dataclasses.replace(get_config("qwen2-7b").reduced(), **change)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
+        Model(cfg, LoRAConfig(), device="cpu")
+
+
+def test_unported_peft_variant_and_encoder_decode_raise():
+    import dataclasses
+    from repro_torch.configs.base import LoRAConfig, get_config
+    from repro_torch.federation.experiment import fedvit_config
+    from repro_torch.models.transformer import Model
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
+        Model(get_config("qwen2-7b").reduced(),
+              dataclasses.replace(LoRAConfig(), variant="dora"),
+              device="cpu")
+    enc = Model(fedvit_config(d_model=32), LoRAConfig(), device="cpu")
+    with pytest.raises(ValueError, match="encoder-only"):
+        enc.decode_step_clients({}, {}, {"token": torch.zeros(1, 1, 1)},
+                                {}, torch.ones(1))

@@ -131,7 +131,7 @@ def test_factored_from_weighted_matches_reference(with_fallback):
 
 
 def test_cpu_wrappers_take_plain_path_and_count_no_launch():
-    rpa.reset_launches()
+    tops.reset_launches()
     bs, as_, omega = _stacks(6, 1, 2, 8, 8, 8)
     u = rpa.weighted_stack_b(_t(bs), _t(omega))
     v = rpa.weighted_stack_a(_t(as_), _t(omega))
