@@ -26,12 +26,22 @@ JAX. Phases, each printing one JSON line:
                   ranks 16/8/4, with a hot swap after 8 decode steps; K4
                   must launch 4 x 28 times per engine step, and the tokens
                   must equal the same engine's plain path on the card.
-7. kernel summary one {"kernels": [...]} line, then the card's name and
+7. serve_small_mamba2  a reduced mamba2 engine on cuda (K6) and on cpu
+                  (plain), 64-token prompts (two chunks): equal tokens.
+8. serve_mamba2_1p3b  main path 3: Mamba-2 1.3B at full width in f32, 4
+                  slots of 1024-token prompts (4 chunks of 256) and 16 new
+                  tokens over 3 tenants at ranks 16/8/4 with a hot swap;
+                  K6 must launch 48 times in the admit call and never in a
+                  decode step, and the tokens must equal the plain path's.
+9. kernel summary one {"kernels": [...]} line, then the card's name and
                   power limit, then the final {"ok": true, ...} line.
 
+The kernels phase holds K6 to its plain version at mamba2-1.3b's prefill
+shape (with and without an initial state) and at an odd shape after K4.
 ``--profile`` adds one profiled vit-base round after phase 4 (device time
-of the top kernels, the device's idle share). Phase 6 always profiles one
-extra decode step for K4's share of its device time.
+of the top kernels, the device's idle share). Phases 6 and 8 always
+profile one more decode step and one more prefill for their kernel's
+share of the device time.
 
 Any failure exits nonzero before the final line.
 """
@@ -58,6 +68,7 @@ REPLACES = {
     "gram_left": "src/repro/kernels/rank_partition_agg.py:287",
     "gram_right": "src/repro/kernels/rank_partition_agg.py:320",
     "batched_lora_apply": "src/repro/kernels/lora_apply.py:153",
+    "ssd_scan": "src/repro/kernels/ssd_scan.py:88",
 }
 SOURCES = {
     "weighted_stack_b": "src/repro_torch/kernels/csrc/weighted_stack.cu",
@@ -65,6 +76,7 @@ SOURCES = {
     "gram_left": "src/repro_torch/kernels/csrc/gram.cu",
     "gram_right": "src/repro_torch/kernels/csrc/gram.cu",
     "batched_lora_apply": "src/repro_torch/kernels/csrc/lora_apply.cu",
+    "ssd_scan": "src/repro_torch/kernels/csrc/ssd_scan.cu",
 }
 # vit-base round buckets: (name, layers L' = adapters x layers, d, n)
 BUCKETS = (("attn_qkvo", 48, 768, 768), ("mlp_down", 12, 3072, 768),
@@ -76,6 +88,12 @@ RANK = 32          # r_max, already a multiple of 8
 QWEN_PROJ = (("q", 3584, 3584), ("k", 3584, 512), ("v", 3584, 512),
              ("o", 3584, 3584))
 SLOTS, PROMPT_LEN, NEW_TOKENS, SERVE_RANK = 4, 32, 16, 16
+# Mamba-2 1.3B prefill: 4 slots of 1024 tokens, so the scan runs 4 chunks
+MAMBA_PROMPT = 1024
+# K6 shapes (B, L, H, P, G, N, chunk): the full-width prefill, an odd one
+SCAN_FULL = (SLOTS, MAMBA_PROMPT, 64, 64, 1, 128, 256)
+SCAN_ODD = (2, 96, 12, 24, 3, 20, 32)
+SCAN_TOL = {"atol": 2e-4, "rtol": 1e-3}   # tests/test_kernels.py:377-380
 DEV = "cuda"       # the card; the serving phases take their device here
 
 
@@ -313,6 +331,93 @@ def phase_kernel_lora_apply(torch, summary: dict):
                           ("ms", "plain_ms", "bound_ms", "library_ms")}}
 
 
+def _scan_inputs(torch, shape, gen, init):
+    """K6 inputs on the card: x ~ N(0, 1); dt = softplus(N(0, 1) - 4),
+    about 0.02; A = -exp(0.5 N(0, 1) - 1), about -0.4; b, c ~ 0.3 N(0, 1);
+    d ~ N(0, 1). A chunk of 256 keeps about a fifth of its state, so the
+    carry across chunks shows in y. ``init`` adds an N(0, 1) state."""
+    bsz, length, h, p, g, n, _ = shape
+    softplus = torch.nn.functional.softplus
+
+    def rand(*dims):
+        return torch.randn(*dims, generator=gen, device=DEV)
+    args = (rand(bsz, length, h, p), softplus(rand(bsz, length, h) - 4.0),
+            0.5 * rand(h) - 1.0, 0.3 * rand(bsz, length, g, n),
+            0.3 * rand(bsz, length, g, n), rand(h))
+    return args, (rand(bsz, h, p, n) if init else None)
+
+
+def _scan_work(shape, init: bool) -> tuple:
+    """(bytes, FLOP) K6 cannot avoid: each input read once and each output
+    written once; the recurrence's two state products, the update
+    S += B (dt x)^T and the readout C . S, 2 P N multiply-adds per (token,
+    head). The chunked form's intra-chunk Q x Q products are left out: a
+    smaller chunk avoids them."""
+    bsz, length, h, p, g, n, _ = shape
+    nbytes = 4 * (2 * bsz * length * h * p + bsz * length * h
+                  + 2 * bsz * length * g * n + 2 * h
+                  + (2 if init else 1) * bsz * h * p * n)
+    mac = 2 * bsz * length * h * p * n
+    return nbytes, 2.0 * mac
+
+
+def phase_kernel_ssd_scan(torch, summary: dict):
+    """K6 vs its plain version at mamba2-1.3b's prefill shape and at an odd
+    shape, each without and with an initial state; two launches must be
+    bit-equal. Times at the full shape."""
+    from repro_torch.kernels import ssd_scan as k6
+    gen = torch.Generator(device=DEV).manual_seed(2)
+    rows = []
+    for name, shape in (("full", SCAN_FULL), ("odd", SCAN_ODD)):
+        for init in (False, True):
+            args, init_state = _scan_inputs(torch, shape, gen, init)
+            chunk = shape[-1]
+
+            def kern():
+                return k6.ssd_scan(*args, chunk, init_state=init_state)
+
+            def plain():
+                return k6.ssd_scan_plain(*args, chunk, init_state=init_state)
+            (y, s), (want_y, want_s) = kern(), plain()
+            torch.cuda.synchronize()
+            err = max(float((y - want_y).abs().max()),
+                      float((s - want_s).abs().max()))
+            ok = bool(torch.allclose(y, want_y, **SCAN_TOL)) and \
+                bool(torch.allclose(s, want_s, **SCAN_TOL))
+            require(ok, f"ssd_scan {name} init={init}: max_abs_err {err} "
+                        f"beyond {SCAN_TOL}")
+            y2, s2 = kern()
+            require(torch.equal(y, y2) and torch.equal(s, s2),
+                    f"ssd_scan {name} init={init}: not deterministic")
+            bsz, _, h, p, _, _, _ = shape
+            row = {"kernel": "ssd_scan", "shape": name, "init_state": init,
+                   "bLhpgnq": list(shape), "max_abs_err": err,
+                   "tol": SCAN_TOL, "splits": k6._splits(bsz, h, p, y.device)}
+            if name == "full":
+                nbytes, flops = _scan_work(shape, init)
+                k_ms = time_ms(torch, kern)
+                p_ms = time_ms(torch, plain, iters=5, warmup=1)
+                b_ms, b_by = bound_ms(nbytes, flops)
+                row.update({"kernel_ms": k_ms, "plain_ms": p_ms,
+                            "bound_ms": b_ms, "bound_by": b_by,
+                            "bytes": nbytes, "flop": flops,
+                            "kernel_tflop_per_s": flops / k_ms / 1e9})
+            rows.append(row)
+            del args, init_state, y, s, want_y, want_s, y2, s2
+    torch.cuda.empty_cache()
+    emit({"phase": "kernels", "kernel": "ssd_scan", "per_shape": rows})
+    main = rows[0]            # the prefill's launch: no initial state
+    summary["ssd_scan"] = {
+        "max_abs_err": max(r["max_abs_err"] for r in rows),
+        "ms": main["kernel_ms"], "plain_ms": main["plain_ms"],
+        "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+        "library_ms": None,
+        "library": "none: no single PyTorch call computes the SSD scan",
+        "tol": SCAN_TOL,
+        "shape": "one mamba2-1.3b prefill layer: B 4, L 1024, H 64, P 64, "
+                 "G 1, N 128, chunk 256"}
+
+
 def _products(server):
     r_max = server.lora_cfg.r_max
     f = server._extract_factors(server.global_lora, r_max)
@@ -455,25 +560,8 @@ def phase_round_vit_base(torch, rounds: int = 3) -> dict:
 
 def phase_profile(torch, server) -> None:
     """One more vit-base round under torch.profiler: device time by
-    kernel and the device's busy share of the round's wall time."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        server.run_round()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
-    dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:15]
-    emit({"phase": "profile", "round_wall_ms": wall_ms,
-          "device_busy_ms": dev_ms, "device_idle_share": 1 - dev_ms / wall_ms,
-          "top_kernels": [{"name": e.key[:90], "count": e.count,
-                           "device_ms": e.self_device_time_total / 1e3}
-                          for e in top]})
+    kernel, K2's share and the device's idle share of the round."""
+    emit({"phase": "profile", **_profile(torch, server.run_round, "gram")})
 
 
 def _tenant_tree(torch, params, gen, device):
@@ -490,84 +578,145 @@ def _tenant_tree(torch, params, gen, device):
     return unflatten(flat)
 
 
-def phase_serve_small(torch):
-    """A reduced qwen2-7b (GQA 4/2) engine on cuda with K4 and on cpu
-    with the plain path, from the same weights and tenants."""
-    import dataclasses
-    from repro_torch.configs import LoRAConfig, get_config
+def _move(tree, dev):
     from repro_torch.core.lora import flatten, unflatten
+    return unflatten({p: t.to(dev) for p, t in flatten(tree).items()})
+
+
+def _serve_small(torch, phase: str, cfg, prompt_len: int, tol: dict,
+                 kernel, admit_launches: int):
+    """A reduced engine on cuda with ``use_kernels`` and on cpu with the
+    plain path, from the same weights and tenants (ranks 16 and 4): equal
+    greedy tokens over 5 steps, first-step logits within ``tol``, and
+    ``kernel`` launched ``admit_launches`` times by the card's admit."""
+    from repro_torch.configs import LoRAConfig
     from repro_torch.models.transformer import Model
     from repro_torch.serving import AdapterStore, ServingEngine
-    cfg = dataclasses.replace(get_config("qwen2-7b").reduced(),
-                              num_kv_heads=2)
     lora = LoRAConfig(rank_levels=(4, 8, 16))
     params = Model(cfg, lora, device="cpu").init(
         torch.Generator().manual_seed(0))
     gen = torch.Generator().manual_seed(1)
     tenants = {"hi": (_tenant_tree(torch, params, gen, "cpu"), 16),
                "lo": (_tenant_tree(torch, params, gen, "cpu"), 4)}
-    prompts = torch.randint(0, cfg.vocab_size, (2, 8), generator=gen)
-    runs = {}
+    prompts = torch.randint(0, cfg.vocab_size, (2, prompt_len),
+                            generator=gen)
+    runs = []
     for dev, kern in ((DEV, True), ("cpu", False)):
-        move = lambda tree: unflatten(  # noqa: E731
-            {p: t.to(dev) for p, t in flatten(tree).items()})
         store = AdapterStore(lora.rank_levels)
         for name, (tree, rank) in tenants.items():
-            store.put(name, move(tree), rank)
+            store.put(name, _move(tree, dev), rank)
         store.publish()
         eng = ServingEngine(Model(cfg, lora, device=dev, use_kernels=kern),
-                            move(params), store, max_len=14, slots=2)
+                            _move(params, dev), store,
+                            max_len=prompt_len + 6, slots=2)
+        before = kernel.launches
         toks = [eng.admit([0, 1], prompts, ["hi", "lo"]).cpu()]
+        launches = kernel.launches - before
         first_logits = eng.last_logits.cpu()
         for _ in range(4):
             toks.append(eng.decode([True, True]).cpu())
-        runs[dev] = (torch.stack(toks, dim=1), first_logits)
-    (tc, lc), (th, lh) = runs[DEV], runs["cpu"]
-    logit_err = float((lc - lh).abs().max())
-    ok_logits = bool(torch.allclose(lc, lh, rtol=1e-4, atol=1e-5))
+        runs.append((torch.stack(toks, dim=1), first_logits, launches))
+    (tc, lc, launches), (th, lh, _) = runs
     ok_tokens = bool(torch.equal(tc, th))
-    emit({"phase": "serve_small", "tokens_cuda": tc.tolist(),
+    emit({"phase": phase, "tokens_cuda": tc.tolist(),
           "tokens_cpu": th.tolist(), "tokens_equal": ok_tokens,
-          "first_logits_max_abs_err": logit_err,
-          "tol": {"rtol": 1e-4, "atol": 1e-5}})
-    require(ok_tokens, "serve_small: cuda and cpu greedy tokens differ")
-    require(ok_logits, "serve_small: first-step logits beyond rtol 1e-4")
+          "first_logits_max_abs_err": float((lc - lh).abs().max()),
+          "tol": tol, "launches_in_admit": launches})
+    require(launches == admit_launches, f"{phase}: {kernel.__name__} "
+                                        f"launched {launches} times in "
+                                        f"admit, expected {admit_launches}")
+    require(ok_tokens, f"{phase}: cuda and cpu greedy tokens differ")
+    require(bool(torch.allclose(lc, lh, **tol)),
+            f"{phase}: first-step logits beyond {tol}")
 
 
-def phase_serve_qwen2_7b(torch) -> int:
-    """Main path 2: the serving engine at Qwen2-7B's full width in f32,
-    K4 on every q/k/v/o projection, against the same engine's plain path
-    on the card. Returns K4's launches in this run."""
-    from repro_torch.configs import LoRAConfig, get_config
+def phase_serve_small(torch):
+    """A reduced qwen2-7b (GQA 4/2), 8-token prompts, K4 on q/k/v/o."""
+    import dataclasses
+    from repro_torch.configs import get_config
     from repro_torch.kernels import lora_apply as la
+    cfg = dataclasses.replace(get_config("qwen2-7b").reduced(),
+                              num_kv_heads=2)
+    _serve_small(torch, "serve_small", cfg, 8, {"rtol": 1e-4, "atol": 1e-5},
+                 la.batched_lora_apply, 4 * cfg.num_layers)
+
+
+def phase_serve_small_mamba2(torch):
+    """A reduced mamba2, 64-token prompts so the scan carries its state
+    across two chunks of 32."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ssd_scan as k6
+    cfg = get_config("mamba2-1.3b").reduced()
+    _serve_small(torch, "serve_small_mamba2", cfg, 64,
+                 {"rtol": 1e-4, "atol": 1e-5}, k6.ssd_scan, cfg.num_layers)
+
+
+def _profile(torch, fn, match: str) -> dict:
+    """One call of ``fn`` under torch.profiler: wall and device time, the
+    device time of the kernels whose name contains ``match`` and their
+    share, the device's idle share, the top 8 kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA]
+    dev_ms = sum(e.self_device_time_total for e in kern) / 1e3
+    match_ms = sum(e.self_device_time_total for e in kern
+                   if match in e.key) / 1e3
+    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
+    return {"wall_ms": wall, "device_ms": dev_ms,
+            "kernel_device_ms": match_ms,
+            # None: the profiler saw no device time
+            "kernel_share_of_device": match_ms / dev_ms if dev_ms else None,
+            "device_idle_share": 1 - dev_ms / wall,
+            "top_kernels": [{"name": e.key[:90], "count": e.count,
+                             "device_ms": e.self_device_time_total / 1e3}
+                            for e in top]}
+
+
+def _serve_full(torch, phase: str, cfg, prompt_len: int, kernel,
+                match: str, admit_launches: int,
+                decode_launches: int) -> int:
+    """A main serving path at full width in f32: 4 slots of ``prompt_len``
+    tokens and 16 new tokens over 3 tenants at ranks 16/8/4 (slots on
+    16/8/4/16), with a hot swap after 8 decode steps. The engine with
+    ``use_kernels`` runs step by step against the same engine's plain path
+    on the card, on one copy of the weights; ``kernel`` must launch
+    ``admit_launches`` times in the admit call and ``decode_launches`` in
+    each decode step. One more decode step and one more prefill run under
+    the profiler. Returns the kernel's launches on the main path."""
+    from repro_torch.configs import LoRAConfig
     from repro_torch.kernels import ops
     from repro_torch.models.transformer import Model
     from repro_torch.serving import AdapterStore, ServingEngine
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    cfg = get_config("qwen2-7b")
     lora = LoRAConfig(rank_levels=(4, 8, 16))
     model = Model(cfg, lora, device=DEV, use_kernels=True)
     plain = Model(cfg, lora, device=DEV, use_kernels=False)
     gen = torch.Generator(device=DEV).manual_seed(0)
     params = model.init(gen)
-    tenants = {"t16": 16, "t8": 8, "t4": 4}
     store = AdapterStore(lora.rank_levels)
-    for name, rank in tenants.items():
+    for name, rank in {"t16": 16, "t8": 8, "t4": 4}.items():
         store.put(name, _tenant_tree(torch, params, gen, DEV), rank)
     store.publish()
-    prompts = torch.randint(0, cfg.vocab_size, (SLOTS, PROMPT_LEN),
+    prompts = torch.randint(0, cfg.vocab_size, (SLOTS, prompt_len),
                             generator=gen, device=DEV)
     slot_tenants = ["t16", "t8", "t4", "t16"]
     # one slot more than the tokens, for the profiled step at the end
-    max_len = PROMPT_LEN + NEW_TOKENS + 1
+    max_len = prompt_len + NEW_TOKENS + 1
     eng = ServingEngine(model, params, store, max_len=max_len, slots=SLOTS)
     ref = ServingEngine(plain, params, store, max_len=max_len, slots=SLOTS)
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     n_params = sum(t.numel() for t in _leaves(params))
-    per_step = 4 * cfg.num_layers
 
     def timed(fn, *a):
         torch.cuda.synchronize()
@@ -583,20 +732,22 @@ def phase_serve_qwen2_7b(torch) -> int:
         if step == 9:             # the round landing after 8 decode steps
             store.put("t16", _tenant_tree(torch, params, gen, DEV), 16)
             store.publish()
-        before = la.batched_lora_apply.launches
+        before = kernel.launches
         if step == 0:
-            _, ms = timed(eng.admit, range(SLOTS), prompts, slot_tenants)
-            _, ms_plain = timed(ref.admit, range(SLOTS), prompts,
-                                slot_tenants)
+            call, args = (lambda e: e.admit), (range(SLOTS), prompts,
+                                               slot_tenants)
+            want = admit_launches
         else:
-            _, ms = timed(eng.decode, active)
-            _, ms_plain = timed(ref.decode, active)
-        grew = la.batched_lora_apply.launches - before
-        require(grew == per_step, f"serve_qwen2_7b step {step}: K4 "
-                                  f"launched {grew} times, expected "
-                                  f"{per_step}")
+            call, args, want = (lambda e: e.decode), (active,), \
+                decode_launches
+        _, ms = timed(call(eng), *args)
+        grew = kernel.launches - before
+        _, ms_plain = timed(call(ref), *args)
+        require(grew == want and kernel.launches - before == want,
+                f"{phase} step {step}: {kernel.__name__} launched {grew} "
+                f"times, expected {want}")
         row = {"step": step, "ms": ms, "plain_ms": ms_plain,
-               "k4_launches": grew}
+               "launches": grew}
         if diverged is None:
             dl = (eng.last_logits - ref.last_logits).abs()
             row["logits_max_abs_diff"] = float(dl.max())
@@ -611,62 +762,65 @@ def phase_serve_qwen2_7b(torch) -> int:
                 tol = 2 * float(dl[slot].max())
                 diverged = {"step": step, "slot": slot, "top2_gap": gap,
                             "tol": tol}
-                require(gap <= tol, f"serve_qwen2_7b step {step}: tokens "
-                                    f"differ at slot {slot} with top-2 gap "
-                                    f"{gap} > {tol}")
+                require(gap <= tol, f"{phase} step {step}: tokens differ "
+                                    f"at slot {slot} with top-2 gap {gap} "
+                                    f"> {tol}")
         steps.append(row)
+    launches = kernel.launches    # read just after the main path
     want_log = [1] * 9 + [2] * (NEW_TOKENS - 9)
     require(eng.version_log == want_log and ref.version_log == want_log,
-            f"serve_qwen2_7b: version logs {eng.version_log} / "
-            f"{ref.version_log}, expected {want_log}")
-    finite = bool(torch.isfinite(eng.last_logits).all())
-    require(finite, "serve_qwen2_7b: non-finite logits")
+            f"{phase}: version logs {eng.version_log} / {ref.version_log},"
+            f" expected {want_log}")
+    require(bool(torch.isfinite(eng.last_logits).all()),
+            f"{phase}: non-finite logits")
+    want = admit_launches + decode_launches * (NEW_TOKENS - 1)
+    require(launches == want, f"{phase}: {kernel.__name__} launched "
+                              f"{launches} times, expected {want}")
     peak = torch.cuda.max_memory_allocated() / 2**30
-
-    # one more decode step under the profiler: K4's share of device time
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        eng.decode(active)
-        torch.cuda.synchronize()
-        prof_wall = (time.perf_counter() - t) * 1e3
-    launches = la.batched_lora_apply.launches
-    kern = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA]
-    dev_ms = sum(e.self_device_time_total for e in kern) / 1e3
-    k4_ms = sum(e.self_device_time_total for e in kern
-                if "lora_" in e.key) / 1e3
-    share = k4_ms / dev_ms if dev_ms else None    # None: no device trace
-    top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
+    prof_decode = _profile(torch, lambda: eng.decode(active), match)
+    prof_prefill = _profile(
+        torch, lambda: eng.admit(range(SLOTS), prompts, slot_tenants), match)
 
     dec = [r["ms"] for r in steps[1:]]
     dec_plain = [r["plain_ms"] for r in steps[1:]]
     dec_ms = sum(dec) / len(dec)
-    emit({"phase": "serve_qwen2_7b", "params": n_params,
-          "setup_s": setup_s, "prefill_ms": steps[0]["ms"],
+    emit({"phase": phase, "params": n_params, "setup_s": setup_s,
+          "prompt_len": prompt_len, "prefill_ms": steps[0]["ms"],
           "prefill_plain_ms": steps[0]["plain_ms"],
           "decode_ms_per_token": dec_ms,
           "decode_ms_median": sorted(dec)[len(dec) // 2],
           "decode_plain_ms_per_token": sum(dec_plain) / len(dec_plain),
           "tok_per_s": SLOTS / dec_ms * 1e3,
+          "prefill_tok_per_s": SLOTS * prompt_len / steps[0]["ms"] * 1e3,
           "peak_mem_gib": peak, "version_log": eng.version_log,
           "tokens_compared_equal_steps": compared, "diverged": diverged,
-          "k4_launches_per_step": per_step, "k4_launches": launches,
-          "profiled_step": {"wall_ms": prof_wall, "device_ms": dev_ms,
-                            "k4_device_ms": k4_ms,
-                            "k4_share_of_device": share,
-                            "device_idle_share": 1 - dev_ms / prof_wall,
-                            "top_kernels": [
-                                {"name": e.key[:90], "count": e.count,
-                                 "device_ms": e.self_device_time_total / 1e3}
-                                for e in top]},
+          "kernel": kernel.__name__, "launches_per_admit": admit_launches,
+          "launches_per_decode": decode_launches, "launches": launches,
+          "profiled_decode": prof_decode, "profiled_prefill": prof_prefill,
           "steps": steps})
-    require(launches == per_step * (NEW_TOKENS + 1),
-            f"serve_qwen2_7b: K4 launched {launches} times")
     return launches
+
+
+def phase_serve_qwen2_7b(torch) -> int:
+    """Main path 2: Qwen2-7B, 32-token prompts, K4 on every q/k/v/o
+    projection (4 x 28 launches per engine call)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import lora_apply as la
+    cfg = get_config("qwen2-7b")
+    per_call = 4 * cfg.num_layers
+    return _serve_full(torch, "serve_qwen2_7b", cfg, PROMPT_LEN,
+                       la.batched_lora_apply, "lora_", per_call, per_call)
+
+
+def phase_serve_mamba2_1p3b(torch) -> int:
+    """Main path 3: Mamba-2 1.3B, 1024-token prompts (4 chunks of 256),
+    K6 on every layer's prefill scan (48 launches per admit, none per
+    decode step: decode runs the one-token recurrence)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ssd_scan as k6
+    cfg = get_config("mamba2-1.3b")
+    return _serve_full(torch, "serve_mamba2_1p3b", cfg, MAMBA_PROMPT,
+                       k6.ssd_scan, "ssd_scan", cfg.num_layers, 0)
 
 
 def _leaves(tree):
@@ -700,6 +854,7 @@ def main() -> int:
         phase_build()
         phase_kernels(torch, summary)
         phase_kernel_lora_apply(torch, summary)
+        phase_kernel_ssd_scan(torch, summary)
         phase_round_small(torch)
         launches, server = phase_round_vit_base(torch)
         if "--profile" in sys.argv[1:]:
@@ -709,6 +864,10 @@ def main() -> int:
         torch.cuda.empty_cache()
         phase_serve_small(torch)
         launches["batched_lora_apply"] = phase_serve_qwen2_7b(torch)
+        gc.collect()              # free the 30.5 GB model before mamba2
+        torch.cuda.empty_cache()
+        phase_serve_small_mamba2(torch)
+        launches["ssd_scan"] = phase_serve_mamba2_1p3b(torch)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1

@@ -23,6 +23,19 @@ ACT_RELU2 = "relu2"           # squared ReLU
 
 
 @dataclass(frozen=True)
+class SSMConfig:
+    """Mamba2 / SSD mixer settings."""
+
+    state_dim: int = 128           # N: SSM state size per head
+    num_heads: int = 0             # SSD heads (0 -> derived d_inner // head_dim)
+    head_dim: int = 64             # P: channels per head
+    expand: int = 2                # d_inner = expand * d_model
+    conv_dim: int = 4              # short causal conv width
+    chunk_size: int = 256          # SSD chunk length (dual form)
+    ngroups: int = 1               # B/C groups (GVA-style)
+
+
+@dataclass(frozen=True)
 class FrontendConfig:
     """Stub modality frontend: precomputed embeddings of ``embed_dim``."""
 
@@ -33,9 +46,9 @@ class FrontendConfig:
 
 @dataclass(frozen=True)
 class ModelConfig:
-    """One architecture. The MoE / MLA / SSM sub-configs are kept as
-    opaque fields: the port's model refuses them (ROADMAP.md queue 1
-    item 10)."""
+    """One architecture. ``ssm`` is an :class:`SSMConfig` (mamba2's SSD
+    mixer); the MoE / MLA sub-configs are kept as opaque fields, and the
+    port's model refuses them (ROADMAP.md queue 1 item 10)."""
 
     name: str
     kind: str
@@ -58,7 +71,7 @@ class ModelConfig:
     logit_softcap: float = 0.0
     moe: Optional[Any] = None
     mla: Optional[Any] = None
-    ssm: Optional[Any] = None
+    ssm: Optional[SSMConfig] = None
     frontend: FrontendConfig = field(default_factory=FrontendConfig)
     hybrid_attn_ratio: float = 0.5
     global_attn_every: int = 0
@@ -82,9 +95,9 @@ class ModelConfig:
     def reduced(self, num_layers: int = 2, d_model: int = 256,
                 vocab_size: int = 512) -> "ModelConfig":
         """A smoke-test variant of the same family (<=2 layers, d<=512),
-        with the reference's numbers for every field the port knows. The
-        MoE / MLA / SSM sub-configs stay as they are: the port's model
-        refuses them."""
+        with the reference's numbers for every field the port knows,
+        including the SSM sub-config. The opaque MoE / MLA sub-configs
+        stay as they are: the port's model refuses them."""
         d_model = min(d_model, 512)
         scale = d_model / self.d_model
         num_heads = max(2, min(self.num_heads, 4))
@@ -98,6 +111,11 @@ class ModelConfig:
             frontend = dataclasses.replace(
                 frontend, embed_dim=d_model,
                 tokens_per_item=min(frontend.tokens_per_item, 16) or 16)
+        ssm = None
+        if self.ssm is not None:
+            ssm = dataclasses.replace(
+                self.ssm, state_dim=min(self.ssm.state_dim, 16),
+                head_dim=32, chunk_size=32)
         mrope_sections = self.mrope_sections
         if self.rope_type == "mrope":
             half = head_dim // 2
@@ -117,6 +135,7 @@ class ModelConfig:
             sliding_window=(min(self.sliding_window, 64)
                             if self.sliding_window else 0),
             mrope_sections=mrope_sections,
+            ssm=ssm,
             frontend=frontend,
         )
 
@@ -178,7 +197,8 @@ def register(config: ModelConfig) -> ModelConfig:
 
 
 def get_config(name: str) -> ModelConfig:
-    from repro_torch.configs import paper_models, qwen2_7b  # noqa: F401
+    from repro_torch.configs import (mamba2_1p3b, paper_models,  # noqa: F401
+                                     qwen2_7b)
     if name not in _REGISTRY:
         raise KeyError(
             f"unknown architecture {name!r}; available: {sorted(_REGISTRY)}")

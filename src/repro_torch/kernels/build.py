@@ -40,6 +40,9 @@ SIGNATURES = {
     "lora_apply": {
         "batched_lora_apply_f32": [_P] * 8 + [_I] * 5 + [_L, _L, _P],
     },
+    "ssd_scan": {
+        "ssd_scan_f32": [_P] * 9 + [_I] * 8 + [_P],
+    },
 }
 
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -1,7 +1,8 @@
 """Public wrappers of the port's kernels: the fused factored aggregation
-(DESIGN.md §4.3) that the kernel backend's round path runs, and the paged
+(DESIGN.md §4.3) that the kernel backend's round path runs, the paged
 multi-adapter LoRA apply of the serving engine (``batched_lora_apply``,
-K4), the subset of ``repro/kernels/ops.py`` that the port runs.
+K4) and the SSD chunked scan of mamba2's prefill (``ssd_scan``, K6), the
+subset of ``repro/kernels/ops.py`` that the port runs.
 
 For the aggregation: the Eq. 8 empty-partition fallback enters as one extra "client" whose
 omega row is the fallback indicator; client ranks are zero-padded to a
@@ -18,12 +19,13 @@ import torch.nn.functional as F
 from repro_torch.core.svd import check_fallback_globals
 from repro_torch.kernels import lora_apply, rank_partition_agg
 from repro_torch.kernels.lora_apply import batched_lora_apply  # noqa: F401
+from repro_torch.kernels.ssd_scan import ssd_scan
 from repro_torch.kernels.rank_partition_agg import (gram_left, gram_right,
                                                     weighted_stack_a,
                                                     weighted_stack_b)
 
 # every kernel wrapper of the port, each with its ``launches`` count
-KERNELS = rank_partition_agg.KERNELS + lora_apply.KERNELS
+KERNELS = rank_partition_agg.KERNELS + lora_apply.KERNELS + (ssd_scan,)
 
 
 def reset_launches() -> None:

@@ -1,9 +1,11 @@
-"""The port's transformer (``repro/models/transformer.py``) for two kinds
+"""The port's transformer (``repro/models/transformer.py``) for three kinds
 of model: the encoder of the federated round (the ``kind="vlm"`` path:
 vision frontend projection, bidirectional attention, GELU MLP, LoRA on
-q/k/v/o/up/down) and dense causal decoders for serving (token embedding,
+q/k/v/o/up/down), dense causal decoders for serving (token embedding,
 RoPE, causal attention with a KV cache, SwiGLU MLP, untied head: Qwen2-7B
-with LoRA on q/k/v/o).
+with LoRA on q/k/v/o) and attention-free SSM decoders (``kind="ssm"``:
+norm, SSD mixer and residual per layer, tied head: Mamba-2 1.3B with LoRA
+on the mixer's in/out projections).
 
 Parameters keep the JAX package's tree and layouts at the public
 boundary: ``w (in, out)``, ``lora_a (L, r, in)``, ``lora_b (L, out, r)``,
@@ -15,13 +17,14 @@ LoRA tree whose leaves carry a leading axis C (layer leaves (C, L, ...)),
 inputs with a leading C and per-adapter scales. Training runs C sampled
 clients at once; serving runs C request slots with one sequence each, and
 ``use_kernels`` sends their q/k/v/o projections through the paged LoRA
-kernel K4. ``train_loss``, ``forward_seq``, ``prefill`` and
-``decode_step`` are the single-model C = 1 cases with the reference's
-signatures.
+kernel K4, and an SSM model's prefill scan through K6.
+``train_loss``, ``forward_seq``, ``prefill`` and ``decode_step`` are the
+single-model C = 1 cases with the reference's signatures.
 
-KV caches keep the reference's stacked layout: ``{"layers": {"k", "v":
-(G, B, S_c, KVH, hd)}, "len": scalar or (B,) int32}``, rows B = C * (batch
-per client), client-major.
+Caches keep the reference's stacked layout, ``{"layers": {...}, "len":
+scalar or (B,) int32}``, rows B = C * (batch per client), client-major:
+``"k", "v": (G, B, S_c, KVH, hd)`` for attention, ``"conv": (G, B, K-1,
+conv_ch)`` in the model dtype and ``"ssm": (G, B, H, P, N)`` f32 for SSD.
 """
 from __future__ import annotations
 
@@ -40,6 +43,8 @@ from repro_torch.models.layers.dense import dense_apply, dense_init
 from repro_torch.models.layers.mlp import mlp_apply, mlp_init
 from repro_torch.models.layers.norms import rms_norm, rms_norm_init
 from repro_torch.models.layers.rope import apply_rope
+from repro_torch.models.layers.ssd import (ssd_dims, ssd_init,
+                                           ssd_mixer_apply, ssd_mixer_decode)
 
 
 def _lora_ranks_for(cfg: ModelConfig, lora: Optional[LoRAConfig]) -> dict:
@@ -74,14 +79,16 @@ class Model:
                  *, device=None, dtype=torch.float32,
                  use_kernels: bool = False):
         unsupported = []
-        if cfg.moe is not None or cfg.mla is not None or cfg.ssm is not None:
-            unsupported.append("MoE / MLA / SSM mixers")
+        if cfg.moe is not None or cfg.mla is not None:
+            unsupported.append("MoE / MLA mixers")
+        if cfg.kind == "hybrid":
+            unsupported.append("hybrid attention + SSM mixers")
         if cfg.attn_type == ATTN_SLIDING:
             unsupported.append("sliding-window attention")
         if cfg.rope_type == "mrope":
             unsupported.append("M-RoPE")
-        if cfg.logit_softcap or cfg.tie_embeddings:
-            unsupported.append("logit softcap / tied embeddings")
+        if cfg.logit_softcap:
+            unsupported.append("logit softcap")
         if cfg.kind == "dense" and cfg.name.startswith("gemma"):
             unsupported.append("Gemma's embedding scale")
         if cfg.is_encoder_only and cfg.frontend.kind == "none":
@@ -104,6 +111,10 @@ class Model:
     def _layer_init(self, gen: torch.Generator) -> dict:
         cfg, lr = self.cfg, self.lora_ranks
         kw = dict(dtype=self.dtype, device=self.device)
+        if cfg.kind == "ssm":   # mamba2 block: norm + mixer + residual only
+            return {"norm1": rms_norm_init(cfg.d_model, **kw),
+                    "ssm": ssd_init(gen, cfg.d_model, cfg.ssm,
+                                    lora_ranks=lr, **kw)}
         hd = cfg.resolved_head_dim
         q_out, kv_out = cfg.num_heads * hd, cfg.num_kv_heads * hd
         return {
@@ -136,8 +147,10 @@ class Model:
                                   device=self.device)
                       * cfg.d_model ** -0.5).to(self.dtype),
             "final_norm": rms_norm_init(cfg.d_model, **kw),
-            "lm_head": dense_init(gen, cfg.d_model, cfg.vocab_size, **kw),
         }
+        if not cfg.tie_embeddings:
+            params["lm_head"] = dense_init(gen, cfg.d_model, cfg.vocab_size,
+                                           **kw)
         layers = None
         for li in range(cfg.num_layers):
             layer = self._layer_init(gen)
@@ -183,21 +196,41 @@ class Model:
         return x + mlp_apply(p["mlp"], h2, cfg.activation, **lk)
 
     def _block_seq(self, p: dict, x: torch.Tensor, positions, lk: dict):
-        """One layer over full sequences x (C, B, T, D): (x, (k, v))."""
-        h = rms_norm(p["norm1"], x, eps=self.cfg.rms_norm_eps)
+        """One layer over full sequences x (C, B, T, D): (x, cache entry
+        with rows C*B: {"k", "v"} or {"conv", "ssm"})."""
+        cfg = self.cfg
+        h = rms_norm(p["norm1"], x, eps=cfg.rms_norm_eps)
+        if cfg.kind == "ssm":
+            mixed, (conv_s, ssm_s) = ssd_mixer_apply(
+                p["ssm"], h, cfg.d_model, cfg.ssm, **lk,
+                use_kernel=self.use_kernels)
+            return x + mixed, {"conv": conv_s, "ssm": ssm_s}
+        rows = x.shape[0] * x.shape[1]
         q, k, v = self._qkv(p["attn"], h, positions, lk)
-        if self.cfg.attn_type == ATTN_BIDIR:
+        if cfg.attn_type == ATTN_BIDIR:
             att = bidirectional_attention(q, k, v)
         else:
             att = causal_attention(q, k, v)
-        return self._out(p, att, x, lk), (k, v)
+        return self._out(p, att, x, lk), {
+            "k": k.reshape((rows,) + k.shape[2:]),
+            "v": v.reshape((rows,) + v.shape[2:])}
 
-    def _block_decode(self, p: dict, x: torch.Tensor, k_cache, v_cache,
+    def _block_decode(self, p: dict, x: torch.Tensor, cache_l: dict,
                       cache_len, positions, lk: dict) -> torch.Tensor:
-        """One layer, one token per row: x (C, B, 1, D). Writes this
-        token's k/v into ``k_cache``/``v_cache`` (B' = C*B, S_c, KVH, hd)
-        in place at the ring index ``len % S_c``."""
-        h = rms_norm(p["norm1"], x, eps=self.cfg.rms_norm_eps)
+        """One layer, one token per row: x (C, B, 1, D). Updates this
+        layer's cache views ``cache_l`` (rows B' = C*B) in place: the
+        token's k/v at the ring index ``len % S_c``, or the new conv and
+        SSM states."""
+        cfg = self.cfg
+        h = rms_norm(p["norm1"], x, eps=cfg.rms_norm_eps)
+        if cfg.kind == "ssm":
+            mixed, (conv_s, ssm_s) = ssd_mixer_decode(
+                p["ssm"], h, cfg.d_model, cfg.ssm, cache_l["conv"],
+                cache_l["ssm"], **lk)
+            cache_l["conv"].copy_(conv_s)
+            cache_l["ssm"].copy_(ssm_s)
+            return x + mixed
+        k_cache, v_cache = cache_l["k"], cache_l["v"]
         q, k, v = self._qkv(p["attn"], h, positions, lk)
         rows, s_cache = k_cache.shape[:2]
         ar = torch.arange(rows, device=x.device)
@@ -229,6 +262,8 @@ class Model:
 
     def _logits(self, base: dict, x: torch.Tensor) -> torch.Tensor:
         x = rms_norm(base["final_norm"], x, eps=self.cfg.rms_norm_eps)
+        if self.cfg.tie_embeddings:
+            return x @ base["embed"].to(x.dtype).T
         return dense_apply(base["lm_head"], x)
 
     # -- client-axis entry points -------------------------------------------------
@@ -237,8 +272,10 @@ class Model:
                             scales: torch.Tensor, *, mode: str = "train",
                             lora_rank: int = -1):
         """Full sequences: (logits (C, B, T, V), caches). ``mode`` "train"
-        returns no caches; "prefill" returns every layer's post-RoPE k/v,
-        stacked (G, C*B, T, KVH, hd)."""
+        returns no caches; "prefill" returns every layer's cache entry
+        stacked on a leading layer axis: post-RoPE k/v (G, C*B, T, KVH, hd),
+        or the final conv (G, C*B, K-1, conv_ch) and SSM (G, C*B, H, P, N)
+        states."""
         if mode not in ("train", "prefill"):
             raise ValueError(f"unknown mode {mode!r}")
         cfg = self.cfg
@@ -249,16 +286,16 @@ class Model:
             positions = torch.arange(t, dtype=torch.int32, device=x.device)
         lk = dict(lora_scale=scales, lora_rank=lora_rank)
         caches = None
-        if mode == "prefill":
-            shape = (cfg.num_layers, c * b, t, cfg.num_kv_heads,
-                     cfg.resolved_head_dim)
-            caches = {"k": x.new_empty(shape), "v": x.new_empty(shape)}
         for li in range(cfg.num_layers):
-            x, (k, v) = self._block_seq(self._layer(base, lora_c, li), x,
-                                        positions, lk)
-            if caches is not None:
-                caches["k"][li] = k.reshape(shape[1:])
-                caches["v"][li] = v.reshape(shape[1:])
+            x, entry = self._block_seq(self._layer(base, lora_c, li), x,
+                                       positions, lk)
+            if mode != "prefill":
+                continue
+            if caches is None:
+                caches = {k: v.new_empty((cfg.num_layers,) + v.shape)
+                          for k, v in entry.items()}
+            for k, v in entry.items():
+                caches[k][li] = v
         return self._logits(base, x), caches
 
     def forward_clients(self, base: dict, lora_c: dict, batch: dict,
@@ -271,7 +308,8 @@ class Model:
 
     def prefill_clients(self, base: dict, lora_c: dict, batch: dict,
                         scales: torch.Tensor, *, lora_rank: int = -1):
-        """(logits (C, B, T, V), {"k", "v": (G, C*B, T, KVH, hd)})."""
+        """(logits (C, B, T, V), stacked caches: {"k", "v"} or {"conv",
+        "ssm"}, see ``forward_seq_clients``)."""
         return self.forward_seq_clients(base, lora_c, batch, scales,
                                         mode="prefill", lora_rank=lora_rank)
 
@@ -280,8 +318,9 @@ class Model:
                             lora_rank: int = -1):
         """One token per row. batch {"token": (C, B, 1)}; cache rows C*B,
         ``cache["len"]`` a scalar or a (C*B,) vector of per-row lengths
-        (each row's RoPE position and ring write index). Returns (logits
-        (C, B, 1, V), new cache); the input cache is left as it was."""
+        (each row's RoPE position and ring write index; SSM rows keep no
+        position). Returns (logits (C, B, 1, V), new cache); the input
+        cache is left as it was."""
         if not self.cfg.supports_decode:
             raise ValueError(f"{self.cfg.name} is encoder-only")
         cfg = self.cfg
@@ -290,14 +329,13 @@ class Model:
         cache_len = torch.as_tensor(cache["len"], dtype=torch.int32,
                                     device=x.device)
         positions = cache_len.reshape(-1).expand(c * b).reshape(c, b, 1)
-        k_all = cache["layers"]["k"].clone()
-        v_all = cache["layers"]["v"].clone()
+        layers = _index(cache["layers"], torch.clone)
         lk = dict(lora_scale=scales, lora_rank=lora_rank)
         for li in range(cfg.num_layers):
             x = self._block_decode(self._layer(base, lora_c, li), x,
-                                   k_all[li], v_all[li], cache_len,
-                                   positions, lk)
-        return self._logits(base, x), {"layers": {"k": k_all, "v": v_all},
+                                   _index(layers, lambda t: t[li]),
+                                   cache_len, positions, lk)
+        return self._logits(base, x), {"layers": layers,
                                        "len": cache_len + 1}
 
     def train_loss_clients(self, base: dict, lora_c: dict, batch: dict,
@@ -380,11 +418,21 @@ class Model:
 
     def cache_shapes(self, batch_size: int, max_len: int) -> dict:
         cfg = self.cfg
-        shape = (cfg.num_layers, batch_size, self.cache_seq_len(max_len),
-                 cfg.num_kv_heads, cfg.resolved_head_dim)
-        return {"layers": {"k": CacheSpec(shape, self.dtype),
-                           "v": CacheSpec(shape, self.dtype)},
-                "len": CacheSpec((), torch.int32)}
+        g = cfg.num_layers
+        if cfg.kind == "ssm":
+            dims = ssd_dims(cfg.d_model, cfg.ssm)
+            layers = {
+                "conv": CacheSpec((g, batch_size, cfg.ssm.conv_dim - 1,
+                                   dims["conv_ch"]), self.dtype),
+                "ssm": CacheSpec((g, batch_size, dims["nheads"],
+                                  dims["head_dim"], cfg.ssm.state_dim),
+                                 torch.float32)}
+        else:
+            shape = (g, batch_size, self.cache_seq_len(max_len),
+                     cfg.num_kv_heads, cfg.resolved_head_dim)
+            layers = {"k": CacheSpec(shape, self.dtype),
+                      "v": CacheSpec(shape, self.dtype)}
+        return {"layers": layers, "len": CacheSpec((), torch.int32)}
 
     def init_cache(self, batch_size: int, max_len: int) -> dict:
         return _index(self.cache_shapes(batch_size, max_len),

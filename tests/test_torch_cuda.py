@@ -1,5 +1,5 @@
 """Card-only checks of the port's hand-written CUDA kernels, of the round
-and of the serving engine on the card. They skip without CUDA (the kernels have no CPU mode)
+and of the serving engines (qwen2 with K4, mamba2 with K6) on the card. They skip without CUDA (the kernels have no CPU mode)
 and import nothing of JAX, so they run on a GPU machine without it:
 
     PYTHONPATH=src python -m pytest --noconftest tests/test_torch_cuda.py
@@ -10,6 +10,7 @@ import torch
 
 from repro_torch.kernels import lora_apply as la
 from repro_torch.kernels import rank_partition_agg as rpa
+from repro_torch.kernels import ssd_scan as k6
 
 
 @pytest.fixture
@@ -208,5 +209,98 @@ def test_cuda_serving_engine_matches_cpu(cuda_device):
             toks.append(eng.decode([True, True]).cpu())
         grew = la.batched_lora_apply.launches - before
         assert grew == (4 * cfg.num_layers * 5 if kern else 0)
+        runs.append(torch.stack(toks, dim=1))
+    torch.testing.assert_close(runs[0], runs[1], rtol=0, atol=0)
+
+
+def _scan_case(seed, bsz, length, nheads, hp, groups, n, device, init):
+    """K6 inputs: the reference test's distributions, with a slow decay
+    (dt about 0.02, A about -0.4) so the carried state still matters a
+    chunk later, and an optional nonzero initial state."""
+    rng = np.random.default_rng(seed)
+    arrs = [rng.normal(size=(bsz, length, nheads, hp)),
+            np.log1p(np.exp(rng.normal(size=(bsz, length, nheads)) - 4)),
+            0.5 * rng.normal(size=(nheads,)) - 1.0,
+            0.3 * rng.normal(size=(bsz, length, groups, n)),
+            0.3 * rng.normal(size=(bsz, length, groups, n)),
+            rng.normal(size=(nheads,))]
+    arrs = [torch.from_numpy(a.astype(np.float32)).to(device) for a in arrs]
+    init_state = (torch.from_numpy(rng.normal(size=(bsz, nheads, hp, n))
+                                   .astype(np.float32)).to(device)
+                  if init else None)
+    return arrs, init_state
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bsz,length,nheads,hp,groups,n,chunk,init", [
+    (2, 96, 12, 24, 3, 20, 32, False),      # odd: P 24, N 20, 3 groups
+    (2, 96, 12, 24, 3, 20, 32, True),
+    (1, 512, 8, 64, 1, 128, 256, True),     # mamba2 widths, 2 chunks
+    (2, 200, 4, 50, 2, 16, 40, True),       # hymba's P 50, ragged tiles
+    (1, 64, 2, 128, 1, 16, 64, False)])     # P 128: two P slices
+def test_cuda_ssd_scan_matches_plain(cuda_device, bsz, length, nheads, hp,
+                                     groups, n, chunk, init):
+    """K6 against its plain version within the reference's atol 2e-4,
+    rtol 1e-3, for y and the final state; two launches bit-equal."""
+    arrs, init_state = _scan_case(12, bsz, length, nheads, hp, groups, n,
+                                  cuda_device, init)
+    before = k6.ssd_scan.launches
+    y, s = k6.ssd_scan(*arrs, chunk, init_state=init_state)
+    want_y, want_s = k6.ssd_scan_plain(*arrs, chunk, init_state=init_state)
+    torch.cuda.synchronize()
+    assert k6.ssd_scan.launches == before + 1
+    torch.testing.assert_close(y, want_y, atol=2e-4, rtol=1e-3)
+    torch.testing.assert_close(s, want_s, atol=2e-4, rtol=1e-3)
+    y2, s2 = k6.ssd_scan(*arrs, chunk, init_state=init_state)
+    assert torch.equal(y, y2) and torch.equal(s, s2)
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_scan_rejects_ragged_length(cuda_device):
+    arrs, _ = _scan_case(13, 1, 48, 4, 8, 1, 16, cuda_device, False)
+    before = k6.ssd_scan.launches
+    with pytest.raises(ValueError, match="multiple"):
+        k6.ssd_scan(*arrs, 32)
+    assert k6.ssd_scan.launches == before
+
+
+@pytest.mark.cuda
+def test_cuda_mamba2_engine_matches_cpu(cuda_device):
+    """A reduced mamba2 engine on the card with ``use_kernels=True`` (K6
+    on every prefill scan) and on the CPU from the same weights: equal
+    greedy tokens, ``num_layers`` K6 launches per admit and none per
+    decode step."""
+    from repro_torch.configs import LoRAConfig, get_config
+    from repro_torch.core.lora import flatten, unflatten
+    from repro_torch.models.transformer import Model
+    from repro_torch.serving import AdapterStore, ServingEngine
+    cfg = get_config("mamba2-1.3b").reduced()
+    lora = LoRAConfig(rank_levels=(4, 8, 16))
+    params = Model(cfg, lora, device="cpu").init(
+        torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(1)
+    tenants = {name: unflatten({
+        path: 0.05 * torch.randn(t.shape, generator=gen)
+        for path, t in flatten(params).items()
+        if path[-1] in ("lora_a", "lora_b")}) for name in ("hi", "lo")}
+    prompts = torch.randint(0, cfg.vocab_size, (2, 64), generator=gen)
+    runs = []
+    for dev, kern in (("cuda", True), ("cpu", False)):
+        move = lambda tree: unflatten(  # noqa: E731
+            {p: t.to(dev) for p, t in flatten(tree).items()})
+        store = AdapterStore(lora.rank_levels)
+        store.put("hi", move(tenants["hi"]), 16)
+        store.put("lo", move(tenants["lo"]), 4)
+        store.publish()
+        eng = ServingEngine(Model(cfg, lora, device=dev, use_kernels=kern),
+                            move(params), store, max_len=70, slots=2)
+        before = k6.ssd_scan.launches
+        toks = [eng.admit([0, 1], prompts, ["hi", "lo"]).cpu()]
+        assert k6.ssd_scan.launches - before == (cfg.num_layers if kern
+                                                 else 0)
+        for _ in range(4):
+            before = k6.ssd_scan.launches
+            toks.append(eng.decode([True, True]).cpu())
+            assert k6.ssd_scan.launches == before
         runs.append(torch.stack(toks, dim=1))
     torch.testing.assert_close(runs[0], runs[1], rtol=0, atol=0)

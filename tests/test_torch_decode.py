@@ -21,7 +21,7 @@ from repro.models import build_model
 from repro.models.layers import attention as jattn
 from repro.models.layers import rope as jrope
 from repro_torch.configs import LoRAConfig, get_config
-from repro_torch.configs.base import FrontendConfig, ModelConfig
+from repro_torch.configs.base import FrontendConfig, ModelConfig, SSMConfig
 from repro_torch.convert import params_from_numpy
 from repro_torch.models.layers import attention as tattn
 from repro_torch.models.layers import rope as trope
@@ -35,26 +35,31 @@ TOL = dict(rtol=1e-4, atol=1e-5)
 
 def _port_config(jcfg) -> ModelConfig:
     """The port's ModelConfig with a JAX config's field values (the
-    sub-configs the port keeps opaque are dropped)."""
+    sub-configs the port keeps opaque, MoE and MLA, are dropped)."""
     fields = {f.name for f in dataclasses.fields(ModelConfig)}
     kw = {k: v for k, v in dataclasses.asdict(jcfg).items()
           if k in fields and k not in ("moe", "mla", "ssm", "frontend")}
+    ssm = (None if jcfg.ssm is None
+           else SSMConfig(**dataclasses.asdict(jcfg.ssm)))
     return ModelConfig(frontend=FrontendConfig(**dataclasses.asdict(
-        jcfg.frontend)), **kw)
+        jcfg.frontend)), ssm=ssm, **kw)
 
 
 @pytest.mark.parametrize("name", ["qwen2-7b", "gemma-2b", "qwen2-vl-7b",
-                                  "hubert-xlarge", "granite-3-8b"])
+                                  "hubert-xlarge", "granite-3-8b",
+                                  "mamba2-1.3b", "hymba-1.5b"])
 def test_reduced_config_matches_reference(name):
     """``reduced()`` gives the reference's numbers for every field the port
-    knows, including sliding windows, M-RoPE sections and frontends."""
+    knows, including sliding windows, M-RoPE sections, frontends and the
+    SSM sub-config (state 16, head 32, chunk 32)."""
     jcfg = j_get_config(name)
     port = _port_config(jcfg).reduced()
     want = _port_config(jcfg.reduced())
     assert port == want
+    assert (port.ssm is None) == (jcfg.ssm is None)
     assert port.supports_decode == jcfg.supports_decode
     assert port.is_encoder_only == jcfg.is_encoder_only
-    if name == "qwen2-7b":
+    if name in ("qwen2-7b", "mamba2-1.3b"):
         assert get_config(name) == _port_config(jcfg)
 
 

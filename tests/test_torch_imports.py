@@ -14,7 +14,8 @@ SRC = os.path.join(ROOT, "src")
 MODULES = [
     "repro_torch",
     "repro_torch.configs", "repro_torch.configs.base",
-    "repro_torch.configs.paper_models", "repro_torch.configs.qwen2_7b",
+    "repro_torch.configs.mamba2_1p3b", "repro_torch.configs.paper_models",
+    "repro_torch.configs.qwen2_7b",
     "repro_torch.convert", "repro_torch.device",
     "repro_torch.core", "repro_torch.core.aggregation",
     "repro_torch.core.energy", "repro_torch.core.lora",
@@ -27,10 +28,11 @@ MODULES = [
     "repro_torch.kernels", "repro_torch.kernels.build",
     "repro_torch.kernels.lora_apply",
     "repro_torch.kernels.ops", "repro_torch.kernels.rank_partition_agg",
+    "repro_torch.kernels.ssd_scan",
     "repro_torch.models", "repro_torch.models.transformer",
     "repro_torch.models.layers.attention", "repro_torch.models.layers.dense",
     "repro_torch.models.layers.mlp", "repro_torch.models.layers.norms",
-    "repro_torch.models.layers.rope",
+    "repro_torch.models.layers.rope", "repro_torch.models.layers.ssd",
     "repro_torch.optim", "repro_torch.optim.adamw",
     "repro_torch.optim.schedules",
     "repro_torch.serving", "repro_torch.serving.adapter_store",
@@ -116,14 +118,17 @@ def test_unported_options_name_their_roadmap_item():
 
 @pytest.mark.parametrize("change", [
     dict(moe=object()), dict(attn_type="sliding", sliding_window=64),
-    dict(rope_type="mrope"), dict(tie_embeddings=True),
+    dict(rope_type="mrope"), dict(kind="hybrid", ssm="ssm"),
     dict(logit_softcap=30.0), dict(name="gemma-2b-reduced"),
     dict(attn_type="bidirectional")],
-    ids=["moe", "sliding", "mrope", "tied", "softcap", "gemma",
+    ids=["moe", "sliding", "mrope", "hybrid", "softcap", "gemma",
          "frontend-free-encoder"])
 def test_unported_model_options_name_their_roadmap_item(change):
     import dataclasses
-    from repro_torch.configs.base import LoRAConfig, get_config
+    from repro_torch.configs.base import LoRAConfig, SSMConfig, get_config
+    if change.get("ssm") == "ssm":
+        change = dict(change, ssm=SSMConfig(state_dim=16, head_dim=32,
+                                            chunk_size=32))
     from repro_torch.models.transformer import Model
     cfg = dataclasses.replace(get_config("qwen2-7b").reduced(), **change)
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):

@@ -405,3 +405,108 @@ def test_bind_server_publishes_every_round_landing():
     assert set(got) == set(want)
     for path, leaf in want.items():
         torch.testing.assert_close(got[path][0], leaf, rtol=0, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# an attention-free SSM model: reduced mamba2 (conv/ssm cache leaves)
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def mamba():
+    """Reduced mamba2-1.3b on both sides from one set of JAX weights, and
+    two random nonzero tenants (LoRA on the SSD mixer's in/out_proj)."""
+    jcfg = j_get_config("mamba2-1.3b").reduced()
+    tcfg = get_config("mamba2-1.3b").reduced()
+    jm = build_model(jcfg, JLoRA(rank_levels=LEVELS), dtype=jnp.float32,
+                     remat=False)
+    params = jax.tree.map(np.asarray, jm.init(jax.random.PRNGKey(1)))
+    _, jlora = j_split(params)
+    hi, lo = _tenant_trees(jlora, 2, seed=11)
+    return jcfg, jm, params, tcfg, {"hi": (hi, 16), "lo": (lo, 4)}
+
+
+def _run_calls(eng, calls, to_np):
+    """Drive an engine through ("admit", slots, prompts, tenants) /
+    ("decode", mask) calls; every call's returned tokens as numpy."""
+    out = []
+    for call in calls:
+        if call[0] == "admit":
+            out.append(to_np(eng.admit(*call[1:])))
+        else:
+            out.append(to_np(eng.decode(call[1])))
+    return out
+
+
+def _jax_run(jm, params, tenants, calls, max_len):
+    store = JStore(LEVELS)
+    for aid, (tree, rank) in tenants.items():
+        store.put(aid, tree, rank)
+    store.publish()
+    eng = JEngine(jm, params, store, max_len=max_len, slots=2)
+    return _run_calls(eng, [(c[0], *map(jnp.asarray, c[1:]))
+                            if c[0] == "decode" else c for c in calls],
+                      np.asarray)
+
+
+def test_ssm_pages_bit_equal_to_reference_store(mamba):
+    """The mixer's in_proj / out_proj pages at ranks 16 and 4 with a
+    non-unit scaling, bit for bit."""
+    _, _, _, _, tenants = mamba
+    scaling = (lambda r: 16.0 / r)
+    jstore, tstore = JStore(LEVELS, scaling), AdapterStore(LEVELS, scaling)
+    for aid, (tree, rank) in tenants.items():
+        jstore.put(aid, tree, rank)
+        tstore.put(aid, params_from_numpy(tree, "cpu"), rank)
+    jsnap, tsnap = jstore.publish(), tstore.publish()
+    assert tsnap.page_of == dict(jsnap.page_of)
+    want = flatten(params_from_numpy(
+        jax.tree.map(np.asarray, jsnap.pages), "cpu"))
+    got = flatten(tsnap.pages)
+    assert set(got) == set(want) and len(got) == 4
+    assert ("layers", "ssm", "in_proj", "lora_a") in got
+    for path in want:
+        assert np.array_equal(got[path].numpy(), want[path].numpy()), path
+
+
+@pytest.mark.parametrize("use_kernels", [False, True])
+def test_ssm_engine_matches_jax_engine(mamba, use_kernels):
+    """Two slots at ranks 16 and 4, 32-token prompts (one chunk), 3 decode
+    steps: the port's greedy tokens equal the JAX ServingEngine's, and the
+    engine's state cache holds only ``conv`` / ``ssm`` leaves."""
+    jcfg, jm, params, tcfg, tenants = mamba
+    prompts = np.random.default_rng(12).integers(
+        0, jcfg.vocab_size, size=(2, 32)).astype(np.int32)
+    calls = [("admit", [0, 1], prompts, ["hi", "lo"])] + \
+        [("decode", [True, True])] * 3
+    want = _jax_run(jm, params, tenants, calls, max_len=36)
+    _, _, _, eng = _port_engine(tcfg, params, tenants,
+                                use_kernels=use_kernels, max_len=36)
+    got = _run_calls(eng, calls, lambda t: t.numpy())
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    assert set(eng.cache["layers"]) == {"conv", "ssm"}
+    assert eng.cache["layers"]["ssm"].dtype == torch.float32
+    np.testing.assert_array_equal(eng.slot_len().numpy(), [35, 35])
+
+
+def test_ssm_ragged_admission_matches_jax_engine(mamba):
+    """Slot 0 admitted with 32 tokens decodes alone (slot 1 inactive: its
+    conv and SSM states stay exactly zero), then slot 1 is admitted with a
+    16-token prompt (chunk = min(32, 16)); every call's tokens equal the
+    JAX engine's through the same calls."""
+    jcfg, jm, params, tcfg, tenants = mamba
+    rng = np.random.default_rng(13)
+    p0 = rng.integers(0, jcfg.vocab_size, size=(1, 32)).astype(np.int32)
+    p1 = rng.integers(0, jcfg.vocab_size, size=(1, 16)).astype(np.int32)
+    calls = [("admit", [0], p0, ["hi"]), ("decode", [True, False]),
+             ("admit", [1], p1, ["lo"]), ("decode", [True, True]),
+             ("decode", [True, True])]
+    want = _jax_run(jm, params, tenants, calls, max_len=40)
+    _, _, _, eng = _port_engine(tcfg, params, tenants, max_len=40)
+    got = _run_calls(eng, calls[:2], lambda t: t.numpy())
+    for key, leaf in eng.cache["layers"].items():
+        assert (leaf[:, 1] == 0).all(), key
+    got += _run_calls(eng, calls[2:], lambda t: t.numpy())
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, w)
+    np.testing.assert_array_equal(eng.slot_len().numpy(), [35, 18])
