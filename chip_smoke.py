@@ -38,6 +38,16 @@ JAX. Phases, each printing one JSON line:
 
 The kernels phase holds K6 to its plain version at mamba2-1.3b's prefill
 shape (with and without an initial state) and at an odd shape after K4.
+Then the kernel_ops phase drives the kernel API ``repro_torch.kernels.ops``
+once at full width (the path of K3, K5 and K7, which no model or round
+calls, in the reference either) and holds each result to its plain
+version, a second launch to the first bit for bit, and K3 to K1's
+U_c @ V_c: K3 (layered) at the vit-base buckets with raFLoRA weights and
+the Eq. 8 fallback, K3 (one layer) at bench_kernels' M 10, d 768, r 64 and
+at an odd d 300, n 520 with the fallback; K5 at Qwen2-7B's q and k
+projections for 128 and 4096 rows and an odd shape; K7 at Qwen2-7B's
+causal prefill, vit-base's bidirectional 197 tokens, hymba-1.5b's
+1024-token window and gemma-2b's MQA with D 256.
 ``--profile`` adds one profiled vit-base round after phase 4 (device time
 of the top kernels, the device's idle share). Phases 6 and 8 always
 profile one more decode step and one more prefill for their kernel's
@@ -69,6 +79,11 @@ REPLACES = {
     "gram_right": "src/repro/kernels/rank_partition_agg.py:320",
     "batched_lora_apply": "src/repro/kernels/lora_apply.py:153",
     "ssd_scan": "src/repro/kernels/ssd_scan.py:88",
+    "rank_partition_agg": "src/repro/kernels/rank_partition_agg.py:107",
+    "rank_partition_agg_layered":
+        "src/repro/kernels/rank_partition_agg.py:154",
+    "lora_apply": "src/repro/kernels/lora_apply.py:68",
+    "flash_attention": "src/repro/kernels/flash_attention.py:82",
 }
 SOURCES = {
     "weighted_stack_b": "src/repro_torch/kernels/csrc/weighted_stack.cu",
@@ -77,7 +92,21 @@ SOURCES = {
     "gram_right": "src/repro_torch/kernels/csrc/gram.cu",
     "batched_lora_apply": "src/repro_torch/kernels/csrc/lora_apply.cu",
     "ssd_scan": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+    "rank_partition_agg": "src/repro_torch/kernels/csrc/rank_partition_agg.cu",
+    "rank_partition_agg_layered":
+        "src/repro_torch/kernels/csrc/rank_partition_agg.cu",
+    "lora_apply": "src/repro_torch/kernels/csrc/lora_apply.cu",
+    "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
 }
+# the main path each kernel's launches are counted on
+PATHS = {"weighted_stack_b": "round_vit_base",
+         "weighted_stack_a": "round_vit_base", "gram_left": "round_vit_base",
+         "gram_right": "round_vit_base",
+         "batched_lora_apply": "serve_qwen2_7b",
+         "ssd_scan": "serve_mamba2_1p3b",
+         "rank_partition_agg": "kernel_ops",
+         "rank_partition_agg_layered": "kernel_ops",
+         "lora_apply": "kernel_ops", "flash_attention": "kernel_ops"}
 # vit-base round buckets: (name, layers L' = adapters x layers, d, n)
 BUCKETS = (("attn_qkvo", 48, 768, 768), ("mlp_down", 12, 3072, 768),
            ("mlp_up", 12, 768, 3072))
@@ -94,6 +123,17 @@ MAMBA_PROMPT = 1024
 SCAN_FULL = (SLOTS, MAMBA_PROMPT, 64, 64, 1, 128, 256)
 SCAN_ODD = (2, 96, 12, 24, 3, 20, 32)
 SCAN_TOL = {"atol": 2e-4, "rtol": 1e-3}   # tests/test_kernels.py:377-380
+# K3 at the vit-base round: 5 sampled clients at these ranks (no client
+# above 16, so the partitions (16, 24] and (24, 32] take the fallback)
+AGG_LEVELS = (4, 8, 16, 24, 32)
+AGG_RANKS = (4, 8, 8, 16, 16)
+AGG_SAMPLES = (120, 80, 100, 60, 140)
+# K7 shapes (name, B, L, H, KVH, D, causal, window)
+ATTN_SHAPES = (("qwen2-7b prefill", 4, 1024, 28, 4, 128, True, 0),
+               ("vit-base", 32, 197, 12, 12, 64, False, 0),
+               ("hymba-1.5b window", 1, 4096, 25, 5, 64, True, 1024),
+               ("gemma-2b mqa", 1, 2048, 8, 1, 256, True, 0))
+ATTN_TOL = {"atol": 2e-5, "rtol": 1e-4}   # tests/test_flash_attention.py
 DEV = "cuda"       # the card; the serving phases take their device here
 
 
@@ -416,6 +456,218 @@ def phase_kernel_ssd_scan(torch, summary: dict):
         "tol": SCAN_TOL,
         "shape": "one mamba2-1.3b prefill layer: B 4, L 1024, H 64, P 64, "
                  "G 1, N 128, chunk 256"}
+
+
+def _ops_cases(torch):
+    """The kernel API's calls at full width. Each case: kernel name, label,
+    the ``ops`` call, its plain version on the same (appended, padded)
+    inputs, the library yardstick, the tolerance, bytes and FLOP, and an
+    optional extra check."""
+    from repro_torch.core.partitions import omega_raflora
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import lora_apply as la
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rank_partition_agg as rpa
+    gen = torch.Generator(device=DEV).manual_seed(3)
+    eps = torch.finfo(torch.float32).eps
+    cases = []
+
+    def rand(*dims):
+        return torch.randn(*dims, generator=gen, device=DEV)
+
+    def agg_case(label, kname, layers, m, d, r, n, omega, fallback):
+        """Client factors zero beyond each client's rank, as masked
+        training leaves them; global factors only with a fallback."""
+        lead = () if layers is None else (layers,)
+        ax = len(lead)
+        ranks = (omega != 0).sum(dim=1)
+        keep = (torch.arange(r, device=DEV)[None, :] < ranks[:, None]).float()
+        bs = rand(*lead, m, d, r) * keep[:, None, :]
+        as_ = rand(*lead, m, r, n) * keep[:, :, None]
+        extra = ((rand(*lead, d, r), rand(*lead, r, n), fallback)
+                 if fallback is not None else ())
+        entry = ops.rank_partition_agg_layered if layers else \
+            ops.rank_partition_agg
+        plain = rpa.rank_partition_agg_layered_plain if layers else \
+            rpa.rank_partition_agg_plain
+        fb, ab, om = ops._append_fallback_client(
+            bs, as_, omega, *(extra or (None, None, None)), layer_axes=ax)
+        fb, ab = ops._pad_to(fb, ax + 2, 8), ops._pad_to(ab, ax + 1, 8)
+        om = ops._pad_to(om, 1, 8)
+        depth = om.numel()
+        mag = plain(fb.abs(), ab.abs(), om.abs())
+        # the library's one call: the omega-scaled stacks, built beforehand
+        u_lib = (fb * om[:, None, :]).movedim(ax, ax + 1).reshape(
+            *lead, d, depth)
+        v_lib = ab.reshape(*lead, depth, n)
+        out_elems = (layers or 1) * d * n
+        check = None
+        if layers:
+            def check(got):
+                """dW against K1's U_c @ V_c: sqrt(omega)^2 rounds, so twice
+                the sum's rounding plus four roundings per product."""
+                u, v = ops.factored_stack_layered(fb, ab, om)
+                err = float((u @ v - got).abs().max())
+                tol = (2 * depth + 4) * eps * float(mag.max())
+                require(err <= tol, f"{label}: K3 vs K1 U_c V_c {err} > {tol}")
+                return {"k1_max_abs_err": err, "k1_tol": tol}
+        cases.append({
+            "kernel": kname, "label": label,
+            "call": lambda: entry(bs, as_, omega, *extra),
+            "plain": lambda: plain(fb, ab, om),
+            "library": lambda: torch.matmul(u_lib, v_lib),
+            "tol": {"atol": (depth + 2) * eps * float(mag.max()), "rtol": 0},
+            "bytes": 4 * (fb.numel() + ab.numel() + om.numel() + out_elems),
+            # a zero weight's rank column adds nothing: count what these
+            # weights need
+            "flop": 2.0 * out_elems * int((om != 0).sum()),
+            "flop_dense": 2.0 * out_elems * depth,
+            "check": check})
+
+    omega, fallback = omega_raflora(AGG_RANKS, AGG_SAMPLES, AGG_LEVELS)
+    omega = torch.tensor(omega, dtype=torch.float32, device=DEV)
+    fallback = torch.tensor(fallback, dtype=torch.float32, device=DEV)
+    for name, layers, d, n in BUCKETS:
+        agg_case(f"vit-base {name}", "rank_partition_agg_layered", layers,
+                 len(AGG_RANKS), d, RANK, n, omega, fallback)
+    agg_case("bench_kernels M 10 d 768 r 64", "rank_partition_agg", None,
+             10, 768, 64, 768, torch.rand(10, 64, generator=gen, device=DEV),
+             None)
+    agg_case("odd d 300 n 520 r 12, fallback", "rank_partition_agg", None,
+             3, 300, 12, 520, torch.rand(3, 12, generator=gen, device=DEV),
+             (torch.arange(12, device=DEV) >= 8).float())
+
+    def lora_case(label, m, k, n, r, scale):
+        x = rand(m, k)
+        w = rand(k, n) * k ** -0.5
+        a = rand(r, k) * k ** -0.5
+        b = rand(n, r) * 0.1
+        mag = la.lora_apply_plain(x.abs(), w.abs(), a.abs(), b.abs(),
+                                  abs(scale))
+        cases.append({
+            "kernel": "lora_apply", "label": label,
+            "call": lambda: ops.lora_apply(x, w, a, b, scale),
+            "plain": lambda: la.lora_apply_plain(x, w, a, b, scale),
+            "library": lambda: torch.addmm((x @ a.mT) @ b.mT, x, w,
+                                           beta=scale),
+            "tol": {"atol": (k + r) * eps * float(mag.max()), "rtol": 0},
+            "bytes": 4 * (m * k + k * n + r * (k + n) + m * n),
+            "flop": 2.0 * m * k * n + 2.0 * m * r * (k + n), "check": None})
+
+    for m in (SLOTS * PROMPT_LEN, SLOTS * 1024):
+        for proj, k, n in QWEN_PROJ[:2]:
+            lora_case(f"qwen2-7b {proj} {m} rows", m, k, n, SERVE_RANK, 2.0)
+    lora_case("odd M 300 K 130 N 520 r 12", 300, 130, 520, 12, 1.7)
+
+    import torch.nn.functional as F
+    for label, b, length, h, kvh, d, causal, window in ATTN_SHAPES:
+        q, k, v = rand(b, length, h, d), rand(b, length, kvh, d), \
+            rand(b, length, kvh, d)
+        qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+        band = fa._band(length, length, causal, window, DEV)
+        mask = band if window else None
+
+        def library(qh=qh, kh=kh, vh=vh, mask=mask, causal=causal):
+            return F.scaled_dot_product_attention(
+                qh, kh, vh, attn_mask=mask,
+                is_causal=causal and mask is None,
+                enable_gqa=True).transpose(1, 2)
+        pairs = int(band.sum())   # (query, key) pairs inside the band
+        cases.append({
+            "kernel": "flash_attention", "label": label,
+            "call": lambda q=q, k=k, v=v, c=causal, w=window:
+                ops.flash_attention(q, k, v, c, w),
+            "plain": lambda q=q, k=k, v=v, c=causal, w=window:
+                fa.flash_attention_plain(q, k, v, c, w),
+            "library": library, "tol": ATTN_TOL,
+            "bytes": 4 * (2 * q.numel() + 2 * k.numel()),
+            "flop": 4.0 * d * h * b * pairs, "check": None})
+    return cases
+
+
+# which case of each kernel the summary line reports: K3 layered summed
+# over a vit-base round's three buckets, K5 summed over a prefill layer's q
+# and k at 4096 rows, K3 and K7 one call each
+SUMMARY_CASES = {
+    "rank_partition_agg_layered": tuple(f"vit-base {b[0]}" for b in BUCKETS),
+    "rank_partition_agg": ("bench_kernels M 10 d 768 r 64",),
+    "lora_apply": ("qwen2-7b q 4096 rows", "qwen2-7b k 4096 rows"),
+    "flash_attention": ("qwen2-7b prefill",),
+}
+
+
+def phase_kernel_ops(torch, summary: dict) -> dict:
+    """K3, K5 and K7 through the kernel API at full width. The path (one
+    ``ops`` call per case) runs with the counts set to 0 just before it and
+    read just after; then each result is held to its plain version and to
+    a second launch, and all three are timed. Returns the path's counts."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.lora_apply import lora_apply
+    from repro_torch.kernels.rank_partition_agg import DENSE_KERNELS
+    kernels = DENSE_KERNELS + (lora_apply, flash_attention)
+    cases = _ops_cases(torch)
+    torch.cuda.synchronize()
+    ops.reset_launches()          # the kernel API's path starts here
+    outs = [case["call"]() for case in cases]
+    torch.cuda.synchronize()
+    launches = {k.__name__: k.launches for k in kernels}
+    want_launches = {k.__name__: sum(c["kernel"] == k.__name__ for c in cases)
+                     for k in kernels}
+    require(launches == want_launches, f"kernel_ops: launches {launches}, "
+                                       f"expected {want_launches}")
+    rows = []
+    for case, got in zip(cases, outs):
+        label = f"{case['kernel']} {case['label']}"
+        want = case["plain"]()
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        require(bool(torch.isfinite(got).all()), f"{label}: non-finite")
+        require(bool(torch.allclose(got, want, **case["tol"])),
+                f"{label}: max_abs_err {err} beyond {case['tol']}")
+        require(torch.equal(got, case["call"]()),
+                f"{label}: not deterministic")
+        row = {"kernel": case["kernel"], "case": case["label"],
+               "shape": list(got.shape), "max_abs_err": err,
+               "tol": case["tol"]}
+        if case["check"] is not None:
+            row.update(case["check"](got))
+        heavy = case["kernel"] == "flash_attention"
+        row["kernel_ms"] = time_ms(torch, case["call"])
+        row["plain_ms"] = time_ms(torch, case["plain"],
+                                  iters=5 if heavy else 20,
+                                  warmup=1 if heavy else 3)
+        lib = case["library"]()
+        row["library_max_abs_err"] = float((lib - want).abs().max())
+        row["library_ms"] = time_ms(torch, case["library"])
+        b_ms, b_by = bound_ms(case["bytes"], case["flop"])
+        row.update({"bound_ms": b_ms, "bound_by": b_by,
+                    "bytes": case["bytes"], "flop": case["flop"],
+                    "kernel_tflop_per_s": case["flop"] / row["kernel_ms"]
+                    / 1e9})
+        if "flop_dense" in case:
+            row["flop_dense"] = case["flop_dense"]
+        rows.append(row)
+        del want, lib
+    del outs
+    torch.cuda.empty_cache()
+    emit({"phase": "kernel_ops", "per_case": rows, "launches": launches})
+    for kname, labels in SUMMARY_CASES.items():
+        picked = [r for r in rows
+                  if r["kernel"] == kname and r["case"] in labels]
+        require(len(picked) == len(labels), f"{kname}: summary cases missing")
+        nbytes = sum(r["bytes"] for r in picked)
+        flops = sum(r["flop"] for r in picked)
+        summary[kname] = {
+            "max_abs_err": max(r["max_abs_err"] for r in rows
+                               if r["kernel"] == kname),
+            "ms": sum(r["kernel_ms"] for r in picked),
+            "plain_ms": sum(r["plain_ms"] for r in picked),
+            "bound_ms": sum(r["bound_ms"] for r in picked),
+            "bound_by": bound_ms(nbytes, flops)[1],
+            "library_ms": sum(r["library_ms"] for r in picked),
+            "shape": " + ".join(labels)}
+    return launches
 
 
 def _products(server):
@@ -855,8 +1107,10 @@ def main() -> int:
         phase_kernels(torch, summary)
         phase_kernel_lora_apply(torch, summary)
         phase_kernel_ssd_scan(torch, summary)
+        ops_launches = phase_kernel_ops(torch, summary)
         phase_round_small(torch)
         launches, server = phase_round_vit_base(torch)
+        launches.update(ops_launches)
         if "--profile" in sys.argv[1:]:
             phase_profile(torch, server)
         del server                # free the round before the 30.5 GB model
@@ -880,7 +1134,8 @@ def main() -> int:
             return 1
         kernels.append({"name": name, "route": "cuda",
                         "source": SOURCES[name], "replaces": REPLACES[name],
-                        "launches": require_launch, **s})
+                        "path": PATHS[name], "launches": require_launch,
+                        **s})
     emit({"kernels": kernels})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

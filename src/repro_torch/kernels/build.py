@@ -27,6 +27,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
 # C signature of every exported kernel entry: (pointers..., ints..., stream)
 SIGNATURES = {
     "weighted_stack": {
@@ -39,6 +40,13 @@ SIGNATURES = {
     },
     "lora_apply": {
         "batched_lora_apply_f32": [_P] * 8 + [_I] * 5 + [_L, _L, _P],
+        "lora_apply_f32": [_P] * 6 + [_I] * 4 + [_F, _P],
+    },
+    "rank_partition_agg": {
+        "rank_partition_agg_f32": [_P] * 4 + [_I] * 5 + [_P],
+    },
+    "flash_attention": {
+        "flash_attention_f32": [_P] * 4 + [_I] * 8 + [_F, _P],
     },
     "ssd_scan": {
         "ssd_scan_f32": [_P] * 9 + [_I] * 8 + [_P],

@@ -1,12 +1,21 @@
 // K4: paged multi-adapter LoRA apply (the serving engine's q/k/v/o
-// projections), f32.
+// projections), and K5: the single-adapter fused LoRA apply; f32.
 //
-// Replaces src/repro/kernels/lora_apply.py::batched_lora_apply_pallas and
-// the SGMV grouping of repro/kernels/ops.py::batched_lora_apply. Contract
-// (repro/kernels/ref.py::batched_lora_apply_ref), row t of x using the
-// adapter page p = ids[t]:
+// K4 replaces src/repro/kernels/lora_apply.py::batched_lora_apply_pallas
+// and the SGMV grouping of repro/kernels/ops.py::batched_lora_apply.
+// Contract (repro/kernels/ref.py::batched_lora_apply_ref), row t of x
+// using the adapter page p = ids[t]:
 //
 //     y[t] = x[t] @ W + s[p] * (x[t] @ A_p^T) @ B_p^T
+//
+// K5 replaces src/repro/kernels/lora_apply.py::lora_apply_pallas (contract
+// ref.lora_apply_ref): y = x @ W + s * (x @ A^T) @ B^T with one adapter
+// A (R, K), B (N, R) and a scalar s. It runs the same device code as K4
+// instantiated with kPaged = false: no ids, no page gather, the scale a
+// kernel argument. The TPU kernel kept z = x A^T in a VMEM scratch across
+// its K loop; here z goes to a small (M, R) buffer the wrapper allocates
+// (M*R*4 bytes, 2 MB at 4096 rows and r = 128), written once by the shrink
+// and read by the base product's epilogue.
 //
 // x (M, K), W (K, N), A pages (P, R, K), B pages (P, N, R), scales (P,),
 // ids (M,) int32; each page is contiguous, pages lie a_stride / b_stride
@@ -38,6 +47,31 @@
 
 namespace {
 
+// The adapter side of one call: pages and ids (K4), or one adapter at page
+// 0 with the scale by value (K5).
+struct Adapter {
+  const float* a;           // A pages, a_stride floats apart
+  const float* b;           // B pages, b_stride floats apart
+  const float* scales;      // (P,) for K4
+  const int* ids;           // (M,) page per row for K4
+  long long a_stride, b_stride;
+  int P;
+  float scale;              // K5's scale
+};
+
+// page of a row, or -1 for an id outside [0, P)
+template <bool kPaged>
+__device__ __forceinline__ int page_of(const Adapter& ad, int row) {
+  if (!kPaged) return 0;
+  const int p = ad.ids[row];
+  return (p < 0 || p >= ad.P) ? -1 : p;
+}
+
+template <bool kPaged>
+__device__ __forceinline__ float scale_of(const Adapter& ad, int p) {
+  return kPaged ? ad.scales[p] : ad.scale;
+}
+
 constexpr int kThreads = 256;
 constexpr int kShrinkWarps = kThreads / 32;
 constexpr int kGemvRows = 8;
@@ -45,21 +79,21 @@ constexpr int kGemvChunk = 1024;           // x rows staged per chunk of K
 
 __device__ __forceinline__ float nan_f32() { return __int_as_float(0x7fc00000); }
 
+template <bool kPaged>
 __global__ void __launch_bounds__(kThreads)
-lora_shrink_kernel(const float* __restrict__ x, const float* __restrict__ a,
-                   const int* __restrict__ ids, float* __restrict__ z,
-                   int M, int K, int R, int P, long long a_stride, int vec) {
+lora_shrink_kernel(const float* __restrict__ x, const Adapter ad,
+                   float* __restrict__ z, int M, int K, int R, int vec) {
   const int t = blockIdx.x;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int j = blockIdx.y * kShrinkWarps + warp;
   if (t >= M || j >= R) return;
-  const int p = ids[t];
-  if (p < 0 || p >= P) {
+  const int p = page_of<kPaged>(ad, t);
+  if (p < 0) {
     if (lane == 0) z[(size_t)t * R + j] = nan_f32();
     return;
   }
   const float* xr = x + (size_t)t * K;
-  const float* ar = a + (size_t)p * a_stride + (size_t)j * K;
+  const float* ar = ad.a + (size_t)p * ad.a_stride + (size_t)j * K;
   float acc = 0.f;
   if (vec) {
     const float4* x4 = reinterpret_cast<const float4*>(xr);
@@ -81,29 +115,24 @@ lora_shrink_kernel(const float* __restrict__ x, const float* __restrict__ a,
 }
 
 // acc + s_p * (z[row] . B_p[col])
+template <bool kPaged>
 __device__ __forceinline__ float expand(float acc, int row, int col,
-                                        const float* __restrict__ bp,
-                                        const float* __restrict__ scales,
-                                        const int* __restrict__ ids,
-                                        const float* __restrict__ z, int R,
-                                        int P, long long b_stride) {
-  const int p = ids[row];
-  if (p < 0 || p >= P) return nan_f32();
+                                        const Adapter& ad,
+                                        const float* __restrict__ z, int R) {
+  const int p = page_of<kPaged>(ad, row);
+  if (p < 0) return nan_f32();
   const float* zr = z + (size_t)row * R;
-  const float* br = bp + (size_t)p * b_stride + (size_t)col * R;
+  const float* br = ad.b + (size_t)p * ad.b_stride + (size_t)col * R;
   float d = 0.f;
   for (int j = 0; j < R; ++j) d = fmaf(zr[j], br[j], d);
-  return fmaf(scales[p], d, acc);
+  return fmaf(scale_of<kPaged>(ad, p), d, acc);
 }
 
-template <int NG>
+template <int NG, bool kPaged>
 __global__ void __launch_bounds__(kThreads)
 lora_gemv_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                 const float* __restrict__ bp,
-                 const float* __restrict__ scales,
-                 const int* __restrict__ ids, const float* __restrict__ z,
-                 float* __restrict__ y, int M, int K, int N, int R, int P,
-                 long long b_stride, int vec) {
+                 const Adapter ad, const float* __restrict__ z,
+                 float* __restrict__ y, int M, int K, int N, int R, int vec) {
   constexpr int BM = kGemvRows, BN = 4 * NG, KS = kThreads / NG;
   static_assert(KS * BM * BN <= kGemvChunk * BM, "partials must fit");
   static_assert(BM * BN <= kThreads, "one output per thread");
@@ -161,20 +190,17 @@ lora_gemv_kernel(const float* __restrict__ x, const float* __restrict__ w,
     float s = 0.f;
     for (int q = 0; q < KS; ++q) s += smem[(q * BM + m) * BN + c];
     if (row < M && col < N)
-      y[(size_t)row * N + col] =
-          expand(s, row, col, bp, scales, ids, z, R, P, b_stride);
+      y[(size_t)row * N + col] = expand<kPaged>(s, row, col, ad, z, R);
   }
 }
 
 constexpr int kTileM = 64, kTileN = 64, kTileK = 16, kRegM = 4, kRegN = 4;
 
+template <bool kPaged>
 __global__ void __launch_bounds__(kThreads)
 lora_gemm_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                 const float* __restrict__ bp,
-                 const float* __restrict__ scales,
-                 const int* __restrict__ ids, const float* __restrict__ z,
-                 float* __restrict__ y, int M, int K, int N, int R, int P,
-                 long long b_stride) {
+                 const Adapter ad, const float* __restrict__ z,
+                 float* __restrict__ y, int M, int K, int N, int R) {
   __shared__ float xs[kTileK][kTileM + 1];               // x tile, transposed
   __shared__ __align__(16) float ws[kTileK][kTileN];
   const int tid = threadIdx.x;
@@ -224,39 +250,33 @@ lora_gemm_kernel(const float* __restrict__ x, const float* __restrict__ w,
       const int col = n0 + tx * kRegN + j;
       if (col < N)
         y[(size_t)row * N + col] =
-            expand(acc[i][j], row, col, bp, scales, ids, z, R, P, b_stride);
+            expand<kPaged>(acc[i][j], row, col, ad, z, R);
     }
   }
 }
 
-template <int NG>
-void launch_gemv(const float* x, const float* w, const float* b,
-                 const float* scales, const int* ids, const float* z,
-                 float* y, int M, int K, int N, int R, int P,
-                 long long b_stride, int vec, cudaStream_t s) {
+template <int NG, bool kPaged>
+void launch_gemv(const float* x, const float* w, const Adapter& ad,
+                 const float* z, float* y, int M, int K, int N, int R,
+                 int vec, cudaStream_t s) {
   dim3 grid((N + 4 * NG - 1) / (4 * NG), (M + kGemvRows - 1) / kGemvRows);
-  lora_gemv_kernel<NG><<<grid, kThreads, 0, s>>>(
-      x, w, b, scales, ids, z, y, M, K, N, R, P, b_stride, vec);
+  lora_gemv_kernel<NG, kPaged><<<grid, kThreads, 0, s>>>(x, w, ad, z, y, M,
+                                                         K, N, R, vec);
 }
 
-}  // namespace
-
-extern "C" int batched_lora_apply_f32(const float* x, const float* w,
-                                      const float* a, const float* b,
-                                      const float* scales, const int* ids,
-                                      float* z, float* y, int M, int K,
-                                      int N, int R, int P,
-                                      long long a_stride, long long b_stride,
-                                      void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+// The shrink, then the base product with the expand in its epilogue.
+template <bool kPaged>
+int lora_apply_launch(const float* x, const float* w, const Adapter& ad,
+                      float* z, float* y, int M, int K, int N, int R,
+                      cudaStream_t s) {
   if (M <= 0 || N <= 0) return 0;
   if (R > 0) {
-    const int vec_a = (K % 4 == 0) && (a_stride % 4 == 0) &&
+    const int vec_a = (K % 4 == 0) && (ad.a_stride % 4 == 0) &&
                       ((reinterpret_cast<uintptr_t>(x) |
-                        reinterpret_cast<uintptr_t>(a)) % 16 == 0);
+                        reinterpret_cast<uintptr_t>(ad.a)) % 16 == 0);
     dim3 grid(M, (R + kShrinkWarps - 1) / kShrinkWarps);
-    lora_shrink_kernel<<<grid, kThreads, 0, s>>>(x, a, ids, z, M, K, R, P,
-                                                 a_stride, vec_a);
+    lora_shrink_kernel<kPaged><<<grid, kThreads, 0, s>>>(x, ad, z, M, K, R,
+                                                         vec_a);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
@@ -266,18 +286,41 @@ extern "C" int batched_lora_apply_f32(const float* x, const float* w,
     const int row_blocks = (M + kGemvRows - 1) / kGemvRows;
     // widest column tile that still gives every SM a block (132 SMs)
     if ((N + 31) / 32 * row_blocks >= 132)
-      launch_gemv<8>(x, w, b, scales, ids, z, y, M, K, N, R, P, b_stride,
-                     vec_w, s);
+      launch_gemv<8, kPaged>(x, w, ad, z, y, M, K, N, R, vec_w, s);
     else if ((N + 15) / 16 * row_blocks >= 132)
-      launch_gemv<4>(x, w, b, scales, ids, z, y, M, K, N, R, P, b_stride,
-                     vec_w, s);
+      launch_gemv<4, kPaged>(x, w, ad, z, y, M, K, N, R, vec_w, s);
     else
-      launch_gemv<2>(x, w, b, scales, ids, z, y, M, K, N, R, P, b_stride,
-                     vec_w, s);
+      launch_gemv<2, kPaged>(x, w, ad, z, y, M, K, N, R, vec_w, s);
   } else {
     dim3 grid((N + kTileN - 1) / kTileN, (M + kTileM - 1) / kTileM);
-    lora_gemm_kernel<<<grid, kThreads, 0, s>>>(x, w, b, scales, ids, z, y,
-                                               M, K, N, R, P, b_stride);
+    lora_gemm_kernel<kPaged><<<grid, kThreads, 0, s>>>(x, w, ad, z, y, M, K,
+                                                       N, R);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// K4: one call = two launches on `stream` (shrink, then GEMV or SGEMM).
+extern "C" int batched_lora_apply_f32(const float* x, const float* w,
+                                      const float* a, const float* b,
+                                      const float* scales, const int* ids,
+                                      float* z, float* y, int M, int K,
+                                      int N, int R, int P,
+                                      long long a_stride, long long b_stride,
+                                      void* stream) {
+  const Adapter ad{a, b, scales, ids, a_stride, b_stride, P, 0.f};
+  return lora_apply_launch<true>(x, w, ad, z, y, M, K, N, R,
+                                 static_cast<cudaStream_t>(stream));
+}
+
+// K5: x (M, K), W (K, N), A (R, K), B (N, R), both contiguous; z (M, R)
+// scratch; y (M, N).
+extern "C" int lora_apply_f32(const float* x, const float* w, const float* a,
+                              const float* b, float* z, float* y, int M,
+                              int K, int N, int R, float scale,
+                              void* stream) {
+  const Adapter ad{a, b, nullptr, nullptr, 0, 0, 1, scale};
+  return lora_apply_launch<false>(x, w, ad, z, y, M, K, N, R,
+                                  static_cast<cudaStream_t>(stream));
 }

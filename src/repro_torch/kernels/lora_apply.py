@@ -1,16 +1,19 @@
-"""Paged multi-adapter LoRA apply K4 (DESIGN.md §11), ported from
-``repro/kernels/lora_apply.py::batched_lora_apply_pallas``.
-
-Row t of x uses the adapter page p = ids[t]::
+"""Fused LoRA apply kernels, ported from ``repro/kernels/lora_apply.py``:
+K4, the paged multi-adapter apply of serving (DESIGN.md §11; replaces
+``batched_lora_apply_pallas``), where row t of x uses the adapter page
+p = ids[t]::
 
     y[t] = x[t] @ W + s_p * (x[t] @ A_p^T) @ B_p^T
 
-``batched_lora_apply_plain`` is the plain PyTorch version; the wrapper
-``batched_lora_apply`` computes it for CPU tensors and launches the CUDA
-kernel (``csrc/lora_apply.cu``) for CUDA tensors, with no fallback: a
-failed build or launch raises. ``batched_lora_apply.launches`` counts
-kernel calls and nothing else. The kernel has no backward, so the wrapper
-refuses inputs that need a gradient.
+and K5, the single-adapter apply y = x @ W + s * (x @ A^T) @ B^T
+(replaces ``lora_apply_pallas``; no model calls it, the kernel API ``ops``
+does). Both run ``csrc/lora_apply.cu``, K5 without the page gather.
+
+``*_plain`` are the plain PyTorch versions; each wrapper computes its plain
+version for CPU tensors and launches the CUDA kernel for CUDA tensors, with
+no fallback: a failed build or launch raises. ``wrapper.launches`` counts
+kernel calls and nothing else. The kernels have no backward, so the
+wrappers refuse inputs that need a gradient.
 """
 from __future__ import annotations
 
@@ -35,6 +38,16 @@ def batched_lora_apply_plain(x: torch.Tensor, w: torch.Tensor,
     z = torch.einsum("mk,mrk->mr", x2, a)
     y = x2 @ w.float() + s[:, None] * torch.einsum("mr,mnr->mn", z, b)
     return y.reshape(lead + (w.shape[-1],)).to(x.dtype)
+
+
+def lora_apply_plain(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
+                     b: torch.Tensor, scale: float = 1.0) -> torch.Tensor:
+    """``ref.lora_apply_ref``: x (M, K); w (K, N); a (r, K); b (N, r) ->
+    (M, N) in x.dtype, computed in f32."""
+    xf = x.float()
+    y = xf @ w.float()
+    z = xf @ a.float().T
+    return (y + scale * (z @ b.float().T)).to(x.dtype)
 
 
 def _check(name: str, t: torch.Tensor, ndim: int, dtype) -> None:
@@ -104,5 +117,36 @@ def batched_lora_apply(x: torch.Tensor, w: torch.Tensor,
     return y
 
 
-KERNELS = (batched_lora_apply,)
-batched_lora_apply.launches = 0
+def lora_apply(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
+               b: torch.Tensor, scale: float = 1.0) -> torch.Tensor:
+    """K5: x (M, K); w (K, N); a (r, K); b (N, r), all f32 contiguous;
+    ``scale`` a Python number -> (M, N) f32."""
+    for name, t in (("x", x), ("w", w), ("a", a), ("b", b)):
+        _check(f"lora_apply {name}", t, 2, torch.float32)
+        if not t.is_contiguous():
+            raise ValueError(f"lora_apply {name}: input must be contiguous")
+        _same_device(x, t, "lora_apply")
+    (m, k), n, r = x.shape, w.shape[1], a.shape[0]
+    if w.shape[0] != k or tuple(a.shape) != (r, k) or \
+            tuple(b.shape) != (n, r):
+        raise ValueError(f"lora_apply: x {tuple(x.shape)}, w "
+                         f"{tuple(w.shape)}, a {tuple(a.shape)}, b "
+                         f"{tuple(b.shape)} do not match")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (x, w, a, b)):
+        raise NotImplementedError("lora_apply has no backward")
+    if x.device.type == "cpu":
+        return lora_apply_plain(x, w, a, b, scale)
+    y = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    z = torch.empty((m, r), dtype=torch.float32, device=x.device)
+    fn = "lora_apply_f32"
+    rc = getattr(build.library("lora_apply"), fn)(
+        x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(), z.data_ptr(),
+        y.data_ptr(), m, k, n, r, float(scale), _stream(x))
+    build.check(rc, fn)
+    lora_apply.launches += 1
+    return y
+
+
+KERNELS = (batched_lora_apply, lora_apply)
+for _k in KERNELS:
+    _k.launches = 0

@@ -1,5 +1,6 @@
-"""Fused factored aggregation kernels K1 and K2 (DESIGN.md §4.3), ported
-from ``repro/kernels/rank_partition_agg.py``.
+"""Rank-partitioned aggregation kernels K1, K2 (the fused factored path,
+DESIGN.md §4.3) and K3 (the dense aggregate), ported from
+``repro/kernels/rank_partition_agg.py``.
 
 The aggregate sum_m B_m diag(omega_m) A_m is always U_c @ V_c with U_c
 (d, M r) the sqrt(omega)-weighted client B columns and V_c (M r, n) the
@@ -11,6 +12,11 @@ matching A rows, so the round never forms the (d, n) update:
 * K2 ``gram_left`` / ``gram_right`` build their (R, R) Gram cores
   G_u = U_c^T U_c and G_v = V_c V_c^T (``csrc/gram.cu``; replaces
   ``gram_left_layered_pallas`` and ``gram_right_layered_pallas``).
+
+K3 ``rank_partition_agg`` / ``rank_partition_agg_layered`` form dW itself
+(``csrc/rank_partition_agg.cu``; replaces ``rank_partition_agg_pallas``
+and ``rank_partition_agg_layered_pallas``). No round path calls it, in the
+reference either: it is reached through the kernel API ``ops``.
 
 Each kernel has a plain PyTorch version here (``*_plain``) and a wrapper.
 The wrapper checks its inputs and allocates the output; for a CPU tensor
@@ -64,6 +70,19 @@ def gram_left_plain(u_c: torch.Tensor) -> torch.Tensor:
 def gram_right_plain(v_c: torch.Tensor) -> torch.Tensor:
     """v_c (L, R, n) -> G_v = V_c V_c^T (L, R, R)."""
     return _mirror_upper(v_c @ v_c.mT)
+
+
+def rank_partition_agg_plain(bs: torch.Tensor, as_: torch.Tensor,
+                             omega: torch.Tensor) -> torch.Tensor:
+    """bs (M, d, r); as_ (M, r, n); omega (M, r) -> dW (d, n), the einsum
+    of ``ref.rank_partition_agg_ref``; omega applied as given."""
+    return torch.einsum("mdr,mr,mrn->dn", bs, omega, as_)
+
+
+def rank_partition_agg_layered_plain(bs: torch.Tensor, as_: torch.Tensor,
+                                     omega: torch.Tensor) -> torch.Tensor:
+    """bs (L, M, d, r); as_ (L, M, r, n); omega (M, r) -> dW (L, d, n)."""
+    return torch.einsum("lmdr,mr,lmrn->ldn", bs, omega, as_)
 
 
 # -- wrappers ----------------------------------------------------------------
@@ -158,6 +177,64 @@ def gram_right(v_c: torch.Tensor) -> torch.Tensor:
     return g
 
 
+def _launch_agg(bs: torch.Tensor, as_: torch.Tensor, omega: torch.Tensor,
+                out: torch.Tensor) -> None:
+    l, m, d, r = bs.shape
+    fn = "rank_partition_agg_f32"
+    rc = getattr(build.library("rank_partition_agg"), fn)(
+        bs.data_ptr(), as_.data_ptr(), omega.data_ptr(), out.data_ptr(), l,
+        m, d, r, as_.shape[-1], _stream(bs))
+    build.check(rc, fn)
+
+
+def _check_agg(name: str, bs, as_, omega, lead: int) -> None:
+    _check(f"{name} bs", bs, lead + 3)
+    _check(f"{name} as_", as_, lead + 3)
+    _check(f"{name} omega", omega, 2)
+    _same_device(bs, as_, name)
+    _same_device(bs, omega, name)
+    m, d, r = bs.shape[-3:]
+    if as_.shape[:-1] != bs.shape[:-2] + (r,) or \
+            tuple(omega.shape) != (m, r):
+        raise ValueError(f"{name}: bs {tuple(bs.shape)}, as_ "
+                         f"{tuple(as_.shape)}, omega {tuple(omega.shape)} "
+                         "do not match")
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (bs, as_, omega)):
+        raise NotImplementedError(f"{name} has no backward")
+
+
+def rank_partition_agg(bs: torch.Tensor, as_: torch.Tensor,
+                       omega: torch.Tensor) -> torch.Tensor:
+    """K3: bs (M, d, r); as_ (M, r, n); omega (M, r), f32 contiguous ->
+    dW (d, n) f32. The layered kernel launched at one layer."""
+    _check_agg("rank_partition_agg", bs, as_, omega, 0)
+    if bs.device.type == "cpu":
+        return rank_partition_agg_plain(bs, as_, omega)
+    out = torch.empty((bs.shape[1], as_.shape[2]), dtype=torch.float32,
+                      device=bs.device)
+    _launch_agg(bs[None], as_[None], omega, out)
+    rank_partition_agg.launches += 1
+    return out
+
+
+def rank_partition_agg_layered(bs: torch.Tensor, as_: torch.Tensor,
+                               omega: torch.Tensor) -> torch.Tensor:
+    """K3, layered: bs (L, M, d, r); as_ (L, M, r, n); omega (M, r) shared
+    by all layers, f32 contiguous -> dW (L, d, n) f32."""
+    _check_agg("rank_partition_agg_layered", bs, as_, omega, 1)
+    if bs.device.type == "cpu":
+        return rank_partition_agg_layered_plain(bs, as_, omega)
+    out = torch.empty((bs.shape[0], bs.shape[2], as_.shape[3]),
+                      dtype=torch.float32, device=bs.device)
+    _launch_agg(bs, as_, omega, out)
+    rank_partition_agg_layered.launches += 1
+    return out
+
+
+# the fused factored path the round runs (K1, K2), and the dense aggregate
+# (K3) that only the kernel API reaches
 KERNELS = (weighted_stack_b, weighted_stack_a, gram_left, gram_right)
-for _k in KERNELS:
+DENSE_KERNELS = (rank_partition_agg, rank_partition_agg_layered)
+for _k in KERNELS + DENSE_KERNELS:
     _k.launches = 0

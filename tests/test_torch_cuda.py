@@ -1,5 +1,6 @@
-"""Card-only checks of the port's hand-written CUDA kernels, of the round
-and of the serving engines (qwen2 with K4, mamba2 with K6) on the card. They skip without CUDA (the kernels have no CPU mode)
+"""Card-only checks of the port's hand-written CUDA kernels (K1-K7), of
+the round and of the serving engines (qwen2 with K4, mamba2 with K6) on
+the card. They skip without CUDA (the kernels have no CPU mode)
 and import nothing of JAX, so they run on a GPU machine without it:
 
     PYTHONPATH=src python -m pytest --noconftest tests/test_torch_cuda.py
@@ -8,7 +9,9 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import lora_apply as la
+from repro_torch.kernels import ops
 from repro_torch.kernels import rank_partition_agg as rpa
 from repro_torch.kernels import ssd_scan as k6
 
@@ -304,3 +307,133 @@ def test_cuda_mamba2_engine_matches_cpu(cuda_device):
             assert k6.ssd_scan.launches == before
         runs.append(torch.stack(toks, dim=1))
     torch.testing.assert_close(runs[0], runs[1], rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layers,m,d,r,n", [
+    (1, 3, 24, 8, 40), (2, 3, 300, 8, 520), (3, 2, 17, 16, 9),
+    (2, 6, 130, 32, 70), (48, 6, 768, 32, 768)])
+def test_cuda_rank_partition_agg_matches_plain(cuda_device, layers, m, d, r,
+                                               n):
+    """K3, both entries, against its plain einsum within M r eps
+    max(|B| |omega| |A|) (the worst-case rounding of the M r-deep f32
+    sum), with a negative weight (applied as given); ragged d / n tiles;
+    two launches bit-equal."""
+    bs, as_, omega = _stacks(14, layers, m, d, r, n, cuda_device)
+    mag = rpa.rank_partition_agg_layered_plain(bs.abs(), as_.abs(),
+                                               omega.abs())
+    tol = m * r * torch.finfo(torch.float32).eps * float(mag.max())
+    before = [k.launches for k in rpa.DENSE_KERNELS]
+    got = rpa.rank_partition_agg_layered(bs, as_, omega)
+    one = rpa.rank_partition_agg(bs[-1].contiguous(), as_[-1].contiguous(),
+                                 omega)
+    want = rpa.rank_partition_agg_layered_plain(bs, as_, omega)
+    torch.cuda.synchronize()
+    assert [k.launches for k in rpa.DENSE_KERNELS] == [b + 1 for b in before]
+    assert float((got - want).abs().max()) <= tol
+    # the single-layer entry is the same kernel at one layer
+    assert torch.equal(one, got[-1])
+    assert torch.equal(got, rpa.rank_partition_agg_layered(bs, as_, omega))
+
+
+@pytest.mark.cuda
+def test_cuda_ops_rank_partition_agg_fallback_and_k1(cuda_device):
+    """``ops`` with the Eq. 8 fallback (one more client, r 12 padded to
+    16) on the card equals the CPU path; with omega >= 0 it equals K1's
+    U_c V_c up to the rounding of sqrt(omega)^2."""
+    rng = np.random.default_rng(15)
+    t = {k: torch.from_numpy(v.astype(np.float32)) for k, v in dict(
+        bs=rng.normal(size=(2, 3, 100, 12)), as_=rng.normal(size=(2, 3, 12, 90)),
+        omega=rng.uniform(size=(3, 12)), global_b=rng.normal(size=(2, 100, 12)),
+        global_a=rng.normal(size=(2, 12, 90)),
+        fallback=(np.arange(12) >= 8).astype(float)).items()}
+    got = ops.rank_partition_agg_layered(
+        **{k: v.to(cuda_device) for k, v in t.items()})
+    want = ops.rank_partition_agg_layered(**t)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=0)
+    u, v = ops.factored_stack_layered(*(
+        ops._append_fallback_client(
+            *(t[k].to(cuda_device) for k in ("bs", "as_", "omega",
+                                             "global_b", "global_a",
+                                             "fallback")), layer_axes=1)))
+    torch.testing.assert_close(u @ v, got, atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,r", [
+    (4, 3584, 512, 16), (128, 3584, 512, 16),        # Qwen2-7B's k proj
+    (300, 130, 520, 12), (7, 37, 23, 5), (64, 64, 64, 64), (5, 40, 24, 0)])
+def test_cuda_lora_apply_single_matches_plain(cuda_device, m, k, n, r):
+    """K5 against its plain version on both launch paths (GEMV for at most
+    32 rows, SGEMM above), at odd shapes and at r = 0, within (K + r) eps
+    max(|x| |W| + |s| |x| |A|^T |B|^T); two launches bit-equal."""
+    rng = np.random.default_rng(16)
+    x, w, a, b = (torch.from_numpy(v.astype(np.float32)).to(cuda_device)
+                  for v in (rng.normal(size=(m, k)),
+                            rng.normal(size=(k, n)) * k ** -0.5,
+                            rng.normal(size=(r, k)) * k ** -0.5,
+                            rng.normal(size=(n, r))))
+    mag = la.lora_apply_plain(x.abs(), w.abs(), a.abs(), b.abs(), 0.75)
+    tol = (k + r) * torch.finfo(torch.float32).eps * float(mag.max())
+    before = la.lora_apply.launches
+    got = la.lora_apply(x, w, a, b, -0.75)
+    want = la.lora_apply_plain(x, w, a, b, -0.75)
+    torch.cuda.synchronize()
+    assert la.lora_apply.launches == before + 1
+    assert float((got - want).abs().max()) <= tol
+    assert torch.equal(got, la.lora_apply(x, w, a, b, -0.75))
+
+
+@pytest.mark.cuda
+def test_cuda_ops_lora_apply_bf16(cuda_device):
+    """bf16 in, read as f32, bf16 out: the CPU path's rounding within one
+    bf16 step (3e-2, the reference test's bf16 tolerance)."""
+    rng = np.random.default_rng(17)
+    args = [torch.from_numpy(v.astype(np.float32)).bfloat16() for v in (
+        rng.normal(size=(3, 17, 100)), rng.normal(size=(100, 72)) * 0.1,
+        rng.normal(size=(12, 100)) * 0.1, rng.normal(size=(72, 12)) * 0.1)]
+    got = ops.lora_apply(*(t.to(cuda_device) for t in args), 0.7)
+    assert got.dtype == torch.bfloat16 and got.shape == (3, 17, 72)
+    torch.testing.assert_close(got.cpu().float(),
+                               ops.lora_apply(*args, 0.7).float(),
+                               atol=3e-2, rtol=3e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,lq,lkv,h,kvh,d,causal,window", [
+    (2, 48, 48, 4, 2, 16, True, 0), (2, 64, 64, 6, 6, 16, False, 0),
+    (1, 200, 200, 4, 2, 16, False, 0),     # the reference ops' fault case
+    (2, 33, 33, 4, 4, 16, True, 0), (1, 40, 40, 4, 2, 16, True, 4),
+    (1, 130, 130, 4, 2, 32, True, 40), (1, 300, 300, 5, 5, 64, False, 64),
+    (2, 197, 197, 3, 3, 64, False, 0), (1, 100, 100, 2, 2, 80, True, 0),
+    (1, 129, 129, 2, 1, 128, True, 0), (1, 70, 70, 3, 1, 192, True, 0),
+    (1, 150, 150, 2, 1, 256, True, 0), (1, 65, 65, 2, 2, 256, False, 16),
+    (2, 40, 100, 4, 2, 16, True, 0), (2, 100, 40, 4, 2, 16, True, 0),
+    (2, 50, 20, 4, 2, 16, False, 4)])       # rows that see no key
+def test_cuda_flash_attention_matches_plain(cuda_device, b, lq, lkv, h, kvh,
+                                            d, causal, window):
+    """K7 against its plain version at the reference test's tolerance (atol
+    2e-5, rtol 1e-4) for every head dim the configs use (64, 80, 128,
+    192, 256) and the tests' (16, 32), ragged lengths, Lq != Lkv, windows
+    and rows with no visible key; two launches bit-equal."""
+    rng = np.random.default_rng(18)
+    q, k, v = (torch.from_numpy(x.astype(np.float32)).to(cuda_device)
+               for x in (rng.normal(size=(b, lq, h, d)),
+                         rng.normal(size=(b, lkv, kvh, d)),
+                         rng.normal(size=(b, lkv, kvh, d))))
+    before = fa.flash_attention.launches
+    got = fa.flash_attention(q, k, v, causal, window)
+    want = fa.flash_attention_plain(q, k, v, causal, window)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    torch.testing.assert_close(got, want, atol=2e-5, rtol=1e-4)
+    assert torch.equal(got, fa.flash_attention(q, k, v, causal, window))
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_refuses_wide_heads(cuda_device):
+    q = torch.zeros(1, 8, 1, 272, device=cuda_device)
+    before = fa.flash_attention.launches
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention(q, q, q)
+    assert fa.flash_attention.launches == before
