@@ -12,7 +12,10 @@ JAX. Phases, each printing one JSON line:
                   at the shapes its main path gives it (K1/K2: the
                   vit-base round's buckets; K4: Qwen2-7B's q/k/v/o at
                   decode and prefill), with times, bounds and library
-                  yardsticks.
+                  yardsticks; K4's and K5's rows carry the SGEMM's plan
+                  (tile, splits over K, blocks) and TFLOP/s, and beside
+                  their eager times the device times of the same calls
+                  replayed from a CUDA graph (``*_device_ms``).
 3. round_small    one fedvit-tiny (d_model=32) round on cuda and on cpu
                   from the same weights and seed; products and spectra
                   must agree to the kernel-path tolerance.
@@ -25,7 +28,9 @@ JAX. Phases, each printing one JSON line:
                   32-token prompts and 16 new tokens over 3 tenants at
                   ranks 16/8/4, with a hot swap after 8 decode steps; K4
                   must launch 4 x 28 times per engine step, and the tokens
-                  must equal the same engine's plain path on the card.
+                  must equal the same engine's plain path on the card;
+                  then two more prefills of each engine, in turns, and
+                  one profiled prefill of each (device time).
 7. serve_small_mamba2  a reduced mamba2 engine on cuda (K6) and on cpu
                   (plain), 64-token prompts (two chunks): equal tokens.
 8. serve_mamba2_1p3b  main path 3: Mamba-2 1.3B at full width in f32, 4
@@ -50,8 +55,8 @@ causal prefill, vit-base's bidirectional 197 tokens, hymba-1.5b's
 1024-token window and gemma-2b's MQA with D 256.
 ``--profile`` adds one profiled vit-base round after phase 4 (device time
 of the top kernels, the device's idle share). Phases 6 and 8 always
-profile one more decode step and one more prefill for their kernel's
-share of the device time.
+profile one more decode step and one more prefill of each engine for the
+kernel's share of the device time.
 
 Any failure exits nonzero before the final line.
 """
@@ -72,6 +77,8 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 # float32 FLOP/s outside the tensor cores.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+# K4's and K5's rows also carry their graph-replayed device times
+DEVICE_KEYS = ("kernel_device_ms", "plain_device_ms", "library_device_ms")
 REPLACES = {
     "weighted_stack_b": "src/repro/kernels/rank_partition_agg.py:198",
     "weighted_stack_a": "src/repro/kernels/rank_partition_agg.py:231",
@@ -177,7 +184,7 @@ def phase_build():
     t0 = time.perf_counter()
     build.build_all()
     ptxas = {stem: [ln.strip() for ln in log.splitlines()
-                    if "Used" in ln or "spill" in ln]
+                    if "Used" in ln or "spill" in ln or "entry function" in ln]
              for stem, log in build.ptxas_log.items()}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "compiled": sorted(build.ptxas_log), "ptxas": ptxas})
@@ -283,6 +290,46 @@ def time_rotating_ms(torch, fn, arg_sets, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+_SIDE_STREAM = []     # time_graph_ms's warm-up stream, made once
+
+
+def time_graph_ms(torch, fn, arg_sets=((),), iters: int = 20) -> float:
+    """Mean device time of one call of ``fn``: ``iters`` calls, cycling
+    through ``arg_sets``, captured into one CUDA graph and replayed, so no
+    host time falls between the calls. Where the host takes longer to
+    issue a call than the card to run it (K4/K5 at 128 rows), the eager
+    times (``time_ms``, ``time_rotating_ms``) measure the host; this one
+    is reported beside them as ``*_device_ms``. The warm-up runs on one
+    side stream for every call: cuBLAS keeps a workspace for each stream
+    it meets and never frees it, so a new stream per call would leave
+    memory behind that raises every later phase's peak."""
+    if not _SIDE_STREAM:
+        _SIDE_STREAM.append(torch.cuda.Stream())
+    side = _SIDE_STREAM[0]
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for args in arg_sets[:2]:
+            fn(*args)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(iters):
+            fn(*arg_sets[i % len(arg_sets)])
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / (3 * iters)
+    del graph
+    return ms
+
+
 def _lora_library(torch, x, w, a, b, s, ids):
     """cuBLAS f32 x @ W plus the gathered bmm adapter term."""
     i = ids.long()
@@ -331,24 +378,39 @@ def phase_kernel_lora_apply(torch, summary: dict):
                                 f"max_abs_err {err} > {tol}")
             require(torch.equal(got, la.batched_lora_apply(*args)),
                     f"batched_lora_apply {phase} {proj}: not deterministic")
+
+            def lib(*t):
+                return _lora_library(torch, *t)
+
             k_ms = time_rotating_ms(torch, la.batched_lora_apply, sets)
             p_ms = time_rotating_ms(torch, la.batched_lora_apply_plain, sets)
-            l_ms = time_rotating_ms(
-                torch, lambda *t: _lora_library(torch, *t), sets)
+            l_ms = time_rotating_ms(torch, lib, sets)
+            # the same calls replayed from a CUDA graph: device time only
+            dev = {"kernel_device_ms": time_graph_ms(
+                       torch, la.batched_lora_apply, sets),
+                   "plain_device_ms": time_graph_ms(
+                       torch, la.batched_lora_apply_plain, sets),
+                   "library_device_ms": time_graph_ms(torch, lib, sets)}
             nbytes = 4 * (k * n + p * r * (k + n) + m * (k + n) + p) + 4 * m
             flops = 2.0 * m * k * n + 2.0 * m * r * (k + n)
             b_ms, b_by = bound_ms(nbytes, flops)
             rows.append({"kernel": "batched_lora_apply", "phase": phase,
                          "proj": proj, "m": m, "k": k, "n": n, "pages": p,
-                         "rank": r, "max_abs_err": err, "tol": tol,
+                         "rank": r, "plan": la.describe_plan(m, n, k),
+                         "max_abs_err": err, "tol": tol,
                          "kernel_ms": k_ms, "plain_ms": p_ms,
-                         "library_ms": l_ms, "bound_ms": b_ms,
-                         "bound_by": b_by, "bytes": nbytes, "flop": flops,
+                         "library_ms": l_ms, **dev,
+                         "bound_ms": b_ms, "bound_by": b_by,
+                         "bytes": nbytes, "flop": flops,
                          "kernel_gb_per_s": nbytes / k_ms / 1e6,
-                         "kernel_tflop_per_s": flops / k_ms / 1e9})
+                         "kernel_tflop_per_s": flops / k_ms / 1e9,
+                         "kernel_device_tflop_per_s":
+                             flops / dev["kernel_device_ms"] / 1e9})
             tot["ms"] += k_ms
             tot["plain_ms"] += p_ms
             tot["library_ms"] += l_ms
+            for key, val in dev.items():
+                tot[key] = tot.get(key, 0.0) + val
             tot["bound_ms"] += b_ms
             tot["bytes_ms"] += nbytes / PEAK_BYTES_PER_S * 1e3
             tot["ops_ms"] += flops / PEAK_F32_FLOPS * 1e3
@@ -367,8 +429,10 @@ def phase_kernel_lora_apply(torch, summary: dict):
         else "operations",
         "library_ms": dec["library_ms"],
         "shape": "one decode layer: q, k, v, o at 4 rows",
+        "decode_layer_device": {key: dec[key] for key in DEVICE_KEYS},
         "prefill_layer": {key: totals["prefill"][key] for key in
-                          ("ms", "plain_ms", "bound_ms", "library_ms")}}
+                          ("ms", "plain_ms", "bound_ms", "library_ms",
+                           *DEVICE_KEYS)}}
 
 
 def _scan_inputs(torch, shape, gen, init):
@@ -552,7 +616,8 @@ def _ops_cases(torch):
                                            beta=scale),
             "tol": {"atol": (k + r) * eps * float(mag.max()), "rtol": 0},
             "bytes": 4 * (m * k + k * n + r * (k + n) + m * n),
-            "flop": 2.0 * m * k * n + 2.0 * m * r * (k + n), "check": None})
+            "flop": 2.0 * m * k * n + 2.0 * m * r * (k + n), "check": None,
+            "plan": la.describe_plan(m, n, k)})
 
     for m in (SLOTS * PROMPT_LEN, SLOTS * 1024):
         for proj, k, n in QWEN_PROJ[:2]:
@@ -633,20 +698,28 @@ def phase_kernel_ops(torch, summary: dict) -> dict:
         if case["check"] is not None:
             row.update(case["check"](got))
         heavy = case["kernel"] == "flash_attention"
+        lib = case["library"]()
+        row["library_max_abs_err"] = float((lib - want).abs().max())
         row["kernel_ms"] = time_ms(torch, case["call"])
         row["plain_ms"] = time_ms(torch, case["plain"],
                                   iters=5 if heavy else 20,
                                   warmup=1 if heavy else 3)
-        lib = case["library"]()
-        row["library_max_abs_err"] = float((lib - want).abs().max())
         row["library_ms"] = time_ms(torch, case["library"])
+        if case["kernel"] == "lora_apply":
+            # the same calls replayed from a CUDA graph: device time only
+            for key, fn in zip(DEVICE_KEYS, (case["call"], case["plain"],
+                                             case["library"])):
+                row[key] = time_graph_ms(torch, fn)
+            row["kernel_device_tflop_per_s"] = \
+                case["flop"] / row["kernel_device_ms"] / 1e9
         b_ms, b_by = bound_ms(case["bytes"], case["flop"])
         row.update({"bound_ms": b_ms, "bound_by": b_by,
                     "bytes": case["bytes"], "flop": case["flop"],
                     "kernel_tflop_per_s": case["flop"] / row["kernel_ms"]
                     / 1e9})
-        if "flop_dense" in case:
-            row["flop_dense"] = case["flop_dense"]
+        for key in ("flop_dense", "plan"):
+            if key in case:
+                row[key] = case[key]
         rows.append(row)
         del want, lib
     del outs
@@ -666,7 +739,9 @@ def phase_kernel_ops(torch, summary: dict) -> dict:
             "bound_ms": sum(r["bound_ms"] for r in picked),
             "bound_by": bound_ms(nbytes, flops)[1],
             "library_ms": sum(r["library_ms"] for r in picked),
-            "shape": " + ".join(labels)}
+            "shape": " + ".join(labels),
+            **{key: sum(r[key] for r in picked) for key in DEVICE_KEYS
+               if all(key in r for r in picked)}}
     return launches
 
 
@@ -941,8 +1016,9 @@ def _serve_full(torch, phase: str, cfg, prompt_len: int, kernel,
     ``use_kernels`` runs step by step against the same engine's plain path
     on the card, on one copy of the weights; ``kernel`` must launch
     ``admit_launches`` times in the admit call and ``decode_launches`` in
-    each decode step. One more decode step and one more prefill run under
-    the profiler. Returns the kernel's launches on the main path."""
+    each decode step. Then two more prefills of each engine in turns, and
+    one more decode step and one more prefill of each engine under the
+    profiler. Returns the kernel's launches on the main path."""
     from repro_torch.configs import LoRAConfig
     from repro_torch.kernels import ops
     from repro_torch.models.transformer import Model
@@ -1029,9 +1105,17 @@ def _serve_full(torch, phase: str, cfg, prompt_len: int, kernel,
     require(launches == want, f"{phase}: {kernel.__name__} launched "
                               f"{launches} times, expected {want}")
     peak = torch.cuda.max_memory_allocated() / 2**30
+    # the prefill again, the engines in turns (kernels, plain, plain,
+    # kernels): the first call above also pays the first engine's
+    # allocations, and the host's speed drifts within a call
+    warm = {True: [], False: []}
+    for kern in (True, False, False, True):
+        warm[kern].append(timed((eng if kern else ref).admit, range(SLOTS),
+                                prompts, slot_tenants)[1])
     prof_decode = _profile(torch, lambda: eng.decode(active), match)
-    prof_prefill = _profile(
-        torch, lambda: eng.admit(range(SLOTS), prompts, slot_tenants), match)
+    prof_prefill, prof_prefill_plain = (_profile(
+        torch, lambda e=e: e.admit(range(SLOTS), prompts, slot_tenants),
+        match) for e in (eng, ref))
 
     dec = [r["ms"] for r in steps[1:]]
     dec_plain = [r["plain_ms"] for r in steps[1:]]
@@ -1039,6 +1123,7 @@ def _serve_full(torch, phase: str, cfg, prompt_len: int, kernel,
     emit({"phase": phase, "params": n_params, "setup_s": setup_s,
           "prompt_len": prompt_len, "prefill_ms": steps[0]["ms"],
           "prefill_plain_ms": steps[0]["plain_ms"],
+          "prefill_warm_ms": warm[True], "prefill_plain_warm_ms": warm[False],
           "decode_ms_per_token": dec_ms,
           "decode_ms_median": sorted(dec)[len(dec) // 2],
           "decode_plain_ms_per_token": sum(dec_plain) / len(dec_plain),
@@ -1049,6 +1134,7 @@ def _serve_full(torch, phase: str, cfg, prompt_len: int, kernel,
           "kernel": kernel.__name__, "launches_per_admit": admit_launches,
           "launches_per_decode": decode_launches, "launches": launches,
           "profiled_decode": prof_decode, "profiled_prefill": prof_prefill,
+          "profiled_prefill_plain": prof_prefill_plain,
           "steps": steps})
     return launches
 

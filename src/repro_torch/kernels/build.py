@@ -5,8 +5,8 @@ Each ``csrc/*.cu`` source has a plain C interface and is compiled by
 ``ctypes``. Builds happen at first use (never at import: the CPU test
 machines have no ``nvcc``), all sources at once in parallel, into
 ``build/kernels/`` at the repository root, a directory git ignores. A
-library's file name carries a hash of its source, so an edited kernel is
-always rebuilt.
+library's file name carries a hash of its source and of the shared
+headers (``csrc/*.cuh``), so an edited kernel is always rebuilt.
 """
 from __future__ import annotations
 
@@ -39,8 +39,9 @@ SIGNATURES = {
         "gram_right_f32": [_P, _P, _I, _I, _I, _P],
     },
     "lora_apply": {
-        "batched_lora_apply_f32": [_P] * 8 + [_I] * 5 + [_L, _L, _P],
-        "lora_apply_f32": [_P] * 6 + [_I] * 4 + [_F, _P],
+        "batched_lora_apply_f32": [_P] * 9 + [_I] * 5 + [_L, _L]
+        + [_I] * 4 + [_P],
+        "lora_apply_f32": [_P] * 7 + [_I] * 4 + [_F] + [_I] * 4 + [_P],
     },
     "rank_partition_agg": {
         "rank_partition_agg_f32": [_P] * 4 + [_I] * 5 + [_P],
@@ -71,8 +72,12 @@ def _nvcc() -> str:
 
 
 def _lib_path(stem: str) -> Path:
-    src = CSRC / f"{stem}.cu"
-    digest = hashlib.sha1(src.read_bytes()).hexdigest()[:12]
+    """The library's path, named by a hash of its source and of every
+    header in ``csrc/`` (a source may include any of them)."""
+    digest = hashlib.sha1((CSRC / f"{stem}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest = digest.hexdigest()[:12]
     return BUILD_DIR / f"lib{stem}-{digest}.so"
 
 

@@ -9,6 +9,13 @@ and K5, the single-adapter apply y = x @ W + s * (x @ A^T) @ B^T
 (replaces ``lora_apply_pallas``; no model calls it, the kernel API ``ops``
 does). Both run ``csrc/lora_apply.cu``, K5 without the page gather.
 
+Above ``GEMV_MAX_ROWS`` rows the base product is the f32 SGEMM of
+``csrc/sgemm_f32.cuh``; ``plan_gemm`` chooses its tile and its split over
+K from the shapes, here on the host, and the wrapper passes the plan (and
+a workspace for the partial tiles) to the C entry. ``*_split_plain``
+repeat that arithmetic in PyTorch: K cut as the plan cuts it, the
+partials summed in the kernel's order, then the adapter term.
+
 ``*_plain`` are the plain PyTorch versions; each wrapper computes its plain
 version for CPU tensors and launches the CUDA kernel for CUDA tensors, with
 no fallback: a failed build or launch raises. ``wrapper.launches`` counts
@@ -16,6 +23,9 @@ kernel calls and nothing else. The kernels have no backward, so the
 wrappers refuse inputs that need a gradient.
 """
 from __future__ import annotations
+
+import functools
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -48,6 +58,140 @@ def lora_apply_plain(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
     y = xf @ w.float()
     z = xf @ a.float().T
     return (y + scale * (z @ b.float().T)).to(x.dtype)
+
+
+# -- the SGEMM's plan --------------------------------------------------------
+
+GEMV_MAX_ROWS = 32        # up to this many rows: the GEMV route, no plan
+SLAB = 16                 # sgemm_f32.cuh's kBK: a split is a multiple deep
+MIN_SPLIT_DEPTH = 128     # no split is planned shallower than this
+WAVE = 128                # blocks that about fill the H100's 132 SMs
+SMS = 132                 # the H100's SMs
+RESIDENT = 2              # SGEMM blocks an SM holds (<= 128 registers each)
+TILES = ((128, 128), (64, 128))   # the instances lora_apply.cu builds
+
+
+class GemmPlan(NamedTuple):
+    """A bm x bn output tile a block, K cut into ``splits`` ranges of
+    ``depth`` (the last one shorter where K is not a multiple)."""
+    bm: int
+    bn: int
+    splits: int
+    depth: int
+    tiles: int
+
+    @property
+    def blocks(self) -> int:
+        return self.tiles * self.splits
+
+
+def split_ranges(k: int, depth: int) -> List[Tuple[int, int]]:
+    """The [start, end) ranges of K that the blocks of one tile sum."""
+    return [(k0, min(k, k0 + depth)) for k0 in range(0, k, depth)] or \
+        [(0, 0)]
+
+
+def _round_up(a: int, b: int) -> int:
+    return -(-a // b) * b
+
+
+@functools.lru_cache(maxsize=1024)   # the wrapper plans every call
+def plan_gemm(m: int, n: int, k: int) -> GemmPlan:
+    """The SGEMM's tile and split over K for an (m, k) @ (k, n) product.
+
+    Tiles are tried from the least padded work (ceil(m/bm) bm ceil(n/bn)
+    bn) up, the larger tile first on a tie. A tile whose blocks alone
+    reach ``WAVE`` runs unsplit. Otherwise K is split into ranges at least
+    ``MIN_SPLIT_DEPTH`` deep (a multiple of ``SLAB``, the last one the
+    rest), into at least ``WAVE`` and at most ``RESIDENT * SMS`` blocks,
+    all resident at once. Of those splits, the one that gives the busiest
+    SM the least depth to sum: ceil(blocks / SMS) x depth, the fewer splits
+    on a tie (at Qwen2-7B's 128-row q: 9 splits of 400, 252 blocks, two on
+    most SMs, rather than the first to reach ``WAVE``, 5 of 720, whose 140
+    blocks leave 8 SMs with twice the depth of the rest). Where no tile
+    reaches ``WAVE``: the most blocks any tile and split can give."""
+    order = sorted(TILES, key=lambda t: _round_up(m, t[0]) * _round_up(
+        n, t[1]))
+    best = None
+    for bm, bn in order:
+        tiles = -(-m // bm) * -(-n // bn)
+        plans = [GemmPlan(bm, bn, 1, max(SLAB, _round_up(k, SLAB)), tiles)]
+        if tiles >= WAVE:
+            return plans[0]
+        s = 2
+        while True:
+            depth = _round_up(-(-k // s), SLAB)
+            plan = GemmPlan(bm, bn, -(-k // max(depth, 1)), depth, tiles)
+            if depth < MIN_SPLIT_DEPTH or plan.blocks > RESIDENT * SMS:
+                break
+            plans.append(plan)
+            s += 1
+        full = [p for p in plans if p.blocks >= WAVE]
+        if full:
+            return min(full, key=lambda p: (-(-p.blocks // SMS) * p.depth,
+                                            p.splits))
+        top = max(plans, key=lambda p: p.blocks)
+        if best is None or top.blocks > best.blocks:
+            best = top
+    return best
+
+
+def describe_plan(m: int, n: int, k: int) -> dict:
+    """The route and plan of an (m, k) @ (k, n) call, for reports."""
+    if m <= GEMV_MAX_ROWS:
+        return {"route": "gemv"}
+    p = plan_gemm(m, n, k)
+    return {"route": "sgemm", "tile": [p.bm, p.bn], "splits": p.splits,
+            "depth": p.depth, "blocks": p.blocks}
+
+
+def _sgemm_args(m: int, n: int, k: int, device) -> tuple:
+    """(workspace or None, bm, bn, splits, depth) for the C entry."""
+    if m <= GEMV_MAX_ROWS:
+        return None, 0, 0, 1, 0
+    p = plan_gemm(m, n, k)
+    part = torch.empty((p.splits, m, n), dtype=torch.float32,
+                       device=device) if p.splits > 1 else None
+    return part, p.bm, p.bn, p.splits, p.depth
+
+
+def _split_product(x2: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x2 @ w as the SGEMM route sums it: one partial product per range
+    of the plan, added in range order."""
+    m, k = x2.shape
+    depth = plan_gemm(m, w.shape[1], k).depth if m > GEMV_MAX_ROWS else k
+    y: Optional[torch.Tensor] = None
+    for k0, k1 in split_ranges(k, max(depth, 1)):
+        part = x2[:, k0:k1] @ w[k0:k1]
+        y = part if y is None else y + part
+    return y
+
+
+def batched_lora_apply_split_plain(x: torch.Tensor, w: torch.Tensor,
+                                   a_pages: torch.Tensor,
+                                   b_pages: torch.Tensor,
+                                   scales: torch.Tensor,
+                                   ids: torch.Tensor) -> torch.Tensor:
+    """``batched_lora_apply_plain`` with the base product split over K as
+    ``plan_gemm`` splits it; (..., N) f32."""
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1]).float()
+    idf = ids.reshape(-1).long()
+    z = torch.einsum("mk,mrk->mr", x2, a_pages.float()[idf])
+    s = scales.float()[idf]
+    y = _split_product(x2, w.float()) + torch.einsum(
+        "mr,mnr->mn", s[:, None] * z, b_pages.float()[idf])
+    return y.reshape(lead + (w.shape[-1],))
+
+
+def lora_apply_split_plain(x: torch.Tensor, w: torch.Tensor,
+                           a: torch.Tensor, b: torch.Tensor,
+                           scale: float = 1.0) -> torch.Tensor:
+    """``lora_apply_plain`` with the base product split over K as
+    ``plan_gemm`` splits it; (M, N) f32."""
+    xf = x.float()
+    z = xf @ a.float().T
+    return _split_product(xf, w.float()) + (scale * z) @ b.float().T
 
 
 def _check(name: str, t: torch.Tensor, ndim: int, dtype) -> None:
@@ -107,11 +251,13 @@ def batched_lora_apply(x: torch.Tensor, w: torch.Tensor,
     y = torch.empty(x.shape[:-1] + (n,), dtype=torch.float32,
                     device=x.device)
     z = torch.empty((m, r), dtype=torch.float32, device=x.device)
+    part, *plan = _sgemm_args(m, n, k, x.device)
     fn = "batched_lora_apply_f32"
     rc = getattr(build.library("lora_apply"), fn)(
         x.data_ptr(), w.data_ptr(), a_pages.data_ptr(), b_pages.data_ptr(),
         scales.data_ptr(), ids.data_ptr(), z.data_ptr(), y.data_ptr(),
-        m, k, n, r, p, a_pages.stride(0), b_pages.stride(0), _stream(x))
+        part.data_ptr() if part is not None else None, m, k, n, r, p,
+        a_pages.stride(0), b_pages.stride(0), *plan, _stream(x))
     build.check(rc, fn)
     batched_lora_apply.launches += 1
     return y
@@ -138,10 +284,12 @@ def lora_apply(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
         return lora_apply_plain(x, w, a, b, scale)
     y = torch.empty((m, n), dtype=torch.float32, device=x.device)
     z = torch.empty((m, r), dtype=torch.float32, device=x.device)
+    part, *plan = _sgemm_args(m, n, k, x.device)
     fn = "lora_apply_f32"
     rc = getattr(build.library("lora_apply"), fn)(
         x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(), z.data_ptr(),
-        y.data_ptr(), m, k, n, r, float(scale), _stream(x))
+        y.data_ptr(), part.data_ptr() if part is not None else None, m, k, n,
+        r, float(scale), *plan, _stream(x))
     build.check(rc, fn)
     lora_apply.launches += 1
     return y

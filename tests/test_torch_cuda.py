@@ -135,11 +135,16 @@ def _lora_tol(case):
     (4, 3584, 3584, 4, 16), (4, 3584, 512, 4, 16),      # decode q/o, k/v
     (128, 3584, 3584, 4, 16), (128, 3584, 512, 4, 16),  # prefill
     (35, 72, 56, 3, 16), (7, 37, 23, 2, 5), (70, 37, 23, 2, 5),  # odd
-    (9, 300, 520, 9, 8)])                                # a page per row
+    (9, 300, 520, 9, 8),                                 # a page per row
+    (4096, 3584, 3584, 4, 16), (4096, 3584, 512, 4, 16),  # unsplit SGEMM
+    (33, 3584, 512, 4, 16), (64, 3584, 3584, 4, 16),     # route boundary
+    (128, 3000, 512, 4, 16)])       # 16 splits of 192, the last 120 deep
 def test_cuda_lora_apply_matches_plain(cuda_device, m, k, n, p, r):
     """K4 against its plain version at Qwen2-7B's decode (4 rows) and
-    prefill (128 rows) shapes, at odd K / N / r on both launch paths, and
-    with every row on a different page."""
+    prefill (128 rows, split over K) shapes, at 4096 rows (unsplit), at the
+    first SGEMM row counts (33, 64), at odd K / N / r on both launch paths,
+    with a K that is no multiple of splits x slab, and with every row on a
+    different page."""
     case = _lora_case(10, m, k, n, p, r, cuda_device,
                       ranks=[max(1, r - 2 * i) for i in range(p)])
     if m == p:
@@ -156,10 +161,12 @@ def test_cuda_lora_apply_matches_plain(cuda_device, m, k, n, p, r):
 
 
 @pytest.mark.cuda
-def test_cuda_lora_apply_strided_pages_and_bad_ids(cuda_device):
+@pytest.mark.parametrize("m,k", [(6, 64), (40, 1024)])
+def test_cuda_lora_apply_strided_pages_and_bad_ids(cuda_device, m, k):
     """Per-layer page slices t[:, li] are read in place; a row whose page
-    id is out of range comes back NaN, the others unaffected."""
-    case = _lora_case(11, 6, 64, 40, 3, 8, cuda_device)
+    id is out of range comes back NaN, the others unaffected. On the GEMV
+    route (6 rows) and on the SGEMM's split route (40 rows: 8 splits)."""
+    case = _lora_case(11, m, k, 40, 3, 8, cuda_device)
     stacked_a = torch.stack([case["a_pages"] * 0, case["a_pages"]], dim=1)
     stacked_b = torch.stack([case["b_pages"] * 0, case["b_pages"]], dim=1)
     got = la.batched_lora_apply(case["x"], case["w"], stacked_a[:, 1],
@@ -382,6 +389,31 @@ def test_cuda_lora_apply_single_matches_plain(cuda_device, m, k, n, r):
     assert la.lora_apply.launches == before + 1
     assert float((got - want).abs().max()) <= tol
     assert torch.equal(got, la.lora_apply(x, w, a, b, -0.75))
+
+
+@pytest.mark.cuda
+def test_cuda_ops_lora_apply_split(cuda_device):
+    """K5 through ``ops`` at Qwen2-7B's k projection for 2 x 64 rows (the
+    SGEMM split 16 ways over K), r 12 padded to 16 by ``ops``: within
+    (K + r) eps max of the plain version, one launch, repeat bit-equal."""
+    rng = np.random.default_rng(19)
+    x, w, a, b = (torch.from_numpy(v.astype(np.float32)).to(cuda_device)
+                  for v in (rng.normal(size=(2, 64, 3584)),
+                            rng.normal(size=(3584, 512)) * 3584 ** -0.5,
+                            rng.normal(size=(12, 3584)) * 3584 ** -0.5,
+                            rng.normal(size=(512, 12))))
+    assert la.plan_gemm(128, 512, 3584).splits == 16
+    mag = la.lora_apply_plain(x.abs().reshape(128, -1), w.abs(), a.abs(),
+                              b.abs(), 1.5)
+    tol = (3584 + 16) * torch.finfo(torch.float32).eps * float(mag.max())
+    before = la.lora_apply.launches
+    got = ops.lora_apply(x, w, a, b, 1.5)
+    want = la.lora_apply_plain(x.reshape(128, -1), w, a, b, 1.5)
+    torch.cuda.synchronize()
+    assert la.lora_apply.launches == before + 1
+    assert got.shape == (2, 64, 512)
+    assert float((got.reshape(128, -1) - want).abs().max()) <= tol
+    assert torch.equal(got, ops.lora_apply(x, w, a, b, 1.5))
 
 
 @pytest.mark.cuda

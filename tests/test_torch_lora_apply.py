@@ -142,3 +142,103 @@ def test_dense_kernel_route_matches_plain_route():
         assert got.shape == (c, 1, t, d_out)
         np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-5,
                                    rtol=1e-5)
+
+
+# -- the SGEMM route's plan and its split over K ----------------------------
+
+QWEN_128 = {"q": (128, 3584, 3584), "k": (128, 512, 3584)}   # (m, n, k)
+
+
+@pytest.mark.parametrize("k", [3584, 130, 37, 72])
+@pytest.mark.parametrize("m,n", [(128, 3584), (128, 512), (40, 40),
+                                 (4096, 3584), (300, 520), (33, 23)])
+def test_plan_splits_cover_k_once(m, n, k):
+    """The planned ranges tile [0, K) with no gap and no overlap, one range
+    a split; each but the last is ``depth`` deep, a multiple of the slab."""
+    plan = la.plan_gemm(m, n, k)
+    ranges = la.split_ranges(k, plan.depth)
+    assert len(ranges) == plan.splits
+    assert ranges[0][0] == 0 and ranges[-1][1] == k
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+    assert all(k1 - k0 == plan.depth for k0, k1 in ranges[:-1])
+    assert plan.depth % la.SLAB == 0 and 0 < ranges[-1][1] - ranges[-1][0] \
+        <= plan.depth
+    if plan.splits > 1:
+        assert plan.depth >= la.MIN_SPLIT_DEPTH
+    assert (plan.bm, plan.bn) in la.TILES
+    assert plan.tiles == -(-m // plan.bm) * -(-n // plan.bn)
+
+
+@pytest.mark.parametrize("m,n,k", [(4096, 3584, 3584), (4096, 512, 3584),
+                                   (2048, 1024, 777), (1024, 2048, 64)])
+def test_plan_runs_unsplit_when_tiles_fill_the_card(m, n, k):
+    plan = la.plan_gemm(m, n, k)
+    assert plan.tiles >= la.WAVE and plan.splits == 1
+    assert plan.depth >= k
+
+
+@pytest.mark.parametrize("proj", list(QWEN_128))
+def test_plan_fills_the_card_at_qwen2_128_rows(proj):
+    """Qwen2-7B's prefill projections at 128 rows: q (and o) 28 tiles of
+    128 x 128 in 9 splits of 400 (252 blocks, two an SM on most SMs), k
+    (and v) 8 tiles of 64 x 128 in 16 splits of 224; at least one wave of
+    blocks, all resident at once, every split >= 128 deep."""
+    m, n, k = QWEN_128[proj]
+    plan = la.plan_gemm(m, n, k)
+    want = {"q": (128, 128, 9, 400), "k": (64, 128, 16, 224)}[proj]
+    assert (plan.bm, plan.bn, plan.splits, plan.depth) == want
+    assert la.WAVE <= plan.blocks <= la.RESIDENT * la.SMS
+    assert all(k1 - k0 >= la.MIN_SPLIT_DEPTH
+               for k0, k1 in la.split_ranges(k, plan.depth))
+    assert la.describe_plan(m, n, k) == {
+        "route": "sgemm", "tile": list(want[:2]), "splits": want[2],
+        "depth": want[3], "blocks": plan.blocks}
+    assert la.describe_plan(la.GEMV_MAX_ROWS, n, k) == {"route": "gemv"}
+
+
+def _split_tol(x, w, a, b, s):
+    """(K + r) eps max(|x| |W| + |s| (|x| |A|^T) |B|^T), rows of pages
+    gathered already: the worst-case rounding of the f32 sums."""
+    x, w, a, b = (np.abs(t.astype(np.float64)) for t in (x, w, a, b))
+    mag = x @ w + np.abs(s)[:, None] * np.einsum(
+        "mr,mnr->mn", np.einsum("mk,mrk->mr", x, a), b)
+    return (w.shape[0] + a.shape[1]) * np.finfo(np.float32).eps * mag.max()
+
+
+@pytest.mark.parametrize("m,k,n,r", [
+    (40, 1024, 40, 8),       # one 64 x 128 tile: 8 splits of 128
+    (70, 600, 24, 5),        # 5 splits, the last 88 deep (not a slab)
+    (35, 72, 56, 16),        # one split
+    (20, 300, 30, 4)])       # the GEMV route: one range
+def test_lora_apply_split_plain_matches_oracle(m, k, n, r):
+    """K5's split emulation against ``ref.lora_apply_ref`` (JAX, CPU) at
+    the kernel's tolerance (K + r) eps max(|x||W| + |s||x||A|^T|B|^T)."""
+    rng = np.random.default_rng(m + k + n + r)
+    x = rng.normal(size=(m, k)).astype(np.float32)
+    w = (rng.normal(size=(k, n)) * k ** -0.5).astype(np.float32)
+    a = (rng.normal(size=(r, k)) * k ** -0.5).astype(np.float32)
+    b = rng.normal(size=(n, r)).astype(np.float32)
+    want = np.asarray(ref.lora_apply_ref(*map(jnp.asarray, (x, w, a, b)),
+                                         -0.75))
+    got = la.lora_apply_split_plain(*map(torch.from_numpy, (x, w, a, b)),
+                                    -0.75)
+    tol = _split_tol(x, w, np.broadcast_to(a, (m, r, k)),
+                     np.broadcast_to(b, (m, n, r)), np.full(m, 0.75))
+    assert got.shape == (m, n) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, atol=tol, rtol=0)
+
+
+@pytest.mark.parametrize("lead,k,n", [((2, 20), 1024, 40), ((70,), 600, 24),
+                                      ((5, 7), K, N)])
+def test_batched_lora_apply_split_plain_matches_oracle(lead, k, n):
+    """K4's split emulation against ``ref.batched_lora_apply_ref`` (JAX,
+    CPU) at the kernel's tolerance, pages at ranks 4/8/16 and random ids;
+    the first two shapes split K (8 and 5 ranges)."""
+    case = _case(7, lead=lead, k=k, n=n)
+    got = la.batched_lora_apply_split_plain(**_torch(case))
+    assert got.shape == lead + (n,)
+    idf = case["ids"].reshape(-1)
+    tol = _split_tol(case["x"].reshape(-1, k), case["w"],
+                     case["a_pages"][idf], case["b_pages"][idf],
+                     case["scales"][idf])
+    np.testing.assert_allclose(got.numpy(), _oracle(case), atol=tol, rtol=0)
