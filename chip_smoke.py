@@ -12,10 +12,11 @@ JAX. Phases, each printing one JSON line:
                   at the shapes its main path gives it (K1/K2: the
                   vit-base round's buckets; K4: Qwen2-7B's q/k/v/o at
                   decode and prefill), with times, bounds and library
-                  yardsticks; K4's and K5's rows carry the SGEMM's plan
-                  (tile, splits over K, blocks) and TFLOP/s, and beside
-                  their eager times the device times of the same calls
-                  replayed from a CUDA graph (``*_device_ms``).
+                  yardsticks; K2's, K3's, K4's and K5's rows carry the
+                  SGEMM's plan (tile, splits over the depth, blocks) and
+                  TFLOP/s, and beside their eager times the device times
+                  of the same calls replayed from a CUDA graph
+                  (``*_device_ms``); K2 and K3 must repeat bit for bit.
 3. round_small    one fedvit-tiny (d_model=32) round on cuda and on cpu
                   from the same weights and seed; products and spectra
                   must agree to the kernel-path tolerance.
@@ -48,8 +49,9 @@ once at full width (the path of K3, K5 and K7, which no model or round
 calls, in the reference either) and holds each result to its plain
 version, a second launch to the first bit for bit, and K3 to K1's
 U_c @ V_c: K3 (layered) at the vit-base buckets with raFLoRA weights and
-the Eq. 8 fallback, K3 (one layer) at bench_kernels' M 10, d 768, r 64 and
-at an odd d 300, n 520 with the fallback; K5 at Qwen2-7B's q and k
+the Eq. 8 fallback (6 of 12 slabs of rank columns live, the rest skipped),
+K3 (one layer) at bench_kernels' M 10, d 768, r 64 (the depth split 5
+ways) and at an odd d 300, n 520 with the fallback; K5 at Qwen2-7B's q and k
 projections for 128 and 4096 rows and an odd shape; K7 at Qwen2-7B's
 causal prefill, vit-base's bidirectional 197 tokens, hymba-1.5b's
 1024-token window and gemma-2b's MQA with D 256.
@@ -77,7 +79,8 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 # float32 FLOP/s outside the tensor cores.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
-# K4's and K5's rows also carry their graph-replayed device times
+# K2's, K3's, K4's and K5's rows also carry their graph-replayed device
+# times
 DEVICE_KEYS = ("kernel_device_ms", "plain_device_ms", "library_device_ms")
 REPLACES = {
     "weighted_stack_b": "src/repro/kernels/rank_partition_agg.py:198",
@@ -192,17 +195,18 @@ def phase_build():
 
 def phase_kernels(torch, summary: dict):
     """Each kernel vs its plain version at the round's bucket shapes."""
+    from repro_torch.kernels import gemm_plan
     from repro_torch.kernels import rank_partition_agg as rpa
-    gen = torch.Generator(device="cuda").manual_seed(0)
+    gen = torch.Generator(device=DEV).manual_seed(0)
     eps = torch.finfo(torch.float32).eps
     rows = []
     for name, layers, d, n in BUCKETS:
         bs = torch.randn(layers, CLIENTS, d, RANK, generator=gen,
-                         device="cuda")
+                         device=DEV)
         as_ = torch.randn(layers, CLIENTS, RANK, n, generator=gen,
-                          device="cuda")
+                          device=DEV)
         # raFLoRA-like weights: zero beyond some ranks, one negative entry
-        omega = torch.rand(CLIENTS, RANK, generator=gen, device="cuda")
+        omega = torch.rand(CLIENTS, RANK, generator=gen, device=DEV)
         omega[0, 8:] = 0.0
         omega[1, 0] = -0.25
         rr = CLIENTS * RANK
@@ -254,13 +258,26 @@ def phase_kernels(torch, summary: dict):
             p_ms = time_ms(torch, lambda: plain(*args))
             l_ms = time_ms(torch, library)
             b_ms, b_by = bound_ms(nbytes, flops)
-            rows.append({"kernel": kname, "bucket": name,
-                         "shape": list(args[0].shape), "max_abs_err": err,
-                         "tol": tol, "kernel_ms": k_ms, "plain_ms": p_ms,
-                         "library_ms": l_ms, "bound_ms": b_ms,
-                         "bound_by": b_by, "bytes": nbytes, "flop": flops,
-                         "kernel_gb_per_s": nbytes / k_ms / 1e6,
-                         "kernel_tflop_per_s": flops / k_ms / 1e9})
+            row = {"kernel": kname, "bucket": name,
+                   "shape": list(args[0].shape), "max_abs_err": err,
+                   "tol": tol, "kernel_ms": k_ms, "plain_ms": p_ms,
+                   "library_ms": l_ms, "bound_ms": b_ms, "bound_by": b_by,
+                   "bytes": nbytes, "flop": flops,
+                   "kernel_gb_per_s": nbytes / k_ms / 1e6,
+                   "kernel_tflop_per_s": flops / k_ms / 1e9}
+            if kname.startswith("gram"):
+                # K2's plan, a second launch bit-equal, and the same calls
+                # replayed from a CUDA graph: device time only
+                require(torch.equal(got, kern(*args)),
+                        f"{kname} {name}: not deterministic")
+                row["plan"] = gemm_plan.plan_gram(layers, rr, depth).report()
+                for key, fn in zip(DEVICE_KEYS, (lambda: kern(*args),
+                                                 lambda: plain(*args),
+                                                 library)):
+                    row[key] = time_graph_ms(torch, fn)
+                row["kernel_device_tflop_per_s"] = \
+                    flops / row["kernel_device_ms"] / 1e9
+            rows.append(row)
             s = summary.setdefault(kname, {
                 "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
                 "bound_ms": 0.0, "library_ms": 0.0, "bound_by": b_by})
@@ -269,6 +286,9 @@ def phase_kernels(torch, summary: dict):
             s["plain_ms"] += p_ms
             s["bound_ms"] += b_ms
             s["library_ms"] += l_ms
+            for key in DEVICE_KEYS:
+                if key in row:
+                    s[key] = s.get(key, 0.0) + row[key]
     emit({"phase": "kernels", "per_bucket": rows,
           "launches": {k.__name__: k.launches for k in rpa.KERNELS}})
 
@@ -529,6 +549,7 @@ def _ops_cases(torch):
     optional extra check."""
     from repro_torch.core.partitions import omega_raflora
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import gemm_plan
     from repro_torch.kernels import lora_apply as la
     from repro_torch.kernels import ops
     from repro_torch.kernels import rank_partition_agg as rpa
@@ -565,6 +586,7 @@ def _ops_cases(torch):
             *lead, d, depth)
         v_lib = ab.reshape(*lead, depth, n)
         out_elems = (layers or 1) * d * n
+        live = rpa.live_slabs(om)
         check = None
         if layers:
             def check(got):
@@ -586,7 +608,11 @@ def _ops_cases(torch):
             # weights need
             "flop": 2.0 * out_elems * int((om != 0).sum()),
             "flop_dense": 2.0 * out_elems * depth,
-            "check": check})
+            "check": check,
+            "plan": gemm_plan.plan_agg(layers or 1, om.shape[0], d,
+                                       om.shape[1], n).report(),
+            # the 16-deep slabs the kernel runs, of all
+            "live_slabs": [int(live.sum()), live.numel()]})
 
     omega, fallback = omega_raflora(AGG_RANKS, AGG_SAMPLES, AGG_LEVELS)
     omega = torch.tensor(omega, dtype=torch.float32, device=DEV)
@@ -705,7 +731,7 @@ def phase_kernel_ops(torch, summary: dict) -> dict:
                                   iters=5 if heavy else 20,
                                   warmup=1 if heavy else 3)
         row["library_ms"] = time_ms(torch, case["library"])
-        if case["kernel"] == "lora_apply":
+        if case["kernel"] != "flash_attention":
             # the same calls replayed from a CUDA graph: device time only
             for key, fn in zip(DEVICE_KEYS, (case["call"], case["plain"],
                                              case["library"])):
@@ -717,7 +743,7 @@ def phase_kernel_ops(torch, summary: dict) -> dict:
                     "bytes": case["bytes"], "flop": case["flop"],
                     "kernel_tflop_per_s": case["flop"] / row["kernel_ms"]
                     / 1e9})
-        for key in ("flop_dense", "plan"):
+        for key in ("flop_dense", "plan", "live_slabs"):
             if key in case:
                 row[key] = case[key]
         rows.append(row)

@@ -35,8 +35,8 @@ SIGNATURES = {
         "weighted_stack_a_f32": [_P, _P, _P, _I, _I, _I, _I, _P],
     },
     "gram": {
-        "gram_left_f32": [_P, _P, _I, _I, _I, _P],
-        "gram_right_f32": [_P, _P, _I, _I, _I, _P],
+        "gram_left_f32": [_P] * 4 + [_I] * 5 + [_P],
+        "gram_right_f32": [_P] * 4 + [_I] * 5 + [_P],
     },
     "lora_apply": {
         "batched_lora_apply_f32": [_P] * 9 + [_I] * 5 + [_L, _L]
@@ -44,7 +44,7 @@ SIGNATURES = {
         "lora_apply_f32": [_P] * 7 + [_I] * 4 + [_F] + [_I] * 4 + [_P],
     },
     "rank_partition_agg": {
-        "rank_partition_agg_f32": [_P] * 4 + [_I] * 5 + [_P],
+        "rank_partition_agg_f32": [_P] * 6 + [_I] * 7 + [_P],
     },
     "flash_attention": {
         "flash_attention_f32": [_P] * 4 + [_I] * 8 + [_F, _P],

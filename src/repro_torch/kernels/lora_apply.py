@@ -10,11 +10,12 @@ and K5, the single-adapter apply y = x @ W + s * (x @ A^T) @ B^T
 does). Both run ``csrc/lora_apply.cu``, K5 without the page gather.
 
 Above ``GEMV_MAX_ROWS`` rows the base product is the f32 SGEMM of
-``csrc/sgemm_f32.cuh``; ``plan_gemm`` chooses its tile and its split over
-K from the shapes, here on the host, and the wrapper passes the plan (and
-a workspace for the partial tiles) to the C entry. ``*_split_plain``
-repeat that arithmetic in PyTorch: K cut as the plan cuts it, the
-partials summed in the kernel's order, then the adapter term.
+``csrc/sgemm_f32.cuh``; ``gemm_plan.plan_gemm`` chooses its tile and its
+split over K from the shapes, here on the host, and the wrapper passes
+the plan (and a workspace for the partial tiles) to the C entry.
+``*_split_plain`` repeat that arithmetic in PyTorch: K cut as the plan
+cuts it, the partials summed in the kernel's order, then the adapter
+term.
 
 ``*_plain`` are the plain PyTorch versions; each wrapper computes its plain
 version for CPU tensors and launches the CUDA kernel for CUDA tensors, with
@@ -24,12 +25,12 @@ wrappers refuse inputs that need a gradient.
 """
 from __future__ import annotations
 
-import functools
-from typing import List, NamedTuple, Optional, Tuple
-
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.gemm_plan import (  # noqa: F401 (kept importable)
+    MIN_SPLIT_DEPTH, RESIDENT, SLAB, SMS, TILES, WAVE, GemmPlan, plan_gemm,
+    split_ranges, split_sum)
 from repro_torch.kernels.rank_partition_agg import _same_device, _stream
 
 
@@ -60,89 +61,16 @@ def lora_apply_plain(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
     return (y + scale * (z @ b.float().T)).to(x.dtype)
 
 
-# -- the SGEMM's plan --------------------------------------------------------
+# -- the SGEMM's plan (gemm_plan.py, shared with K2 and K3) ----------------
 
 GEMV_MAX_ROWS = 32        # up to this many rows: the GEMV route, no plan
-SLAB = 16                 # sgemm_f32.cuh's kBK: a split is a multiple deep
-MIN_SPLIT_DEPTH = 128     # no split is planned shallower than this
-WAVE = 128                # blocks that about fill the H100's 132 SMs
-SMS = 132                 # the H100's SMs
-RESIDENT = 2              # SGEMM blocks an SM holds (<= 128 registers each)
-TILES = ((128, 128), (64, 128))   # the instances lora_apply.cu builds
-
-
-class GemmPlan(NamedTuple):
-    """A bm x bn output tile a block, K cut into ``splits`` ranges of
-    ``depth`` (the last one shorter where K is not a multiple)."""
-    bm: int
-    bn: int
-    splits: int
-    depth: int
-    tiles: int
-
-    @property
-    def blocks(self) -> int:
-        return self.tiles * self.splits
-
-
-def split_ranges(k: int, depth: int) -> List[Tuple[int, int]]:
-    """The [start, end) ranges of K that the blocks of one tile sum."""
-    return [(k0, min(k, k0 + depth)) for k0 in range(0, k, depth)] or \
-        [(0, 0)]
-
-
-def _round_up(a: int, b: int) -> int:
-    return -(-a // b) * b
-
-
-@functools.lru_cache(maxsize=1024)   # the wrapper plans every call
-def plan_gemm(m: int, n: int, k: int) -> GemmPlan:
-    """The SGEMM's tile and split over K for an (m, k) @ (k, n) product.
-
-    Tiles are tried from the least padded work (ceil(m/bm) bm ceil(n/bn)
-    bn) up, the larger tile first on a tie. A tile whose blocks alone
-    reach ``WAVE`` runs unsplit. Otherwise K is split into ranges at least
-    ``MIN_SPLIT_DEPTH`` deep (a multiple of ``SLAB``, the last one the
-    rest), into at least ``WAVE`` and at most ``RESIDENT * SMS`` blocks,
-    all resident at once. Of those splits, the one that gives the busiest
-    SM the least depth to sum: ceil(blocks / SMS) x depth, the fewer splits
-    on a tie (at Qwen2-7B's 128-row q: 9 splits of 400, 252 blocks, two on
-    most SMs, rather than the first to reach ``WAVE``, 5 of 720, whose 140
-    blocks leave 8 SMs with twice the depth of the rest). Where no tile
-    reaches ``WAVE``: the most blocks any tile and split can give."""
-    order = sorted(TILES, key=lambda t: _round_up(m, t[0]) * _round_up(
-        n, t[1]))
-    best = None
-    for bm, bn in order:
-        tiles = -(-m // bm) * -(-n // bn)
-        plans = [GemmPlan(bm, bn, 1, max(SLAB, _round_up(k, SLAB)), tiles)]
-        if tiles >= WAVE:
-            return plans[0]
-        s = 2
-        while True:
-            depth = _round_up(-(-k // s), SLAB)
-            plan = GemmPlan(bm, bn, -(-k // max(depth, 1)), depth, tiles)
-            if depth < MIN_SPLIT_DEPTH or plan.blocks > RESIDENT * SMS:
-                break
-            plans.append(plan)
-            s += 1
-        full = [p for p in plans if p.blocks >= WAVE]
-        if full:
-            return min(full, key=lambda p: (-(-p.blocks // SMS) * p.depth,
-                                            p.splits))
-        top = max(plans, key=lambda p: p.blocks)
-        if best is None or top.blocks > best.blocks:
-            best = top
-    return best
 
 
 def describe_plan(m: int, n: int, k: int) -> dict:
     """The route and plan of an (m, k) @ (k, n) call, for reports."""
     if m <= GEMV_MAX_ROWS:
         return {"route": "gemv"}
-    p = plan_gemm(m, n, k)
-    return {"route": "sgemm", "tile": [p.bm, p.bn], "splits": p.splits,
-            "depth": p.depth, "blocks": p.blocks}
+    return {"route": "sgemm", **plan_gemm(m, n, k).report()}
 
 
 def _sgemm_args(m: int, n: int, k: int, device) -> tuple:
@@ -160,11 +88,7 @@ def _split_product(x2: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     of the plan, added in range order."""
     m, k = x2.shape
     depth = plan_gemm(m, w.shape[1], k).depth if m > GEMV_MAX_ROWS else k
-    y: Optional[torch.Tensor] = None
-    for k0, k1 in split_ranges(k, max(depth, 1)):
-        part = x2[:, k0:k1] @ w[k0:k1]
-        y = part if y is None else y + part
-    return y
+    return split_sum(lambda k0, k1: x2[:, k0:k1] @ w[k0:k1], k, depth)
 
 
 def batched_lora_apply_split_plain(x: torch.Tensor, w: torch.Tensor,

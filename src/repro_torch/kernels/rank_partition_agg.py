@@ -18,6 +18,13 @@ K3 ``rank_partition_agg`` / ``rank_partition_agg_layered`` form dW itself
 and ``rank_partition_agg_layered_pallas``). No round path calls it, in the
 reference either: it is reached through the kernel API ``ops``.
 
+K2 and K3 run the SGEMM mainloop of ``csrc/sgemm_f32.cuh`` on the plans
+of ``gemm_plan.py`` (tile, and a split of the depth where the tiles alone
+do not fill the card); ``*_split_plain`` repeat that arithmetic in
+PyTorch: the depth cut as the plan cuts it, one partial product a range,
+the partials summed in range order, and for K3 the 16-deep slabs whose
+weights are all zero left out, as the kernel leaves them out.
+
 Each kernel has a plain PyTorch version here (``*_plain``) and a wrapper.
 The wrapper checks its inputs and allocates the output; for a CPU tensor
 it computes the plain version, for a CUDA tensor it launches the kernel
@@ -27,9 +34,13 @@ card and what its design does about it are noted in its CUDA source.
 """
 from __future__ import annotations
 
+from typing import Dict, Optional, Tuple
+
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.gemm_plan import (SLAB, GemmPlan, plan_agg,
+                                           plan_gram, split_sum)
 
 
 # -- plain versions ----------------------------------------------------------
@@ -85,6 +96,61 @@ def rank_partition_agg_layered_plain(bs: torch.Tensor, as_: torch.Tensor,
     return torch.einsum("lmdr,mr,lmrn->ldn", bs, omega, as_)
 
 
+# -- the kernels' arithmetic on the CPU ---------------------------------------
+
+def gram_left_split_plain(u_c: torch.Tensor) -> torch.Tensor:
+    """``gram_left_plain`` with the depth d split as ``plan_gram`` splits
+    it."""
+    l, d, rr = u_c.shape
+    return _mirror_upper(split_sum(
+        lambda k0, k1: u_c[:, k0:k1].mT @ u_c[:, k0:k1], d,
+        plan_gram(l, rr, d).depth))
+
+
+def gram_right_split_plain(v_c: torch.Tensor) -> torch.Tensor:
+    """``gram_right_plain`` with the depth n split as ``plan_gram`` splits
+    it."""
+    l, rr, n = v_c.shape
+    return _mirror_upper(split_sum(
+        lambda k0, k1: v_c[..., k0:k1] @ v_c[..., k0:k1].mT, n,
+        plan_gram(l, rr, n).depth))
+
+
+def live_slabs(omega: torch.Tensor) -> torch.Tensor:
+    """Per 16-deep slab of the depth t = m r + c, whether any of its
+    weights is nonzero (NaN counts): the slabs K3 runs."""
+    w = omega.reshape(-1)
+    w = torch.cat([w, w.new_zeros(-w.numel() % SLAB)])
+    return (w.reshape(-1, SLAB) != 0).any(dim=1)
+
+
+def rank_partition_agg_layered_split_plain(bs: torch.Tensor,
+                                           as_: torch.Tensor,
+                                           omega: torch.Tensor
+                                           ) -> torch.Tensor:
+    """``rank_partition_agg_layered_plain`` as K3 sums it: (B omega) @ A
+    over the depth t = m r + c, cut as ``plan_agg`` cuts it, each range
+    over its live slabs only (``live_slabs``)."""
+    l, m, d, r = bs.shape
+    n, k = as_.shape[-1], m * r
+    u = (bs * omega[None, :, None, :]).permute(0, 2, 1, 3).reshape(l, d, k)
+    v = as_.reshape(l, k, n)
+    cols = live_slabs(omega).repeat_interleave(SLAB)[:k]
+
+    def part(k0, k1):
+        idx = cols[k0:k1].nonzero().squeeze(1) + k0
+        return u[..., idx] @ v[:, idx]
+    return split_sum(part, k, plan_agg(l, m, d, r, n).depth)
+
+
+def rank_partition_agg_split_plain(bs: torch.Tensor, as_: torch.Tensor,
+                                   omega: torch.Tensor) -> torch.Tensor:
+    """The single-layer K3 as the kernel sums it: the layered one at one
+    layer."""
+    return rank_partition_agg_layered_split_plain(bs[None], as_[None],
+                                                  omega)[0]
+
+
 # -- wrappers ----------------------------------------------------------------
 
 def _check(name: str, x: torch.Tensor, ndim: int) -> None:
@@ -99,7 +165,10 @@ def _check(name: str, x: torch.Tensor, ndim: int) -> None:
 
 
 def _stream(x: torch.Tensor) -> int:
-    return torch.cuda.current_stream(x.device).cuda_stream
+    """The raw handle of the current stream on x's card: that of
+    ``torch.cuda.current_stream(x.device).cuda_stream``, without making a
+    Stream object, which costs the host about as much as the launch."""
+    return torch._C._cuda_getCurrentRawStream(x.device.index)
 
 
 def _same_device(a: torch.Tensor, b: torch.Tensor, name: str) -> None:
@@ -147,17 +216,55 @@ def weighted_stack_a(as_: torch.Tensor, omega: torch.Tensor) -> torch.Tensor:
     return v
 
 
+# A split's partial tiles and the per-tile counters its last block reads,
+# one pair per device, grown on demand and reused (a call allocates only its
+# output). The counters start zeroed and every launch leaves them zero;
+# calls on one device are ordered by their stream, so two calls on two
+# streams at once would share them: the port runs one stream.
+_SPLIT_SCRATCH: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _split_args(plan: GemmPlan, device: torch.device
+                ) -> Tuple[Optional[int], Optional[int]]:
+    """(partials, counters) pointers for the C entry; None for one split."""
+    if plan.splits == 1:
+        return None, None
+    part, count = _SPLIT_SCRATCH.get(device, (None, None))
+    grow_part = part is None or part.numel() < plan.blocks * plan.bm * plan.bn
+    grow_count = count is None or count.numel() < plan.tiles
+    if grow_part or grow_count:
+        # a CUDA graph records the zeroing without running it
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("the split scratch grows: make the first "
+                               "call of this shape outside graph capture")
+        if grow_part:
+            part = torch.empty(plan.blocks * plan.bm * plan.bn,
+                               dtype=torch.float32, device=device)
+        if grow_count:
+            count = torch.zeros(max(plan.tiles, 4096), dtype=torch.int32,
+                                device=device)
+        _SPLIT_SCRATCH[device] = (part, count)
+    return part.data_ptr(), count.data_ptr()
+
+
+def _launch_gram(fn: str, x: torch.Tensor, depth: int,
+                 rr: int) -> torch.Tensor:
+    l = x.shape[0]
+    plan = plan_gram(l, rr, depth)
+    g = torch.empty((l, rr, rr), dtype=torch.float32, device=x.device)
+    rc = getattr(build.library("gram"), fn)(
+        x.data_ptr(), g.data_ptr(), *_split_args(plan, x.device), l, depth,
+        rr, plan.splits, plan.depth, _stream(x))
+    build.check(rc, fn)
+    return g
+
+
 def gram_left(u_c: torch.Tensor) -> torch.Tensor:
     """K2 (left): u_c (L, d, R) -> G_u (L, R, R), exactly symmetric."""
     _check("gram_left u_c", u_c, 3)
-    l, d, rr = u_c.shape
     if u_c.device.type == "cpu":
         return gram_left_plain(u_c)
-    g = torch.empty((l, rr, rr), dtype=torch.float32, device=u_c.device)
-    fn = "gram_left_f32"
-    rc = getattr(build.library("gram"), fn)(
-        u_c.data_ptr(), g.data_ptr(), l, d, rr, _stream(u_c))
-    build.check(rc, fn)
+    g = _launch_gram("gram_left_f32", u_c, *u_c.shape[1:])
     gram_left.launches += 1
     return g
 
@@ -165,25 +272,23 @@ def gram_left(u_c: torch.Tensor) -> torch.Tensor:
 def gram_right(v_c: torch.Tensor) -> torch.Tensor:
     """K2 (right): v_c (L, R, n) -> G_v (L, R, R), exactly symmetric."""
     _check("gram_right v_c", v_c, 3)
-    l, rr, n = v_c.shape
     if v_c.device.type == "cpu":
         return gram_right_plain(v_c)
-    g = torch.empty((l, rr, rr), dtype=torch.float32, device=v_c.device)
-    fn = "gram_right_f32"
-    rc = getattr(build.library("gram"), fn)(
-        v_c.data_ptr(), g.data_ptr(), l, n, rr, _stream(v_c))
-    build.check(rc, fn)
+    g = _launch_gram("gram_right_f32", v_c, v_c.shape[2], v_c.shape[1])
     gram_right.launches += 1
     return g
 
 
 def _launch_agg(bs: torch.Tensor, as_: torch.Tensor, omega: torch.Tensor,
-                out: torch.Tensor) -> None:
-    l, m, d, r = bs.shape
+                out: torch.Tensor, layers: int) -> None:
+    m, d, r = bs.shape[-3:]
+    n = as_.shape[-1]
+    plan = plan_agg(layers, m, d, r, n)
     fn = "rank_partition_agg_f32"
     rc = getattr(build.library("rank_partition_agg"), fn)(
-        bs.data_ptr(), as_.data_ptr(), omega.data_ptr(), out.data_ptr(), l,
-        m, d, r, as_.shape[-1], _stream(bs))
+        bs.data_ptr(), as_.data_ptr(), omega.data_ptr(), out.data_ptr(),
+        *_split_args(plan, bs.device), layers, m, d, r, n, plan.splits,
+        plan.depth, _stream(bs))
     build.check(rc, fn)
 
 
@@ -213,7 +318,7 @@ def rank_partition_agg(bs: torch.Tensor, as_: torch.Tensor,
         return rank_partition_agg_plain(bs, as_, omega)
     out = torch.empty((bs.shape[1], as_.shape[2]), dtype=torch.float32,
                       device=bs.device)
-    _launch_agg(bs[None], as_[None], omega, out)
+    _launch_agg(bs, as_, omega, out, 1)
     rank_partition_agg.launches += 1
     return out
 
@@ -227,7 +332,7 @@ def rank_partition_agg_layered(bs: torch.Tensor, as_: torch.Tensor,
         return rank_partition_agg_layered_plain(bs, as_, omega)
     out = torch.empty((bs.shape[0], bs.shape[2], as_.shape[3]),
                       dtype=torch.float32, device=bs.device)
-    _launch_agg(bs, as_, omega, out)
+    _launch_agg(bs, as_, omega, out, bs.shape[0])
     rank_partition_agg_layered.launches += 1
     return out
 

@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import gemm_plan as gp
 from repro_torch.kernels import lora_apply as la
 from repro_torch.kernels import ops
 from repro_torch.kernels import rank_partition_agg as rpa
@@ -341,6 +342,95 @@ def test_cuda_rank_partition_agg_matches_plain(cuda_device, layers, m, d, r,
     # the single-layer entry is the same kernel at one layer
     assert torch.equal(one, got[-1])
     assert torch.equal(got, rpa.rank_partition_agg_layered(bs, as_, omega))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layers,depth,rr,offset", [
+    (12, 3072, 192, 0),     # the round's up/down buckets: 11 splits of 288
+    (12, 768, 192, 0),      # and their other side: 5 splits of 160
+    (2, 1001, 200, 0),      # ragged R and depth (right side: 4-byte path)
+    (3, 700, 72, 1)])       # a base one float off 16 bytes: 4-byte path
+def test_cuda_gram_split_matches_plain(cuda_device, layers, depth, rr,
+                                       offset):
+    """K2 where the planner splits the depth (the last block of each tile
+    sums the partials in split order) and at ragged and unaligned inputs:
+    within depth eps max column norm^2 of the plain version, exactly
+    symmetric, and two launches bit-equal."""
+    rng = np.random.default_rng(depth + rr)
+    eps = torch.finfo(torch.float32).eps
+    if offset == 0 and rr == 192:
+        assert gp.plan_gram(layers, rr, depth).splits > 1
+    for kern, plain, shape, axis in (
+            (rpa.gram_left, rpa.gram_left_plain, (layers, depth, rr), 1),
+            (rpa.gram_right, rpa.gram_right_plain, (layers, rr, depth), 2)):
+        x = rng.normal(size=shape).astype(np.float32)
+        buf = torch.empty(x.size + offset, device=cuda_device)
+        xt = buf[offset:].view(shape)
+        xt.copy_(torch.from_numpy(x))
+        g = kern(xt)
+        tol = depth * eps * float((xt * xt).sum(dim=axis).max())
+        assert float((g - plain(xt)).abs().max()) <= tol
+        assert torch.equal(g, g.mT)
+        assert torch.equal(g, kern(xt))
+
+
+def _agg_zero_slabs(seed, layers, m, d, r, n, device):
+    """K3 inputs whose weights leave whole 16-deep slabs at zero: client 1
+    negative, clients 2 and 3 zero, the last client zero above r / 2."""
+    bs, as_, omega = _stacks(seed, layers, m, d, r, n, device)
+    omega[1] = -omega[1]
+    omega[2:4] = 0.0
+    omega[-1, r // 2:] = 0.0
+    return bs, as_, omega
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layers,m,d,r,n", [
+    (1, 10, 768, 64, 768),    # bench_kernels' shape: 5 splits of 128
+    (2, 40, 64, 8, 96),       # r 8, two clients a slab, 2 splits
+    (1, 12, 300, 24, 520),    # d 300 / n 520, slabs across clients
+    (2, 8, 130, 12, 70)])     # r 12: the 4-byte path
+def test_cuda_rank_partition_agg_split_and_skip(cuda_device, layers, m, d,
+                                                r, n):
+    """K3 with its all-zero-weight slabs skipped and, where the planner
+    splits the depth, the partials summed in split order: within (M r + 2)
+    eps max(|B| |omega| |A|) of the plain einsum on finite inputs, two
+    launches bit-equal, the single-layer entry equal to the layered kernel
+    at one layer."""
+    bs, as_, omega = _agg_zero_slabs(20, layers, m, d, r, n, cuda_device)
+    assert not bool(rpa.live_slabs(omega).all())
+    mag = rpa.rank_partition_agg_layered_plain(bs.abs(), as_.abs(),
+                                               omega.abs())
+    tol = (m * r + 2) * torch.finfo(torch.float32).eps * float(mag.max())
+    got = rpa.rank_partition_agg_layered(bs, as_, omega)
+    want = rpa.rank_partition_agg_layered_plain(bs, as_, omega)
+    assert float((got - want).abs().max()) <= tol
+    assert torch.equal(got, rpa.rank_partition_agg_layered(bs, as_, omega))
+    one = rpa.rank_partition_agg(bs[0].contiguous(), as_[0].contiguous(),
+                                 omega)
+    assert torch.equal(one, rpa.rank_partition_agg_layered(
+        bs[:1].contiguous(), as_[:1].contiguous(), omega)[0])
+
+
+@pytest.mark.cuda
+def test_cuda_rank_partition_agg_skipped_slab_hides_non_finite(cuda_device):
+    """The deliberate divergence of ROADMAP.md queue 3: inf or NaN in B or
+    A at a zero-weight column of a slab whose 16 weights are all zero. The
+    plain einsum (like the reference) gives NaN; the kernel never reads
+    that slab and equals the plain version of the inputs with those
+    entries zeroed."""
+    bs, as_, omega = _agg_zero_slabs(21, 1, 4, 40, 8, 24, cuda_device)
+    assert rpa.live_slabs(omega).tolist() == [True, False]
+    clean_b, clean_a = bs.clone(), as_.clone()
+    bs[0, 2, 5, 3] = float("inf")
+    as_[0, 3, 1, 7] = float("nan")
+    got = rpa.rank_partition_agg_layered(bs, as_, omega)
+    assert bool(torch.isnan(rpa.rank_partition_agg_layered_plain(
+        bs, as_, omega)).any())
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(
+        got, rpa.rank_partition_agg_layered_plain(clean_b, clean_a, omega),
+        atol=1e-4, rtol=0)
 
 
 @pytest.mark.cuda

@@ -26,7 +26,8 @@ MODULES = [
     "repro_torch.federation.experiment", "repro_torch.federation.server",
     "repro_torch.federation.topology",
     "repro_torch.kernels", "repro_torch.kernels.build",
-    "repro_torch.kernels.flash_attention", "repro_torch.kernels.lora_apply",
+    "repro_torch.kernels.flash_attention", "repro_torch.kernels.gemm_plan",
+    "repro_torch.kernels.lora_apply",
     "repro_torch.kernels.ops", "repro_torch.kernels.rank_partition_agg",
     "repro_torch.kernels.ssd_scan",
     "repro_torch.models", "repro_torch.models.transformer",
