@@ -12,11 +12,17 @@ JAX. Phases, each printing one JSON line:
                   at the shapes its main path gives it (K1/K2: the
                   vit-base round's buckets; K4: Qwen2-7B's q/k/v/o at
                   decode and prefill), with times, bounds and library
-                  yardsticks; K2's, K3's, K4's and K5's rows carry the
-                  SGEMM's plan (tile, splits over the depth, blocks) and
-                  TFLOP/s, and beside their eager times the device times
-                  of the same calls replayed from a CUDA graph
-                  (``*_device_ms``); K2 and K3 must repeat bit for bit.
+                  yardsticks; K2's to K5's and K7's rows carry their plan
+                  (tile, splits over the depth, blocks; K5 and K7 on the
+                  route "mma_tf32x3") and TFLOP/s, and beside their eager
+                  times the device times of the same calls replayed from a
+                  CUDA graph (``*_device_ms``); K2 and K3 must repeat bit
+                  for bit. Every row's ``bound_ms`` takes the operations
+                  at the peak of the route the row runs on: the CUDA
+                  cores' 67 TFLOP/s of IEEE f32, or 3xTF32's 165 on the
+                  tensor cores (K5 above 32 rows, K7; their rows also
+                  carry ``bound_simt_f32_ms``, the same work at 67, and
+                  the summary's ``runs_on`` names the route).
 3. round_small    one fedvit-tiny (d_model=32) round on cuda and on cpu
                   from the same weights and seed; products and spectra
                   must agree to the kernel-path tolerance.
@@ -52,8 +58,10 @@ U_c @ V_c: K3 (layered) at the vit-base buckets with raFLoRA weights and
 the Eq. 8 fallback (6 of 12 slabs of rank columns live, the rest skipped),
 K3 (one layer) at bench_kernels' M 10, d 768, r 64 (the depth split 5
 ways) and at an odd d 300, n 520 with the fallback; K5 at Qwen2-7B's q and k
-projections for 128 and 4096 rows and an odd shape; K7 at Qwen2-7B's
-causal prefill, vit-base's bidirectional 197 tokens, hymba-1.5b's
+projections for 128 and 4096 rows and an odd shape (on the tensor-core
+route also against the product in f64, within a one-pass TF32 product's
+error sigma, which the best one-pass TF32 product must exceed); K7 at
+Qwen2-7B's causal prefill, vit-base's bidirectional 197 tokens, hymba-1.5b's
 1024-token window and gemma-2b's MQA with D 256.
 ``--profile`` adds one profiled vit-base round after phase 4 (device time
 of the top kernels, the device's idle share). Phases 6 and 8 always
@@ -75,10 +83,15 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
-# Published H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s and
-# float32 FLOP/s outside the tensor cores.
+# Published H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s,
+# float32 FLOP/s outside the tensor cores, and the f32-accurate rate of
+# 3xTF32 on the tensor cores (three passes at 495 TFLOP/s TF32)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32X3_FLOPS = 495e12 / 3
+# the operations' peak by route: IEEE f32 on the CUDA cores, or 3xTF32 on
+# the tensor cores (csrc/mma_tf32x3.cuh)
+PEAK_FLOPS = {"simt_f32": PEAK_F32_FLOPS, "mma_tf32x3": PEAK_TF32X3_FLOPS}
 # K2's, K3's, K4's and K5's rows also carry their graph-replayed device
 # times
 DEVICE_KEYS = ("kernel_device_ms", "plain_device_ms", "library_device_ms")
@@ -108,6 +121,11 @@ SOURCES = {
     "lora_apply": "src/repro_torch/kernels/csrc/lora_apply.cu",
     "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
 }
+# the route each kernel's products run on (a key of PEAK_FLOPS) in the
+# summary's cases; K5 at most 32 rows runs its IEEE f32 GEMV, and each
+# kernel_ops row names its own route
+RUNS_ON = {name: "simt_f32" for name in REPLACES}
+RUNS_ON.update(lora_apply="mma_tf32x3", flash_attention="mma_tf32x3")
 # the main path each kernel's launches are counted on
 PATHS = {"weighted_stack_b": "round_vit_base",
          "weighted_stack_a": "round_vit_base", "gram_left": "round_vit_base",
@@ -176,9 +194,11 @@ def time_ms(torch, fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple:
+def bound_ms(nbytes: float, flops: float, route: str = "simt_f32") -> tuple:
+    """(ms, what binds): the bytes at the memory's rate or the operations
+    at the peak of ``route``, whichever takes longer."""
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    t_ops = flops / PEAK_FLOPS[route] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -553,6 +573,7 @@ def _ops_cases(torch):
     from repro_torch.kernels import lora_apply as la
     from repro_torch.kernels import ops
     from repro_torch.kernels import rank_partition_agg as rpa
+    from repro_torch.kernels import tf32x3
     gen = torch.Generator(device=DEV).manual_seed(3)
     eps = torch.finfo(torch.float32).eps
     cases = []
@@ -608,7 +629,7 @@ def _ops_cases(torch):
             # weights need
             "flop": 2.0 * out_elems * int((om != 0).sum()),
             "flop_dense": 2.0 * out_elems * depth,
-            "check": check,
+            "check": check, "route": "simt_f32",
             "plan": gemm_plan.plan_agg(layers or 1, om.shape[0], d,
                                        om.shape[1], n).report(),
             # the 16-deep slabs the kernel runs, of all
@@ -634,6 +655,26 @@ def _ops_cases(torch):
         b = rand(n, r) * 0.1
         mag = la.lora_apply_plain(x.abs(), w.abs(), a.abs(), b.abs(),
                                   abs(scale))
+        tensor_cores = m > la.GEMV_MAX_ROWS
+
+        def check(got):
+            """The tensor-core route carries f32's precision, not TF32's:
+            against the product in f64, its error stays within one
+            standard deviation of a one-pass TF32 product's error, and
+            the best one-pass TF32 product (TF32 operands summed in f64)
+            exceeds that bound here."""
+            lora = scale * ((x.double() @ a.double().T) @ b.double().T)
+            exact = x.double() @ w.double() + lora
+            tol = tf32x3.one_pass_sigma(x, w)
+            err = float((got.double() - exact).abs().max())
+            one_pass = float((tf32x3.one_pass_matmul(x, w) + lora - exact)
+                             .abs().max())
+            require(err <= tol, f"{label}: error against f64 {err} beyond "
+                                f"a one-pass TF32 product's sigma {tol}")
+            require(one_pass > tol, f"{label}: a one-pass TF32 product "
+                                    f"({one_pass}) holds {tol} too")
+            return {"f64_max_abs_err": err, "tf32_sigma_tol": tol,
+                    "one_pass_tf32_max_abs_err": one_pass}
         cases.append({
             "kernel": "lora_apply", "label": label,
             "call": lambda: ops.lora_apply(x, w, a, b, scale),
@@ -642,8 +683,10 @@ def _ops_cases(torch):
                                            beta=scale),
             "tol": {"atol": (k + r) * eps * float(mag.max()), "rtol": 0},
             "bytes": 4 * (m * k + k * n + r * (k + n) + m * n),
-            "flop": 2.0 * m * k * n + 2.0 * m * r * (k + n), "check": None,
-            "plan": la.describe_plan(m, n, k)})
+            "flop": 2.0 * m * k * n + 2.0 * m * r * (k + n),
+            "check": check if tensor_cores else None,
+            "route": "mma_tf32x3" if tensor_cores else "simt_f32",
+            "plan": la.describe_plan(m, n, k, tensor_cores=True)})
 
     for m in (SLOTS * PROMPT_LEN, SLOTS * 1024):
         for proj, k, n in QWEN_PROJ[:2]:
@@ -672,7 +715,12 @@ def _ops_cases(torch):
                 fa.flash_attention_plain(q, k, v, c, w),
             "library": library, "tol": ATTN_TOL,
             "bytes": 4 * (2 * q.numel() + 2 * k.numel()),
-            "flop": 4.0 * d * h * b * pairs, "check": None})
+            "flop": 4.0 * d * h * b * pairs, "check": None,
+            "route": "mma_tf32x3",
+            "plan": fa.plan_attention(b, length, h, d).report(),
+            # the plain version's (B, H, L, L) scores at hymba's 4096
+            # tokens take 1.7 GB a call: no graph of 20 of them
+            "plain_device": length * length * h * b * 4 < 1e9})
     return cases
 
 
@@ -731,18 +779,24 @@ def phase_kernel_ops(torch, summary: dict) -> dict:
                                   iters=5 if heavy else 20,
                                   warmup=1 if heavy else 3)
         row["library_ms"] = time_ms(torch, case["library"])
-        if case["kernel"] != "flash_attention":
-            # the same calls replayed from a CUDA graph: device time only
-            for key, fn in zip(DEVICE_KEYS, (case["call"], case["plain"],
-                                             case["library"])):
-                row[key] = time_graph_ms(torch, fn)
-            row["kernel_device_tflop_per_s"] = \
-                case["flop"] / row["kernel_device_ms"] / 1e9
-        b_ms, b_by = bound_ms(case["bytes"], case["flop"])
-        row.update({"bound_ms": b_ms, "bound_by": b_by,
+        # the same calls replayed from a CUDA graph: device time only
+        for key, fn in zip(DEVICE_KEYS, (case["call"], case["plain"],
+                                         case["library"])):
+            if key != "plain_device_ms" or case.get("plain_device", True):
+                row[key] = time_graph_ms(torch, fn, iters=5 if heavy
+                                         and fn is case["plain"] else 20)
+        row["kernel_device_tflop_per_s"] = \
+            case["flop"] / row["kernel_device_ms"] / 1e9
+        route = case["route"]
+        b_ms, b_by = bound_ms(case["bytes"], case["flop"], route)
+        row.update({"runs_on": route, "bound_ms": b_ms, "bound_by": b_by,
                     "bytes": case["bytes"], "flop": case["flop"],
                     "kernel_tflop_per_s": case["flop"] / row["kernel_ms"]
                     / 1e9})
+        if route != "simt_f32":
+            # the parent's SIMT kernels faced this bound for the same work
+            row["bound_simt_f32_ms"] = bound_ms(case["bytes"],
+                                                case["flop"])[0]
         for key in ("flop_dense", "plan", "live_slabs"):
             if key in case:
                 row[key] = case[key]
@@ -763,11 +817,14 @@ def phase_kernel_ops(torch, summary: dict) -> dict:
             "ms": sum(r["kernel_ms"] for r in picked),
             "plain_ms": sum(r["plain_ms"] for r in picked),
             "bound_ms": sum(r["bound_ms"] for r in picked),
-            "bound_by": bound_ms(nbytes, flops)[1],
+            "bound_by": bound_ms(nbytes, flops, RUNS_ON[kname])[1],
             "library_ms": sum(r["library_ms"] for r in picked),
             "shape": " + ".join(labels),
-            **{key: sum(r[key] for r in picked) for key in DEVICE_KEYS
+            **{key: sum(r[key] for r in picked)
+               for key in DEVICE_KEYS + ("bound_simt_f32_ms",)
                if all(key in r for r in picked)}}
+        require(all(r["runs_on"] == RUNS_ON[kname] for r in picked),
+                f"{kname}: a summary case runs off {RUNS_ON[kname]}")
     return launches
 
 
@@ -1247,7 +1304,7 @@ def main() -> int:
         kernels.append({"name": name, "route": "cuda",
                         "source": SOURCES[name], "replaces": REPLACES[name],
                         "path": PATHS[name], "launches": require_launch,
-                        **s})
+                        "runs_on": RUNS_ON[name], **s})
     emit({"kernels": kernels})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

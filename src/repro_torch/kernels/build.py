@@ -47,7 +47,8 @@ SIGNATURES = {
         "rank_partition_agg_f32": [_P] * 6 + [_I] * 7 + [_P],
     },
     "flash_attention": {
-        "flash_attention_f32": [_P] * 4 + [_I] * 8 + [_F, _P],
+        "flash_attention_f32": [_P] * 4 + [_I] * 8 + [_F] + [_I] * 2
+        + [_P],
     },
     "ssd_scan": {
         "ssd_scan_f32": [_P] * 9 + [_I] * 8 + [_P],

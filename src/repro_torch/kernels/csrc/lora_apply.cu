@@ -10,9 +10,11 @@
 //
 // K5 replaces src/repro/kernels/lora_apply.py::lora_apply_pallas (contract
 // ref.lora_apply_ref): y = x @ W + s * (x @ A^T) @ B^T with one adapter
-// A (R, K), B (N, R) and a scalar s. It runs the same device code as K4
-// instantiated with kPaged = false: no ids, no page gather, the scale a
-// kernel argument. The TPU kernel kept z = x A^T in a VMEM scratch across
+// A (R, K), B (N, R) and a scalar s. Its shrink, GEMV and split reduce are
+// K4's device code instantiated with kPaged = false: no ids, no page
+// gather, the scale a kernel argument; above 32 rows its base product runs
+// on the tensor cores instead (lora_tc_kernel, below). The TPU kernel kept
+// z = x A^T in a VMEM scratch across
 // its K loop; here z goes to a small (M, R) buffer the wrapper allocates
 // (M*R*4 bytes, 2 MB at 4096 rows and r = 128), written once by the shrink
 // and read by the base product's epilogue.
@@ -50,15 +52,28 @@
 //        order, x W over its K/S-deep range plus S - 1 additions.
 //        Epilogue: the tile's z rows and B_p's rows are staged in shared
 //        memory from contiguous reads and summed by the same register
-//        tile; K4 walks the tile's distinct pages.
-// Every product is an IEEE f32 FMA (no TF32). A row whose page id lies
-// outside [0, P) gets NaN in every column: the wrapper does not read ids
-// back to the host, so a bad id shows in the output instead.
+//        tile; K4 walks the tile's distinct pages;
+//      - K5, M > 32: lora_tc_kernel, x @ W as 3xTF32 on mma.sync
+//        (mma_tf32x3.cuh), f32-accurate at up to a third of the tensor
+//        cores' 495 TFLOP/s where the SIMT SGEMM stops at 67. 128 x 128
+//        tiles, 8 warps of 64 x 32, a 3-stage cp.async ring of 32-deep
+//        slabs (112 KB, and at most 128 registers a thread: two blocks
+//        an SM): x's slab row-major along K (mma's A layout as it stands,
+//        rows padded to 8 mod 32 floats) and W's k-major (rows padded to 4
+//        mod 16), every fragment load conflict-free. The split over K
+//        (gemm_plan.py::plan_gemm_tc) goes through the same (S, M, N)
+//        workspace and lora_split_reduce_kernel; unsplit, the tile adds
+//        the expand itself, in IEEE f32 as above.
+// K4's products and K5's shrink and expand are IEEE f32 FMAs (no TF32). A
+// row whose page id lies outside [0, P) gets NaN in every column: the
+// wrapper does not read ids back to the host, so a bad id shows in the
+// output instead.
 #include <climits>
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "mma_tf32x3.cuh"
 #include "sgemm_f32.cuh"
 
 namespace {
@@ -430,6 +445,259 @@ int launch_sgemm(const float* x, const float* w, const Adapter& ad,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// ---- K5, M > 32: x @ W on the tensor cores (3xTF32), expand in f32
+
+namespace tc {
+
+constexpr int kBM = 128, kBN = 128, kBK = 32;  // tile; slab depth
+constexpr int kStages = 3;                      // slabs in the ring
+constexpr int kThreads = 256;                   // 2 x 4 warps of 64 x 32
+constexpr int kLDA = kBK + 8;     // x slab rows: 8 (mod 32) floats
+constexpr int kLDB = kBN + 4;     // W slab rows: 4 (mod 16) floats
+constexpr int kAFloats = kBM * kLDA, kBFloats = kBK * kLDB;
+constexpr int kSmemBytes = kStages * (kAFloats + kBFloats) * 4;
+constexpr int kR = 32;            // rank columns the expand stages at once
+constexpr int kLDE = kR + 1;
+static_assert(2 * kBM * kLDE <= kStages * (kAFloats + kBFloats),
+              "the expand's staging fits the ring");
+
+// slab [k0, k0 + kBK) of x's rows m0.. into as (as[m][k]) and of W's rows
+// into bs (bs[k][n]), zero past M, N and kend. kVec: 16-byte copies (K % 4
+// == 0, N % 4 == 0, aligned bases; kend is K or a multiple of kBK, so a
+// copy is all in or all out); else 4-byte ones.
+template <bool kVec>
+__device__ __forceinline__ void load_slab(float* as, float* bs,
+                                          const float* __restrict__ x,
+                                          const float* __restrict__ w, int M,
+                                          int K, int N, int m0, int n0,
+                                          int k0, int kend) {
+  const int tid = threadIdx.x;
+  if (kVec) {
+#pragma unroll
+    for (int it = 0; it < kBM * kBK / 4 / kThreads; ++it) {
+      const int e = tid + it * kThreads, r = e >> 3, c = (e & 7) * 4;
+      const bool in = m0 + r < M && k0 + c < kend;
+      sgemm::cp_async16(as + r * kLDA + c,
+                        in ? x + (size_t)(m0 + r) * K + k0 + c : x,
+                        in ? 16 : 0);
+    }
+#pragma unroll
+    for (int it = 0; it < kBK * kBN / 4 / kThreads; ++it) {
+      const int e = tid + it * kThreads, r = e >> 5, c = (e & 31) * 4;
+      const bool in = k0 + r < kend && n0 + c < N;
+      sgemm::cp_async16(bs + r * kLDB + c,
+                        in ? w + (size_t)(k0 + r) * N + n0 + c : w,
+                        in ? 16 : 0);
+    }
+  } else {
+#pragma unroll 4
+    for (int it = 0; it < kBM * kBK / kThreads; ++it) {
+      const int e = tid + it * kThreads, r = e >> 5, c = e & 31;
+      const bool in = m0 + r < M && k0 + c < kend;
+      sgemm::cp_async4(as + r * kLDA + c,
+                       in ? x + (size_t)(m0 + r) * K + k0 + c : x,
+                       in ? 4 : 0);
+    }
+#pragma unroll 4
+    for (int it = 0; it < kBK * kBN / kThreads; ++it) {
+      const int e = tid + it * kThreads, r = e >> 7, c = e & 127;
+      const bool in = k0 + r < kend && n0 + c < N;
+      sgemm::cp_async4(bs + r * kLDB + c,
+                       in ? w + (size_t)(k0 + r) * N + n0 + c : w,
+                       in ? 4 : 0);
+    }
+  }
+}
+
+// out[row][col] for the warp's accumulator (mma C fragments), inside
+// (M, N); 8-byte stores where N is even
+__device__ __forceinline__ void store_frags(float* __restrict__ out,
+                                            const float (&acc)[4][4][4],
+                                            int M, int N, int r0, int c0) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = r0 + mt * 16 + g + 8 * h;
+      if (row >= M) continue;
+      float* o = out + (size_t)row * N;
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const int col = c0 + nt * 8 + 2 * t;
+        const float u = acc[mt][nt][2 * h], v = acc[mt][nt][2 * h + 1];
+        if (col + 1 < N && N % 2 == 0) {
+          *reinterpret_cast<float2*>(o + col) = make_float2(u, v);
+        } else {
+          if (col < N) o[col] = u;
+          if (col + 1 < N) o[col + 1] = v;
+        }
+      }
+    }
+}
+
+}  // namespace tc
+
+// One 128 x 128 output tile of K5 over the depth [z * depth, (z + 1) *
+// depth) of K, as lora_gemm_kernel: one split adds the expand and writes
+// y; more write the partial tile to part[z] for lora_split_reduce_kernel.
+template <bool kVec>
+__global__ void __launch_bounds__(tc::kThreads, 2)
+lora_tc_kernel(const float* __restrict__ x, const float* __restrict__ w,
+               const Adapter ad, const float* __restrict__ z,
+               float* __restrict__ y, float* __restrict__ part, int M,
+               int K, int N, int R, int depth) {
+  extern __shared__ __align__(16) float smem[];
+  float* as = smem;
+  float* bs = smem + tc::kStages * tc::kAFloats;
+  const int m0 = blockIdx.y * tc::kBM, n0 = blockIdx.x * tc::kBN;
+  const int kbeg = blockIdx.z * depth, kend = min(K, kbeg + depth);
+  const int slabs = kend > kbeg ? (kend - kbeg + tc::kBK - 1) / tc::kBK : 0;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wr = (warp >> 2) * 64, wc = (warp & 3) * 32;  // the warp's tile
+  float acc[4][4][4];
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
+
+#pragma unroll
+  for (int st = 0; st < tc::kStages - 1; ++st) {
+    if (st < slabs)
+      tc::load_slab<kVec>(as + st * tc::kAFloats, bs + st * tc::kBFloats, x,
+                          w, M, K, N, m0, n0, kbeg + st * tc::kBK, kend);
+    sgemm::cp_async_commit();       // empty groups keep the count uniform
+  }
+  for (int it = 0; it < slabs; ++it) {
+    sgemm::cp_async_wait<tc::kStages - 2>();   // slab it has landed
+    __syncthreads();                           // ... for all; slab it-1 read
+    const int nx = it + tc::kStages - 1;
+    if (nx < slabs) {
+      const int st = nx % tc::kStages;
+      tc::load_slab<kVec>(as + st * tc::kAFloats, bs + st * tc::kBFloats, x,
+                          w, M, K, N, m0, n0, kbeg + nx * tc::kBK, kend);
+    }
+    sgemm::cp_async_commit();
+    const float* a = as + (it % tc::kStages) * tc::kAFloats + wr * tc::kLDA;
+    const float* b = bs + (it % tc::kStages) * tc::kBFloats + wc;
+#pragma unroll
+    for (int kk = 0; kk < tc::kBK / 8; ++kk) {
+      tf32x3::FragA fa[4];
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt)
+        fa[mt] = tf32x3::load_a_rows(a + mt * 16 * tc::kLDA, tc::kLDA,
+                                     8 * kk, g, t);
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt) {
+        const tf32x3::FragB fb =
+            tf32x3::load_b_cols(b + nt * 8, tc::kLDB, 8 * kk, g, t);
+#pragma unroll
+        for (int mt = 0; mt < 4; ++mt) tf32x3::mma3(acc[mt][nt], fa[mt], fb);
+      }
+    }
+  }
+  sgemm::cp_async_wait<0>();
+  __syncthreads();                  // the ring is free for the epilogue
+
+  if (gridDim.z > 1) {
+    tc::store_frags(part + (size_t)blockIdx.z * M * N, acc, M, N, m0 + wr,
+                    n0 + wc);
+    return;
+  }
+  // acc += s * z[row] . B[col], r in order (the IEEE arithmetic of
+  // expand_tile): the tile's z rows (times s) and B's rows staged r-major
+  // in chunks of kR, each read from contiguous memory
+  float* zs = smem;                 // zs[m * kLDE + r]
+  float* bt = smem + tc::kBM * tc::kLDE;   // bt[n * kLDE + r]
+  for (int r0 = 0; r0 < R; r0 += tc::kR) {
+    __syncthreads();                // the last chunk read by all
+    for (int e = threadIdx.x; e < tc::kBM * tc::kR; e += tc::kThreads) {
+      const int m = e / tc::kR, r = e % tc::kR;
+      zs[m * tc::kLDE + r] = (m0 + m < M && r0 + r < R)
+                                 ? ad.scale * z[(size_t)(m0 + m) * R + r0 + r]
+                                 : 0.f;
+      bt[m * tc::kLDE + r] = (n0 + m < N && r0 + r < R)
+                                 ? ad.b[(size_t)(n0 + m) * R + r0 + r]
+                                 : 0.f;
+    }
+    __syncthreads();
+    const int rn = min(tc::kR, R - r0);
+#pragma unroll 1
+    for (int r = 0; r < rn; ++r) {
+      float zr[4][2], bc[4][2];
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          zr[mt][h] = zs[(wr + mt * 16 + g + 8 * h) * tc::kLDE + r];
+#pragma unroll
+      for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+        for (int c = 0; c < 2; ++c)
+          bc[nt][c] = bt[(wc + nt * 8 + 2 * t + c) * tc::kLDE + r];
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            acc[mt][nt][e] =
+                fmaf(zr[mt][e >> 1], bc[nt][e & 1], acc[mt][nt][e]);
+    }
+  }
+  tc::store_frags(y, acc, M, N, m0 + wr, n0 + wc);
+}
+
+// K5's base product above 32 rows: the host planner's split
+// (lora_apply.py::plan_gemm_tc): 128 x 128 tiles, `splits` ranges of K,
+// each `depth` deep (a multiple of the slab) but the last. Refused unless
+// the splits cover K exactly.
+int launch_tc(const float* x, const float* w, const Adapter& ad,
+              const float* z, float* y, float* part, int M, int K, int N,
+              int R, int bm, int bn, int splits, int depth, cudaStream_t s) {
+  const bool covers =
+      bm == tc::kBM && bn == tc::kBN && splits >= 1 && depth > 0 &&
+      depth % tc::kBK == 0 && (long long)splits * depth >= K &&
+      (splits == 1 || ((long long)(splits - 1) * depth < K && part));
+  if (!covers || (M + tc::kBM - 1) / tc::kBM > 65535 || splits > 65535)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool vec = K % 4 == 0 && N % 4 == 0 &&
+                   (reinterpret_cast<uintptr_t>(x) |
+                    reinterpret_cast<uintptr_t>(w)) % 16 == 0;
+  // the ring's shared memory, granted once a device (setting it costs the
+  // host about a launch)
+  constexpr int kDevices = 16;
+  static bool granted[2][kDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev >= kDevices || !granted[vec][dev]) {
+    err = cudaFuncSetAttribute(
+        vec ? lora_tc_kernel<true> : lora_tc_kernel<false>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, tc::kSmemBytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (dev < kDevices) granted[vec][dev] = true;
+  }
+  dim3 grid((N + tc::kBN - 1) / tc::kBN, (M + tc::kBM - 1) / tc::kBM, splits);
+  if (vec)
+    lora_tc_kernel<true><<<grid, tc::kThreads, tc::kSmemBytes, s>>>(
+        x, w, ad, z, y, part, M, K, N, R, depth);
+  else
+    lora_tc_kernel<false><<<grid, tc::kThreads, tc::kSmemBytes, s>>>(
+        x, w, ad, z, y, part, M, K, N, R, depth);
+  if (splits > 1) {
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+    dim3 rgrid((N + 63) / 64, (M + 63) / 64);
+    lora_split_reduce_kernel<false><<<rgrid, sgemm::kThreads, 0, s>>>(
+        part, splits, ad, z, y, M, N, R, vec);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int NG, bool kPaged>
 void launch_gemv(const float* x, const float* w, const Adapter& ad,
                  const float* z, float* y, int M, int K, int N, int R,
@@ -457,9 +725,14 @@ int lora_apply_launch(const float* x, const float* w, const Adapter& ad,
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  if (M > kGemvMaxRows)
-    return launch_sgemm<kPaged>(x, w, ad, z, y, part, M, K, N, R, bm, bn,
+  if (M > kGemvMaxRows) {
+    if constexpr (kPaged)
+      return launch_sgemm<true>(x, w, ad, z, y, part, M, K, N, R, bm, bn,
                                 splits, depth, s);
+    else
+      return launch_tc(x, w, ad, z, y, part, M, K, N, R, bm, bn, splits,
+                       depth, s);
+  }
   const int vec_w = (N % 4 == 0) && reinterpret_cast<uintptr_t>(w) % 16 == 0;
   const int row_blocks = (M + kGemvRows - 1) / kGemvRows;
   // widest column tile that still gives every SM a block (132 SMs)
@@ -492,7 +765,8 @@ extern "C" int batched_lora_apply_f32(const float* x, const float* w,
 }
 
 // K5: x (M, K), W (K, N), A (R, K), B (N, R), both contiguous; z (M, R)
-// scratch; y (M, N); part and the plan as for K4.
+// scratch; y (M, N); part as for K4, the plan plan_gemm_tc's (128 x 128,
+// depth a multiple of 32).
 extern "C" int lora_apply_f32(const float* x, const float* w, const float* a,
                               const float* b, float* z, float* y, float* part,
                               int M, int K, int N, int R, float scale, int bm,

@@ -1,7 +1,8 @@
 """Host plans for the f32 SGEMM mainloop of ``csrc/sgemm_f32.cuh``, which
-K2 (``gram.cu``), K3 (``rank_partition_agg.cu``), K4 and K5
-(``lora_apply.cu``) share: the output tile a block owns, and the split of
-the contraction depth into ranges, one block each, whose partial tiles
+K2 (``gram.cu``), K3 (``rank_partition_agg.cu``) and K4 (``lora_apply.cu``)
+share, and for K5's tensor-core product (``lora_apply.cu``'s
+``lora_tc_kernel``, 3xTF32): the output tile a block owns, and the split
+of the contraction depth into ranges, one block each, whose partial tiles
 are summed in range order (no atomics, so a repeat gives the same bits).
 
 The plans are pure Python and cached: every wrapper call plans, and the
@@ -29,6 +30,11 @@ GRAM_RESIDENT = 4         # gram.cu's blocks an SM holds (<= 64 registers)
 # than two of 128 x 128
 AGG_TILE = (64, 128)
 AGG_RESIDENT = 3
+# K5's tensor-core route: one 128 x 128 tile, 32-deep slabs, and two
+# blocks an SM (112 KB of cp.async ring, <= 128 registers a thread)
+TC_TILE = (128, 128)
+TC_SLAB = 32
+TC_RESIDENT = 2
 
 
 class GemmPlan(NamedTuple):
@@ -165,3 +171,26 @@ def plan_agg(layers: int, m: int, d: int, r: int, n: int) -> GemmPlan:
     bm, bn = AGG_TILE
     return _plan_tile(bm, bn, layers * -(-d // bm) * -(-n // bn), m * r,
                       AGG_RESIDENT)
+
+
+@functools.lru_cache(maxsize=1024)
+def plan_gemm_tc(m: int, n: int, k: int) -> GemmPlan:
+    """K5's split over K on the tensor-core route (``TC_TILE`` tiles,
+    ``TC_RESIDENT`` blocks an SM): the most splits, each at least
+    ``MIN_SPLIT_DEPTH`` deep and a multiple of ``TC_SLAB``, whose blocks
+    all run at once; unsplit where the tiles alone are more. At Qwen2-7B's
+    128 rows, q's 28 tiles in 9 splits of 416 (252 blocks) and k's 4 in 28
+    of 128 (112); at 4096 rows q's 896 tiles unsplit and k's 128 in 2
+    splits of 1792 (256 blocks)."""
+    bm, bn = TC_TILE
+    tiles = -(-m // bm) * -(-n // bn)
+    best = GemmPlan(bm, bn, 1, max(TC_SLAB, _round_up(k, TC_SLAB)), tiles)
+    s = 2
+    while True:
+        depth = _round_up(-(-k // s), TC_SLAB)
+        plan = GemmPlan(bm, bn, -(-k // max(depth, 1)), depth, tiles)
+        if depth < MIN_SPLIT_DEPTH or plan.blocks > TC_RESIDENT * SMS:
+            return best
+        if plan.splits > best.splits:
+            best = plan
+        s += 1

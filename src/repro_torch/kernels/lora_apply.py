@@ -9,13 +9,15 @@ and K5, the single-adapter apply y = x @ W + s * (x @ A^T) @ B^T
 (replaces ``lora_apply_pallas``; no model calls it, the kernel API ``ops``
 does). Both run ``csrc/lora_apply.cu``, K5 without the page gather.
 
-Above ``GEMV_MAX_ROWS`` rows the base product is the f32 SGEMM of
-``csrc/sgemm_f32.cuh``; ``gemm_plan.plan_gemm`` chooses its tile and its
-split over K from the shapes, here on the host, and the wrapper passes
-the plan (and a workspace for the partial tiles) to the C entry.
-``*_split_plain`` repeat that arithmetic in PyTorch: K cut as the plan
-cuts it, the partials summed in the kernel's order, then the adapter
-term.
+Above ``GEMV_MAX_ROWS`` rows the base product is K4's f32 SGEMM of
+``csrc/sgemm_f32.cuh`` (``gemm_plan.plan_gemm`` chooses its tile and its
+split over K) and K5's 3xTF32 product on the tensor cores
+(``csrc/mma_tf32x3.cuh``; ``gemm_plan.plan_gemm_tc``); the plan is made
+here on the host, and the wrapper passes it (and a workspace for the
+partial tiles) to the C entry. ``batched_lora_apply_split_plain`` and
+``lora_apply_tf32x3_plain`` repeat that arithmetic in PyTorch: K cut as
+the plan cuts it, the partials (K5's from 3xTF32 products) summed in the
+kernel's order, then the adapter term.
 
 ``*_plain`` are the plain PyTorch versions; each wrapper computes its plain
 version for CPU tensors and launches the CUDA kernel for CUDA tensors, with
@@ -27,10 +29,10 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, tf32x3
 from repro_torch.kernels.gemm_plan import (  # noqa: F401 (kept importable)
     MIN_SPLIT_DEPTH, RESIDENT, SLAB, SMS, TILES, WAVE, GemmPlan, plan_gemm,
-    split_ranges, split_sum)
+    plan_gemm_tc, split_ranges, split_sum)
 from repro_torch.kernels.rank_partition_agg import _same_device, _stream
 
 
@@ -66,29 +68,42 @@ def lora_apply_plain(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
 GEMV_MAX_ROWS = 32        # up to this many rows: the GEMV route, no plan
 
 
-def describe_plan(m: int, n: int, k: int) -> dict:
-    """The route and plan of an (m, k) @ (k, n) call, for reports."""
+def _plan(m: int, n: int, k: int, tensor_cores: bool) -> GemmPlan:
+    return (plan_gemm_tc if tensor_cores else plan_gemm)(m, n, k)
+
+
+def describe_plan(m: int, n: int, k: int, tensor_cores: bool = False
+                  ) -> dict:
+    """The route and plan of an (m, k) @ (k, n) call, for reports: K4's
+    (the SIMT SGEMM) or, with ``tensor_cores``, K5's (3xTF32)."""
     if m <= GEMV_MAX_ROWS:
         return {"route": "gemv"}
-    return {"route": "sgemm", **plan_gemm(m, n, k).report()}
+    return {"route": "mma_tf32x3" if tensor_cores else "sgemm",
+            **_plan(m, n, k, tensor_cores).report()}
 
 
-def _sgemm_args(m: int, n: int, k: int, device) -> tuple:
+def _sgemm_args(m: int, n: int, k: int, device,
+                tensor_cores: bool = False) -> tuple:
     """(workspace or None, bm, bn, splits, depth) for the C entry."""
     if m <= GEMV_MAX_ROWS:
         return None, 0, 0, 1, 0
-    p = plan_gemm(m, n, k)
+    p = _plan(m, n, k, tensor_cores)
     part = torch.empty((p.splits, m, n), dtype=torch.float32,
                        device=device) if p.splits > 1 else None
     return part, p.bm, p.bn, p.splits, p.depth
 
 
-def _split_product(x2: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x2 @ w as the SGEMM route sums it: one partial product per range
-    of the plan, added in range order."""
+def _split_product(x2: torch.Tensor, w: torch.Tensor,
+                   tensor_cores: bool = False) -> torch.Tensor:
+    """x2 @ w as the kernel's route sums it: one partial product per range
+    of the plan (3xTF32 on K5's tensor-core route), added in range
+    order."""
     m, k = x2.shape
-    depth = plan_gemm(m, w.shape[1], k).depth if m > GEMV_MAX_ROWS else k
-    return split_sum(lambda k0, k1: x2[:, k0:k1] @ w[k0:k1], k, depth)
+    depth = _plan(m, w.shape[1], k, tensor_cores).depth \
+        if m > GEMV_MAX_ROWS else k
+    product = tf32x3.matmul if tensor_cores else torch.matmul
+    return split_sum(lambda k0, k1: product(x2[:, k0:k1], w[k0:k1]), k,
+                     depth)
 
 
 def batched_lora_apply_split_plain(x: torch.Tensor, w: torch.Tensor,
@@ -108,14 +123,19 @@ def batched_lora_apply_split_plain(x: torch.Tensor, w: torch.Tensor,
     return y.reshape(lead + (w.shape[-1],))
 
 
-def lora_apply_split_plain(x: torch.Tensor, w: torch.Tensor,
-                           a: torch.Tensor, b: torch.Tensor,
-                           scale: float = 1.0) -> torch.Tensor:
-    """``lora_apply_plain`` with the base product split over K as
-    ``plan_gemm`` splits it; (M, N) f32."""
+def lora_apply_tf32x3_plain(x: torch.Tensor, w: torch.Tensor,
+                            a: torch.Tensor, b: torch.Tensor,
+                            scale: float = 1.0) -> torch.Tensor:
+    """K5's routes in PyTorch: above ``GEMV_MAX_ROWS`` rows the base product
+    split over K as ``plan_gemm_tc`` splits it, each partial from the three
+    TF32 passes (``tf32x3.matmul``); at most that many, the GEMV's one
+    IEEE f32 product; then the shrink and expand in IEEE f32; (M, N)
+    f32."""
     xf = x.float()
     z = xf @ a.float().T
-    return _split_product(xf, w.float()) + (scale * z) @ b.float().T
+    tensor_cores = xf.shape[0] > GEMV_MAX_ROWS
+    return _split_product(xf, w.float(), tensor_cores) + \
+        (scale * z) @ b.float().T
 
 
 def _check(name: str, t: torch.Tensor, ndim: int, dtype) -> None:
@@ -190,7 +210,8 @@ def batched_lora_apply(x: torch.Tensor, w: torch.Tensor,
 def lora_apply(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
                b: torch.Tensor, scale: float = 1.0) -> torch.Tensor:
     """K5: x (M, K); w (K, N); a (r, K); b (N, r), all f32 contiguous;
-    ``scale`` a Python number -> (M, N) f32."""
+    ``scale`` a Python number -> (M, N) f32. Above ``GEMV_MAX_ROWS`` rows
+    x @ W runs as 3xTF32 on the tensor cores (``plan_gemm_tc``)."""
     for name, t in (("x", x), ("w", w), ("a", a), ("b", b)):
         _check(f"lora_apply {name}", t, 2, torch.float32)
         if not t.is_contiguous():
@@ -208,7 +229,7 @@ def lora_apply(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
         return lora_apply_plain(x, w, a, b, scale)
     y = torch.empty((m, n), dtype=torch.float32, device=x.device)
     z = torch.empty((m, r), dtype=torch.float32, device=x.device)
-    part, *plan = _sgemm_args(m, n, k, x.device)
+    part, *plan = _sgemm_args(m, n, k, x.device, tensor_cores=True)
     fn = "lora_apply_f32"
     rc = getattr(build.library("lora_apply"), fn)(
         x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(), z.data_ptr(),

@@ -15,6 +15,7 @@ from repro_torch.kernels import lora_apply as la
 from repro_torch.kernels import ops
 from repro_torch.kernels import rank_partition_agg as rpa
 from repro_torch.kernels import ssd_scan as k6
+from repro_torch.kernels import tf32x3
 
 
 @pytest.fixture
@@ -459,11 +460,13 @@ def test_cuda_ops_rank_partition_agg_fallback_and_k1(cuda_device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,k,n,r", [
     (4, 3584, 512, 16), (128, 3584, 512, 16),        # Qwen2-7B's k proj
-    (300, 130, 520, 12), (7, 37, 23, 5), (64, 64, 64, 64), (5, 40, 24, 0)])
+    (300, 130, 520, 12), (7, 37, 23, 5), (64, 64, 64, 64), (5, 40, 24, 0),
+    (4096, 3584, 512, 16)])                          # k at 4096 rows
 def test_cuda_lora_apply_single_matches_plain(cuda_device, m, k, n, r):
     """K5 against its plain version on both launch paths (GEMV for at most
-    32 rows, SGEMM above), at odd shapes and at r = 0, within (K + r) eps
-    max(|x| |W| + |s| |x| |A|^T |B|^T); two launches bit-equal."""
+    32 rows, 3xTF32 on the tensor cores above), at odd shapes and at r = 0,
+    within (K + r) eps max(|x| |W| + |s| |x| |A|^T |B|^T); two launches
+    bit-equal."""
     rng = np.random.default_rng(16)
     x, w, a, b = (torch.from_numpy(v.astype(np.float32)).to(cuda_device)
                   for v in (rng.normal(size=(m, k)),
@@ -482,17 +485,71 @@ def test_cuda_lora_apply_single_matches_plain(cuda_device, m, k, n, r):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("m,n", [(4096, 512), (128, 3584), (64, 512)])
+def test_cuda_lora_apply_tensor_cores_beat_one_pass_tf32(cuda_device, m, n):
+    """K5's tensor-core route at Qwen2-7B's depth (K 3584) has f32's
+    precision, not TF32's: against the product in f64 its error stays
+    within one standard deviation of a one-pass TF32 product's error
+    (``tf32x3.one_pass_sigma``), and the most accurate one-pass TF32
+    product on the same card (TF32 operands summed in f64) exceeds it."""
+    k, r = 3584, 16
+    rng = np.random.default_rng(22)
+    x, w, a, b = (torch.from_numpy(v.astype(np.float32)).to(cuda_device)
+                  for v in (rng.normal(size=(m, k)),
+                            rng.normal(size=(k, n)) * k ** -0.5,
+                            rng.normal(size=(r, k)) * k ** -0.5,
+                            rng.normal(size=(n, r)) * 0.1))
+    lora = 2.0 * ((x.double() @ a.double().T) @ b.double().T)
+    exact = x.double() @ w.double() + lora
+    tol = tf32x3.one_pass_sigma(x, w)
+    got = la.lora_apply(x, w, a, b, 2.0)
+    one_pass = tf32x3.one_pass_matmul(x, w) + lora
+    assert float((got.double() - exact).abs().max()) <= tol
+    assert float((one_pass - exact).abs().max()) > tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [20, 64])
+def test_cuda_lora_apply_infinite_x_gives_nan_on_the_tensor_cores(
+        cuda_device, m):
+    """The deliberate divergence of the 3xTF32 route: one infinite x turns
+    its row into NaN above 32 rows (its TF32 lo part is inf - inf), where
+    the plain version, like the GEMV at most 32 rows, gives +-inf; the
+    other rows stay within the tolerance."""
+    rng = np.random.default_rng(23)
+    x, w = (torch.from_numpy(v.astype(np.float32)).to(cuda_device)
+            for v in (rng.normal(size=(m, 300)),
+                      rng.normal(size=(300, 40)) * 300 ** -0.5))
+    a, b = x.new_zeros(0, 300), x.new_zeros(40, 0)
+    x[5, 7] = float("inf")
+    got = la.lora_apply(x, w, a, b, 1.0)
+    want = la.lora_apply_plain(x, w, a, b, 1.0)
+    assert bool(torch.isinf(want[5]).all())
+    if m > la.GEMV_MAX_ROWS:
+        assert bool(torch.isnan(got[5]).all())
+    else:
+        assert torch.equal(got[5], want[5])
+    keep = torch.arange(m, device=cuda_device) != 5
+    mag = la.lora_apply_plain(x[keep].abs(), w.abs(), a, b, 1.0)
+    tol = 300 * torch.finfo(torch.float32).eps * float(mag.max())
+    assert float((got[keep] - want[keep]).abs().max()) <= tol
+
+
+@pytest.mark.cuda
 def test_cuda_ops_lora_apply_split(cuda_device):
     """K5 through ``ops`` at Qwen2-7B's k projection for 2 x 64 rows (the
-    SGEMM split 16 ways over K), r 12 padded to 16 by ``ops``: within
-    (K + r) eps max of the plain version, one launch, repeat bit-equal."""
+    tensor-core product split 28 ways over K), r 12 padded to 16 by
+    ``ops``: within (K + r) eps max of the plain version, one launch,
+    repeat bit-equal."""
     rng = np.random.default_rng(19)
     x, w, a, b = (torch.from_numpy(v.astype(np.float32)).to(cuda_device)
                   for v in (rng.normal(size=(2, 64, 3584)),
                             rng.normal(size=(3584, 512)) * 3584 ** -0.5,
                             rng.normal(size=(12, 3584)) * 3584 ** -0.5,
                             rng.normal(size=(512, 12))))
-    assert la.plan_gemm(128, 512, 3584).splits == 16
+    assert la.plan_gemm_tc(128, 512, 3584).splits == 28
+    assert la.describe_plan(128, 512, 3584, tensor_cores=True)["route"] == \
+        "mma_tf32x3"
     mag = la.lora_apply_plain(x.abs().reshape(128, -1), w.abs(), a.abs(),
                               b.abs(), 1.5)
     tol = (3584 + 16) * torch.finfo(torch.float32).eps * float(mag.max())
@@ -531,13 +588,18 @@ def test_cuda_ops_lora_apply_bf16(cuda_device):
     (1, 129, 129, 2, 1, 128, True, 0), (1, 70, 70, 3, 1, 192, True, 0),
     (1, 150, 150, 2, 1, 256, True, 0), (1, 65, 65, 2, 2, 256, False, 16),
     (2, 40, 100, 4, 2, 16, True, 0), (2, 100, 40, 4, 2, 16, True, 0),
-    (2, 50, 20, 4, 2, 16, False, 4)])       # rows that see no key
+    (2, 50, 20, 4, 2, 16, False, 4),        # rows that see no key
+    (2, 1, 1, 4, 2, 64, True, 0), (1, 17, 17, 3, 1, 128, True, 0),  # q tiles
+    (1, 90, 90, 4, 2, 12, True, 0), (1, 90, 70, 2, 2, 36, False, 8),  # D % 8
+    (2, 33, 33, 2, 1, 18, True, 0)])        # D % 4: 4-byte copies
 def test_cuda_flash_attention_matches_plain(cuda_device, b, lq, lkv, h, kvh,
                                             d, causal, window):
     """K7 against its plain version at the reference test's tolerance (atol
     2e-5, rtol 1e-4) for every head dim the configs use (64, 80, 128,
     192, 256) and the tests' (16, 32), ragged lengths, Lq != Lkv, windows
-    and rows with no visible key; two launches bit-equal."""
+    and rows with no visible key, L 1 and 17 (one q tile, mostly past Lq)
+    and D 12, 36 and 18 (zero-padded to 16, 40 and 24; 18 by 4-byte
+    copies); two launches bit-equal."""
     rng = np.random.default_rng(18)
     q, k, v = (torch.from_numpy(x.astype(np.float32)).to(cuda_device)
                for x in (rng.normal(size=(b, lq, h, d)),
@@ -553,9 +615,86 @@ def test_cuda_flash_attention_matches_plain(cuda_device, b, lq, lkv, h, kvh,
 
 
 @pytest.mark.cuda
+def test_cuda_flash_attention_infinite_key_gives_nan(cuda_device):
+    """The deliberate divergence of the 3xTF32 route: with one infinite
+    entry in key 10, every row that sees that key gives NaN (its TF32 lo
+    part is inf - inf), where the plain version gives NaN only for the rows
+    whose score is +inf and finite rows for those at -inf; rows that do
+    not see the key stay within the tolerance."""
+    rng = np.random.default_rng(24)
+    q, k, v = (torch.from_numpy(x.astype(np.float32)).to(cuda_device)
+               for x in (rng.normal(size=(1, 40, 2, 16)),
+                         rng.normal(size=(1, 40, 1, 16)),
+                         rng.normal(size=(1, 40, 1, 16))))
+    k[0, 10, 0, 3] = float("inf")
+    got = fa.flash_attention(q, k, v, True, 0)
+    want = fa.flash_attention_plain(q, k, v, True, 0)
+    assert bool(torch.isnan(got[:, 10:]).all())
+    assert bool(torch.isfinite(want[:, 10:]).all(dim=-1).any())
+    torch.testing.assert_close(got[:, :10], want[:, :10], atol=2e-5,
+                               rtol=1e-4)
+
+
+@pytest.mark.cuda
 def test_cuda_flash_attention_refuses_wide_heads(cuda_device):
     q = torch.zeros(1, 8, 1, 272, device=cuda_device)
     before = fa.flash_attention.launches
     with pytest.raises(ValueError, match="head dim"):
         fa.flash_attention(q, q, q)
     assert fa.flash_attention.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,kv_tile", [(64, 64), (256, 16)])
+@pytest.mark.parametrize("warps", [1, 2, 3, 4])
+def test_cuda_flash_attention_plans_give_the_same_bits(cuda_device, d,
+                                                       kv_tile, warps):
+    """A warp's 16 rows, its band and its kv tiles do not depend on how
+    many warps share a block: every plan gives the wrapper's bits, within
+    the tolerance of the plain version (causal with a window, ragged L,
+    GQA)."""
+    rng = np.random.default_rng(20)
+    q, k, v = (torch.from_numpy(x.astype(np.float32)).to(cuda_device)
+               for x in (rng.normal(size=(2, 150, 4, d)),
+                         rng.normal(size=(2, 150, 2, d)),
+                         rng.normal(size=(2, 150, 2, d))))
+    want = fa.flash_attention(q, k, v, True, 40)
+    smem = fa.attention_smem(d, kv_tile, warps)
+    plan = fa.AttnPlan(warps, kv_tile, 0, 0, smem, 0)
+    got = fa._launch(q, k, v, True, 40, plan)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    torch.testing.assert_close(got, fa.flash_attention_plain(q, k, v, True,
+                                                             40),
+                               atol=2e-5, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_refuses_a_foreign_kv_tile(cuda_device):
+    """The kv tile is the one built for D's size class; another raises."""
+    q = torch.zeros(1, 8, 2, 64, device=cuda_device)
+    plan = fa.AttnPlan(2, 32, 0, 0, 0, 0)
+    with pytest.raises(RuntimeError, match="flash_attention_f32"):
+        fa._launch(q, q, q, True, 0, plan)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n", [(128, 512), (4096, 3584)])
+def test_cuda_batched_lora_apply_keeps_the_simt_route(cuda_device, m, n):
+    """K4 stays on the IEEE f32 SGEMM of sgemm_f32.cuh: its calls report
+    plan_gemm's plan on the "sgemm" route (K5's report "mma_tf32x3"), and
+    a call launches K4 alone, within K4's tolerance of its plain version."""
+    k = 3584
+    plan = la.describe_plan(m, n, k)
+    assert plan["route"] == "sgemm"
+    assert plan["splits"] == la.plan_gemm(m, n, k).splits
+    assert la.describe_plan(m, n, k, tensor_cores=True)["route"] == \
+        "mma_tf32x3"
+    case = _lora_case(21, m, k, n, 4, 16, cuda_device)
+    before = (la.batched_lora_apply.launches, la.lora_apply.launches)
+    got = la.batched_lora_apply(**case)
+    torch.cuda.synchronize()
+    assert (la.batched_lora_apply.launches, la.lora_apply.launches) == (
+        before[0] + 1, before[1])
+    want = la.batched_lora_apply_plain(**case)
+    assert float((got - want).abs().max()) <= _lora_tol(case)

@@ -29,7 +29,7 @@ MODULES = [
     "repro_torch.kernels.flash_attention", "repro_torch.kernels.gemm_plan",
     "repro_torch.kernels.lora_apply",
     "repro_torch.kernels.ops", "repro_torch.kernels.rank_partition_agg",
-    "repro_torch.kernels.ssd_scan",
+    "repro_torch.kernels.ssd_scan", "repro_torch.kernels.tf32x3",
     "repro_torch.models", "repro_torch.models.transformer",
     "repro_torch.models.layers.attention", "repro_torch.models.layers.dense",
     "repro_torch.models.layers.mlp", "repro_torch.models.layers.norms",

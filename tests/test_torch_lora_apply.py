@@ -206,13 +206,18 @@ def _split_tol(x, w, a, b, s):
 
 
 @pytest.mark.parametrize("m,k,n,r", [
-    (40, 1024, 40, 8),       # one 64 x 128 tile: 8 splits of 128
+    (40, 1024, 40, 8),       # one tile: 8 splits of 128
     (70, 600, 24, 5),        # 5 splits, the last 88 deep (not a slab)
     (35, 72, 56, 16),        # one split
-    (20, 300, 30, 4)])       # the GEMV route: one range
+    (20, 300, 30, 4),        # the GEMV route: one IEEE f32 product
+    (40, 3584, 64, 16),      # Qwen2-7B's depth: 28 splits of 128
+    (300, 130, 520, 12),     # the reference test's odd shape
+    (128, 256, 192, 16)])
 def test_lora_apply_split_plain_matches_oracle(m, k, n, r):
-    """K5's split emulation against ``ref.lora_apply_ref`` (JAX, CPU) at
-    the kernel's tolerance (K + r) eps max(|x||W| + |s||x||A|^T|B|^T)."""
+    """K5's arithmetic in PyTorch (``lora_apply_tf32x3_plain``: above 32
+    rows ``plan_gemm_tc``'s ranges, 3xTF32 partials summed in range order;
+    at most 32, the GEMV's IEEE f32 product) against ``ref.lora_apply_ref`` (JAX, CPU) at the kernel's unchanged
+    tolerance (K + r) eps max(|x||W| + |s||x||A|^T|B|^T)."""
     rng = np.random.default_rng(m + k + n + r)
     x = rng.normal(size=(m, k)).astype(np.float32)
     w = (rng.normal(size=(k, n)) * k ** -0.5).astype(np.float32)
@@ -220,8 +225,8 @@ def test_lora_apply_split_plain_matches_oracle(m, k, n, r):
     b = rng.normal(size=(n, r)).astype(np.float32)
     want = np.asarray(ref.lora_apply_ref(*map(jnp.asarray, (x, w, a, b)),
                                          -0.75))
-    got = la.lora_apply_split_plain(*map(torch.from_numpy, (x, w, a, b)),
-                                    -0.75)
+    got = la.lora_apply_tf32x3_plain(*map(torch.from_numpy, (x, w, a, b)),
+                                     -0.75)
     tol = _split_tol(x, w, np.broadcast_to(a, (m, r, k)),
                      np.broadcast_to(b, (m, n, r)), np.full(m, 0.75))
     assert got.shape == (m, n) and got.dtype == torch.float32
