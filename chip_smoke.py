@@ -11,18 +11,20 @@ JAX. Phases, each printing one JSON line:
 2. kernels        each kernel against its plain PyTorch version on the card
                   at the shapes its main path gives it (K1/K2: the
                   vit-base round's buckets; K4: Qwen2-7B's q/k/v/o at
-                  decode and prefill), with times, bounds and library
-                  yardsticks; K2's to K5's and K7's rows carry their plan
-                  (tile, splits over the depth, blocks; K5 and K7 on the
-                  route "mma_tf32x3") and TFLOP/s, and beside their eager
-                  times the device times of the same calls replayed from a
-                  CUDA graph (``*_device_ms``); K2 and K3 must repeat bit
-                  for bit. Every row's ``bound_ms`` takes the operations
-                  at the peak of the route the row runs on: the CUDA
-                  cores' 67 TFLOP/s of IEEE f32, or 3xTF32's 165 on the
-                  tensor cores (K5 above 32 rows, K7; their rows also
-                  carry ``bound_simt_f32_ms``, the same work at 67, and
-                  the summary's ``runs_on`` names the route).
+                  decode and prefill; K6: mamba2-1.3b's prefill layer),
+                  with times, bounds and library yardsticks; K2's to K7's
+                  rows carry their plan (tile, splits over the depth,
+                  blocks; K6's four CUDA launches a call; K5, K6 and K7
+                  on the route "mma_tf32x3") and TFLOP/s, K1's GB/s, and
+                  every row beside its eager times the device times of
+                  the same calls replayed from a CUDA graph
+                  (``*_device_ms``); K2, K3 and K6 must repeat bit for
+                  bit. Every row's ``bound_ms`` takes the operations at
+                  the peak of the route the row runs on: the CUDA cores'
+                  67 TFLOP/s of IEEE f32, or 3xTF32's 165 on the tensor
+                  cores (K5 above 32 rows, K6, K7; their rows also carry
+                  ``bound_simt_f32_ms``, the same work at 67, and the
+                  summary's ``runs_on`` names the route).
 3. round_small    one fedvit-tiny (d_model=32) round on cuda and on cpu
                   from the same weights and seed; products and spectra
                   must agree to the kernel-path tolerance.
@@ -43,13 +45,17 @@ JAX. Phases, each printing one JSON line:
 8. serve_mamba2_1p3b  main path 3: Mamba-2 1.3B at full width in f32, 4
                   slots of 1024-token prompts (4 chunks of 256) and 16 new
                   tokens over 3 tenants at ranks 16/8/4 with a hot swap;
-                  K6 must launch 48 times in the admit call and never in a
-                  decode step, and the tokens must equal the plain path's.
+                  K6 must be called 48 times in the admit call (its
+                  wrapper's count; four CUDA launches a call) and never in
+                  a decode step, and the tokens must equal the plain path's.
 9. kernel summary one {"kernels": [...]} line, then the card's name and
                   power limit, then the final {"ok": true, ...} line.
 
 The kernels phase holds K6 to its plain version at mamba2-1.3b's prefill
-shape (with and without an initial state) and at an odd shape after K4.
+shape (with and without an initial state) and at an odd shape after K4,
+and at the full shape against a float64 run within a one-pass TF32 run's
+error bound (``ssd_scan.one_pass_bound``), which the one-pass run itself
+must leave.
 Then the kernel_ops phase drives the kernel API ``repro_torch.kernels.ops``
 once at full width (the path of K3, K5 and K7, which no model or round
 calls, in the reference either) and holds each result to its plain
@@ -92,8 +98,7 @@ PEAK_TF32X3_FLOPS = 495e12 / 3
 # the operations' peak by route: IEEE f32 on the CUDA cores, or 3xTF32 on
 # the tensor cores (csrc/mma_tf32x3.cuh)
 PEAK_FLOPS = {"simt_f32": PEAK_F32_FLOPS, "mma_tf32x3": PEAK_TF32X3_FLOPS}
-# K2's, K3's, K4's and K5's rows also carry their graph-replayed device
-# times
+# every kernel's row also carries its graph-replayed device times
 DEVICE_KEYS = ("kernel_device_ms", "plain_device_ms", "library_device_ms")
 REPLACES = {
     "weighted_stack_b": "src/repro/kernels/rank_partition_agg.py:198",
@@ -125,7 +130,8 @@ SOURCES = {
 # summary's cases; K5 at most 32 rows runs its IEEE f32 GEMV, and each
 # kernel_ops row names its own route
 RUNS_ON = {name: "simt_f32" for name in REPLACES}
-RUNS_ON.update(lora_apply="mma_tf32x3", flash_attention="mma_tf32x3")
+RUNS_ON.update(lora_apply="mma_tf32x3", flash_attention="mma_tf32x3",
+               ssd_scan="mma_tf32x3")
 # the main path each kernel's launches are counted on
 PATHS = {"weighted_stack_b": "round_vit_base",
          "weighted_stack_a": "round_vit_base", "gram_left": "round_vit_base",
@@ -286,17 +292,18 @@ def phase_kernels(torch, summary: dict):
                    "kernel_gb_per_s": nbytes / k_ms / 1e6,
                    "kernel_tflop_per_s": flops / k_ms / 1e9}
             if kname.startswith("gram"):
-                # K2's plan, a second launch bit-equal, and the same calls
-                # replayed from a CUDA graph: device time only
+                # K2's plan and a second launch bit-equal
                 require(torch.equal(got, kern(*args)),
                         f"{kname} {name}: not deterministic")
                 row["plan"] = gemm_plan.plan_gram(layers, rr, depth).report()
-                for key, fn in zip(DEVICE_KEYS, (lambda: kern(*args),
-                                                 lambda: plain(*args),
-                                                 library)):
-                    row[key] = time_graph_ms(torch, fn)
-                row["kernel_device_tflop_per_s"] = \
-                    flops / row["kernel_device_ms"] / 1e9
+            # the same calls replayed from a CUDA graph: device time only
+            for key, fn in zip(DEVICE_KEYS, (lambda: kern(*args),
+                                             lambda: plain(*args), library)):
+                row[key] = time_graph_ms(torch, fn)
+            row["kernel_device_tflop_per_s"] = \
+                flops / row["kernel_device_ms"] / 1e9
+            row["kernel_device_gb_per_s"] = \
+                nbytes / row["kernel_device_ms"] / 1e6
             rows.append(row)
             s = summary.setdefault(kname, {
                 "max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
@@ -505,10 +512,36 @@ def _scan_work(shape, init: bool) -> tuple:
     return nbytes, 2.0 * mac
 
 
+def _scan_precision(torch, k6, args, chunk, y) -> dict:
+    """K6's route carries f32's precision, not TF32's: against a float64
+    run, y stays at every output within ``ssd_scan.one_pass_bound`` (a
+    one-pass TF32 run's error sigma there plus f32's rounding bound), and
+    the same decomposition with each product in one TF32 pass at its most
+    accurate leaves it. Reports the largest error over bound of each."""
+    want = k6.ssd_scan_f64(*args, chunk)[0]
+    bound = k6.one_pass_bound(*args, chunk)
+    err = (y.double() - want).abs()
+    one_pass = (k6.ssd_scan_one_pass_tf32(*args, chunk)[0] - want).abs()
+    ratio = float((err / bound).max())
+    one_ratio = float((one_pass / bound).max())
+    require(ratio <= 1, f"ssd_scan: error against f64 {ratio} times the "
+                        "one-pass TF32 bound")
+    require(one_ratio > 1, f"ssd_scan: a one-pass TF32 run holds the bound "
+                           f"too ({one_ratio})")
+    return {"f64_max_abs_err": float(err.max()),
+            "f64_err_over_bound": ratio,
+            "one_pass_tf32_max_abs_err": float(one_pass.max()),
+            "one_pass_tf32_err_over_bound": one_ratio,
+            "one_pass_bound_max": float(bound.max())}
+
+
 def phase_kernel_ssd_scan(torch, summary: dict):
     """K6 vs its plain version at mamba2-1.3b's prefill shape and at an odd
     shape, each without and with an initial state; two launches must be
-    bit-equal. Times at the full shape."""
+    bit-equal. Every row prints the plan (CUDA launches a call, blocks a
+    launch, route). At the full shape: eager and device times, TFLOP/s of
+    the counted work (``_scan_work``) and of the work done (the plan's),
+    and the check that tells 3xTF32 from one TF32 pass."""
     from repro_torch.kernels import ssd_scan as k6
     gen = torch.Generator(device=DEV).manual_seed(2)
     rows = []
@@ -533,19 +566,34 @@ def phase_kernel_ssd_scan(torch, summary: dict):
             y2, s2 = kern()
             require(torch.equal(y, y2) and torch.equal(s, s2),
                     f"ssd_scan {name} init={init}: not deterministic")
-            bsz, _, h, p, _, _, _ = shape
+            bsz, length, h, p, g, n, _ = shape
+            plan = k6.plan_scan(bsz, length, h, p, g, n, min(chunk, length))
             row = {"kernel": "ssd_scan", "shape": name, "init_state": init,
                    "bLhpgnq": list(shape), "max_abs_err": err,
-                   "tol": SCAN_TOL, "splits": k6._splits(bsz, h, p, y.device)}
+                   "tol": SCAN_TOL, "plan": plan.report()}
             if name == "full":
                 nbytes, flops = _scan_work(shape, init)
                 k_ms = time_ms(torch, kern)
                 p_ms = time_ms(torch, plain, iters=5, warmup=1)
-                b_ms, b_by = bound_ms(nbytes, flops)
-                row.update({"kernel_ms": k_ms, "plain_ms": p_ms,
+                dev = {"kernel_device_ms": time_graph_ms(torch, kern),
+                       "plain_device_ms": time_graph_ms(torch, plain,
+                                                        iters=5)}
+                b_ms, b_by = bound_ms(nbytes, flops, RUNS_ON["ssd_scan"])
+                row.update({"kernel_ms": k_ms, "plain_ms": p_ms, **dev,
+                            "runs_on": RUNS_ON["ssd_scan"],
                             "bound_ms": b_ms, "bound_by": b_by,
+                            "bound_simt_f32_ms": bound_ms(nbytes, flops)[0],
                             "bytes": nbytes, "flop": flops,
-                            "kernel_tflop_per_s": flops / k_ms / 1e9})
+                            "flop_done": plan.flop,
+                            "kernel_tflop_per_s": flops / k_ms / 1e9,
+                            "kernel_device_tflop_per_s":
+                                flops / dev["kernel_device_ms"] / 1e9,
+                            "kernel_done_tflop_per_s":
+                                plan.flop / k_ms / 1e9,
+                            "kernel_device_done_tflop_per_s":
+                                plan.flop / dev["kernel_device_ms"] / 1e9})
+                if not init:
+                    row.update(_scan_precision(torch, k6, args, chunk, y))
             rows.append(row)
             del args, init_state, y, s, want_y, want_s, y2, s2
     torch.cuda.empty_cache()
@@ -559,7 +607,11 @@ def phase_kernel_ssd_scan(torch, summary: dict):
         "library": "none: no single PyTorch call computes the SSD scan",
         "tol": SCAN_TOL,
         "shape": "one mamba2-1.3b prefill layer: B 4, L 1024, H 64, P 64, "
-                 "G 1, N 128, chunk 256"}
+                 "G 1, N 128, chunk 256",
+        **{key: main[key] for key in ("kernel_device_ms", "plain_device_ms",
+                                      "bound_simt_f32_ms", "plan",
+                                      "f64_max_abs_err", "f64_err_over_bound",
+                                      "one_pass_tf32_err_over_bound")}}
 
 
 def _ops_cases(torch):
@@ -1235,8 +1287,9 @@ def phase_serve_qwen2_7b(torch) -> int:
 
 def phase_serve_mamba2_1p3b(torch) -> int:
     """Main path 3: Mamba-2 1.3B, 1024-token prompts (4 chunks of 256),
-    K6 on every layer's prefill scan (48 launches per admit, none per
-    decode step: decode runs the one-token recurrence)."""
+    K6 on every layer's prefill scan (48 calls per admit, none per decode
+    step: decode runs the one-token recurrence). The profiled prefill's
+    K6 share sums the four kernels, all named ssd_scan_*."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import ssd_scan as k6
     cfg = get_config("mamba2-1.3b")

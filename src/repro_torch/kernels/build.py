@@ -31,8 +31,8 @@ _F = ctypes.c_float
 # C signature of every exported kernel entry: (pointers..., ints..., stream)
 SIGNATURES = {
     "weighted_stack": {
-        "weighted_stack_b_f32": [_P, _P, _P, _I, _I, _I, _I, _P],
-        "weighted_stack_a_f32": [_P, _P, _P, _I, _I, _I, _I, _P],
+        "weighted_stack_b_f32": [_P] * 3 + [_I] * 5 + [_P],
+        "weighted_stack_a_f32": [_P] * 3 + [_I] * 5 + [_P],
     },
     "gram": {
         "gram_left_f32": [_P] * 4 + [_I] * 5 + [_P],
@@ -51,7 +51,7 @@ SIGNATURES = {
         + [_P],
     },
     "ssd_scan": {
-        "ssd_scan_f32": [_P] * 9 + [_I] * 8 + [_P],
+        "ssd_scan_f32": [_P] * 10 + [_L] + [_I] * 8 + [_P],
     },
 }
 

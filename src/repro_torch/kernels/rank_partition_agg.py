@@ -39,7 +39,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.gemm_plan import (SLAB, GemmPlan, plan_agg,
+from repro_torch.kernels.gemm_plan import (SLAB, SMS, GemmPlan, plan_agg,
                                            plan_gram, split_sum)
 
 
@@ -176,6 +176,17 @@ def _same_device(a: torch.Tensor, b: torch.Tensor, name: str) -> None:
         raise ValueError(f"{name}: inputs on {a.device} and {b.device}")
 
 
+# weighted_stack.cu keeps a block's M r weights in 48 KB of shared memory
+MAX_STACK_COLS = 12288
+
+
+def _stack_cols(m: int, r: int) -> None:
+    """The card's limit on a stack's M r columns."""
+    if m * r > MAX_STACK_COLS:
+        raise ValueError(f"weighted stack: M r = {m * r} columns > "
+                         f"{MAX_STACK_COLS}")
+
+
 def weighted_stack_b(bs: torch.Tensor, omega: torch.Tensor) -> torch.Tensor:
     """K1 (B side): bs (L, M, d, r); omega (M, r) -> U_c (L, d, M*r)."""
     _check("weighted_stack_b bs", bs, 4)
@@ -186,10 +197,11 @@ def weighted_stack_b(bs: torch.Tensor, omega: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"omega {tuple(omega.shape)} != {(m, r)}")
     if bs.device.type == "cpu":
         return weighted_stack_b_plain(bs, omega)
+    _stack_cols(m, r)
     u = torch.empty((l, d, m * r), dtype=torch.float32, device=bs.device)
     fn = "weighted_stack_b_f32"
     rc = getattr(build.library("weighted_stack"), fn)(
-        bs.data_ptr(), omega.data_ptr(), u.data_ptr(), l, m, d, r,
+        bs.data_ptr(), omega.data_ptr(), u.data_ptr(), l, m, d, r, SMS,
         _stream(bs))
     build.check(rc, fn)
     weighted_stack_b.launches += 1
@@ -206,10 +218,11 @@ def weighted_stack_a(as_: torch.Tensor, omega: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"omega {tuple(omega.shape)} != {(m, r)}")
     if as_.device.type == "cpu":
         return weighted_stack_a_plain(as_, omega)
+    _stack_cols(m, r)
     v = torch.empty((l, m * r, n), dtype=torch.float32, device=as_.device)
     fn = "weighted_stack_a_f32"
     rc = getattr(build.library("weighted_stack"), fn)(
-        as_.data_ptr(), omega.data_ptr(), v.data_ptr(), l, m, r, n,
+        as_.data_ptr(), omega.data_ptr(), v.data_ptr(), l, m, r, n, SMS,
         _stream(as_))
     build.check(rc, fn)
     weighted_stack_a.launches += 1

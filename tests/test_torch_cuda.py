@@ -40,12 +40,15 @@ def _stacks(seed, layers, m, d, r, n, device):
 @pytest.mark.cuda
 @pytest.mark.parametrize("layers,m,d,r,n", [
     (2, 3, 24, 8, 40), (1, 3, 300, 8, 520), (2, 2, 17, 12, 9),
-    (3, 3, 130, 48, 70), (48, 6, 768, 32, 768)])
+    (3, 3, 130, 48, 70), (48, 6, 768, 32, 768), (2, 3, 24, 8, 42),
+    (2, 3, 21, 6, 40)])
 def test_cuda_kernels_match_plain(cuda_device, layers, m, d, r, n):
     """K1 bit-exact against its plain version (IEEE sqrtf and one
-    multiply); K2 within depth * eps * max column norm^2 (the worst-case
-    rounding of a length-depth f32 dot product), and exactly symmetric.
-    R = m * r spans one to three 64-wide tiles, with ragged edges."""
+    multiply), on its 16-byte path (r or n a multiple of 4) and its 4-byte
+    one (n 42, 9; r 6); K2 within depth * eps * max column norm^2 (the
+    worst-case rounding of a length-depth f32 dot product), and exactly
+    symmetric. R = m * r spans one to three 64-wide tiles, with ragged
+    edges."""
     bs, as_, omega = _stacks(8, layers, m, d, r, n, cuda_device)
     before = [k.launches for k in rpa.KERNELS]
     u = rpa.weighted_stack_b(bs, omega)
@@ -64,6 +67,40 @@ def test_cuda_kernels_match_plain(cuda_device, layers, m, d, r, n):
         assert torch.equal(g, g.mT)
     torch.cuda.synchronize()
     assert [k.launches for k in rpa.KERNELS] == [b + 1 for b in before]
+
+
+@pytest.mark.cuda
+def test_cuda_weighted_stacks_misaligned_match_plain(cuda_device):
+    """K1 on inputs whose storage starts 4 bytes past a 16-byte boundary:
+    the 4-byte path, bit-exact."""
+    bs, as_, omega = _stacks(10, 3, 4, 40, 8, 48, cuda_device)
+
+    def shifted(t):
+        flat = torch.empty(t.numel() + 1, device=cuda_device)[1:]
+        return flat.view(t.shape).copy_(t)
+    bs1, as1 = shifted(bs), shifted(as_)
+    assert bs1.data_ptr() % 16 and as1.data_ptr() % 16
+    torch.testing.assert_close(rpa.weighted_stack_b(bs1, omega),
+                               rpa.weighted_stack_b_plain(bs, omega),
+                               rtol=0, atol=0)
+    torch.testing.assert_close(rpa.weighted_stack_a(as1, omega),
+                               rpa.weighted_stack_a_plain(as_, omega),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_weighted_stacks_refuse_too_many_columns(cuda_device):
+    """K1 keeps a block's M r weights in shared memory: beyond
+    ``MAX_STACK_COLS`` columns the wrappers refuse, before any launch."""
+    m, r = 1537, 8                       # M r = 12296
+    assert m * r > rpa.MAX_STACK_COLS
+    omega = torch.ones(m, r, device=cuda_device)
+    before = [k.launches for k in rpa.KERNELS]
+    with pytest.raises(ValueError, match="columns"):
+        rpa.weighted_stack_b(torch.ones(1, m, 2, r, device=cuda_device), omega)
+    with pytest.raises(ValueError, match="columns"):
+        rpa.weighted_stack_a(torch.ones(1, m, r, 2, device=cuda_device), omega)
+    assert [k.launches for k in rpa.KERNELS] == before
 
 
 @pytest.mark.cuda
@@ -249,11 +286,15 @@ def _scan_case(seed, bsz, length, nheads, hp, groups, n, device, init):
     (2, 96, 12, 24, 3, 20, 32, True),
     (1, 512, 8, 64, 1, 128, 256, True),     # mamba2 widths, 2 chunks
     (2, 200, 4, 50, 2, 16, 40, True),       # hymba's P 50, ragged tiles
-    (1, 64, 2, 128, 1, 16, 64, False)])     # P 128: two P slices
+    (1, 64, 2, 128, 1, 16, 64, False),      # P 128: two P slices
+    (4, 1024, 64, 64, 1, 128, 256, False),  # mamba2-1.3b's prefill layer
+    (2, 512, 8, 64, 2, 64, 128, True),      # 2 groups of 4 heads share C B^T
+    (1, 24, 4, 8, 2, 16, 24, True)])        # nc 1, Q 24: ragged token tiles
 def test_cuda_ssd_scan_matches_plain(cuda_device, bsz, length, nheads, hp,
                                      groups, n, chunk, init):
     """K6 against its plain version within the reference's atol 2e-4,
-    rtol 1e-3, for y and the final state; two launches bit-equal."""
+    rtol 1e-3, for y and the final state; two launches bit-equal; one
+    wrapper call counted, whatever its CUDA launches."""
     arrs, init_state = _scan_case(12, bsz, length, nheads, hp, groups, n,
                                   cuda_device, init)
     before = k6.ssd_scan.launches
@@ -265,6 +306,26 @@ def test_cuda_ssd_scan_matches_plain(cuda_device, bsz, length, nheads, hp,
     torch.testing.assert_close(s, want_s, atol=2e-4, rtol=1e-3)
     y2, s2 = k6.ssd_scan(*arrs, chunk, init_state=init_state)
     assert torch.equal(y, y2) and torch.equal(s, s2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bsz,length,nheads,hp,groups,n,chunk", [
+    (2, 1024, 16, 64, 1, 128, 256), (2, 96, 12, 24, 3, 20, 32)])
+def test_cuda_ssd_scan_tensor_cores_beat_one_pass_tf32(
+        cuda_device, bsz, length, nheads, hp, groups, n, chunk):
+    """K6's 3xTF32 route has f32's precision, not TF32's: against a float64
+    run its y stays, at every output, within ``ssd_scan.one_pass_bound`` (a
+    one-pass TF32 run's error sigma there, plus f32's rounding bound), and
+    the same decomposition with every product in one TF32 pass at its most
+    accurate (TF32 operands summed in f64) leaves it."""
+    arrs, _ = _scan_case(14, bsz, length, nheads, hp, groups, n,
+                         cuda_device, False)
+    want = k6.ssd_scan_f64(*arrs, chunk)[0]
+    bound = k6.one_pass_bound(*arrs, chunk)
+    y, _ = k6.ssd_scan(*arrs, chunk)
+    one_pass = k6.ssd_scan_one_pass_tf32(*arrs, chunk)[0]
+    assert float(((y.double() - want).abs() / bound).max()) <= 1
+    assert float(((one_pass - want).abs() / bound).max()) > 1
 
 
 @pytest.mark.cuda
