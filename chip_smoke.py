@@ -31,6 +31,18 @@ JAX. Phases, each printing one JSON line:
 4. round_vit_base main path 1: three raFLoRA rounds of the batched engine
                   with the kernel backend at ViT-base width; K1 and K2
                   must launch in every round.
+4a. round_methods one round of each method at ViT-base width from one
+                  base state drawn once, in a child process with cuBLAS's
+                  split-K off (``phase_round_methods_child``): fedavg
+                  (ranks (16,)), hetlora, flora, ffa, flexlora, raflora
+                  (the anchor), partial raFLoRA cut at 8 and 16, raflora
+                  on the dense and factored backends, raflora and flora in
+                  the sequential engine. Backend parity (dense, factored vs kernel) at the
+                  round tolerances, engine parity (sequential vs batched)
+                  at TestRoundEngineEquivalence's, the method invariants,
+                  the expected K1/K2 launches of each run, and
+                  ``ops.factored_stack_gram`` (K1/K2 at L = 1) on one
+                  vit-base slice against its plain version.
 5. serve_small    a reduced qwen2 serving engine on cuda (K4) and on cpu
                   (plain) from the same weights: equal greedy tokens.
 6. serve_qwen2_7b main path 2: Qwen2-7B at full width in f32, 4 slots of
@@ -921,19 +933,12 @@ def phase_round_small(torch):
     require(ok, "round_small: cuda round disagrees with the cpu round")
 
 
-def phase_round_vit_base(torch, rounds: int = 3) -> dict:
-    """The main path: raFLoRA rounds at ViT-base width, kernel backend."""
-    import numpy as np
+def _vit_base_setup():
+    """Phase 4's ViT-base round setup: the model config, the FLConfig (20
+    clients, participation 0.25, batches of 32), raFLoRA's rank levels
+    4..32, and the data and client shards."""
     from repro_torch.configs import FLConfig, LoRAConfig, get_config
     from repro_torch.data import ClusterClassification, make_partition
-    from repro_torch.federation.experiment import make_batch_fn
-    from repro_torch.federation.server import FederatedLoRA
-    from repro_torch.federation.topology import ClientRegistry
-    from repro_torch.kernels import ops
-    from repro_torch.kernels import rank_partition_agg as rpa
-    from repro_torch.models.transformer import Model
-
-    t0 = time.perf_counter()
     cfg = get_config("vit-base")
     fl = FLConfig(aggregator="raflora", num_clients=20, participation=0.25,
                   num_rounds=40, local_batch_size=32, learning_rate=2e-3,
@@ -949,17 +954,14 @@ def phase_round_vit_base(torch, rounds: int = 3) -> dict:
                             alpha=fl.dirichlet_alpha,
                             labels_per_client=fl.labels_per_client,
                             seed=fl.seed)
-    registry = ClientRegistry.create(fl, lora, shards)
-    model = Model(cfg, lora, device="cuda")
-    batch_fn = make_batch_fn(registry, x_tr, y_tr, fl, 2, data.patches)
-    server = FederatedLoRA(model, fl, lora, registry, batch_fn,
-                           backend="kernel")
-    setup_s = time.perf_counter() - t0
+    return cfg, fl, lora, shards, x_tr, y_tr, data.patches
 
-    times: dict = {}
-    trained: dict = {}
 
-    def timed(stage, fn, keep=False):
+def _stage_timer(torch, times: dict):
+    """timed(stage, fn, keep=None): ``fn`` wrapped to record its device
+    time (CUDA events) under ``times[stage]``, and its arguments and
+    output under ``keep`` when given."""
+    def timed(stage, fn, keep=None):
         def wrapper(*a, **k):
             torch.cuda.synchronize()
             start = torch.cuda.Event(enable_timing=True)
@@ -969,13 +971,38 @@ def phase_round_vit_base(torch, rounds: int = 3) -> dict:
             end.record()
             end.synchronize()
             times[stage] = start.elapsed_time(end)
-            if keep:
-                trained["out"] = out
+            if keep is not None:
+                keep["args"], keep["out"] = a, out
             return out
         return wrapper
+    return timed
+
+
+def phase_round_vit_base(torch, rounds: int = 3) -> dict:
+    """The main path: raFLoRA rounds at ViT-base width, kernel backend."""
+    import numpy as np
+    from repro_torch.federation.experiment import make_batch_fn
+    from repro_torch.federation.server import FederatedLoRA
+    from repro_torch.federation.topology import ClientRegistry
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rank_partition_agg as rpa
+    from repro_torch.models.transformer import Model
+
+    t0 = time.perf_counter()
+    cfg, fl, lora, shards, x_tr, y_tr, patches = _vit_base_setup()
+    registry = ClientRegistry.create(fl, lora, shards)
+    model = Model(cfg, lora, device="cuda")
+    batch_fn = make_batch_fn(registry, x_tr, y_tr, fl, 2, patches)
+    server = FederatedLoRA(model, fl, lora, registry, batch_fn,
+                           backend="kernel")
+    setup_s = time.perf_counter() - t0
+
+    times: dict = {}
+    trained: dict = {}
+    timed = _stage_timer(torch, times)
 
     server._plan_round = timed("plan_ms", server._plan_round)
-    server._train_grouped = timed("train_ms", server._train_grouped, True)
+    server._train_grouped = timed("train_ms", server._train_grouped, trained)
     server._aggregate_grouped = timed("aggregate_ms",
                                       server._aggregate_grouped)
     n_buckets = 3
@@ -1018,6 +1045,421 @@ def phase_round_vit_base(torch, rounds: int = 3) -> dict:
         require(np.isfinite(stats.mean_client_loss),
                 f"round {stats.round}: non-finite client loss")
     return {k.__name__: k.launches for k in rpa.KERNELS}, server
+
+
+# round_methods: (label, method, backend, engine, rank levels, partial_up_to)
+WIDE_LEVELS = (4, 8, 16, 24, 32)
+METHOD_RUNS = (
+    ("fedavg", "fedavg", "kernel", "batched", (16,), None),
+    ("hetlora", "hetlora", "kernel", "batched", WIDE_LEVELS, None),
+    ("flora", "flora", "kernel", "batched", WIDE_LEVELS, None),
+    ("ffa", "ffa", "kernel", "batched", WIDE_LEVELS, None),
+    ("flexlora", "flexlora", "kernel", "batched", WIDE_LEVELS, None),
+    ("raflora", "raflora", "kernel", "batched", WIDE_LEVELS, None),
+    ("raflora-partial8", "raflora", "kernel", "batched", WIDE_LEVELS, 8),
+    ("raflora-partial16", "raflora", "kernel", "batched", WIDE_LEVELS, 16),
+    ("raflora-dense", "raflora", "dense", "batched", WIDE_LEVELS, None),
+    ("raflora-factored", "raflora", "factored", "batched", WIDE_LEVELS,
+     None),
+    ("raflora-sequential", "raflora", "kernel", "sequential", WIDE_LEVELS,
+     None),
+    ("flora-sequential", "flora", "kernel", "sequential", WIDE_LEVELS, None),
+)
+VIT_BUCKETS = 3          # q/k/v/o, up, down: the batched engine's buckets
+VIT_PARENTS = 6          # vit-base's LoRA targets: the sequential engine's
+ROUND_TOL = {"product": 2e-3, "sigma": 1e-3}   # tests/test_torch_round.py
+ENGINE_TOL = {"loss_rtol": 1e-4, "product": 1e-4, "base_rtol": 1e-4,
+              "base_atol": 1e-5}               # TestRoundEngineEquivalence
+
+
+def _expected_launches(method, backend, engine) -> int:
+    """K1/K2 launches a round, each of the four functions: the SVD family
+    on the kernel backend runs them once per shape bucket (batched) or
+    once per adapter parent (sequential: ``aggregate_layer`` on the
+    scan-stacked (12, d, r) factors of each parent takes the layered
+    route); every other run none."""
+    if method not in ("flexlora", "raflora") or backend != "kernel":
+        return 0
+    return VIT_BUCKETS if engine == "batched" else VIT_PARENTS
+
+
+def _method_round(torch, server, method, engine) -> dict:
+    """One round of ``server`` with its stages timed; returns what the
+    phase's checks read: stats, the trained plan, every aggregated
+    spectrum, the launches, the globals before and after."""
+    from repro_torch.core.lora import flatten
+    from repro_torch.kernels import rank_partition_agg as rpa
+    times, kept, sigmas = {}, {}, []
+    timed = _stage_timer(torch, times)
+    server._plan_round = timed("plan_ms", server._plan_round)
+    server._train_stage = timed("train_ms", server._train_stage, kept)
+    server._aggregate_stage = timed("aggregate_ms", server._aggregate_stage)
+    agg = server.aggregator
+    entry = "aggregate_grouped" if engine == "batched" else "aggregate_layer"
+    inner = getattr(agg, entry)
+
+    def capture(*a, **k):
+        res = inner(*a, **k)
+        if res.sigma is not None:
+            sigmas.append(res.sigma)
+        return res
+    setattr(agg, entry, capture)
+    lora_before = {p: x.clone() for p, x in flatten(server.global_lora).items()}
+    base_before = flatten(server.base)
+    before = [k.launches for k in rpa.KERNELS]
+    torch.cuda.reset_peak_memory_stats()
+    stats = server.run_round()
+    torch.cuda.synchronize()
+    launches = {k.__name__: k.launches - b
+                for k, b in zip(rpa.KERNELS, before)}
+    return {"stats": stats, "plan": kept["args"][0], "times": times,
+            "sigmas": sigmas, "launches": launches,
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "lora_before": lora_before, "base_before": base_before,
+            "factors": {p: (b.clone(), a.clone()) for p, (b, a) in
+                        server._extract_factors(server.global_lora,
+                                                server.lora_cfg.r_max)
+                        .items()},
+            "base": flatten(server.base)}
+
+
+def _client_stacks(plan, parent, r_max):
+    """(B (M, ..., d, r_max), A, member order) of one adapter parent: the
+    batched engine's group factors, or the sequential engine's uploads
+    zero-padded to r_max."""
+    import torch
+    from repro_torch.core.aggregation import pad_stack
+    if plan.group_factors is None:
+        bs, as_ = pad_stack([cf[parent] for cf in plan.client_factors],
+                            r_max)
+        return bs, as_, list(range(len(plan.client_factors)))
+    members = [i for mem, _, _ in plan.group_factors for i in mem]
+    bs = torch.cat([f[parent][0] for _, _, f in plan.group_factors])
+    as_ = torch.cat([f[parent][1] for _, _, f in plan.group_factors])
+    return bs, as_, members
+
+
+def _max_err(x, y) -> float:
+    return float((x - y).abs().max())
+
+
+def _check_invariants(torch, check, method, run, partial, levels) -> dict:
+    """The method invariants of one run: finite globals, client factors
+    zero beyond their ranks, the averaging family's n_k-weighted means,
+    FFA's frozen lora_a, FLoRA's zero adapters and base moved by its dW,
+    and partial raFLoRA's omega. ``check(cond, msg)`` records a failure."""
+    import numpy as np
+    from repro_torch.core import partitions as parts
+    stats, plan = run["stats"], run["plan"]
+    out = {}
+    finite = all(bool(torch.isfinite(b).all() and torch.isfinite(a).all())
+                 for b, a in run["factors"].values())
+    check(finite, "non-finite global factors")
+    zero = True
+    if plan.group_factors is not None:
+        for members, _, factors in plan.group_factors:
+            for b, a in factors.values():
+                for j, i in enumerate(members):
+                    r = stats.ranks[i]
+                    zero &= bool((b[j][..., r:] == 0).all())
+                    zero &= bool((a[j][..., r:, :] == 0).all())
+    else:       # the sequential upload is sliced to the client's rank
+        for cf, r in zip(plan.client_factors, stats.ranks):
+            zero &= all(b.shape[-1] == r and a.shape[-2] == r
+                        for b, a in cf.values())
+    check(zero, "client factors beyond their rank are not exactly zero")
+    out["masked_slices_zero"] = zero
+    eps = torch.finfo(torch.float32).eps
+    if method in ("fedavg", "hetlora", "ffa", "flora"):
+        err, tol = 0.0, 0.0
+        for parent, (b_g, a_g) in run["factors"].items():
+            bs, as_, members = _client_stacks(plan, parent, max(levels))
+            n = np.asarray([plan.n_k[i] for i in members], np.float64)
+            w = torch.as_tensor(n / n.sum(), dtype=torch.float32,
+                                device=bs.device)
+            wb = w.reshape((-1,) + (1,) * (bs.ndim - 1))
+            if method == "flora":
+                check(not b_g.any() and not a_g.any(),
+                      "FLoRA's global adapter is not zero")
+                dw = torch.einsum("m,m...dr,m...rn->...dn", w, bs, as_)
+                w0 = run["base_before"][parent + ("w",)]
+                moved = run["base"][parent + ("w",)] - w0
+                p_tol = 4 * eps * float(w0.abs().max()) + \
+                    1e-4 * float(dw.abs().max())
+                err, tol = max(err, _max_err(moved, dw)), max(tol, p_tol)
+                continue
+            want_a = (wb * as_).sum(0)
+            p_tol = 1e-6 * max(1.0, float(want_a.abs().max()))
+            err = max(err, _max_err(a_g, want_a))
+            if method == "ffa":
+                lora_a = run["lora_before"][parent + ("lora_a",)]
+                check(torch.equal(b_g, lora_a.mT), "FFA moved lora_a")
+            else:
+                want_b = (wb * bs).sum(0)
+                p_tol = max(p_tol, 1e-6 * max(1.0, float(
+                    want_b.abs().max())))
+                err = max(err, _max_err(b_g, want_b))
+            tol = max(tol, p_tol)
+        key = "base_moved_by_dw" if method == "flora" else "weighted_mean"
+        out[key] = {"max_abs_err": err, "tol": tol}
+        check(err <= tol, f"{key} error {err} > {tol}")
+    if partial is not None:
+        members = _client_stacks(plan, next(iter(run["factors"])),
+                                 max(levels))[2]
+        ranks = [stats.ranks[i] for i in members]
+        n_k = [plan.n_k[i] for i in members]
+        omega, _ = run["aggregator"]._svd_weights(ranks, n_k)
+        ra = parts.omega_raflora(ranks, n_k, levels)[0]
+        flex = parts.omega_flexlora(ranks, n_k, max(levels))
+        ok = bool(np.array_equal(omega[:, :partial], ra[:, :partial])
+                  and np.array_equal(omega[:, partial:], flex[:, partial:]))
+        check(ok, "partial omega is not raFLoRA's up to the cut and "
+                  "FlexLoRA's beyond")
+        out["partial_omega_ok"] = ok
+    return out
+
+
+def _products_err(fa, fb) -> tuple:
+    """(max |B_a A_a - B_b A_b| over every adapter, max |B_a A_a|)."""
+    err, mag = 0.0, 0.0
+    for parent, (b1, a1) in fa.items():
+        d1 = b1 @ a1
+        err = max(err, _max_err(d1, fb[parent][0] @ fb[parent][1]))
+        mag = max(mag, float(d1.abs().max()))
+        del d1
+    return err, mag
+
+
+def _stack_gram_single(torch, anchor, levels) -> dict:
+    """``ops.factored_stack_gram`` (K1/K2 at L = 1) on one vit-base slice
+    -- mlp up at layer 0 (d 768, n 3072) of the anchor round's clients
+    below r_max, so (24, 32] takes the Eq. 8 fallback -- against its
+    plain version with the kernels phase's tolerances, and against the
+    layered entry on the same slice, bit for bit."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rank_partition_agg as rpa
+    plan = anchor["plan"]
+    parent = next(p for p in anchor["factors"] if p[-1] == "up")
+    r_max = max(levels)
+    bs, as_, members = _client_stacks(plan, parent, r_max)
+    pick = [j for j, i in enumerate(members)
+            if anchor["stats"].ranks[i] < r_max]
+    ranks = [anchor["stats"].ranks[members[j]] for j in pick]
+    n_k = [plan.n_k[members[j]] for j in pick]
+    omega_np, fb_np = anchor["aggregator"]._svd_weights(ranks, n_k)
+    require(fb_np is not None, "stack_gram_single: no Eq. 8 fallback")
+    dev = bs.device
+    omega = torch.as_tensor(omega_np, dtype=torch.float32, device=dev)
+    fb = torch.as_tensor(fb_np, dtype=torch.float32, device=dev)
+    gb = anchor["lora_before"][parent + ("lora_a",)].mT[0].contiguous()
+    ga = anchor["lora_before"][parent + ("lora_b",)].mT[0].contiguous()
+    b1, a1 = bs[pick][:, 0].contiguous(), as_[pick][:, 0].contiguous()
+    args = (b1, a1, omega, gb, ga, fb)
+
+    def plain():
+        b2, a2, om2 = ops._append_fallback_client(*args, layer_axes=0)
+        u = rpa.weighted_stack_b_plain(b2[None], om2)
+        v = rpa.weighted_stack_a_plain(a2[None], om2)
+        return u[0], v[0], rpa.gram_left_plain(u)[0], \
+            rpa.gram_right_plain(v)[0]
+
+    def library():
+        b2, a2, om2 = ops._append_fallback_client(*args, layer_axes=0)
+        w = torch.sqrt(torch.clamp(om2, min=0.0))
+        u = (b2 * w[:, None, :]).permute(1, 0, 2).reshape(b2.shape[1], -1)
+        v = (a2 * w[:, :, None]).reshape(-1, a2.shape[-1])
+        return u, v, u.mT @ u, v @ v.mT
+
+    before = [k.launches for k in rpa.KERNELS]
+    got = ops.factored_stack_gram(*args)
+    torch.cuda.synchronize()
+    require([k.launches - b for k, b in zip(rpa.KERNELS, before)]
+            == [1] * 4, "stack_gram_single: not one launch of each kernel")
+    want = plain()
+    eps = torch.finfo(torch.float32).eps
+    errs = {"u_c": _max_err(got[0], want[0]), "v_c": _max_err(got[1], want[1])}
+    tols = {"u_c": 0.0, "v_c": 0.0}
+    d, n = b1.shape[1], a1.shape[-1]
+    for key, g, w, x, depth, axis in (("g_u", got[2], want[2], want[0], d, 0),
+                                      ("g_v", got[3], want[3], want[1], n, 1)):
+        errs[key] = _max_err(g, w)
+        tols[key] = depth * eps * float((x * x).sum(dim=axis).max())
+        require(torch.equal(g, g.mT), f"stack_gram_single: {key} not "
+                                      "exactly symmetric")
+    for key in errs:
+        require(errs[key] <= tols[key], f"stack_gram_single: {key} error "
+                f"{errs[key]} > {tols[key]}")
+    layered = ops.factored_stack_gram_layered(
+        b1[None], a1[None], omega, gb[None], ga[None], fb)
+    same = all(torch.equal(x, y[0]) for x, y in zip(got, layered))
+    require(same, "stack_gram_single: differs from the layered entry")
+    rr = got[0].shape[-1]
+    m1 = b1.shape[0] + 1
+    nbytes = 4 * (m1 * (d + n) * r_max + omega.numel() + fb.numel()
+                  + (d + n) * rr + 2 * rr * rr)
+    flops = float(m1 * (d + n) * r_max + (d + n) * rr * (rr + 1))
+    b_ms, b_by = bound_ms(nbytes, flops)
+    return {"slice": {"parent": "/".join(parent), "layer": 0, "d": d,
+                      "n": n, "clients": len(pick), "ranks": ranks,
+                      "R": rr},
+            "max_abs_err": errs, "tol": tols, "layered_bit_equal": same,
+            "ms": time_ms(torch, lambda: ops.factored_stack_gram(*args)),
+            "plain_ms": time_ms(torch, plain),
+            "library_ms": time_ms(torch, library),
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
+def phase_round_methods(torch) -> None:
+    """One round of every method at ViT-base width, from one base state
+    drawn once: the paper's baselines (fedavg at ranks (16,), hetlora,
+    flora, ffa), flexlora, raflora (the anchor), Fig. 5a's partial
+    raFLoRA (cut at 8 and 16), raflora on the dense and factored backends,
+    and raflora and flora in the sequential engine. K1/K2 launch once per
+    bucket (3) in the batched kernel-backend SVD runs, once per adapter
+    parent (6) in raflora-sequential, and never in the other runs (flora
+    stacks its dW with an einsum; dense and factored run no kernel).
+    Checks: backend parity (dense, factored vs kernel), engine parity
+    (sequential vs batched, raflora and flora), the method invariants,
+    and ``ops.factored_stack_gram`` at L = 1 against its plain version."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.configs import LoRAConfig
+    from repro_torch.core.lora import merge_lora, split_lora, truncate_adapters
+    from repro_torch.federation.experiment import make_batch_fn
+    from repro_torch.federation.server import FederatedLoRA
+    from repro_torch.federation.topology import ClientRegistry
+    from repro_torch.models.transformer import Model
+
+    cfg, fl0, lora0, shards, x_tr, y_tr, patches = _vit_base_setup()
+    gen = torch.Generator(device=DEV).manual_seed(fl0.seed)
+    params = Model(cfg, lora0, device=DEV).init(gen)
+    base_p, lora_p = split_lora(params)
+
+    def make_server(method, backend, engine, levels, partial):
+        lora = LoRAConfig(rank_levels=levels,
+                          rank_probs=(1.0 / len(levels),) * len(levels))
+        fl = dataclasses.replace(fl0, aggregator=method)
+        registry = ClientRegistry.create(fl, lora, shards)
+        start = (params if lora.r_max == lora0.r_max else
+                 merge_lora(base_p, truncate_adapters(lora_p, lora.r_max)))
+        return FederatedLoRA(
+            Model(cfg, lora, device=DEV), fl, lora, registry,
+            make_batch_fn(registry, x_tr, y_tr, fl, 2, patches),
+            base_params=start, backend=backend, partial_up_to=partial,
+            round_engine=engine)
+
+    # one untimed round first: this process's first cuBLAS, cuSOLVER and
+    # allocator calls would otherwise land in the first run's times
+    make_server("raflora", "kernel", "batched", WIDE_LEVELS,
+                None).run_round()
+    kept = {}
+    for label, method, backend, engine, levels, partial in METHOD_RUNS:
+        server = make_server(method, backend, engine, levels, partial)
+        run = _method_round(torch, server, method, engine)
+        run["aggregator"] = server.aggregator
+        stats = run["stats"]
+        fails = []
+
+        def check(cond, msg):
+            if not cond:
+                fails.append(msg)
+        want = _expected_launches(method, backend, engine)
+        check(all(g == want for g in run["launches"].values()),
+              f"launches {run['launches']}, expected {want} each")
+        check(np.isfinite(stats.mean_client_loss), "non-finite client loss")
+        checks = _check_invariants(torch, check, method, run, partial,
+                                   levels)
+        line = {"phase": "round_methods", "run": label, "method": method,
+                "backend": backend, "engine": engine,
+                "rank_levels": list(levels), "partial_up_to": partial,
+                "clients": stats.clients, "ranks": stats.ranks,
+                **run["times"], "round_wall_s": stats.wall_time_s,
+                "peak_mem_gib": run["peak_mem_gib"],
+                "mean_client_loss": stats.mean_client_loss,
+                "higher_rank_energy_ratio":
+                    (float(server.energy.higher_rank_ratio[-1])
+                     if len(server.energy.rho_r1) else None),
+                "launches": run["launches"], "expected_launches": want,
+                **checks}
+        if label == "raflora":
+            kept["raflora"] = run
+            line["stack_gram_single"] = _stack_gram_single(torch, run,
+                                                           levels)
+        elif label == "flora":
+            kept["flora"] = run
+        if label in ("raflora-dense", "raflora-factored"):
+            anchor = kept["raflora"]
+            check(stats.clients == anchor["stats"].clients,
+                  "other clients than the anchor")
+            scale = max(1.0, max(float(s.max()) for s in anchor["sigmas"]))
+            sig = max(_max_err(s, t) for s, t in
+                      zip(run["sigmas"], anchor["sigmas"]))
+            prod, _ = _products_err(run["factors"], anchor["factors"])
+            line["backend_parity"] = {
+                "against": "raflora (kernel)", "sigma_max_abs_err": sig,
+                "sigma_tol": ROUND_TOL["sigma"] * scale,
+                "product_max_abs_err": prod,
+                "product_tol": ROUND_TOL["product"] * scale}
+            check(sig <= ROUND_TOL["sigma"] * scale,
+                  f"spectra {sig} off the kernel backend's")
+            check(prod <= ROUND_TOL["product"] * scale,
+                  f"products {prod} off the kernel backend's")
+        if engine == "sequential":
+            other = kept[method]
+            s_bat = other["stats"]
+            check(stats.clients == s_bat.clients
+                  and stats.ranks == s_bat.ranks, "other clients than batched")
+            loss_rel = abs(stats.mean_client_loss
+                           - s_bat.mean_client_loss) / abs(
+                               s_bat.mean_client_loss)
+            prod, mag = _products_err(run["factors"], other["factors"])
+            p_tol = ENGINE_TOL["product"] * max(1.0, mag)
+            base_ok = all(bool(torch.allclose(
+                x, other["base"][p], rtol=ENGINE_TOL["base_rtol"],
+                atol=ENGINE_TOL["base_atol"])) for p, x in run["base"].items())
+            base_err = max(_max_err(x, other["base"][p])
+                           for p, x in run["base"].items())
+            line["engine_parity"] = {
+                "against": f"{method} (batched)", "loss_rel_err": loss_rel,
+                "loss_rtol": ENGINE_TOL["loss_rtol"],
+                "product_max_abs_err": prod, "product_tol": p_tol,
+                "base_max_abs_err": base_err, "base_allclose": base_ok,
+                "base_rtol": ENGINE_TOL["base_rtol"],
+                "base_atol": ENGINE_TOL["base_atol"]}
+            check(loss_rel <= ENGINE_TOL["loss_rtol"],
+                  f"loss {loss_rel} off batched")
+            check(prod <= p_tol, f"products {prod} > {p_tol} off batched")
+            check(base_ok, "base weights off batched")
+        emit(line)
+        require(not fails, f"round_methods {label}: " + "; ".join(fails))
+        del server, run
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def phase_round_methods_child() -> None:
+    """``phase_round_methods`` in a child process with cuBLAS's split-K
+    reductions off (``CUBLAS_WORKSPACE_CONFIG=:0:0``; torch reads it once,
+    at its first cuBLAS call). With split-K on, cuBLAS picks its reduction
+    by the GEMM's row count, so a client's gradients in the batched step
+    (5 clients' rows) and alone (the sequential engine) differ by rounding
+    (1.8e-6 of 0.70 at vit-base), and AdamW's g / (|g| + eps) turns the
+    elements whose gradient is within that rounding of zero into
+    differences of up to lr / 2; with it off, the two engines' per-client
+    gradients are bit-equal, as on the CPU where the reference's
+    ``TestRoundEngineEquivalence`` tolerances hold. The main path (phase
+    4) keeps cuBLAS's default."""
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":0:0")
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--round-methods"],
+        env=env, capture_output=True, text=True, timeout=900)
+    sys.stdout.write(proc.stdout)
+    sys.stdout.flush()
+    sys.stderr.write(proc.stderr)
+    err = proc.stderr.strip().splitlines()
+    require(proc.returncode == 0,
+            f"round_methods: child exited {proc.returncode}: "
+            f"{err[-1] if err else ''}")
 
 
 def phase_profile(torch, server) -> None:
@@ -1323,6 +1765,13 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if "--round-methods" in sys.argv[1:]:      # phase_round_methods_child
+        try:
+            phase_round_methods(torch)
+        except SmokeFailure as e:
+            print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
+            return 1
+        return 0
     summary: dict = {}
     try:
         phase_build()
@@ -1335,9 +1784,10 @@ def main() -> int:
         launches.update(ops_launches)
         if "--profile" in sys.argv[1:]:
             phase_profile(torch, server)
-        del server                # free the round before the 30.5 GB model
+        del server                # free the round before the other methods
         gc.collect()
         torch.cuda.empty_cache()
+        phase_round_methods_child()
         phase_serve_small(torch)
         launches["batched_lora_apply"] = phase_serve_qwen2_7b(torch)
         gc.collect()              # free the 30.5 GB model before mamba2

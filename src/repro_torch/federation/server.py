@@ -1,12 +1,17 @@
-"""Federated server: Algorithm 1's round loop, batched engine (port of
-``repro/federation/server.py::FederatedLoRA``).
+"""Federated server: Algorithm 1's round loop (port of
+``repro/federation/server.py::FederatedLoRA``), with two round engines:
 
-Per round: uniform client sampling -> all sampled clients train at once
-in the all-rank masked step -> every same-shape adapter is stacked into one
-(M, P, L, d, r) bucket and aggregated with the kernel backend (K1 + K2 +
-Gram-core SVD realloc) -> the new global adapters are written back and the
-energy probe is recorded. The plan stage consumes the numpy rng in the
-reference's order, so both packages sample the same clients and batches.
+* ``round_engine="batched"`` (default): all sampled clients train at once
+  in the all-rank masked step, and every same-shape adapter is stacked
+  into one (M, P, L, d, r) bucket and aggregated in one call;
+* ``round_engine="sequential"``: the reference loop, one ``trainer.train``
+  per client at its own rank and one ``aggregate_layer`` per adapter
+  parent, kept to hold the batched engine to.
+
+Either engine runs every method and backend of ``core.aggregation``. FLoRA
+folds its dW into the base weights. The plan stage consumes the numpy rng
+in the reference's order, so both packages and both engines sample the
+same clients and batches.
 """
 from __future__ import annotations
 
@@ -52,13 +57,16 @@ class RoundPlan:
     client_batches: Optional[list] = None
     group_factors: Optional[list] = None    # [(members, r_max, factors)]
     loss_parts: Optional[list] = None       # [(members, (C,) loss)]
+    # sequential engine: per-client factor dicts and float losses
+    client_factors: Optional[list] = None
+    losses: Optional[list] = None
 
 
-_ENGINE_ITEMS = {"sequential": 6, "sharded": 9, "async": 8}
+_ENGINE_ITEMS = {"sharded": 9, "async": 8}
 
 
 class FederatedLoRA:
-    """End-to-end heterogeneous-rank FedLoRA server (batched engine)."""
+    """End-to-end heterogeneous-rank FedLoRA server."""
 
     def __init__(self, model: Model, fl: FLConfig, lora: LoRAConfig,
                  registry: ClientRegistry,
@@ -71,7 +79,7 @@ class FederatedLoRA:
         numpy arrays). ``base_params``: a full parameter tree (e.g. from
         ``repro_torch.convert``); None draws one from ``fl.seed`` on the
         model's device."""
-        if round_engine != "batched":
+        if round_engine not in ("batched", "sequential"):
             item = _ENGINE_ITEMS.get(round_engine)
             raise NotImplementedError(
                 f"round_engine={round_engine!r} is not ported yet"
@@ -90,7 +98,8 @@ class FederatedLoRA:
         params = unflatten({p: x.to(self.device)
                             for p, x in flatten(base_params).items()})
         self.base, self.global_lora = split_lora(params)
-        self.trainer = LocalTrainer(model, weight_decay=fl.weight_decay)
+        self.trainer = LocalTrainer(model, weight_decay=fl.weight_decay,
+                                    freeze_a=(fl.aggregator == "ffa"))
         self.aggregator = Aggregator(fl.aggregator, lora.rank_levels,
                                      backend=backend,
                                      partial_up_to=partial_up_to)
@@ -119,16 +128,15 @@ class FederatedLoRA:
                            b_model.mT[..., :rank, :])
         return out
 
-    def _write_factors(self, buckets: List[tuple]) -> None:
-        """Write the aggregated buckets -- (adapter parents, B stack
-        (P, ..., d, r), A stack (P, ..., r, n)) -- back into the global
-        lora tree, bump the adapter version and fire the hooks."""
+    def _write_factors(self, results: Dict[tuple, tuple]) -> None:
+        """Write the aggregated {adapter parent: (B_g (..., d, r),
+        A_g (..., r, n))} back into the global lora tree, bump the adapter
+        version and fire the hooks."""
         flat = flatten(self.global_lora)
-        for parents, b_g, a_g in buckets:
-            for j, parent in enumerate(parents):
-                dt = flat[parent + ("lora_a",)].dtype
-                flat[parent + ("lora_a",)] = b_g[j].mT.to(dt).contiguous()
-                flat[parent + ("lora_b",)] = a_g[j].mT.to(dt).contiguous()
+        for parent, (b_g, a_g) in results.items():
+            dt = flat[parent + ("lora_a",)].dtype
+            flat[parent + ("lora_a",)] = b_g.mT.to(dt).contiguous()
+            flat[parent + ("lora_b",)] = a_g.mT.to(dt).contiguous()
         self.global_lora = unflatten(flat)
         # hooks degrade to skip-and-warn: a failing subscriber must not
         # take down the round loop from inside its landing notification
@@ -146,6 +154,15 @@ class FederatedLoRA:
         """Register ``hook(adapter_version, global_lora)`` for every
         aggregation landing."""
         self._post_aggregate_hooks.append(hook)
+
+    def _merge_flora_delta(self, deltas: Dict[tuple, torch.Tensor]) -> None:
+        """FLoRA: fold each dW (paper layout (..., d_in, d_out)) into its
+        parent's base weight ``w`` (..., in, out), in f32."""
+        flat = flatten(self.base)
+        for parent, dw in deltas.items():
+            w = flat[parent + ("w",)]
+            flat[parent + ("w",)] = (w.float() + dw.float()).to(w.dtype)
+        self.base = unflatten(flat)
 
     # -- round stages ----------------------------------------------------------
 
@@ -170,6 +187,18 @@ class FederatedLoRA:
                                    device=self.device)
                 for k in batches[0]}
 
+    def _train_sequential(self, client_batches, ranks, lr):
+        """TRAIN, sequential engine: one ``trainer.train`` call per sampled
+        client at its own rank; factors sliced to that rank."""
+        client_factors, losses = [], []
+        for batches, rank in zip(client_batches, ranks):
+            trained, metrics = self.trainer.train(
+                self.base, self.global_lora, rank, batches, lr)
+            client_factors.append(self._extract_factors(trained, rank))
+            loss = metrics.get("loss")
+            losses.append(float("nan") if loss is None else float(loss))
+        return client_factors, losses
+
     def _train_grouped(self, client_batches, ranks, lr):
         """TRAIN: one masked multi-client run per step-count group (step
         counts are homogeneous in the common case). Factors stay stacked
@@ -191,12 +220,43 @@ class FederatedLoRA:
             loss_parts.append((members, metrics.get("loss")))
         return group_factors, loss_parts
 
+    def _aggregate_sequential(self, client_factors, ranks, n_k):
+        """AGGREGATE, sequential engine: one ``aggregate_layer`` call per
+        adapter parent (scan-stacked (L, d, r) factors stay stacked)."""
+        results, deltas, sigmas = {}, {}, {}
+        global_factors = self._extract_factors(self.global_lora,
+                                               self.lora_cfg.r_max)
+        parents = list(client_factors[0])
+        for parent in parents:
+            g_b, g_a = global_factors[parent]
+            res = self.aggregator.aggregate_layer(
+                [cf[parent] for cf in client_factors], ranks, n_k,
+                global_b=g_b, global_a=g_a)
+            self._record_result(parent, res, results, deltas, sigmas)
+        return results, deltas, self._sigma_probe(parents, sigmas)
+
+    @staticmethod
+    def _record_result(parent, res, results, deltas, sigmas) -> None:
+        results[parent] = (res.b_g, res.a_g)
+        if res.merge_delta is not None:
+            deltas[parent] = res.merge_delta
+        if res.sigma is not None:
+            sigmas[parent] = res.sigma
+
+    @staticmethod
+    def _sigma_probe(parents, sigmas) -> Optional[torch.Tensor]:
+        """The energy probe: the first adapter's spectrum, (r,) or
+        (L, r) for scan-stacked layers."""
+        for parent in parents:
+            if parent in sigmas:
+                return sigmas[parent]
+        return None
+
     def _aggregate_grouped(self, group_factors, ranks, n_k):
-        """AGGREGATE: bucket adapters by factor shape (first-seen, i.e.
-        sorted-key, order) and aggregate each bucket in one call. The
-        energy probe is the FIRST adapter's spectrum, returned as the
-        first bucket's stacked sigma."""
-        buckets_out = []
+        """AGGREGATE, batched engine: bucket adapters by factor shape
+        (first-seen, i.e. sorted-key, order) and aggregate each bucket in
+        one call. The energy probe is the FIRST adapter's spectrum."""
+        results, deltas = {}, {}
         sigma_probe = None
         r_max = self.lora_cfg.r_max
         global_factors = self._extract_factors(self.global_lora, r_max)
@@ -215,29 +275,42 @@ class FederatedLoRA:
                 ranks_o, n_k_o,
                 global_bs=[global_factors[p][0] for p in group],
                 global_as=[global_factors[p][1] for p in group])
-            buckets_out.append((tuple(group), res.b_g, res.a_g))
+            for j, parent in enumerate(group):
+                results[parent] = (res.b_g[j], res.a_g[j])
+                if res.merge_delta is not None:
+                    deltas[parent] = res.merge_delta[j]
             if res.sigma is not None and sigma_probe is None:
-                sigma_probe = res.sigma
-        return buckets_out, sigma_probe
+                sigma_probe = res.sigma[0]
+        return results, deltas, sigma_probe
 
-    def _finalize_round(self, plan: RoundPlan, buckets, sigma_probe,
-                        t0: float) -> RoundStats:
-        """Write the new globals back, then record the round: the probe
-        spectrum (first adapter, layer-averaged) into the energy trace, the
-        per-client losses into the round's nan-mean."""
-        self._write_factors(buckets)
-        probe = None
-        if sigma_probe is not None:
-            arr = sigma_probe[0].detach().cpu().numpy()
-            probe = arr if arr.ndim == 1 else arr.mean(axis=0)
-            self.energy.record(probe)
-        losses = [float("nan")] * len(plan.ranks)
-        for members, loss_g in plan.loss_parts:
+    @staticmethod
+    def _losses_from_parts(loss_parts, num_clients: int) -> List[float]:
+        """Per-group (C,) losses -> floats in sampled-client order."""
+        losses = [float("nan")] * num_clients
+        for members, loss_g in loss_parts:
             if loss_g is None:
                 continue
             vals = loss_g.detach().cpu().numpy()
             for j, i in enumerate(members):
                 losses[i] = float(vals[j])
+        return losses
+
+    def _finalize_round(self, plan: RoundPlan, results, deltas, sigma_probe,
+                        t0: float) -> RoundStats:
+        """Write the new globals back and fold FLoRA's deltas into the
+        base, then record the round: the probe spectrum (first adapter,
+        layer-averaged) into the energy trace, the per-client losses into
+        the round's nan-mean."""
+        self._write_factors(results)
+        if deltas:
+            self._merge_flora_delta(deltas)
+        probe = None
+        if sigma_probe is not None:
+            arr = sigma_probe.detach().cpu().numpy()
+            probe = arr if arr.ndim == 1 else arr.mean(axis=0)
+            self.energy.record(probe)
+        losses = (plan.losses if plan.losses is not None else
+                  self._losses_from_parts(plan.loss_parts, len(plan.ranks)))
         arr = np.asarray(losses, dtype=np.float64)
         mean_loss = (float(np.nanmean(arr)) if not np.all(np.isnan(arr))
                      else float("nan"))
@@ -253,15 +326,30 @@ class FederatedLoRA:
         """Kept for the reference's API: the synchronous batched engine
         records every round's stats in ``_finalize_round``."""
 
+    def _train_stage(self, plan: RoundPlan) -> None:
+        """TRAIN stage of either engine; frees the plan's batches."""
+        if self.round_engine == "sequential":
+            plan.client_factors, plan.losses = self._train_sequential(
+                plan.client_batches, plan.ranks, plan.lr)
+        else:
+            plan.group_factors, plan.loss_parts = self._train_grouped(
+                plan.client_batches, plan.ranks, plan.lr)
+        plan.client_batches = None
+
+    def _aggregate_stage(self, plan: RoundPlan):
+        """AGGREGATE stage of either engine: (results, deltas, probe)."""
+        if self.round_engine == "sequential":
+            return self._aggregate_sequential(plan.client_factors,
+                                              plan.ranks, plan.n_k)
+        return self._aggregate_grouped(plan.group_factors, plan.ranks,
+                                       plan.n_k)
+
     def run_round(self) -> RoundStats:
         t0 = time.time()
         plan = self._plan_round()
-        plan.group_factors, plan.loss_parts = self._train_grouped(
-            plan.client_batches, plan.ranks, plan.lr)
-        plan.client_batches = None
-        buckets, sigma_probe = self._aggregate_grouped(
-            plan.group_factors, plan.ranks, plan.n_k)
-        return self._finalize_round(plan, buckets, sigma_probe, t0)
+        self._train_stage(plan)
+        results, deltas, sigma_probe = self._aggregate_stage(plan)
+        return self._finalize_round(plan, results, deltas, sigma_probe, t0)
 
     def run(self, rounds: Optional[int] = None,
             eval_fn: Optional[Callable] = None,

@@ -3,12 +3,14 @@
 from here too, on the port's hand-written CUDA kernels (each wrapper
 computes its plain PyTorch version for CPU tensors). Not yet here: the
 reference's ``factored_stack_lead`` / ``factored_gram_lead`` of the
-sharded engine, the single-adapter ``factored_stack_gram`` and the
-``QuantFactor`` dequant (ROADMAP.md queue 1, items 8 and 9).
+sharded engine and the ``QuantFactor`` dequant (ROADMAP.md queue 1,
+items 8 and 9), so every entry takes plain tensors.
 
 * the fused factored aggregation (DESIGN.md §4.3) that the kernel
   backend's round path runs: ``factored_stack_layered`` (K1),
-  ``factored_gram_layered`` (K2), ``factored_stack_gram_layered``;
+  ``factored_gram_layered`` (K2), ``factored_stack_gram_layered`` for a
+  shape bucket, and ``factored_stack_gram`` for one adapter (the same
+  kernels at L = 1);
 * the dense aggregate ``rank_partition_agg`` / ``..._layered`` (K3);
 * the fused LoRA applies: single-adapter ``lora_apply`` (K5) and the paged
   multi-adapter ``batched_lora_apply`` of the serving engine (K4);
@@ -113,6 +115,23 @@ def factored_stack_gram_layered(bs: torch.Tensor, as_: torch.Tensor,
     u_c, v_c = factored_stack_layered(bs, as_, omega)
     g_u, g_v = factored_gram_layered(u_c, v_c)
     return u_c, v_c, g_u, g_v
+
+
+def factored_stack_gram(bs: torch.Tensor, as_: torch.Tensor,
+                        omega: torch.Tensor,
+                        global_b: Optional[torch.Tensor] = None,
+                        global_a: Optional[torch.Tensor] = None,
+                        fallback: Optional[torch.Tensor] = None):
+    """The fused front half for ONE adapter: (u_c, v_c, g_u, g_v) for
+    ``svd_realloc_gram``. bs (M, d, r); as_ (M, r, n); omega (M, r);
+    optional global factors (d, r) / (r, n) enter as one extra client
+    carrying the Eq. 8 fallback. K1 and K2 at L = 1."""
+    bs, as_, omega = _append_fallback_client(bs, as_, omega, global_b,
+                                             global_a, fallback,
+                                             layer_axes=0)
+    u_c, v_c = factored_stack_layered(bs[None], as_[None], omega)
+    g_u, g_v = factored_gram_layered(u_c, v_c)
+    return u_c[0], v_c[0], g_u[0], g_v[0]
 
 
 def rank_partition_agg(bs: torch.Tensor, as_: torch.Tensor,

@@ -147,3 +147,182 @@ def test_aggregate_grouped_kernel_matches_reference(method, group_ranks):
             _assert_products(tr.b_g[p, ll].numpy(), tr.a_g[p, ll].numpy(),
                              tr.sigma[p, ll].numpy(), jr.b_g[p, ll],
                              jr.a_g[p, ll], jr.sigma[p, ll])
+
+
+# -- every method through the three Aggregator entry points -------------------
+
+D, N = 24, 40            # tests/test_aggregation.py's shapes
+P = 2                    # adapters in a bucket
+SVD_CASES = [("flexlora", None), ("raflora", None), ("raflora", 8)]
+SVD_RANKS = [4, 8, 8]    # nobody at 16: raFLoRA's (8, 16] takes Eq. 8
+AVG_RANKS = {"fedavg": [8, 8, 8], "hetlora": [4, 8, 8, 16],
+             "flora": [4, 8, 8, 16], "ffa": [4, 8, 8, 16]}
+
+
+def _method_inputs(seed, ranks):
+    """Per-client factors at their own rank for P adapters, the globals,
+    and the rank groups the batched engine would form."""
+    rng = np.random.default_rng(seed)
+    factors = [[(rng.normal(size=(D, r)).astype(np.float32),
+                 rng.normal(size=(r, N)).astype(np.float32))
+                for r in ranks] for _ in range(P)]
+    gb = rng.normal(size=(P, D, max(LEVELS))).astype(np.float32)
+    ga = rng.normal(size=(P, max(LEVELS), N)).astype(np.float32)
+    n_k = [10.0 + 7 * i for i in range(len(ranks))]
+    return factors, gb, ga, n_k
+
+
+def _call(pkg, agg, api, factors, gb, ga, ranks, n_k):
+    """One Aggregator entry point of ``pkg`` ("t" or "j") on the same
+    numpy inputs; returns a list over adapters of (b_g, a_g, sigma, dw)
+    as numpy (sigma, dw may be None)."""
+    conv = torch.from_numpy if pkg == "t" else jnp.asarray
+    r_max = max(LEVELS)
+    if api == "layer":
+        outs = [agg.aggregate_layer([(conv(b), conv(a)) for b, a in fs],
+                                    ranks, n_k, conv(gb[p]), conv(ga[p]))
+                for p, fs in enumerate(factors)]
+        return [tuple(None if x is None else np.asarray(x) for x in
+                      (o.b_g, o.a_g, o.sigma, o.merge_delta)) for o in outs]
+    pad = lambda b, a: (np.pad(b, ((0, 0), (0, r_max - b.shape[1]))),
+                        np.pad(a, ((0, r_max - a.shape[0]), (0, 0))))
+    if api == "stack":
+        stacked = [[pad(b, a) for b, a in fs] for fs in factors]
+        bs = np.stack([np.stack([b for b, _ in fs]) for fs in stacked], 1)
+        as_ = np.stack([np.stack([a for _, a in fs]) for fs in stacked], 1)
+        res = agg.aggregate_stack(conv(bs), conv(as_), ranks, n_k,
+                                  conv(gb), conv(ga))
+    else:   # grouped: one group per rank level, clients in rank order
+        groups = sorted(set(ranks))
+        order = [i for r in groups for i, ri in enumerate(ranks) if ri == r]
+        res = agg.aggregate_grouped(
+            [[conv(np.stack([factors[p][i][0] for i in order
+                             if ranks[i] == r])) for p in range(P)]
+             for r in groups],
+            [[conv(np.stack([factors[p][i][1] for i in order
+                             if ranks[i] == r])) for p in range(P)]
+             for r in groups],
+            [ranks[i] for i in order], [n_k[i] for i in order],
+            global_bs=[conv(x) for x in gb], global_as=[conv(x) for x in ga])
+    return [tuple(None if x is None else np.asarray(x[p]) for x in
+                  (res.b_g, res.a_g, res.sigma, res.merge_delta))
+            for p in range(P)]
+
+
+@pytest.mark.parametrize("api", ["layer", "stack", "grouped"])
+@pytest.mark.parametrize("backend", ["dense", "factored", "kernel"])
+@pytest.mark.parametrize("method,partial", SVD_CASES,
+                         ids=["flexlora", "raflora", "raflora-partial8"])
+def test_svd_family_matches_reference(method, partial, backend, api):
+    """flexlora, raflora and partial raFLoRA on every backend through
+    ``aggregate_layer`` / ``aggregate_stack`` / ``aggregate_grouped``
+    against the same JAX call (its kernel backend's Pallas grids in
+    interpret mode): spectra and products at 1e-4 (dense, factored) or at
+    the Gram route's 1e-3 / 2e-3 of sigma_max (kernel)."""
+    factors, gb, ga, n_k = _method_inputs(5, SVD_RANKS)
+    kw = dict(backend=backend, partial_up_to=partial)
+    t_out = _call("t", tagg.Aggregator(method, LEVELS, **kw), api, factors,
+                  gb, ga, SVD_RANKS, n_k)
+    j_out = _call("j", jagg.Aggregator(method, LEVELS, **kw), api, factors,
+                  gb, ga, SVD_RANKS, n_k)
+    for (tb, ta, ts, tdw), (jb, ja, js, jdw) in zip(t_out, j_out):
+        assert tdw is None and jdw is None
+        assert tb.shape == jb.shape and ts.shape == js.shape
+        if backend == "kernel":
+            _assert_products(tb, ta, ts, jb, ja, js)
+        else:
+            np.testing.assert_allclose(ts, js, atol=1e-4)
+            np.testing.assert_allclose(tb @ ta, jb @ ja, atol=1e-4)
+
+
+@pytest.mark.parametrize("api", ["layer", "stack", "grouped"])
+@pytest.mark.parametrize("method", ["fedavg", "hetlora", "flora", "ffa"])
+def test_averaging_family_matches_reference(method, api):
+    """fedavg, hetlora, flora and ffa: the raw factors (no SVD, so no sign
+    ambiguity) and FLoRA's merge_delta against the same JAX call; FFA
+    returns ``global_b`` itself and FLoRA zero adapters."""
+    ranks = AVG_RANKS[method]
+    factors, gb, ga, n_k = _method_inputs(6, ranks)
+    t_out = _call("t", tagg.Aggregator(method, LEVELS), api, factors, gb,
+                  ga, ranks, n_k)
+    j_out = _call("j", jagg.Aggregator(method, LEVELS), api, factors, gb,
+                  ga, ranks, n_k)
+    for p, ((tb, ta, ts, tdw), (jb, ja, js, jdw)) in enumerate(
+            zip(t_out, j_out)):
+        assert ts is None and js is None
+        np.testing.assert_allclose(tb, jb, atol=1e-6)
+        np.testing.assert_allclose(ta, ja, atol=1e-6)
+        if method == "ffa":
+            np.testing.assert_array_equal(tb, gb[p])
+        if method == "flora":
+            assert not tb.any() and not ta.any()
+            np.testing.assert_allclose(tdw, jdw, atol=1e-5)
+        else:
+            assert tdw is None and jdw is None
+
+
+def test_fedavg_requires_homogeneous():
+    """``TestBaselines::test_fedavg_requires_homogeneous``: the same
+    AssertionError from both entry points that check it."""
+    factors, gb, ga, n_k = _method_inputs(7, [4, 8])
+    bs, as_ = tagg.pad_stack([(torch.from_numpy(b), torch.from_numpy(a))
+                              for b, a in factors[0]], max(LEVELS))
+    with pytest.raises(AssertionError, match="homogeneous"):
+        tagg.aggregate_fedavg(bs, as_, [4, 8], n_k)
+    with pytest.raises(AssertionError, match="homogeneous"):
+        tagg.Aggregator("fedavg", LEVELS).aggregate_grouped(
+            [[bs[:1]], [bs[1:]]], [[as_[:1]], [as_[1:]]], [4, 8], n_k)
+
+
+def test_flora_merge_delta_is_weighted_sum():
+    """``TestBaselines::test_flora_merge_delta_unbiased`` on the port."""
+    ranks = [4, 8, 8, 16]
+    factors, _, _, n_k = _method_inputs(8, ranks)
+    res = tagg.Aggregator("flora", LEVELS).aggregate_layer(
+        [(torch.from_numpy(b), torch.from_numpy(a)) for b, a in factors[0]],
+        ranks, n_k)
+    w = np.asarray(n_k) / np.sum(n_k)
+    want = sum(wk * (b @ a) for wk, (b, a) in zip(w, factors[0]))
+    np.testing.assert_allclose(res.merge_delta.numpy(), want, atol=1e-4)
+    assert res.merge_delta.dtype == torch.float32
+
+
+@pytest.mark.parametrize("backend", ["dense", "factored", "kernel"])
+def test_layer_stacked_matches_per_layer_loop(backend):
+    """``TestStackedLayers``: (M, L, d, r) factors through one batched
+    ``aggregate_layer`` equal the per-layer loop."""
+    ranks, layers = [4, 8, 8, 16, 16], 3
+    rng = np.random.default_rng(9)
+    stacked = [(torch.from_numpy(rng.normal(size=(layers, D, r))
+                                 .astype(np.float32)),
+                torch.from_numpy(rng.normal(size=(layers, r, N))
+                                 .astype(np.float32))) for r in ranks]
+    n_k = [10.0, 20.0, 15.0, 25.0, 30.0]
+    agg = tagg.Aggregator("raflora", LEVELS, backend=backend)
+    g_b = torch.zeros(layers, D, max(LEVELS))
+    g_a = torch.zeros(layers, max(LEVELS), N)
+    res = agg.aggregate_layer(stacked, ranks, n_k, g_b, g_a)
+    for ll in range(layers):
+        one = agg.aggregate_layer([(b[ll], a[ll]) for b, a in stacked],
+                                  ranks, n_k, g_b[ll], g_a[ll])
+        np.testing.assert_allclose((res.b_g[ll] @ res.a_g[ll]).numpy(),
+                                   (one.b_g @ one.a_g).numpy(), atol=1e-4)
+
+
+def test_partial_weights_match_reference():
+    """Partial raFLoRA's omega: raFLoRA's up to the cut, FlexLoRA's beyond,
+    the fallback cut to zero beyond it -- equal to the reference's."""
+    ranks, n_k = [4, 4, 8], [3.0, 5.0, 2.0]
+    for cut in (4, 8):
+        t_om, t_fb = tagg.Aggregator("raflora", LEVELS, partial_up_to=cut
+                                     )._svd_weights(ranks, n_k)
+        j_om, j_fb = jagg.Aggregator("raflora", LEVELS, partial_up_to=cut
+                                     )._svd_weights(ranks, n_k)
+        np.testing.assert_array_equal(t_om, j_om)
+        assert (t_fb is None) == (j_fb is None)
+        if t_fb is not None:
+            np.testing.assert_array_equal(t_fb, j_fb)
+        np.testing.assert_array_equal(
+            t_om[:, :cut], tparts.omega_raflora(ranks, n_k, LEVELS)[0][:, :cut])
+        np.testing.assert_array_equal(
+            t_om[:, cut:], tparts.omega_flexlora(ranks, n_k, 16)[:, cut:])

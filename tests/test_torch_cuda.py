@@ -519,6 +519,97 @@ def test_cuda_ops_rank_partition_agg_fallback_and_k1(cuda_device):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("m,d,r,n", [(3, 300, 12, 520), (5, 768, 32, 3072)],
+                         ids=["odd", "vit-base-slice"])
+def test_cuda_ops_factored_stack_gram_single_adapter(cuda_device, m, d, r, n):
+    """``ops.factored_stack_gram``, one adapter (K1/K2 at L = 1), with the
+    Eq. 8 fallback client, against its plain version (the same entry on
+    CPU tensors): U_c and V_c bit-exact, the Gram cores within depth * eps
+    * the largest column norm^2 and exactly symmetric; one launch of each
+    kernel; bit-equal to the layered entry at L = 1 on the same slice."""
+    rng = np.random.default_rng(m + d)
+    omega = rng.uniform(size=(m, r))
+    omega[0, r // 2:] = 0.0
+    args = [x.astype(np.float32) for x in (
+        rng.normal(size=(m, d, r)), rng.normal(size=(m, r, n)), omega,
+        rng.normal(size=(d, r)), rng.normal(size=(r, n)),
+        (np.arange(r) >= r // 2).astype(float))]
+    card = [torch.from_numpy(x).to(cuda_device) for x in args]
+    before = [k.launches for k in rpa.KERNELS]
+    got = ops.factored_stack_gram(*card)
+    torch.cuda.synchronize()
+    assert [k.launches for k in rpa.KERNELS] == [b + 1 for b in before]
+    want = ops.factored_stack_gram(*(torch.from_numpy(x) for x in args))
+    torch.testing.assert_close(got[0].cpu(), want[0], rtol=0, atol=0)
+    torch.testing.assert_close(got[1].cpu(), want[1], rtol=0, atol=0)
+    eps = torch.finfo(torch.float32).eps
+    for g, w, x, depth, axis in ((got[2], want[2], want[0], d, 0),
+                                 (got[3], want[3], want[1], n, 1)):
+        tol = depth * eps * float((x * x).sum(dim=axis).max())
+        assert float((g.cpu() - w).abs().max()) <= tol
+        assert torch.equal(g, g.mT)
+    lay = ops.factored_stack_gram_layered(
+        card[0][None], card[1][None], card[2], card[3][None], card[4][None],
+        card[5])
+    for one, layered in zip(got, lay):
+        assert torch.equal(one, layered[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("method,kw", [
+    ("fedavg", {"lora_overrides": {"rank_levels": (8,),
+                                   "rank_probs": (1.0,)}}),
+    ("hetlora", {}), ("flora", {}), ("ffa", {}), ("flexlora", {}),
+    ("raflora", {"backend": "dense"}), ("raflora", {"backend": "factored"}),
+    ("raflora", {"partial_up_to": 8}),
+    ("raflora", {"round_engine": "sequential"}),
+    ("flora", {"round_engine": "sequential"})],
+    ids=["fedavg", "hetlora", "flora", "ffa", "flexlora", "raflora-dense",
+         "raflora-factored", "raflora-partial8", "raflora-sequential",
+         "flora-sequential"])
+def test_cuda_round_methods_match_cpu(cuda_device, method, kw):
+    """One fedvit-tiny round of every method, backend and engine on the
+    card and on the CPU from the same weights, with the kernel path's
+    round tolerances: loss rtol 1e-4, spectra 1e-3 and products 2e-3 of
+    sigma_max (1e-4 of the largest product without a spectrum), base
+    weights rtol 1e-4, atol 1e-5."""
+    from repro_torch.core.lora import flatten
+    from repro_torch.federation.experiment import build_experiment
+    args = dict(fl_overrides={"num_rounds": 1, "num_clients": 8,
+                              "participation": 0.5},
+                lora_overrides={"rank_levels": (4, 8, 16),
+                                "rank_probs": (0.34, 0.33, 0.33)},
+                samples_per_class=30, num_classes=6, d_model=32,
+                batches_per_round=1, backend="kernel")
+    args.update(kw)
+    cpu = build_experiment(method, device="cpu", **args)
+    gpu = build_experiment(method, base_params=cpu.server.global_params(),
+                           **args)
+    (sg,), (sc,) = gpu.server.run(1), cpu.server.run(1)
+    assert sg.clients == sc.clients and sg.ranks == sc.ranks
+    np.testing.assert_allclose(sg.mean_client_loss, sc.mean_client_loss,
+                               rtol=1e-4)
+    scale = None
+    if sc.sigma_probe is not None:
+        scale = max(1.0, float(np.abs(sc.sigma_probe).max()))
+        np.testing.assert_allclose(sg.sigma_probe, sc.sigma_probe,
+                                   atol=1e-3 * scale)
+    r_max = cpu.server.lora_cfg.r_max
+    fg = gpu.server._extract_factors(gpu.server.global_lora, r_max)
+    fc = cpu.server._extract_factors(cpu.server.global_lora, r_max)
+    for parent, (b, a) in fc.items():
+        want = (b @ a).numpy()
+        tol = (2e-3 * scale if scale is not None
+               else 1e-4 * max(1.0, float(np.abs(want).max())))
+        gb, ga = fg[parent]
+        np.testing.assert_allclose((gb @ ga).cpu().numpy(), want, atol=tol)
+    base_c = flatten(cpu.server.base)
+    for path, x in flatten(gpu.server.base).items():
+        np.testing.assert_allclose(x.cpu().numpy(), base_c[path].numpy(),
+                                   rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("m,k,n,r", [
     (4, 3584, 512, 16), (128, 3584, 512, 16),        # Qwen2-7B's k proj
     (300, 130, 520, 12), (7, 37, 23, 5), (64, 64, 64, 64), (5, 40, 24, 0),

@@ -20,6 +20,7 @@ MODULES = [
     "repro_torch.core", "repro_torch.core.aggregation",
     "repro_torch.core.energy", "repro_torch.core.lora",
     "repro_torch.core.partitions", "repro_torch.core.svd",
+    "repro_torch.core.theory",
     "repro_torch.data", "repro_torch.data.partition",
     "repro_torch.data.synthetic",
     "repro_torch.federation", "repro_torch.federation.client",
@@ -99,22 +100,20 @@ def test_default_device_raises_without_cuda(monkeypatch):
 
 
 def test_unported_options_name_their_roadmap_item():
-    from repro_torch.core.aggregation import Aggregator
+    """The options still refused name their ROADMAP item; the ported ones
+    (every method, backend and partial_up_to, the sequential engine) are
+    held to the reference in test_torch_aggregation.py and
+    test_torch_round.py."""
     from repro_torch.federation.experiment import build_experiment
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-        Aggregator("raflora", (4, 8), backend="dense")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-        Aggregator("fedavg", (4, 8), backend="kernel")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-        Aggregator("raflora", (4, 8), backend="kernel", partial_up_to=4)
     small = dict(d_model=32, backend="kernel", samples_per_class=10,
                  num_classes=4, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-        build_experiment("raflora", round_engine="sequential", **small)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-        build_experiment("raflora", partial_up_to=4, **small)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-        build_experiment("raflora", noisy_low_rank_std=0.5, **small)
+    for kw, item in ((dict(noisy_low_rank_std=0.5), 6),
+                     (dict(server_momentum_beta=0.9), 7),
+                     (dict(round_engine="async"), 8),
+                     (dict(round_engine="sharded"), 9)):
+        with pytest.raises(NotImplementedError,
+                           match=f"ROADMAP.md queue 1 item {item}"):
+            build_experiment("raflora", **kw, **small)
 
 
 @pytest.mark.parametrize("change", [
