@@ -43,6 +43,26 @@ JAX. Phases, each printing one JSON line:
                   the expected K1/K2 launches of each run, and
                   ``ops.factored_stack_gram`` (K1/K2 at L = 1) on one
                   vit-base slice against its plain version.
+4b. main path 4, the buffered server at ViT-base width (phase 4's setup,
+                  kernel backend, int8 transport with error feedback,
+                  server momentum beta 0.9, staleness gamma 0.8), each
+                  phase one line with train / aggregate / momentum /
+                  dequant ms, launches, peak memory, the card:
+    round_async_vit_base  the async engine at depth 2, 4 rounds and
+                  ``drain_pending``: K1/K2 3 launches an aggregation, 0 on
+                  buffer-fill rounds, one energy entry an aggregation; a
+                  fresh server restored from the checkpoint saved after
+                  round 3 (mid-buffer, residuals and momentum) must equal
+                  the uninterrupted run (rtol 1e-5, atol 1e-6); one
+                  buffered aggregation profiled (device idle share).
+    round_event_vit_base  the event engine (the clients above the minimum
+                  rank straggle, timeout 2.0, round interval 1.0), 4
+                  rounds and the drain: K1/K2 3 launches a fire, some
+                  fire a partial cohort, every update aggregated once,
+                  and a second run's fire log byte-equal.
+    straggler_contrast  ``TestStragglerRankCollapse`` on the card at its
+                  own size (d_model 96, 12 rounds), f32 and int8 with
+                  error feedback: the test's inequalities.
 5. serve_small    a reduced qwen2 serving engine on cuda (K4) and on cpu
                   (plain) from the same weights: equal greedy tokens.
 6. serve_qwen2_7b main path 2: Qwen2-7B at full width in f32, 4 slots of
@@ -144,10 +164,12 @@ SOURCES = {
 RUNS_ON = {name: "simt_f32" for name in REPLACES}
 RUNS_ON.update(lora_apply="mma_tf32x3", flash_attention="mma_tf32x3",
                ssd_scan="mma_tf32x3")
-# the main path each kernel's launches are counted on
-PATHS = {"weighted_stack_b": "round_vit_base",
-         "weighted_stack_a": "round_vit_base", "gram_left": "round_vit_base",
-         "gram_right": "round_vit_base",
+# the main paths each kernel's launches are counted on
+K12_PATHS = ("round_vit_base", "round_async_vit_base", "round_event_vit_base")
+PATHS = {"weighted_stack_b": ", ".join(K12_PATHS),
+         "weighted_stack_a": ", ".join(K12_PATHS),
+         "gram_left": ", ".join(K12_PATHS),
+         "gram_right": ", ".join(K12_PATHS),
          "batched_lora_apply": "serve_qwen2_7b",
          "ssd_scan": "serve_mamba2_1p3b",
          "rank_partition_agg": "kernel_ops",
@@ -231,12 +253,36 @@ def phase_build():
           "compiled": sorted(build.ptxas_log), "ptxas": ptxas})
 
 
+def _k12_check(torch, kname, label, kern, plain, args) -> tuple:
+    """One K1/K2 call against its plain version on the same inputs:
+    (kernel output, max_abs_err, tol). K1 does one IEEE sqrt and one
+    multiply per element, so it is held bit-exact; K2 to the worst-case
+    rounding of a length-``depth`` f32 dot product (Higham's
+    gamma_depth) times the largest column norm^2, its output exactly
+    symmetric."""
+    got = kern(*args)
+    want = plain(*args)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    if kname.startswith("weighted_stack"):
+        tol = 0.0
+    else:
+        x = args[0]                   # u (L, d, R) or v (L, R, n)
+        left = kname == "gram_left"
+        depth = x.shape[-2] if left else x.shape[-1]
+        norms = (x * x).sum(dim=-2 if left else -1)
+        tol = depth * torch.finfo(torch.float32).eps * float(norms.max())
+        require(bool(torch.equal(got, got.mT)),
+                f"{kname} {label}: output not exactly symmetric")
+    require(err <= tol, f"{kname} {label}: max_abs_err {err} > {tol}")
+    return got, err, tol
+
+
 def phase_kernels(torch, summary: dict):
     """Each kernel vs its plain version at the round's bucket shapes."""
     from repro_torch.kernels import gemm_plan
     from repro_torch.kernels import rank_partition_agg as rpa
     gen = torch.Generator(device=DEV).manual_seed(0)
-    eps = torch.finfo(torch.float32).eps
     rows = []
     for name, layers, d, n in BUCKETS:
         bs = torch.randn(layers, CLIENTS, d, RANK, generator=gen,
@@ -268,30 +314,17 @@ def phase_kernels(torch, summary: dict):
         cases["gram_right"] = (rpa.gram_right, rpa.gram_right_plain, (v,),
                                lambda: v @ v.mT)
         for kname, (kern, plain, args, library) in cases.items():
-            got = kern(*args)
-            want = plain(*args)
-            torch.cuda.synchronize()
-            err = float((got - want).abs().max())
+            got, err, tol = _k12_check(torch, kname, name, kern, plain, args)
             if kname.startswith("weighted_stack"):
-                # one IEEE sqrt and one multiply per element: bit-exact
-                tol = 0.0
                 nbytes = 2 * args[0].numel() * 4 + omega.numel() * 4
                 flops = args[0].numel()
             else:
-                # worst-case rounding of a length-`depth` f32 dot product
-                # (Higham's gamma_depth) times the largest column norm^2
-                x = args[0]
-                depth = d if kname == "gram_left" else n
-                norms = (x * x).sum(dim=1 if kname == "gram_left" else 2)
-                tol = depth * eps * float(norms.max())
-                require(bool(torch.equal(got, got.mT)),
-                        f"{kname} {name}: output not exactly symmetric")
                 # the input read once and the full (both-triangle) output
                 # written once; G is symmetric, so the work is the
                 # R(R+1)/2 distinct dot products of 2*depth FLOP each
-                nbytes = x.numel() * 4 + layers * rr * rr * 4
+                depth = d if kname == "gram_left" else n
+                nbytes = args[0].numel() * 4 + layers * rr * rr * 4
                 flops = float(layers * depth * rr * (rr + 1))
-            require(err <= tol, f"{kname} {name}: max_abs_err {err} > {tol}")
             k_ms = time_ms(torch, lambda: kern(*args))
             p_ms = time_ms(torch, lambda: plain(*args))
             l_ms = time_ms(torch, library)
@@ -957,10 +990,11 @@ def _vit_base_setup():
     return cfg, fl, lora, shards, x_tr, y_tr, data.patches
 
 
-def _stage_timer(torch, times: dict):
+def _stage_timer(torch, times: dict, accumulate: bool = False):
     """timed(stage, fn, keep=None): ``fn`` wrapped to record its device
-    time (CUDA events) under ``times[stage]``, and its arguments and
-    output under ``keep`` when given."""
+    time (CUDA events) under ``times[stage]``, summed over calls when
+    ``accumulate``, and its last arguments and output under ``keep`` when
+    given."""
     def timed(stage, fn, keep=None):
         def wrapper(*a, **k):
             torch.cuda.synchronize()
@@ -970,7 +1004,8 @@ def _stage_timer(torch, times: dict):
             out = fn(*a, **k)
             end.record()
             end.synchronize()
-            times[stage] = start.elapsed_time(end)
+            ms = start.elapsed_time(end)
+            times[stage] = times.get(stage, 0.0) + ms if accumulate else ms
             if keep is not None:
                 keep["args"], keep["out"] = a, out
             return out
@@ -1462,6 +1497,386 @@ def phase_round_methods_child() -> None:
             f"{err[-1] if err else ''}")
 
 
+# main path 4: the buffered server at ViT-base width (async and event
+# engines, int8 transport with error feedback, server momentum)
+BUFFERED_ROUNDS = 4
+RESUME_AT = 3            # rounds run before the checkpoint: mid-buffer
+# tests/test_transport.py:262-270 (TestTransportCheckpoint)
+RESUME_TOL = {"loss_rtol": 1e-6, "rtol": 1e-5, "atol": 1e-6}
+CKPT_DIR = os.path.join(ROOT, "build", "smoke_ckpt")
+
+
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True)
+    return (smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
+            else f"nvidia-smi unavailable: {smi.stderr.strip()}")
+
+
+def _k12_launches():
+    from repro_torch.kernels import rank_partition_agg as rpa
+    return {k.__name__: k.launches for k in rpa.KERNELS}
+
+
+def _buffered_server(torch, events: bool):
+    """Phase 4's ViT-base setup on the async engine with the int8
+    transport (error feedback), server momentum beta 0.9 and staleness
+    gamma 0.8: the cadence at depth 2, or (``events``) the straggler event
+    scheduler of ``TestStragglerRankCollapse`` (the clients above the
+    minimum rank straggle, timeout 2.0, round interval 1.0)."""
+    import numpy as np
+    from repro_torch.core.server_opt import FactoredServerMomentum
+    from repro_torch.federation import events as ev
+    from repro_torch.federation.experiment import make_batch_fn
+    from repro_torch.federation.server import FederatedLoRA
+    from repro_torch.federation.topology import ClientRegistry
+    from repro_torch.federation.transport import TransportConfig
+    from repro_torch.models.transformer import Model
+    cfg, fl, lora, shards, x_tr, y_tr, patches = _vit_base_setup()
+    registry = ClientRegistry.create(fl, lora, shards)
+    server = FederatedLoRA(
+        Model(cfg, lora, device=DEV), fl, lora, registry,
+        make_batch_fn(registry, x_tr, y_tr, fl, 2, patches),
+        backend="kernel", round_engine="async",
+        pipeline_depth=1 if events else 2, staleness_gamma=0.8,
+        server_momentum=FactoredServerMomentum(beta=0.9),
+        transport=TransportConfig(mode="int8", error_feedback=True))
+    if events:
+        high = np.flatnonzero(registry.ranks > min(lora.rank_levels))
+        server.set_event_scheduler(ev.EventScheduler(
+            ev.StragglerTailLatency(median=0.8, sigma=0.15, tail_scale=2.5,
+                                    straggler_clients=high, seed=5),
+            ev.TimeoutTrigger(2.0), round_interval=1.0))
+    return server
+
+
+def _instrument(torch, server, times: dict, kept: list) -> None:
+    """Time the train stage, each aggregation and the momentum inside it
+    (summed per round in ``times``); keep each aggregation's arguments
+    and the global tree it started from in ``kept`` as (args, kwargs,
+    global_lora)."""
+    timed = _stage_timer(torch, times, accumulate=True)
+    server._train_grouped = timed("train_ms", server._train_grouped)
+    aggregate = timed("aggregate_ms", server._aggregate_grouped)
+
+    def keep(*a, **k):
+        kept.append((a, k, server.global_lora))
+        return aggregate(*a, **k)
+    server._aggregate_grouped = keep
+    mom = server.server_momentum
+    mom.apply_bucket = timed("momentum_ms", mom.apply_bucket)
+
+
+K12 = ("weighted_stack_b", "weighted_stack_a", "gram_left", "gram_right")
+
+
+def _k12_at_path(torch, server, kept, summary: dict, label: str) -> list:
+    """K1/K2 against their plain versions at the shapes main path 4 gave
+    them, which phase_kernels' six clients (R 192) do not reach: an
+    aggregation stacks every client of the buffer (plus the Eq. 8 client
+    when a partition is empty), an event fire the clients of each plan
+    with an arrival, so R = M * 32 varies and may end inside one of K2's
+    64-wide tiles. Every aggregation of the path is replayed, unwrapped
+    and without the momentum (it acts after K2), on its uploads and the
+    global tree it started from; each K1/K2 call's inputs are captured
+    at its wrapper and run through the kernel and its plain version at
+    phase_kernels' tolerances. Called after the path's launches are
+    read, so these launches count nowhere."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import rank_partition_agg as rpa
+    orig = {name: getattr(ops, name) for name in K12}
+    rows = []
+    for agg, (args, kwargs, global_lora) in enumerate(kept):
+        calls = []
+
+        def capture(name):
+            def wrapper(*x):
+                calls.append((name, x))
+                return orig[name](*x)
+            return wrapper
+        live = server.global_lora, server.server_momentum
+        server.global_lora, server.server_momentum = global_lora, None
+        for name in K12:
+            setattr(ops, name, capture(name))
+        try:
+            type(server)._aggregate_grouped(server, *args, **kwargs)
+        finally:
+            for name in K12:
+                setattr(ops, name, orig[name])
+            server.global_lora, server.server_momentum = live
+        require(len(calls) == 4 * len(BUCKETS),
+                f"{label} aggregation {agg}: the replay made {len(calls)} "
+                "K1/K2 calls")
+        for name, x in calls:
+            _, err, tol = _k12_check(torch, name, f"{label} {agg}",
+                                     orig[name],
+                                     getattr(rpa, name + "_plain"), x)
+            rows.append({"aggregation": agg, "kernel": name,
+                         "shape": list(x[0].shape), "max_abs_err": err,
+                         "tol": tol})
+            summary[name]["max_abs_err"] = max(
+                summary[name]["max_abs_err"], err)
+    return rows
+
+
+def _dequant_ms(torch, group_factors) -> float:
+    """Device time of the one dequantization of an aggregation's uploads
+    (every QuantFactor of its groups), CUDA events over 20 calls."""
+    from repro_torch.kernels.ops import dequantize
+    facs = [x for _, _, fg in group_factors for pair in fg.values()
+            for x in pair]
+    return time_ms(torch, lambda: [dequantize(x) for x in facs])
+
+
+def _leaf_errors(torch, a: dict, b: dict) -> tuple:
+    from repro_torch.core.lora import flatten
+    fa, fb = flatten(a), flatten(b)
+    err = max(_max_err(fa[p], fb[p]) for p in fa)
+    ok = all(bool(torch.allclose(fb[p], x, rtol=RESUME_TOL["rtol"],
+                                 atol=RESUME_TOL["atol"]))
+             for p, x in fa.items())
+    return err, ok
+
+
+def _profile_one_aggregation(torch, server) -> dict:
+    """One buffered aggregation under torch.profiler: two rounds planned
+    and trained into the buffer, then the buffer's aggregation and its
+    write-back profiled alone (device time, K2's share, idle share)."""
+    for _ in range(2):
+        plan = server._plan_round()
+        server._train_stage(plan)
+        server._pending.append(plan)
+    as_of = server._pending[-1].round
+
+    def aggregate():
+        results, _, _ = server._aggregate_buffer(as_of)
+        server._write_factors(results)
+    return _profile(torch, aggregate, "gram")
+
+
+def phase_round_async_vit_base(torch, summary: dict) -> dict:
+    """Main path 4a: four rounds of the async engine (depth 2) at ViT-base
+    width with int8 transport and momentum, then ``drain_pending``; K1/K2
+    launch 3 times an aggregation and never on a buffer-fill round, the
+    energy trace gets one entry an aggregation, and a fresh server
+    restored from the checkpoint saved after round 3 (mid-buffer, with
+    residuals and momentum) equals the uninterrupted run."""
+    import shutil
+    import numpy as np
+    from repro_torch.kernels import ops
+    t0 = time.perf_counter()
+    server = _buffered_server(torch, events=False)
+    setup_s = time.perf_counter() - t0
+    times, kept = {}, []
+    _instrument(torch, server, times, kept)
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    path = os.path.join(CKPT_DIR, "async")
+    rounds, peak = [], 0.0
+    ops.reset_launches()          # main path 4a's count starts here
+    for r in range(BUFFERED_ROUNDS):
+        if r == RESUME_AT:
+            require(len(server._pending) == 1
+                    and server.transport.has_state()
+                    and server.server_momentum.state,
+                    "async: the checkpoint is not mid-buffer")
+            server.save(path)
+        before = _k12_launches()
+        times.clear()
+        torch.cuda.reset_peak_memory_stats()
+        stats = server.run_round()
+        torch.cuda.synchronize()
+        peak = max(peak, torch.cuda.max_memory_allocated() / 2**30)
+        grew = {k: v - before[k] for k, v in _k12_launches().items()}
+        aggregated = "aggregate_ms" in times
+        rounds.append({"round": stats.round, "aggregated": aggregated,
+                       "launches": grew, "round_wall_s": stats.wall_time_s,
+                       **times})
+        want = 3 if aggregated else 0
+        require(aggregated == (r % 2 == 1),
+                f"async round {r}: aggregated={aggregated} off the depth-2 "
+                "cadence")
+        require(all(g == want for g in grew.values()),
+                f"async round {r}: K1/K2 launches {grew}, expected {want}")
+    require(server.drain_pending() is None, "async: a plan left pending")
+    launches = _k12_launches()   # read just after the main path
+    k12 = _k12_at_path(torch, server, kept, summary, "async")
+    server.flush_stats()         # the last aggregation's queued stats
+    history = server.history
+    energy = list(server.energy.higher_rank_ratio)
+    require(len(energy) == BUFFERED_ROUNDS // 2,
+            f"async: {len(energy)} energy entries for "
+            f"{BUFFERED_ROUNDS // 2} aggregations")
+    require(all(np.isfinite(h.mean_client_loss) for h in history),
+            "async: non-finite client loss")
+    require(all(bool(torch.isfinite(t).all())
+                for t in _leaves(server.global_lora)),
+            "async: non-finite global factors")
+    dequant = _dequant_ms(torch, kept[-1][0][0])
+    # the resumed run, in a fresh server
+    resumed = _buffered_server(torch, events=False)
+    resumed.restore(path)
+    require(resumed.round_idx == RESUME_AT and len(resumed._pending) == 1,
+            "async: the restored server is not at the checkpoint")
+    resumed.run(BUFFERED_ROUNDS - RESUME_AT)
+    resumed.drain_pending()
+    same_clients = [h.clients for h in resumed.history] == \
+        [h.clients for h in history]
+    loss_err = max(abs(a.mean_client_loss - b.mean_client_loss)
+                   / abs(a.mean_client_loss)
+                   for a, b in zip(history, resumed.history))
+    e_err = float(np.max(np.abs(np.asarray(energy) - np.asarray(
+        resumed.energy.higher_rank_ratio))))
+    e_ok = np.allclose(resumed.energy.higher_rank_ratio, energy,
+                       rtol=RESUME_TOL["rtol"], atol=RESUME_TOL["atol"])
+    w_err, w_ok = _leaf_errors(torch, server.global_lora,
+                               resumed.global_lora)
+    resume = {"same_clients": same_clients, "loss_rel_err": loss_err,
+              "energy_max_abs_err": e_err, "globals_max_abs_err": w_err,
+              "tol": RESUME_TOL,
+              "ok": bool(same_clients and loss_err <= RESUME_TOL["loss_rtol"]
+                         and e_ok and w_ok)}
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    del server
+    prof = _profile_one_aggregation(torch, resumed)
+    emit({"phase": "round_async_vit_base", "setup_s": setup_s,
+          "rounds": rounds, "dequant_ms": dequant,
+          "higher_rank_energy_ratio": energy,
+          "mean_client_loss": [h.mean_client_loss for h in history],
+          "peak_mem_gib": peak, "launches": launches, "resume": resume,
+          "k12_vs_plain": k12,
+          "profile_one_aggregation": prof, "card": card_line()})
+    require(resume["ok"], f"async: the resumed run is off the "
+                          f"uninterrupted one: {resume}")
+    del resumed
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _event_fire_bytes(server) -> bytes:
+    sched = server.event_scheduler
+    return json.dumps({"fires": [vars(f) for f in sched.fire_log],
+                       "state": sched.state_dict(),
+                       "virtual_time": [h.virtual_time
+                                        for h in server.history]},
+                      sort_keys=True).encode()
+
+
+def phase_round_event_vit_base(torch, summary: dict) -> dict:
+    """Main path 4b: four event rounds (straggler latency, timeout
+    trigger) at ViT-base width, int8 transport and momentum, then the
+    drain: K1/K2 launch 3 times a fire, some fire aggregates a partial
+    cohort, and a second run from the same seed writes the same fire log
+    byte for byte."""
+    import numpy as np
+    from repro_torch.kernels import ops
+    server = _buffered_server(torch, events=True)
+    times, kept = {}, []
+    _instrument(torch, server, times, kept)
+    sched = server.event_scheduler
+    rounds, peak = [], 0.0
+    ops.reset_launches()          # main path 4b's count starts here
+    for r in range(BUFFERED_ROUNDS + 1):      # the last pass is the drain
+        before, fires0 = _k12_launches(), len(sched.fire_log)
+        times.clear()
+        torch.cuda.reset_peak_memory_stats()
+        if r < BUFFERED_ROUNDS:
+            wall = server.run_round().wall_time_s
+        else:
+            server.drain_pending()
+            wall = None
+        torch.cuda.synchronize()
+        peak = max(peak, torch.cuda.max_memory_allocated() / 2**30)
+        fires = len(sched.fire_log) - fires0
+        grew = {k: v - before[k] for k, v in _k12_launches().items()}
+        rounds.append({"round": r if r < BUFFERED_ROUNDS else "drain",
+                       "fires": fires, "launches": grew,
+                       "virtual_s": wall, **times})
+        require(all(g == 3 * fires for g in grew.values()),
+                f"event round {r}: K1/K2 launches {grew} for {fires} fires")
+    launches = _k12_launches()   # read just after the main path
+    k12 = _k12_at_path(torch, server, kept, summary, "event")
+    masks = [k["present"] for _, k, _ in kept]
+    require(len(masks) == len(sched.fire_log) and masks,
+            "event: fires and aggregations disagree")
+    partial = sum(not all(m) for m in masks)
+    require(partial > 0, "event: no fire aggregated a partial cohort")
+    require(all(np.isfinite(h.mean_client_loss) for h in server.history),
+            "event: non-finite client loss")
+    dispatched = sum(len(h.clients) for h in server.history)
+    consumed = sum(f.consumed for f in sched.fire_log)
+    require(consumed == dispatched,
+            f"event: {consumed} updates aggregated of {dispatched}")
+    dequant = _dequant_ms(torch, kept[-1][0][0])
+    first = _event_fire_bytes(server)
+    energy = list(server.energy.higher_rank_ratio)
+    del server
+    gc.collect()
+    again = _buffered_server(torch, events=True)
+    again.run(BUFFERED_ROUNDS)
+    again.drain_pending()
+    same = _event_fire_bytes(again) == first
+    emit({"phase": "round_event_vit_base", "rounds": rounds,
+          "fire_log": [vars(f) for f in sched.fire_log],
+          "partial_fires": partial, "dequant_ms": dequant,
+          "higher_rank_energy_ratio": energy,
+          "peak_mem_gib": peak, "launches": launches, "k12_vs_plain": k12,
+          "fire_log_bytes_equal": same, "card": card_line()})
+    require(same, "event: two runs from one seed wrote other fire logs")
+    del again
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_straggler_contrast(torch) -> None:
+    """``TestStragglerRankCollapse`` on the card (kernel backend, its own
+    size: d_model 96, 12 clients, 12 rounds), f32 and int8 with error
+    feedback: FlexLoRA's higher-rank energy collapses, raFLoRA's holds."""
+    import numpy as np
+    from repro_torch.federation import events as ev
+    from repro_torch.federation.experiment import build_experiment
+    from repro_torch.federation.transport import TransportConfig
+    out = {}
+    for label, tx in (("f32", None),
+                      ("int8-ef", TransportConfig(mode="int8",
+                                                  error_feedback=True))):
+        ratios = {}
+        for method in ("flexlora", "raflora"):
+            t0 = time.perf_counter()
+            exp = build_experiment(
+                method, fl_overrides={"num_rounds": 12, "num_clients": 12,
+                                      "participation": 0.5},
+                samples_per_class=60, num_classes=12, d_model=96,
+                batches_per_round=1, round_engine="async",
+                staleness_gamma=0.6, transport=tx, backend="kernel",
+                device=DEV)
+            high = np.flatnonzero(
+                exp.registry.ranks > min(exp.server.lora_cfg.rank_levels))
+            exp.server.set_event_scheduler(ev.EventScheduler(
+                ev.StragglerTailLatency(median=0.8, sigma=0.15,
+                                        tail_scale=2.5,
+                                        straggler_clients=high, seed=5),
+                ev.TimeoutTrigger(2.0), round_interval=1.0))
+            exp.server.run(12)
+            exp.server.drain_pending()
+            ratios[method] = [float(x) for x in
+                              exp.server.energy.higher_rank_ratio]
+            ratios[method + "_s"] = time.perf_counter() - t0
+        flex, ra = ratios["flexlora"], ratios["raflora"]
+        holds = {"flexlora_collapses": flex[-1] < 0.5 * flex[0],
+                 "raflora_holds": (ra[-1] > 0.8 * ra[0] if tx is None
+                                   else ra[-1] >= 0.4),
+                 "raflora_over_2x_flexlora": ra[-1] > 2.0 * flex[-1]}
+        out[label] = {"ratios": ratios, "inequalities": holds}
+    emit({"phase": "straggler_contrast", **out, "card": card_line()})
+    for label, res in out.items():
+        require(all(res["inequalities"].values()),
+                f"straggler_contrast {label}: {res['inequalities']}")
+
+
 def phase_profile(torch, server) -> None:
     """One more vit-base round under torch.profiler: device time by
     kernel, K2's share and the device's idle share of the round."""
@@ -1781,6 +2196,7 @@ def main() -> int:
         ops_launches = phase_kernel_ops(torch, summary)
         phase_round_small(torch)
         launches, server = phase_round_vit_base(torch)
+        by_path = {k: {"round_vit_base": n} for k, n in launches.items()}
         launches.update(ops_launches)
         if "--profile" in sys.argv[1:]:
             phase_profile(torch, server)
@@ -1788,6 +2204,14 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         phase_round_methods_child()
+        for path, phase in (("round_async_vit_base",
+                             phase_round_async_vit_base),
+                            ("round_event_vit_base",
+                             phase_round_event_vit_base)):
+            for k, n in phase(torch, summary).items():
+                by_path[k][path] = n
+                launches[k] += n
+        phase_straggler_contrast(torch)
         phase_serve_small(torch)
         launches["batched_lora_apply"] = phase_serve_qwen2_7b(torch)
         gc.collect()              # free the 30.5 GB model before mamba2
@@ -1804,16 +2228,18 @@ def main() -> int:
             print(f"chip_smoke: FAIL: {name} never launched on the main "
                   "path", file=sys.stderr)
             return 1
+        if name in by_path and not all(by_path[name].values()):
+            print(f"chip_smoke: FAIL: {name} never launched on "
+                  f"{by_path[name]}", file=sys.stderr)
+            return 1
         kernels.append({"name": name, "route": "cuda",
                         "source": SOURCES[name], "replaces": REPLACES[name],
                         "path": PATHS[name], "launches": require_launch,
+                        **({"launches_by_path": by_path[name]}
+                           if name in by_path else {}),
                         "runs_on": RUNS_ON[name], **s})
     emit({"kernels": kernels})
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True)
-    print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
-          else f"nvidia-smi unavailable: {smi.stderr.strip()}", flush=True)
+    print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                   "kind": torch.cuda.get_device_name(0),
                                   "count": torch.cuda.device_count()}})

@@ -1,5 +1,5 @@
 """Server-side aggregation of heterogeneous-rank LoRA uploads (a port of
-``repro/core/aggregation.py`` without its sharded and event parts).
+``repro/core/aggregation.py`` without its sharded parts).
 
 Implements the paper's method and every baseline it compares against
 (Table 1), all over one stacked-factor representation, as in the
@@ -40,6 +40,11 @@ from repro_torch.core.svd import (check_fallback_globals, dense_from_weighted,
                                   factored_from_weighted, ieee_f32,
                                   svd_realloc_dense, svd_realloc_factored,
                                   svd_realloc_gram)
+from repro_torch.kernels import ops as kernel_ops
+# the one decoder of transport payloads: every stack build dequantizes
+# before any weighting (omega rows, staleness discounts, the Eq. 8
+# fallback), as the reference's ``_dq`` does (DESIGN.md §12)
+from repro_torch.kernels.ops import dequantize, is_quantized
 
 METHODS = ("fedavg", "hetlora", "flora", "flexlora", "raflora", "ffa")
 _AVG_FAMILY = ("fedavg", "hetlora", "ffa")
@@ -51,6 +56,11 @@ class AggregationResult:
     a_g: torch.Tensor                   # (..., r_max, n)
     sigma: Optional[torch.Tensor]       # (..., r_max) or None
     merge_delta: Optional[torch.Tensor] = None  # FLoRA: dW folded into base
+
+
+def _device(x) -> torch.device:
+    """The device of a factor that may be a QuantFactor."""
+    return (x.q if is_quantized(x) else x).device
 
 
 def _pad_rank(x: torch.Tensor, r_max: int, axis: int) -> torch.Tensor:
@@ -65,9 +75,12 @@ def _pad_rank(x: torch.Tensor, r_max: int, axis: int) -> torch.Tensor:
 def pad_stack(factors: Sequence[Tuple[torch.Tensor, torch.Tensor]],
               r_max: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """[(B_k (..., d, r_k), A_k (..., r_k, n))] -> zero-padded stacks
-    (M, ..., d, r_max), (M, ..., r_max, n)."""
-    return (torch.stack([_pad_rank(b, r_max, -1) for b, _ in factors]),
-            torch.stack([_pad_rank(a, r_max, -2) for _, a in factors]))
+    (M, ..., d, r_max), (M, ..., r_max, n). Transport-quantized entries
+    dequantize here (the sequential engine's stack build)."""
+    return (torch.stack([_pad_rank(dequantize(b), r_max, -1)
+                         for b, _ in factors]),
+            torch.stack([_pad_rank(dequantize(a), r_max, -2)
+                         for _, a in factors]))
 
 
 def _weights(n_k: Sequence[float]) -> np.ndarray:
@@ -218,7 +231,6 @@ def _weighted_svd(bs, as_, omega, global_b, global_a, fallback, r_max,
         if bs.ndim > 3:
             return _agg_kernel_stacked(bs, as_, omega, global_b, global_a,
                                        fallback, r_max)
-        from repro_torch.kernels import ops as kernel_ops
         b_g, a_g, sigma = svd_realloc_gram(*kernel_ops.factored_stack_gram(
             bs, as_, omega, global_b, global_a, fallback), r_max)
     else:
@@ -231,7 +243,6 @@ def _agg_kernel_stacked(bs, as_, omega, global_b, global_a, fallback,
     """Flatten every batch axis between the client and matrix axes into one
     layer axis, run K1 + K2 once for the whole bucket (the Eq. 8 fallback
     riding as one extra client), then one batched Gram-core SVD realloc."""
-    from repro_torch.kernels import ops as kernel_ops
     lead = tuple(bs.shape[1:-2])
     m, d, r = bs.shape[0], bs.shape[-2], bs.shape[-1]
     n = as_.shape[-1]
@@ -273,10 +284,15 @@ def _grouped_core(group_bs, group_as, warg, global_bs, global_as, fallback,
                   *, r_max, backend, method):
     """Assemble a shape bucket from per-rank-group factor tuples and
     aggregate it. group_bs: over rank groups, over bucket adapters, of
-    (G, ..., d, r_group) tensors; global_bs: over bucket adapters."""
-    bs = torch.cat([_pad_rank(torch.stack(list(bt), dim=1), r_max, -1)
+    (G, ..., d, r_group) tensors; global_bs: over bucket adapters.
+    Transport-quantized entries dequantize here, once."""
+    bs = torch.cat([_pad_rank(torch.stack([dequantize(b) for b in bt],
+                                          dim=1),
+                              r_max, -1)
                     for bt in group_bs])              # (M, P, ..., d, r_max)
-    as_ = torch.cat([_pad_rank(torch.stack(list(at), dim=1), r_max, -2)
+    as_ = torch.cat([_pad_rank(torch.stack([dequantize(a) for a in at],
+                                           dim=1),
+                               r_max, -2)
                      for at in group_as])             # (M, P, ..., r_max, n)
     gb = None if global_bs is None else torch.stack(list(global_bs))
     ga = None if global_as is None else torch.stack(list(global_as))
@@ -359,8 +375,29 @@ class Aggregator:
         return (np.asarray(omega),
                 None if fallback is None else np.asarray(fallback))
 
-    def _tensor_args(self, ranks, n_k, device):
-        warg, fallback = self._weight_args(ranks, n_k)
+    def _present_weight_args(self, ranks, n_arr, present):
+        """(warg, fallback) with only ``present`` clients participating:
+        the event engine's partial cohorts. Weights are computed on the
+        present subset alone -- absent clients stay out of every
+        membership-derived quantity (raFLoRA's contributor sets, the Eq. 8
+        fallback, the fedavg rank check) -- and scattered back with zeros.
+        With every client present this is bit-identical to
+        ``_weight_args`` (same inputs, same arrays)."""
+        n_arr = np.where(np.asarray(present, dtype=bool), n_arr, 0.0)
+        real = np.flatnonzero(n_arr > 0)
+        assert real.size > 0, "an aggregation fired with no present client"
+        warg_real, fallback = self._weight_args(
+            [ranks[i] for i in real], n_arr[real])
+        warg_np = np.asarray(warg_real)
+        warg = np.zeros((len(n_arr),) + warg_np.shape[1:], warg_np.dtype)
+        warg[real] = warg_np
+        return warg, fallback
+
+    def _tensor_args(self, ranks, n_k, device, present=None):
+        if present is None:
+            warg, fallback = self._weight_args(ranks, n_k)
+        else:
+            warg, fallback = self._present_weight_args(ranks, n_k, present)
         return (torch.as_tensor(warg, dtype=torch.float32, device=device),
                 None if fallback is None else torch.as_tensor(
                     fallback, dtype=torch.float32, device=device))
@@ -371,6 +408,7 @@ class Aggregator:
         as_ (M, *batch, r_max, n); global factors, if given, carry the
         same batch axes without the client axis. The result keeps the
         batch axes."""
+        bs, as_ = dequantize(bs), dequantize(as_)
         warg, fallback = self._tensor_args(ranks, n_k, bs.device)
         return AggregationResult(*_dispatch_stacked(
             bs, as_, warg, global_b, global_a, fallback,
@@ -382,15 +420,14 @@ class Aggregator:
                           present=None) -> AggregationResult:
         """Batched round engine hot path: aggregate a shape bucket straight
         from per-rank-group factor stacks (ranks/n_k in concatenated
-        group-client order). Returns an AggregationResult with a leading
-        bucket-adapter axis."""
-        if present is not None:
-            raise NotImplementedError(
-                "partial cohorts (present=) belong to the event engine, not "
-                "ported yet (ROADMAP.md queue 1 item 8)")
+        group-client order). ``staleness``/``gamma`` discount the async
+        engine's stale clients; ``present`` masks the event engine's
+        not-yet-arrived ones (``_present_weight_args``). Returns an
+        AggregationResult with a leading bucket-adapter axis."""
         n_arr = staleness_discount(n_k, staleness, gamma)
         warg, fallback = self._tensor_args(ranks, n_arr,
-                                           group_bs[0][0].device)
+                                           _device(group_bs[0][0]),
+                                           present)
         return AggregationResult(*_grouped_core(
             group_bs, group_as, warg, global_bs, global_as, fallback,
             r_max=max(self.rank_levels), backend=self.backend,

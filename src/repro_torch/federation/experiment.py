@@ -17,6 +17,7 @@ import torch
 
 from repro_torch.configs.base import (ACT_GELU, ATTN_BIDIR, FLConfig,
                                       FrontendConfig, LoRAConfig, ModelConfig)
+from repro_torch.core.server_opt import FactoredServerMomentum
 from repro_torch.data import ClusterClassification, batches, make_partition
 from repro_torch.federation.server import FederatedLoRA
 from repro_torch.federation.topology import ClientRegistry
@@ -86,11 +87,6 @@ class FLExperiment:
         return self.server.evaluate(self.test_batch)["accuracy"]
 
 
-def _not_ported(name: str, item: int) -> NotImplementedError:
-    return NotImplementedError(
-        f"{name} is not ported yet (ROADMAP.md queue 1 item {item})")
-
-
 def build_experiment(method: str = "raflora", *,
                      fl_overrides: Optional[dict] = None,
                      lora_overrides: Optional[dict] = None,
@@ -113,17 +109,14 @@ def build_experiment(method: str = "raflora", *,
                      data_seed: int = 0,
                      device=None,
                      base_params: Optional[dict] = None) -> FLExperiment:
-    if noisy_low_rank_std > 0:
-        raise _not_ported("noisy low-rank client data (noisy_low_rank_std=)",
-                          6)
-    if server_momentum_beta > 0:
-        raise _not_ported("server momentum", 7)
-    if mesh is not None:
-        raise _not_ported("the sharded engine (mesh=)", 9)
-    if pipeline_depth != 1 or staleness_gamma != 1.0 or event_scheduler:
-        raise _not_ported("the async and event engines", 8)
-    if transport is not None:
-        raise _not_ported("the compressed transport", 8)
+    """``event_scheduler``: an ``events.EventScheduler`` switching the
+    async engine from the ``pipeline_depth`` cadence to arrival-event
+    triggers on the virtual clock. ``transport``: an ``UpdateTransport``
+    or ``TransportConfig`` compressing the uploads (None ships f32).
+    ``noisy_low_rank_std`` > 0 adds Gaussian noise to the minimum-rank
+    clients' training data (Table 4's extension), drawn from
+    ``default_rng(123)`` as in the reference. ``mesh=`` (the sharded
+    engine) is not ported: the server refuses it."""
     fl = FLConfig(aggregator=method, num_clients=20, participation=0.25,
                   num_rounds=40, local_batch_size=32, learning_rate=2e-3,
                   partition="pathological", dirichlet_alpha=1.0,
@@ -148,12 +141,30 @@ def build_experiment(method: str = "raflora", *,
                         patches=data.patches)
     model = Model(cfg, lora, dtype=torch.float32, device=device)
     registry = ClientRegistry.create(fl, lora, shards)
-    batch_fn = make_batch_fn(registry, x_tr, y_tr, fl, batches_per_round,
+    x_noisy = x_tr
+    if noisy_low_rank_std > 0:
+        rng = np.random.default_rng(123)
+        x_noisy = x_tr.copy()
+        min_rank = min(lora.rank_levels)
+        for cid in range(fl.num_clients):
+            if registry.ranks[cid] == min_rank:
+                idx = registry.shards[cid]
+                x_noisy[idx] = x_tr[idx] + noisy_low_rank_std * rng.normal(
+                    size=x_tr[idx].shape).astype(np.float32)
+    batch_fn = make_batch_fn(registry, x_noisy, y_tr, fl, batches_per_round,
                              data.patches)
+    server_momentum = None
+    if server_momentum_beta > 0:
+        server_momentum = FactoredServerMomentum(beta=server_momentum_beta)
     server = FederatedLoRA(model, fl, lora, registry, batch_fn,
                            base_params=base_params, backend=backend,
                            partial_up_to=partial_up_to,
-                           round_engine=round_engine)
+                           server_momentum=server_momentum,
+                           round_engine=round_engine, mesh=mesh,
+                           pipeline_depth=pipeline_depth,
+                           staleness_gamma=staleness_gamma,
+                           event_scheduler=event_scheduler,
+                           transport=transport)
     test_batch = to_batch(x_te[:512], y_te[:512], data.patches)
     return FLExperiment(server=server, model=model, test_batch=test_batch,
                         registry=registry)

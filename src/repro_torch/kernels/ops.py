@@ -3,8 +3,12 @@
 from here too, on the port's hand-written CUDA kernels (each wrapper
 computes its plain PyTorch version for CPU tensors). Not yet here: the
 reference's ``factored_stack_lead`` / ``factored_gram_lead`` of the
-sharded engine and the ``QuantFactor`` dequant (ROADMAP.md queue 1,
-items 8 and 9), so every entry takes plain tensors.
+sharded engine (ROADMAP.md queue 1 item 9). The factored stack entries
+take transport-quantized factors (``QuantFactor``: int8 or bf16 payload
+and f32 per-column scales) as well as plain tensors: ``dequantize`` turns
+them into f32 with one elementwise op before K1, as the reference does
+outside its Pallas grids. ``dequantize`` is the port's one decoder of that
+layout; aggregation and the transport import it from here.
 
 * the fused factored aggregation (DESIGN.md §4.3) that the kernel
   backend's round path runs: ``factored_stack_layered`` (K1),
@@ -66,6 +70,21 @@ def _pad_to(x: torch.Tensor, axis: int, mult: int) -> torch.Tensor:
     return F.pad(x, widths)
 
 
+def is_quantized(x) -> bool:
+    """True for a transport ``QuantFactor`` (duck-typed: ``kernels`` never
+    imports ``federation``)."""
+    return hasattr(x, "q") and hasattr(x, "scale")
+
+
+def dequantize(x):
+    """A ``QuantFactor`` -> f32 payload * scale, one elementwise op; plain
+    tensors pass through untouched. The kernels themselves stay
+    layout-agnostic."""
+    if is_quantized(x):
+        return x.q.float() * x.scale
+    return x
+
+
 def _append_fallback_client(bs, as_, omega, global_b, global_a, fallback,
                             *, layer_axes: int):
     """Concatenate the global factors as client M+1 carrying ``fallback``.
@@ -109,6 +128,7 @@ def factored_stack_gram_layered(bs: torch.Tensor, as_: torch.Tensor,
     """The whole fused front half for one shape bucket: (u_c, v_c, g_u,
     g_v) for ``svd_realloc_gram``. bs (L, M, d, r); as_ (L, M, r, n);
     omega (M, r) shared across layers; global factors (L, d, r)/(L, r, n)."""
+    bs, as_ = dequantize(bs), dequantize(as_)
     bs, as_, omega = _append_fallback_client(bs, as_, omega, global_b,
                                              global_a, fallback,
                                              layer_axes=1)
@@ -126,6 +146,7 @@ def factored_stack_gram(bs: torch.Tensor, as_: torch.Tensor,
     ``svd_realloc_gram``. bs (M, d, r); as_ (M, r, n); omega (M, r);
     optional global factors (d, r) / (r, n) enter as one extra client
     carrying the Eq. 8 fallback. K1 and K2 at L = 1."""
+    bs, as_ = dequantize(bs), dequantize(as_)
     bs, as_, omega = _append_fallback_client(bs, as_, omega, global_b,
                                              global_a, fallback,
                                              layer_axes=0)

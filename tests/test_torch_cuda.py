@@ -850,3 +850,101 @@ def test_cuda_batched_lora_apply_keeps_the_simt_route(cuda_device, m, n):
         before[0] + 1, before[1])
     want = la.batched_lora_apply_plain(**case)
     assert float((got - want).abs().max()) <= _lora_tol(case)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["int8", "bf16"])
+def test_cuda_ops_factored_stack_gram_quantized(cuda_device, mode):
+    """K1/K2 through ``ops.factored_stack_gram`` and ``..._layered`` on
+    transport-quantized factors (a vit-base q/k/v/o bucket of 5 clients
+    and one slice of it): one launch of each kernel a call, bit-equal to
+    the same entry on the dequantized tensors, and U_c, V_c bit-exact
+    against the CPU's plain version."""
+    from repro_torch.federation import transport as tx
+    rng = np.random.default_rng(3)
+    ranks = [4, 8, 16, 24, 32]
+    b = rng.normal(size=(5, 48, 768, 32)).astype(np.float32)
+    a = rng.normal(size=(5, 48, 32, 768)).astype(np.float32)
+    for j, r in enumerate(ranks):
+        b[j, ..., r:] = 0.0
+        a[j, ..., r:, :] = 0.0
+    qb, qa, _, _ = tx._encode_pair(
+        *(torch.from_numpy(x).to(cuda_device) for x in (b, a)),
+        torch.zeros(b.shape, device=cuda_device),
+        torch.zeros(a.shape, device=cuda_device), mode=mode, top_k=None)
+    omega = torch.from_numpy(rng.uniform(size=(5, 32)).astype(np.float32)
+                             ).to(cuda_device)
+    layered = tuple(tx.QuantFactor(f.q.movedim(0, 1), f.scale.movedim(0, 1))
+                    for f in (qb, qa))
+    one = tuple(tx.QuantFactor(f.q[:, 0], f.scale[:, 0]) for f in (qb, qa))
+    for entry, q_args in ((ops.factored_stack_gram_layered, layered),
+                          (ops.factored_stack_gram, one)):
+        before = [k.launches for k in rpa.KERNELS]
+        got = entry(*q_args, omega)
+        torch.cuda.synchronize()
+        assert [k.launches for k in rpa.KERNELS] == [n + 1 for n in before]
+        want = entry(*(tx.dequantize(f) for f in q_args), omega)
+        for x, y in zip(got, want):
+            assert torch.equal(x, y)
+        cpu = entry(*(tx.QuantFactor(f.q.cpu(), f.scale.cpu())
+                      for f in q_args), omega.cpu())
+        for x, y in zip(got[:2], cpu[:2]):
+            torch.testing.assert_close(x.cpu(), y, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [
+    {"pipeline_depth": 2},
+    {"pipeline_depth": 2, "server_momentum_beta": 0.9, "transport": "int8"},
+    {"event": True, "transport": "bf16"}],
+    ids=["async", "async-momentum-int8", "event-bf16"])
+def test_cuda_buffered_round_matches_cpu(cuda_device, kw):
+    """The async engine at depth 2 and the event engine (straggler
+    latency, timeout 2.0) on the card and on the CPU from the same
+    weights: at the first buffered aggregation (identical state) the same
+    clients, losses at rtol 1e-4, spectra within 1e-3 and products within
+    2e-3 of max(1, sigma_max); K1/K2 launch 3 times at it."""
+    from repro_torch.federation import events as ev
+    from repro_torch.federation.experiment import build_experiment
+    from repro_torch.federation.transport import TransportConfig
+    kw = dict(kw)
+    event, mode = kw.pop("event", False), kw.pop("transport", None)
+    args = dict(fl_overrides={"num_rounds": 4, "num_clients": 8,
+                              "participation": 0.5},
+                lora_overrides={"rank_levels": (4, 8, 16),
+                                "rank_probs": (0.34, 0.33, 0.33)},
+                samples_per_class=20, num_classes=4, d_model=32,
+                batches_per_round=1, backend="kernel", round_engine="async",
+                staleness_gamma=0.8, **kw)
+    servers = []
+    for dev, base in (("cpu", None), ("cuda", "cpu")):
+        exp = build_experiment(
+            "raflora", device=dev,
+            base_params=None if base is None else
+            servers[0].global_params(),
+            transport=mode and TransportConfig(mode=mode), **args)
+        if event:
+            exp.server.set_event_scheduler(ev.EventScheduler(
+                ev.StragglerTailLatency(
+                    median=0.8, sigma=0.15, tail_scale=2.5, seed=5,
+                    straggler_clients=np.flatnonzero(
+                        exp.registry.ranks > 4)),
+                ev.TimeoutTrigger(2.0), round_interval=1.0))
+        servers.append(exp.server)
+    before = [k.launches for k in rpa.KERNELS]
+    hc, hg = servers[0].run(2), servers[1].run(2)
+    torch.cuda.synchronize()
+    assert [k.launches for k in rpa.KERNELS] == [n + 3 for n in before]
+    assert [h.clients for h in hg] == [h.clients for h in hc]
+    np.testing.assert_allclose([h.mean_client_loss for h in hg],
+                               [h.mean_client_loss for h in hc], rtol=1e-4)
+    scale = max(1.0, float(np.abs(hc[-1].sigma_probe).max()))
+    np.testing.assert_allclose(hg[-1].sigma_probe, hc[-1].sigma_probe,
+                               atol=1e-3 * scale)
+    r_max = servers[0].lora_cfg.r_max
+    fc = servers[0]._extract_factors(servers[0].global_lora, r_max)
+    fg = servers[1]._extract_factors(servers[1].global_lora, r_max)
+    for parent, (b, a) in fc.items():
+        gb, ga = fg[parent]
+        np.testing.assert_allclose((gb @ ga).cpu().numpy(), (b @ a).numpy(),
+                                   atol=2e-3 * scale)

@@ -13,19 +13,21 @@ SRC = os.path.join(ROOT, "src")
 
 MODULES = [
     "repro_torch",
+    "repro_torch.checkpointing", "repro_torch.checkpointing.checkpoint",
     "repro_torch.configs", "repro_torch.configs.base",
     "repro_torch.configs.mamba2_1p3b", "repro_torch.configs.paper_models",
     "repro_torch.configs.qwen2_7b",
     "repro_torch.convert", "repro_torch.device",
     "repro_torch.core", "repro_torch.core.aggregation",
     "repro_torch.core.energy", "repro_torch.core.lora",
-    "repro_torch.core.partitions", "repro_torch.core.svd",
-    "repro_torch.core.theory",
+    "repro_torch.core.partitions", "repro_torch.core.server_opt",
+    "repro_torch.core.svd", "repro_torch.core.theory",
     "repro_torch.data", "repro_torch.data.partition",
-    "repro_torch.data.synthetic",
+    "repro_torch.data.synthetic", "repro_torch.data.traces",
     "repro_torch.federation", "repro_torch.federation.client",
-    "repro_torch.federation.experiment", "repro_torch.federation.server",
-    "repro_torch.federation.topology",
+    "repro_torch.federation.events", "repro_torch.federation.experiment",
+    "repro_torch.federation.server", "repro_torch.federation.topology",
+    "repro_torch.federation.transport",
     "repro_torch.kernels", "repro_torch.kernels.build",
     "repro_torch.kernels.flash_attention", "repro_torch.kernels.gemm_plan",
     "repro_torch.kernels.lora_apply",
@@ -99,21 +101,45 @@ def test_default_device_raises_without_cuda(monkeypatch):
     assert resolve_device("cpu") == torch.device("cpu")
 
 
-def test_unported_options_name_their_roadmap_item():
-    """The options still refused name their ROADMAP item; the ported ones
-    (every method, backend and partial_up_to, the sequential engine) are
-    held to the reference in test_torch_aggregation.py and
-    test_torch_round.py."""
-    from repro_torch.federation.experiment import build_experiment
-    small = dict(d_model=32, backend="kernel", samples_per_class=10,
+SMALL_EXP = dict(d_model=32, backend="kernel", samples_per_class=10,
                  num_classes=4, device="cpu")
-    for kw, item in ((dict(noisy_low_rank_std=0.5), 6),
-                     (dict(server_momentum_beta=0.9), 7),
-                     (dict(round_engine="async"), 8),
-                     (dict(round_engine="sharded"), 9)):
+
+
+def test_unported_options_name_their_roadmap_item():
+    """The options still refused -- the sharded engine, by name or by a
+    mesh -- name their ROADMAP item; the ported ones are held to the
+    reference in test_torch_aggregation.py, test_torch_round.py,
+    test_torch_transport.py, test_torch_events.py and
+    test_torch_buffered.py."""
+    from repro_torch.federation.experiment import build_experiment
+    for kw in (dict(round_engine="sharded"), dict(mesh=object()),
+               dict(round_engine="async", mesh=object())):
         with pytest.raises(NotImplementedError,
-                           match=f"ROADMAP.md queue 1 item {item}"):
-            build_experiment("raflora", **kw, **small)
+                           match="ROADMAP.md queue 1 item 9"):
+            build_experiment("raflora", **kw, **SMALL_EXP)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(noisy_low_rank_std=0.5), dict(server_momentum_beta=0.9),
+    dict(round_engine="async", pipeline_depth=2, staleness_gamma=0.8),
+    dict(round_engine="async", event_scheduler="constant"),
+    dict(transport="int8")],
+    ids=["noisy", "momentum", "async", "event", "transport"])
+def test_ported_options_build(kw):
+    """Items 6-8 (noisy clients, momentum and checkpoints, the async and
+    event engines and the transport) build and run a round."""
+    from repro_torch.federation import events
+    from repro_torch.federation.experiment import build_experiment
+    from repro_torch.federation.transport import TransportConfig
+    kw = dict(kw)
+    if kw.get("event_scheduler") == "constant":
+        kw["event_scheduler"] = events.EventScheduler(
+            events.ConstantLatency(1.0), events.CountTrigger(1))
+    if kw.get("transport") == "int8":
+        kw["transport"] = TransportConfig(mode="int8")
+    exp = build_experiment("raflora", **kw, **SMALL_EXP)
+    exp.server.run(1)
+    assert len(exp.server.history) == 1
 
 
 @pytest.mark.parametrize("change", [
