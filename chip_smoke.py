@@ -63,6 +63,29 @@ JAX. Phases, each printing one JSON line:
     straggler_contrast  ``TestStragglerRankCollapse`` on the card at its
                   own size (d_model 96, 12 rounds), f32 and int8 with
                   error feedback: the test's inequalities.
+4c. train_launcher  main path 5: ``python -m repro_torch.launch.train``
+                  in process at its defaults (fedvit-tiny d 128, 20
+                  clients, 20 rounds, rank levels 4..32) with ``--backend
+                  kernel``, for flexlora and raflora: a log row a round
+                  with the test accuracy at each eval, K1/K2 once per
+                  shape bucket (3) every round and one call of each
+                  distinct input shape over all rounds held to its plain
+                  version, raFLoRA's final
+                  higher-rank energy above FlexLoRA's, a server restored
+                  from ``--checkpoint`` bit-equal; round ms.
+4d. paper_benches  main path 6, in a child process: the paper's benches
+                  through ``repro_torch.benchmarks`` (energy dynamics with
+                  the same ordering check, accuracy at seed 0, cost: Table
+                  3's bytes against the shape arithmetic, K1/K2 once each
+                  an ``aggregate_layer`` call on the kernel backend at a
+                  ViT-base layer, the three backends at round_methods'
+                  parity tolerances; kernels: K5 at 512^3, K3 at one layer
+                  M 10 d 768 r 64, K6 at B 2 L 256 H 8 P 32 N 32 chunk 64,
+                  each within phase_kernels' tolerance; the round-latency
+                  studies ``run`` and ``run_kernel_backend``, the latter's
+                  K1/K2 once per bucket a kernel-backend round at d 64,
+                  ranks 4/8/16, each distinct call shape held to its plain
+                  version), every CSV row and its ms.
 5. serve_small    a reduced qwen2 serving engine on cuda (K4) and on cpu
                   (plain) from the same weights: equal greedy tokens.
 6. serve_qwen2_7b main path 2: Qwen2-7B at full width in f32, 4 slots of
@@ -111,6 +134,7 @@ Any failure exits nonzero before the final line.
 from __future__ import annotations
 
 import gc
+import inspect
 import json
 import math
 import os
@@ -165,16 +189,19 @@ RUNS_ON = {name: "simt_f32" for name in REPLACES}
 RUNS_ON.update(lora_apply="mma_tf32x3", flash_attention="mma_tf32x3",
                ssd_scan="mma_tf32x3")
 # the main paths each kernel's launches are counted on
-K12_PATHS = ("round_vit_base", "round_async_vit_base", "round_event_vit_base")
+K12_PATHS = ("round_vit_base", "round_async_vit_base",
+             "round_event_vit_base", "train_launcher", "bench_cost",
+             "bench_round_latency")
 PATHS = {"weighted_stack_b": ", ".join(K12_PATHS),
          "weighted_stack_a": ", ".join(K12_PATHS),
          "gram_left": ", ".join(K12_PATHS),
          "gram_right": ", ".join(K12_PATHS),
          "batched_lora_apply": "serve_qwen2_7b",
-         "ssd_scan": "serve_mamba2_1p3b",
-         "rank_partition_agg": "kernel_ops",
+         "ssd_scan": "bench_kernels, serve_mamba2_1p3b",
+         "rank_partition_agg": "kernel_ops, bench_kernels",
          "rank_partition_agg_layered": "kernel_ops",
-         "lora_apply": "kernel_ops", "flash_attention": "kernel_ops"}
+         "lora_apply": "kernel_ops, bench_kernels",
+         "flash_attention": "kernel_ops"}
 # vit-base round buckets: (name, layers L' = adapters x layers, d, n)
 BUCKETS = (("attn_qkvo", 48, 768, 768), ("mlp_down", 12, 3072, 768),
            ("mlp_up", 12, 768, 3072))
@@ -1472,6 +1499,22 @@ def phase_round_methods(torch) -> None:
         torch.cuda.empty_cache()
 
 
+def _run_child(flag: str, label: str, env=None):
+    """This script again with ``flag`` in a child process (a phase's
+    child, see ``main``): its output is passed through, and a nonzero
+    exit fails the phase. Returns the child's stdout."""
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), flag],
+                          env=env, capture_output=True, text=True,
+                          timeout=900)
+    sys.stdout.write(proc.stdout)
+    sys.stdout.flush()
+    sys.stderr.write(proc.stderr)
+    err = proc.stderr.strip().splitlines()
+    require(proc.returncode == 0, f"{label}: child exited {proc.returncode}"
+                                  f": {err[-1] if err else ''}")
+    return proc.stdout
+
+
 def phase_round_methods_child() -> None:
     """``phase_round_methods`` in a child process with cuBLAS's split-K
     reductions off (``CUBLAS_WORKSPACE_CONFIG=:0:0``; torch reads it once,
@@ -1484,17 +1527,8 @@ def phase_round_methods_child() -> None:
     gradients are bit-equal, as on the CPU where the reference's
     ``TestRoundEngineEquivalence`` tolerances hold. The main path (phase
     4) keeps cuBLAS's default."""
-    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":0:0")
-    proc = subprocess.run(
-        [sys.executable, os.path.abspath(__file__), "--round-methods"],
-        env=env, capture_output=True, text=True, timeout=900)
-    sys.stdout.write(proc.stdout)
-    sys.stdout.flush()
-    sys.stderr.write(proc.stderr)
-    err = proc.stderr.strip().splitlines()
-    require(proc.returncode == 0,
-            f"round_methods: child exited {proc.returncode}: "
-            f"{err[-1] if err else ''}")
+    _run_child("--round-methods", "round_methods",
+               env=dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":0:0"))
 
 
 # main path 4: the buffered server at ViT-base width (async and event
@@ -1584,40 +1618,20 @@ def _k12_at_path(torch, server, kept, summary: dict, label: str) -> list:
     at its wrapper and run through the kernel and its plain version at
     phase_kernels' tolerances. Called after the path's launches are
     read, so these launches count nowhere."""
-    from repro_torch.kernels import ops
-    from repro_torch.kernels import rank_partition_agg as rpa
-    orig = {name: getattr(ops, name) for name in K12}
     rows = []
     for agg, (args, kwargs, global_lora) in enumerate(kept):
-        calls = []
-
-        def capture(name):
-            def wrapper(*x):
-                calls.append((name, x))
-                return orig[name](*x)
-            return wrapper
         live = server.global_lora, server.server_momentum
         server.global_lora, server.server_momentum = global_lora, None
-        for name in K12:
-            setattr(ops, name, capture(name))
         try:
-            type(server)._aggregate_grouped(server, *args, **kwargs)
+            with _CaptureK12() as capture:
+                type(server)._aggregate_grouped(server, *args, **kwargs)
         finally:
-            for name in K12:
-                setattr(ops, name, orig[name])
             server.global_lora, server.server_momentum = live
-        require(len(calls) == 4 * len(BUCKETS),
-                f"{label} aggregation {agg}: the replay made {len(calls)} "
-                "K1/K2 calls")
-        for name, x in calls:
-            _, err, tol = _k12_check(torch, name, f"{label} {agg}",
-                                     orig[name],
-                                     getattr(rpa, name + "_plain"), x)
-            rows.append({"aggregation": agg, "kernel": name,
-                         "shape": list(x[0].shape), "max_abs_err": err,
-                         "tol": tol})
-            summary[name]["max_abs_err"] = max(
-                summary[name]["max_abs_err"], err)
+        require(len(capture.calls) == 4 * len(BUCKETS),
+                f"{label} aggregation {agg}: the replay made "
+                f"{len(capture.calls)} K1/K2 calls")
+        rows += [{"aggregation": agg, **row} for row in _check_k12_calls(
+            torch, capture.calls, summary, f"{label} {agg}")]
     return rows
 
 
@@ -1875,6 +1889,409 @@ def phase_straggler_contrast(torch) -> None:
     for label, res in out.items():
         require(all(res["inequalities"].values()),
                 f"straggler_contrast {label}: {res['inequalities']}")
+
+
+# the training launcher and the paper benches (main paths 5 and 6)
+LAUNCHER_METHODS = ("flexlora", "raflora")
+LAUNCHER_BUCKETS = 3     # fedvit-tiny's q/k/v/o, up and down
+LAUNCH_DIR = os.path.join(ROOT, "build", "smoke_launcher")
+
+
+class _CaptureK12:
+    """Within the block, each call of K1/K2 through the kernel API
+    (``ops.weighted_stack_b`` ...) is counted in ``counts``, and the first
+    call of each distinct (kernel, input shapes) is kept in ``calls`` as
+    (name, inputs); the calls still reach the kernels (and their
+    counts)."""
+
+    def __init__(self):
+        self.calls, self.counts, self.seen = [], dict.fromkeys(K12, 0), set()
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        self.orig = {name: getattr(ops, name) for name in K12}
+
+        def capture(name):
+            def wrapper(*x):
+                self.counts[name] += 1
+                key = (name,) + tuple(tuple(t.shape) for t in x
+                                      if hasattr(t, "shape"))
+                if key not in self.seen:
+                    self.seen.add(key)
+                    self.calls.append((name, x))
+                return self.orig[name](*x)
+            return wrapper
+        for name in K12:
+            setattr(ops, name, capture(name))
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+        for name, fn in self.orig.items():
+            setattr(ops, name, fn)
+        return False
+
+
+def _check_k12_calls(torch, calls, summary: dict, label: str) -> list:
+    """Each captured K1/K2 call again through the kernel and its plain
+    version (``_k12_check``); called after the path's launches are read,
+    so these launches count nowhere."""
+    from repro_torch.kernels import rank_partition_agg as rpa
+    rows = []
+    for name, x in calls:
+        _, err, tol = _k12_check(torch, name, label, getattr(rpa, name),
+                                 getattr(rpa, name + "_plain"), x)
+        rows.append({"kernel": name, "shapes": [list(t.shape) for t in x
+                                                if hasattr(t, "shape")],
+                     "max_abs_err": err, "tol": tol})
+        summary[name]["max_abs_err"] = max(summary[name]["max_abs_err"],
+                                           err)
+    return rows
+
+
+def phase_train_launcher(torch, summary: dict) -> dict:
+    """Main path 5: ``python -m repro_torch.launch.train`` in process on
+    the card at its defaults (fedvit-tiny d 128, 20 clients, 20 rounds,
+    rank levels 4..32, eval every 5) with ``--backend kernel``, for
+    flexlora and raflora: the experiment built from the launcher's flags
+    (``train.experiment_args``), its server's stages timed, then the
+    launcher's round loop ``train.train``. Checks: a log row a round with
+    the test accuracy at every eval, K1/K2 once per shape bucket every
+    round (one call of each distinct input shape over all rounds held to
+    its plain version), raFLoRA's final higher-rank energy above
+    FlexLoRA's, and a server restored from ``--checkpoint`` with global
+    products bit-equal to the saved one. Returns the path's K1/K2
+    launches."""
+    import shutil
+    import numpy as np
+    from repro_torch.federation.experiment import build_experiment
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train
+    shutil.rmtree(LAUNCH_DIR, ignore_errors=True)
+    os.makedirs(LAUNCH_DIR)
+    t0 = time.perf_counter()
+    runs, total = {}, dict.fromkeys(K12, 0)
+    try:
+        for method in LAUNCHER_METHODS:
+            out = os.path.join(LAUNCH_DIR, f"{method}.json")
+            ckpt = os.path.join(LAUNCH_DIR, f"{method}_ckpt")
+            argv = ["--method", method, "--backend", "kernel", "--out", out,
+                    "--checkpoint", ckpt, "--device", DEV]
+            args = train.parse_args(argv)
+            exp = build_experiment(args.method, device=args.device,
+                                   **train.experiment_args(args))
+            srv = exp.server
+            per_round, round_ms, stages, times = [], [], [], {}
+            timed = _stage_timer(torch, times)
+            srv._plan_round = timed("plan_ms", srv._plan_round)
+            srv._train_grouped = timed("train_ms", srv._train_grouped)
+            srv._aggregate_grouped = timed("aggregate_ms",
+                                           srv._aggregate_grouped)
+            run_round = srv.run_round
+
+            def timed_round():
+                before = _k12_launches()
+                torch.cuda.synchronize()
+                start = time.perf_counter()
+                stats = run_round()
+                torch.cuda.synchronize()
+                round_ms.append((time.perf_counter() - start) * 1e3)
+                stages.append(dict(times))
+                per_round.append({n: c - before[n] for n, c in
+                                  _k12_launches().items()})
+                return stats
+            srv.run_round = timed_round
+            capture = _CaptureK12()
+            ops.reset_launches()          # this run's count starts here
+            with capture:
+                train.train(exp, args.rounds, args.eval_every,
+                            args.checkpoint, args.out)
+            torch.cuda.synchronize()
+            launches = _k12_launches()
+            srv.run_round = run_round
+            with open(out) as f:
+                log = json.load(f)
+            fails = []
+
+            def check(cond, msg):
+                if not cond:
+                    fails.append(msg)
+            check(len(log) == args.rounds, f"{len(log)} log rows")
+            evals = [r["round"] for r in log if "test_accuracy" in r]
+            want_evals = [r for r in range(args.rounds)
+                          if (r + 1) % args.eval_every == 0
+                          or r == args.rounds - 1]
+            check(evals == want_evals, f"test accuracy at rounds {evals}")
+            check(all(np.isfinite(r["loss"]) for r in log),
+                  "non-finite loss")
+            check(all(g == {n: LAUNCHER_BUCKETS for n in K12}
+                      for g in per_round),
+                  f"K1/K2 launches a round {per_round}")
+            check(capture.counts == launches,
+                  f"K1/K2 calls {capture.counts}, launches {launches}")
+            k12 = _check_k12_calls(torch, capture.calls, summary,
+                                   f"train_launcher {method}")
+            check(len(k12) >= 4 * LAUNCHER_BUCKETS,
+                  f"{len(k12)} distinct K1/K2 calls")
+            fresh = build_experiment(method, device=args.device,
+                                     **train.experiment_args(args))
+            fresh.server.restore(ckpt)
+            saved, restored = _products(srv), _products(fresh.server)
+            bit_equal = saved.keys() == restored.keys() and all(
+                torch.equal(restored[p], x) for p, x in saved.items())
+            check(bit_equal, "restored products differ from the saved")
+            # one more round under the profiler (after every check above)
+            profiled = _profile(torch, srv.run_round, "gram")
+            runs[method] = {
+                "round_ms": round_ms,
+                "median_round_ms": float(np.median(round_ms)),
+                "median_stage_ms": {k: float(np.median([s[k] for s in
+                                                        stages]))
+                                    for k in stages[0]},
+                "profiled_round": profiled,
+                "final_higher_rank_energy": log[-1]["higher_rank_energy"],
+                "final_test_accuracy": log[-1]["test_accuracy"],
+                "loss_first_last": [log[0]["loss"], log[-1]["loss"]],
+                "launches": launches, "k12_distinct_calls": k12,
+                "restored_bit_equal": bit_equal}
+            emit({"phase": "train_launcher", "method": method,
+                  "argv": argv, "rounds": args.rounds, **runs[method]})
+            require(not fails, f"train_launcher {method}: "
+                    + "; ".join(fails))
+            for name, n in launches.items():
+                total[name] += n
+            del exp, srv, fresh, capture
+    finally:
+        shutil.rmtree(LAUNCH_DIR, ignore_errors=True)
+    flex = runs["flexlora"]["final_higher_rank_energy"]
+    ra = runs["raflora"]["final_higher_rank_energy"]
+    emit({"phase": "train_launcher", "final_higher_rank_energy":
+          {"flexlora": flex, "raflora": ra},
+          "seconds": time.perf_counter() - t0, "card": card_line()})
+    require(ra > flex, f"train_launcher: raFLoRA's final higher-rank "
+                       f"energy {ra} not above FlexLoRA's {flex}")
+    return total
+
+
+def _expected_comm_bytes(cfg, lora, method: str, m: int, rank: int) -> int:
+    """Table 3's bytes by shape arithmetic on the config alone: each LoRA
+    target's (d_in + d_out) per unit rank, over the layers, up and down
+    (FLoRA broadcasts all m clients' stacks down)."""
+    hd = cfg.resolved_head_dim
+    q, kv = cfg.num_heads * hd, cfg.num_kv_heads * hd
+    widths = {"q_proj": (cfg.d_model, q), "k_proj": (cfg.d_model, kv),
+              "v_proj": (cfg.d_model, kv), "o_proj": (q, cfg.d_model),
+              "gate_proj": (cfg.d_model, cfg.d_ff),
+              "up_proj": (cfg.d_model, cfg.d_ff),
+              "down_proj": (cfg.d_ff, cfg.d_model)}
+    per_rank = cfg.num_layers * sum(sum(widths[t]) for t in cfg.lora_targets)
+    return per_rank * rank * 4 * (2 if method != "flora" else 1 + m)
+
+
+# the paper benches' kernel calls: K3 (one layer), K5 and K6 once for the
+# warm-up and twice timed; K1/K2 four times on bench_cost's kernel backend
+BENCH_KERNEL_CALLS = 3
+BENCH_COST_CALLS = 4
+
+
+def phase_paper_benches(torch) -> dict:
+    """Main path 6, in the child: the paper's benches through
+    ``repro_torch.benchmarks`` on the card. bench_energy_dynamics (Fig.
+    2a/2b, raFLoRA's final higher-rank energy above FlexLoRA's),
+    bench_accuracy (Table 2, seed 0), bench_cost (Table 3: bytes equal to
+    the shape arithmetic; K1/K2 once each an ``aggregate_layer`` call on
+    the kernel backend, each distinct call held to the plain versions; the
+    three backends' spectra and products at round_methods' backend-parity
+    tolerances), bench_kernels (K5, K3 at one layer and K6 within
+    phase_kernels' tolerances) and bench_round_latency's ``run`` and
+    ``run_kernel_backend`` (K1/K2 once per bucket a kernel-backend round,
+    each distinct call held to the plain versions). Each bench with its
+    counts set to 0 just
+    before and read just after. Its last line holds {kernel: {bench:
+    launches}} and each checked kernel's largest error."""
+    import numpy as np
+    from repro_torch.benchmarks import (bench_accuracy, bench_cost,
+                                        bench_energy_dynamics, bench_kernels,
+                                        bench_round_latency, common)
+    from repro_torch.configs import LoRAConfig, get_config
+    from repro_torch.core.aggregation import Aggregator
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.lora_apply import lora_apply_plain
+    from repro_torch.kernels.rank_partition_agg import \
+        rank_partition_agg_plain
+    eps = torch.finfo(torch.float32).eps
+    by_bench = {}
+    summary = {n: {"max_abs_err": 0.0} for n in
+               K12 + ("lora_apply", "rank_partition_agg", "ssd_scan")}
+
+    def bench(fn):
+        common.ROWS.clear()
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = {k.__name__: k.launches for k in ops.KERNELS
+                    if k.launches}
+        rows = [{"name": r["name"], "ms": r["us_per_call"] / 1e3,
+                 "derived": r["derived"]} for r in common.ROWS]
+        return res, launches, rows, secs
+
+    res, launches, rows, secs = bench(
+        lambda: bench_energy_dynamics.run(device=DEV))
+    final = {r["name"].split("/")[1]: float(r["derived"]) for r in rows}
+    emit({"phase": "paper_benches", "bench": "energy_dynamics",
+          "rows": rows, "seconds": secs, "launches": launches,
+          "final_higher_rank_energy": final})
+    require(final["raflora"] > final["flexlora"],
+            f"bench_energy_dynamics: raFLoRA's final energy {final}")
+
+    res, launches, rows, secs = bench(
+        lambda: bench_accuracy.run(seeds=(0,), device=DEV))
+    emit({"phase": "paper_benches", "bench": "accuracy", "rows": rows,
+          "seconds": secs, "launches": launches, "accuracy": res})
+    require(all(np.isfinite(v) for v in res.values()),
+            f"bench_accuracy: {res}")
+
+    capture = _CaptureK12()
+    with capture:
+        res, launches, rows, secs = bench(
+            lambda: bench_cost.run(device=DEV))
+    fails = []
+    lora = LoRAConfig()
+    rank = int(np.mean(lora.rank_levels))
+    comm = {}
+    for r in rows:
+        if r["name"].startswith("table3_comm/"):
+            _, arch, method = r["name"].split("/")
+            want = _expected_comm_bytes(get_config(arch), lora, method, 10,
+                                        rank)
+            got = bench_cost.comm_bytes_per_client(get_config(arch), lora,
+                                                   method, 10, rank)
+            comm[r["name"]] = got
+            if got != want or r["derived"] != f"{want / 1e6:.1f}MB":
+                fails.append(f"{r['name']}: {got} bytes, {r['derived']}, "
+                             f"expected {want}")
+    if len(comm) != 8:
+        fails.append(f"{len(comm)} table3_comm rows")
+    want_k12 = {n: BENCH_COST_CALLS for n in K12}
+    if {n: launches.get(n, 0) for n in K12} != want_k12:
+        fails.append(f"K1/K2 launches {launches}, expected {want_k12}")
+    if capture.counts != want_k12:
+        fails.append(f"K1/K2 calls {capture.counts}, expected {want_k12}")
+    k12 = _check_k12_calls(torch, capture.calls, summary, "bench_cost")
+    # one aggregate_layer call of each backend under the profiler
+    factors, ranks, n_k, gb, ga = bench_cost.layer_inputs(
+        torch.device(DEV), lora)
+    profiled = {backend: _profile(torch, lambda: Aggregator(
+        "raflora", lora.rank_levels, backend=backend).aggregate_layer(
+            factors, ranks, n_k, gb, ga), "gram")
+        for backend in bench_cost.BACKENDS}
+    ref = res["kernel"]
+    scale = max(1.0, float(ref.sigma.max()))
+    parity = {}
+    for backend in ("dense", "factored"):
+        other = res[backend]
+        sig = _max_err(other.sigma, ref.sigma)
+        prod = _max_err(other.b_g @ other.a_g, ref.b_g @ ref.a_g)
+        parity[backend] = {"sigma_max_abs_err": sig,
+                           "product_max_abs_err": prod}
+        if sig > ROUND_TOL["sigma"] * scale or \
+                prod > ROUND_TOL["product"] * scale:
+            fails.append(f"{backend} off the kernel backend: {sig}, {prod}")
+    emit({"phase": "paper_benches", "bench": "cost", "rows": rows,
+          "seconds": secs, "launches": launches, "comm_bytes": comm,
+          "k12_distinct_calls": k12, "profiled_aggregate_layer": profiled,
+          "backend_parity": {
+              "against": "kernel", **parity,
+              "sigma_tol": ROUND_TOL["sigma"] * scale,
+              "product_tol": ROUND_TOL["product"] * scale}})
+    require(not fails, "bench_cost: " + "; ".join(fails))
+    by_bench["bench_cost"] = {n: launches.get(n, 0) for n in K12}
+
+    res, launches, rows, secs = bench(
+        lambda: bench_kernels.run(device=DEV))
+    errs = {}
+    x, w, a, b, s = res["kernel/lora_apply_512"]["args"]
+    mag = lora_apply_plain(x.abs(), w.abs(), a.abs(), b.abs(), abs(s))
+    errs["kernel/lora_apply_512"] = (
+        "lora_apply", (x.shape[1] + a.shape[0]) * eps * float(mag.max()))
+    bs, as_, om = res["kernel/rank_partition_agg_768"]["args"]
+    mag = rank_partition_agg_plain(bs.abs(), as_.abs(), om.abs())
+    errs["kernel/rank_partition_agg_768"] = (
+        "rank_partition_agg", (om.numel() + 2) * eps * float(mag.max()))
+    checks = {}
+    for row, (kname, tol) in errs.items():
+        case = res[row]
+        err = _max_err(case["got"], case["want"])
+        checks[row] = {"kernel": kname, "max_abs_err": err, "atol": tol}
+        require(err <= tol, f"bench_kernels {row}: {err} > {tol}")
+        summary[kname]["max_abs_err"] = max(summary[kname]["max_abs_err"],
+                                            err)
+    case = res["kernel/ssd_scan_256"]
+    close = bool(torch.allclose(case["got"], case["want"], **SCAN_TOL))
+    err = _max_err(case["got"], case["want"])
+    checks["kernel/ssd_scan_256"] = {"kernel": "ssd_scan",
+                                     "max_abs_err": err, **SCAN_TOL}
+    summary["ssd_scan"]["max_abs_err"] = max(
+        summary["ssd_scan"]["max_abs_err"], err)
+    emit({"phase": "paper_benches", "bench": "kernels", "rows": rows,
+          "seconds": secs, "launches": launches, "checks": checks})
+    require(close, f"bench_kernels kernel/ssd_scan_256: {err} beyond "
+                   f"{SCAN_TOL}")
+    want = {"lora_apply": BENCH_KERNEL_CALLS,
+            "rank_partition_agg": BENCH_KERNEL_CALLS,
+            "ssd_scan": BENCH_KERNEL_CALLS}
+    require(launches == want, f"bench_kernels: launches {launches}, "
+                              f"expected {want}")
+    by_bench["bench_kernels"] = launches
+
+    res, launches, rows, secs = bench(
+        lambda: bench_round_latency.run(device=DEV))
+    emit({"phase": "paper_benches", "bench": "round_latency.run",
+          "rows": rows, "seconds": secs, "launches": launches,
+          "median_s": res["median_s"]})
+
+    # the kernel-backend study: one round = LAUNCHER_BUCKETS calls of each
+    # K1/K2 on the kernel server, over its warm-up and timed rounds
+    study = inspect.signature(bench_round_latency.run_kernel_backend)
+    rounds = sum(study.parameters[k].default for k in ("rounds", "warmup"))
+    capture = _CaptureK12()
+    with capture:
+        res, launches, rows, secs = bench(
+            lambda: bench_round_latency.run_kernel_backend(device=DEV))
+    want_k12 = {n: rounds * LAUNCHER_BUCKETS for n in K12}
+    got_k12 = {n: launches.get(n, 0) for n in K12}
+    k12 = _check_k12_calls(torch, capture.calls, summary,
+                           "bench_round_latency")
+    emit({"phase": "paper_benches", "bench": "round_latency."
+          "run_kernel_backend", "rows": rows, "seconds": secs,
+          "launches": launches, "median_s": res["median_s"],
+          "k12_distinct_calls": k12})
+    require(got_k12 == want_k12 and capture.counts == want_k12,
+            f"bench_round_latency: K1/K2 launches {got_k12}, calls "
+            f"{capture.counts}, expected {want_k12}")
+    by_bench["bench_round_latency"] = got_k12
+    last = {"phase": "paper_benches", "launches_by_bench": by_bench,
+            "max_abs_err": {k: s["max_abs_err"] for k, s in summary.items()},
+            "card": card_line()}
+    emit(last)
+    return last
+
+
+def phase_paper_benches_child() -> dict:
+    """``phase_paper_benches`` in a child process (like round_methods):
+    its launch counts come back from its last ``launches_by_bench``
+    line."""
+    t0 = time.perf_counter()
+    out = _run_child("--paper-benches", "paper_benches")
+    emit({"phase": "paper_benches", "child_seconds":
+          time.perf_counter() - t0})
+    for line in reversed(out.splitlines()):
+        if line.startswith("{") and "launches_by_bench" in line:
+            return json.loads(line)
+    raise SmokeFailure("paper_benches: the child printed no launch counts")
 
 
 def phase_profile(torch, server) -> None:
@@ -2180,24 +2597,27 @@ def main() -> int:
         return 2
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    if "--round-methods" in sys.argv[1:]:      # phase_round_methods_child
-        try:
-            phase_round_methods(torch)
-        except SmokeFailure as e:
-            print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
-            return 1
-        return 0
+    for flag, child in (("--round-methods", phase_round_methods),
+                        ("--paper-benches", phase_paper_benches)):
+        if flag in sys.argv[1:]:          # a phase's child process
+            try:
+                child(torch)
+            except SmokeFailure as e:
+                print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
+                return 1
+            return 0
     summary: dict = {}
     try:
         phase_build()
         phase_kernels(torch, summary)
         phase_kernel_lora_apply(torch, summary)
         phase_kernel_ssd_scan(torch, summary)
-        ops_launches = phase_kernel_ops(torch, summary)
+        by_path = {k: {"kernel_ops": n}
+                   for k, n in phase_kernel_ops(torch, summary).items()}
         phase_round_small(torch)
         launches, server = phase_round_vit_base(torch)
-        by_path = {k: {"round_vit_base": n} for k, n in launches.items()}
-        launches.update(ops_launches)
+        for k, n in launches.items():
+            by_path[k] = {"round_vit_base": n}
         if "--profile" in sys.argv[1:]:
             phase_profile(torch, server)
         del server                # free the round before the other methods
@@ -2210,33 +2630,39 @@ def main() -> int:
                              phase_round_event_vit_base)):
             for k, n in phase(torch, summary).items():
                 by_path[k][path] = n
-                launches[k] += n
         phase_straggler_contrast(torch)
+        for k, n in phase_train_launcher(torch, summary).items():
+            by_path[k]["train_launcher"] = n
+        benches = phase_paper_benches_child()
+        for bench, counts in benches["launches_by_bench"].items():
+            for k, n in counts.items():
+                by_path.setdefault(k, {})[bench] = n
+        for k, err in benches["max_abs_err"].items():
+            summary[k]["max_abs_err"] = max(summary[k]["max_abs_err"], err)
         phase_serve_small(torch)
-        launches["batched_lora_apply"] = phase_serve_qwen2_7b(torch)
+        by_path["batched_lora_apply"] = {
+            "serve_qwen2_7b": phase_serve_qwen2_7b(torch)}
         gc.collect()              # free the 30.5 GB model before mamba2
         torch.cuda.empty_cache()
         phase_serve_small_mamba2(torch)
-        launches["ssd_scan"] = phase_serve_mamba2_1p3b(torch)
+        by_path["ssd_scan"]["serve_mamba2_1p3b"] = \
+            phase_serve_mamba2_1p3b(torch)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
     kernels = []
     for name, s in summary.items():
-        require_launch = launches.get(name, 0)
-        if require_launch == 0:
-            print(f"chip_smoke: FAIL: {name} never launched on the main "
-                  "path", file=sys.stderr)
-            return 1
-        if name in by_path and not all(by_path[name].values()):
-            print(f"chip_smoke: FAIL: {name} never launched on "
-                  f"{by_path[name]}", file=sys.stderr)
+        paths = by_path.get(name, {})
+        if sorted(paths) != sorted(PATHS[name].split(", ")) or \
+                not all(paths.values()):
+            print(f"chip_smoke: FAIL: {name} launched {paths} on its "
+                  f"paths ({PATHS[name]})", file=sys.stderr)
             return 1
         kernels.append({"name": name, "route": "cuda",
                         "source": SOURCES[name], "replaces": REPLACES[name],
-                        "path": PATHS[name], "launches": require_launch,
-                        **({"launches_by_path": by_path[name]}
-                           if name in by_path else {}),
+                        "path": PATHS[name],
+                        "launches": sum(paths.values()),
+                        "launches_by_path": paths,
                         "runs_on": RUNS_ON[name], **s})
     emit({"kernels": kernels})
     print(card_line(), flush=True)

@@ -43,7 +43,6 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import lora_apply as la
 from repro_torch.kernels import rank_partition_agg as rpa
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: F401
-from repro_torch.kernels.lora_apply import batched_lora_apply  # noqa: F401
 from repro_torch.kernels.ssd_scan import ssd_scan
 from repro_torch.kernels.rank_partition_agg import (gram_left, gram_right,
                                                     weighted_stack_a,
@@ -198,3 +197,29 @@ def lora_apply(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
                       w.float().contiguous(), _pad_to(a.float(), 0, 8),
                       _pad_to(b.float(), 1, 8), scale)
     return y.reshape(lead + (n,)).to(x.dtype)
+
+
+def _pages(t: torch.Tensor) -> torch.Tensor:
+    """Pages as f32, each page contiguous; a strided page axis (a
+    per-layer slice of a stacked adapter leaf) is read in place."""
+    t = t.float()
+    if t.shape[1] * t.shape[2] and t.stride()[1:] != (t.shape[2], 1):
+        t = t.contiguous()
+    return t
+
+
+def batched_lora_apply(x: torch.Tensor, w: torch.Tensor,
+                       a_pages: torch.Tensor, b_pages: torch.Tensor,
+                       scales: torch.Tensor, ids: torch.Tensor
+                       ) -> torch.Tensor:
+    """Paged multi-adapter y[t] = x[t] @ w + s_p * (x[t] @ A_p.T) @ B_p.T
+    with p = ids[t] (K4); x (..., K), w (K, N), a_pages (P, r, K), b_pages
+    (P, N, r), scales (P,), ids (...) of any integer dtype. x, w and the
+    pages of any float dtype are read as f32; returns (..., N) in
+    x.dtype."""
+    lead, k = x.shape[:-1], x.shape[-1]
+    y = la.batched_lora_apply(
+        x.reshape(-1, k).float().contiguous(), w.float().contiguous(),
+        _pages(a_pages), _pages(b_pages), scales.float().contiguous(),
+        ids.reshape(-1).to(torch.int32).contiguous())
+    return y.reshape(lead + (w.shape[-1],)).to(x.dtype)

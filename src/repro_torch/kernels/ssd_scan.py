@@ -97,6 +97,30 @@ def ssd_scan_plain(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     return y.to(x.dtype), state
 
 
+def ssd_scan_sequential_plain(x, dt, a_log, b, c, d_skip,
+                              init_state=None):
+    """The token-by-token recurrence (``ref.ssd_scan_sequential_ref``):
+    the slowest, most obviously correct form, the oracle of the chunked
+    versions. Shapes as in ``ssd_scan_plain``."""
+    bsz, length, nheads, hp = x.shape
+    groups, n = b.shape[-2:]
+    a_neg = -torch.exp(a_log.float())
+    bh = _expand_groups(b.float(), nheads)                       # (B,L,H,N)
+    ch = _expand_groups(c.float(), nheads)
+    xf, dtf = x.float(), dt.float()
+    state = (torch.zeros((bsz, nheads, hp, n), dtype=torch.float32,
+                         device=x.device)
+             if init_state is None else init_state.float())
+    ys = []
+    for t in range(length):
+        decay = torch.exp(dtf[:, t] * a_neg[None, :])
+        state = state * decay[..., None, None] + torch.einsum(
+            "bhn,bhp,bh->bhpn", bh[:, t], xf[:, t], dtf[:, t])
+        ys.append(torch.einsum("bhn,bhpn->bhp", ch[:, t], state))
+    y = torch.stack(ys, dim=1) + xf * d_skip.float()[None, None, :, None]
+    return y.to(x.dtype), state
+
+
 def _scan_chunk_parallel(x, dt, a_log, b, c, d_skip, chunk, init_state,
                          matmul: Callable, dtype=torch.float32):
     """The kernel's decomposition with ``matmul`` for its four products

@@ -28,6 +28,7 @@ conv_ch)`` in the model dtype and ``"ssm": (G, B, H, P, N)`` f32 for SSD.
 """
 from __future__ import annotations
 
+import copy
 from typing import NamedTuple, Optional
 
 import torch
@@ -164,6 +165,14 @@ class Model:
             params["frontend_proj"] = dense_init(
                 gen, cfg.frontend.embed_dim, cfg.d_model, **kw)
         return params
+
+    def param_shapes(self) -> dict:
+        """``init``'s tree as meta tensors (shape and dtype, no storage)
+        for the full config: nothing is allocated, on the card or the
+        host (the reference's ``jax.eval_shape``)."""
+        meta = copy.copy(self)
+        meta.device = torch.device("meta")
+        return meta.init(None)
 
     # -- forward pieces ---------------------------------------------------------
 

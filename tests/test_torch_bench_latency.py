@@ -1,0 +1,117 @@
+"""The port's round-latency studies (``repro_torch.benchmarks.
+bench_round_latency``) held to the JAX package's on the CPU, one timed
+round a study from the weights of the JAX study's own experiments (see
+``test_torch_benches.py``): the same rows and artifact keys, the
+transport's bytes and the momentum audit exactly, the event sweep's fires
+and virtual times exactly and its final energies at atol 1e-3. Times are
+not compared; both packages write their artifacts into a temporary
+directory."""
+import json
+
+import pytest
+import torch
+
+import benchmarks.bench_round_latency as j_latency
+import benchmarks.common as j_common
+from repro_torch.benchmarks import bench_round_latency as t_latency
+from repro_torch.benchmarks import common as t_common
+from test_torch_benches import recorder  # noqa: F401  (fixture)
+
+torch.set_num_threads(1)
+
+
+@pytest.fixture
+def latency(recorder, monkeypatch, tmp_path):
+    """Both packages' round-latency benches writing into ``tmp_path``, the
+    port's ``_make`` starting from the JAX ``_make``'s weights."""
+    monkeypatch.setattr(j_latency, "ARTIFACT", str(tmp_path / "j.json"))
+    monkeypatch.setattr(j_latency, "ROOT_ARTIFACT",
+                        str(tmp_path / "j_root.json"))
+    monkeypatch.setattr(t_latency, "ARTIFACT", str(tmp_path / "t.json"))
+    real = t_latency._make
+
+    def make(engine, **kw):
+        return real(engine, **{**kw, "device": "cpu",
+                               "base_params": recorder.pop()})
+    monkeypatch.setattr(t_latency, "_make", make)
+    return tmp_path
+
+
+def _names():
+    return ([r["name"] for r in t_common.ROWS],
+            [r["name"] for r in j_common.ROWS])
+
+
+# where each study's result lands in the artifact (None: the top level)
+SECTIONS = {"run": None, "run_kernel_backend": "kernel_backend",
+            "run_async": "async", "run_transport": "transport"}
+
+
+@pytest.mark.parametrize("study,kw", [
+    ("run", dict(rounds=1, warmup=0)),
+    ("run_kernel_backend", dict(rounds=1, warmup=0)),
+    ("run_async", dict(rounds=1, warmup=0, depths=(2,),
+                       rounds_per_block=2, d_model=32)),
+    ("run_transport", dict(rounds=1, warmup=0)),
+], ids=["engines", "kernel_backend", "async", "transport"])
+def test_round_latency_study_matches_reference(study, kw, latency):
+    """One timed round (a block of two for async depth 2) per engine:
+    the same rows and artifact keys; the transport's bytes exactly; the
+    momentum audit's counts equal. The JAX study's sharded half is left
+    out on both sides (``run_kernel_backend``'s sharded server needs a
+    mesh the port refuses, ROADMAP.md queue 1 item 9)."""
+    if study == "run_kernel_backend":
+        j_res = _jax_kernel_backend_batched(**kw)
+    else:
+        j_res = getattr(j_latency, study)(**kw)
+    t_res = getattr(t_latency, study)(device="cpu", **kw)
+    t_names, j_names = _names()
+    assert t_names == j_names
+    assert t_res["median_s"].keys() == j_res["median_s"].keys()
+    if study == "run_transport":
+        assert t_res["bytes_per_round"] == j_res["bytes_per_round"]
+    if study == "run_async":
+        assert t_res["momentum_dispatch_audit"] == \
+            j_res["momentum_dispatch_audit"]
+    saved = json.loads((latency / "t.json").read_text())
+    section = SECTIONS[study]
+    assert (saved[section] if section else saved)["median_s"] == \
+        t_res["median_s"]
+
+
+def _jax_kernel_backend_batched(**kw):
+    """The JAX study's batched half (its sharded server left out)."""
+    real = j_latency._make
+
+    def make(engine, **k):
+        if engine == "sharded":
+            return real("batched", **{**k, "mesh": None})
+        return real(engine, **k)
+    import unittest.mock as mock
+    with mock.patch.object(j_latency, "_make", make), \
+            mock.patch("repro.launch.mesh.make_fl_mesh", lambda *a: None):
+        res = j_latency.run_kernel_backend(**kw)
+    res["median_s"].pop("sharded_kernel")
+    j_common.ROWS[:] = [r for r in j_common.ROWS
+                        if r["name"] != "round_latency/sharded_kernel"]
+    return res
+
+
+def test_round_latency_event_matches_reference(latency):
+    """The event sweep at one round and the drain, straggler fraction
+    0.5, each trigger: the same fires, updates, staleness and virtual times, the
+    final energy at atol 1e-3."""
+    j_res = j_latency.run_event(rounds=1, straggler_fracs=(0.5,))
+    t_res = t_latency.run_event(rounds=1, straggler_fracs=(0.5,),
+                                device="cpu")
+    t_names, j_names = _names()
+    assert t_names == j_names
+    assert len(t_res["rows"]) == len(j_res["rows"]) == 3
+    for t, j in zip(t_res["rows"], j_res["rows"]):
+        for key in ("trigger", "straggler_frac", "aggregations",
+                    "updates_aggregated", "max_staleness", "rounds"):
+            assert t[key] == j[key], key
+        assert t["virtual_time_total"] == pytest.approx(
+            j["virtual_time_total"], rel=1e-12)
+        assert abs(t["final_higher_rank_energy"]
+                   - j["final_higher_rank_energy"]) <= 1e-3

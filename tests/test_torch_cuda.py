@@ -731,6 +731,32 @@ def test_cuda_ops_lora_apply_bf16(cuda_device):
 
 
 @pytest.mark.cuda
+def test_cuda_ops_batched_lora_apply_bf16_int64_ids(cuda_device):
+    """K4 through ``ops.batched_lora_apply`` on the card: bf16 x, W and
+    pages (the pages' last two axes transposed in memory), int64 ids and
+    a 3-D x launch the kernel once and come back as bf16 (3, 17, N),
+    within one bf16 step (3e-2) of the same call on the CPU."""
+    rng = np.random.default_rng(18)
+    p, r, k, n = 3, 8, 100, 72
+    x, w, a, b = (torch.from_numpy(v.astype(np.float32)).bfloat16() for v in (
+        rng.normal(size=(3, 17, k)), rng.normal(size=(k, n)) * 0.1,
+        rng.normal(size=(p, k, r)) * 0.1, rng.normal(size=(p, r, n)) * 0.1))
+    a, b = a.transpose(1, 2), b.transpose(1, 2)       # (P, r, K), (P, N, r)
+    scales = torch.tensor([0.5, 1.0, 2.0])
+    ids = torch.from_numpy(rng.integers(0, p, size=(3, 17)))
+    assert ids.dtype == torch.int64
+    args = (x, w, a, b, scales, ids)
+    before = la.batched_lora_apply.launches
+    got = ops.batched_lora_apply(*(t.to(cuda_device) for t in args))
+    torch.cuda.synchronize()
+    assert la.batched_lora_apply.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == (3, 17, n)
+    torch.testing.assert_close(got.cpu().float(),
+                               ops.batched_lora_apply(*args).float(),
+                               atol=3e-2, rtol=3e-2)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("b,lq,lkv,h,kvh,d,causal,window", [
     (2, 48, 48, 4, 2, 16, True, 0), (2, 64, 64, 6, 6, 16, False, 0),
     (1, 200, 200, 4, 2, 16, False, 0),     # the reference ops' fault case
@@ -948,3 +974,34 @@ def test_cuda_buffered_round_matches_cpu(cuda_device, kw):
         gb, ga = fg[parent]
         np.testing.assert_allclose((gb @ ga).cpu().numpy(), (b @ a).numpy(),
                                    atol=2e-3 * scale)
+
+
+@pytest.mark.cuda
+def test_cuda_launcher_two_kernel_rounds(cuda_device, tmp_path):
+    """``repro_torch.launch.train`` on the card at its defaults with the
+    kernel backend, two rounds: K1 and K2 launch once per shape bucket a
+    round (3 buckets: q/k/v/o, up, down), the log has a row a round with
+    the test accuracy at the last, and a server restored from the
+    checkpoint holds the saved global adapters bit for bit."""
+    import json
+    from repro_torch.core.lora import flatten
+    from repro_torch.federation.experiment import build_experiment
+    from repro_torch.launch import train
+    args = train.parse_args(["--rounds", "2", "--backend", "kernel"])
+    exp = build_experiment(args.method, **train.experiment_args(args))
+    ops.reset_launches()
+    out, ckpt = tmp_path / "log.json", str(tmp_path / "ckpt")
+    log = train.train(exp, args.rounds, args.eval_every, ckpt, str(out))
+    torch.cuda.synchronize()
+    assert [k.launches for k in rpa.KERNELS] == [6, 6, 6, 6]
+    assert json.loads(out.read_text()) == log
+    assert [r["round"] for r in log] == [0, 1]
+    assert "test_accuracy" in log[-1]
+    assert all(np.isfinite(r["loss"]) for r in log)
+    fresh = build_experiment(args.method, **train.experiment_args(args))
+    fresh.server.restore(ckpt)
+    want = flatten(exp.server.global_lora)
+    got = flatten(fresh.server.global_lora)
+    assert got.keys() == want.keys()
+    for path, x in want.items():
+        assert torch.equal(got[path], x), path

@@ -86,6 +86,57 @@ def test_zero_rank_columns_are_inert():
         np.testing.assert_allclose(got[t], want, atol=1e-5, rtol=0)
 
 
+@pytest.mark.parametrize("ids_dtype", [np.int32, np.int64],
+                         ids=["int32", "int64"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 3e-2)],
+                         ids=["f32", "bf16"])
+def test_ops_entry_keeps_reference_contract(dtype, tol, ids_dtype):
+    """``ops.batched_lora_apply`` reads x, w and the pages of any float
+    dtype as f32, takes integer ids of any width and returns x.dtype,
+    as the reference's entry does (``TestBatchedLoRAApplyKernel::
+    test_heterogeneous_ranks_vs_per_request_dense``: tol 1e-4 in f32,
+    3e-2 in bf16). Held to the reference's entry (interpret mode) on the
+    same inputs and to the oracle in f32 on the inputs as rounded to
+    ``dtype``; the raw wrapper keeps refusing
+    bf16 and int64 (``test_wrapper_checks_its_inputs``)."""
+    case = _case(6)
+    case["ids"] = case["ids"].astype(ids_dtype)
+    t = _torch(case)
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    cast = ("x", "w", "a_pages", "b_pages")
+    got = tops.batched_lora_apply(**{k: (v.to(dtype) if k in cast else v)
+                                     for k, v in t.items()})
+    assert got.dtype == dtype and got.shape == (5, 7, N)
+    want = np.asarray(jops.batched_lora_apply(**{
+        k: jnp.asarray(v, jdt if k in cast else None)
+        for k, v in case.items()}), np.float32)
+    np.testing.assert_allclose(got.float().numpy(), want, atol=tol, rtol=tol)
+    rounded = {k: (np.asarray(jnp.asarray(v, jdt), np.float32)
+                   if k in cast else v) for k, v in case.items()}
+    np.testing.assert_allclose(got.float().numpy(), _oracle(rounded),
+                               atol=tol, rtol=tol)
+
+
+def test_ops_entry_takes_non_contiguous_pages():
+    """The entry copies a page that is not contiguous (the raw wrapper
+    refuses it) and reads a strided page axis in place; either way the
+    result equals the call on contiguous pages."""
+    t = _torch(_case(7))
+    a_t = t["a_pages"].transpose(1, 2).contiguous().transpose(1, 2)
+    b_t = t["b_pages"].transpose(1, 2).contiguous().transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        la.batched_lora_apply(**dict(t, a_pages=a_t))
+    want = tops.batched_lora_apply(**t)
+    got = tops.batched_lora_apply(**dict(t, a_pages=a_t, b_pages=b_t))
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    stacked = torch.stack([t["a_pages"], 2 * t["a_pages"]], dim=1)[:, 0]
+    assert tops._pages(stacked).data_ptr() == stacked.data_ptr()
+    torch.testing.assert_close(
+        tops.batched_lora_apply(**dict(t, a_pages=stacked)), want, rtol=0,
+        atol=0)
+
+
 def test_cpu_wrapper_counts_no_launch():
     tops.reset_launches()
     la.batched_lora_apply(**_torch(_case(3)))
