@@ -84,8 +84,25 @@ JAX. Phases, each printing one JSON line:
                   each within phase_kernels' tolerance; the round-latency
                   studies ``run`` and ``run_kernel_backend``, the latter's
                   K1/K2 once per bucket a kernel-backend round at d 64,
-                  ranks 4/8/16, each distinct call shape held to its plain
-                  version), every CSV row and its ms.
+                  ranks 4/8/16, on its batched and its sharded server
+                  (a one-rank NCCL group), each distinct call shape held
+                  to its plain version), every CSV row and its ms.
+4e. round_sharded_vit_base  main path 7, in a child process with
+                  cuBLAS's split-K off: the sharded round engine at phase
+                  4's setup (kernel backend, f32). (a) world 1 on NCCL, 3
+                  rounds against the batched engine from the same base
+                  state and seed (the round tolerances every round), K1/K2
+                  3 launches a round, 2 all-reduces a bucket; (b) world 1
+                  with int8 and error feedback, 1 round against the
+                  batched engine with that transport (the quantized
+                  collective: no K1, K2 3 launches, 4 all-reduces a
+                  bucket); (c) world 2 on the one card (gloo; NCCL
+                  refuses two ranks on one device), 1 round, 5 clients and
+                  one ghost: products held to (a)'s batched round 0, both
+                  ranks' global adapters bit-equal. Each with plan /
+                  train / aggregate / collective ms, all-reduce counts,
+                  peak memory and the card; every distinct K1/K2 call
+                  held to its plain version.
 5. serve_small    a reduced qwen2 serving engine on cuda (K4) and on cpu
                   (plain) from the same weights: equal greedy tokens.
 6. serve_qwen2_7b main path 2: Qwen2-7B at full width in f32, 4 slots of
@@ -191,7 +208,7 @@ RUNS_ON.update(lora_apply="mma_tf32x3", flash_attention="mma_tf32x3",
 # the main paths each kernel's launches are counted on
 K12_PATHS = ("round_vit_base", "round_async_vit_base",
              "round_event_vit_base", "train_launcher", "bench_cost",
-             "bench_round_latency")
+             "bench_round_latency", "round_sharded_vit_base")
 PATHS = {"weighted_stack_b": ", ".join(K12_PATHS),
          "weighted_stack_a": ", ".join(K12_PATHS),
          "gram_left": ", ".join(K12_PATHS),
@@ -2104,8 +2121,9 @@ def phase_paper_benches(torch) -> dict:
     three backends' spectra and products at round_methods' backend-parity
     tolerances), bench_kernels (K5, K3 at one layer and K6 within
     phase_kernels' tolerances) and bench_round_latency's ``run`` and
-    ``run_kernel_backend`` (K1/K2 once per bucket a kernel-backend round,
-    each distinct call held to the plain versions). Each bench with its
+    ``run_kernel_backend`` (K1/K2 once per bucket a kernel-backend round
+    of its batched and its sharded server, each distinct call held to the
+    plain versions). Each bench with its
     counts set to 0 just
     before and read just after. Its last line holds {kernel: {bench:
     launches}} and each checked kernel's largest error."""
@@ -2254,9 +2272,11 @@ def phase_paper_benches(torch) -> dict:
           "median_s": res["median_s"]})
 
     # the kernel-backend study: one round = LAUNCHER_BUCKETS calls of each
-    # K1/K2 on the kernel server, over its warm-up and timed rounds
+    # K1/K2 on each kernel server (batched and sharded, the latter on a
+    # one-rank group), over its warm-up and timed rounds
     study = inspect.signature(bench_round_latency.run_kernel_backend)
-    rounds = sum(study.parameters[k].default for k in ("rounds", "warmup"))
+    rounds = 2 * sum(study.parameters[k].default
+                     for k in ("rounds", "warmup"))
     capture = _CaptureK12()
     with capture:
         res, launches, rows, secs = bench(
@@ -2292,6 +2312,323 @@ def phase_paper_benches_child() -> dict:
         if line.startswith("{") and "launches_by_bench" in line:
             return json.loads(line)
     raise SmokeFailure("paper_benches: the child printed no launch counts")
+
+
+# main path 7: the sharded round engine at ViT-base width (phase 4's setup)
+SHARDED_ROUNDS = 3
+# all-reduces of one bucket: the kernel backend's u and v, or the
+# quantized collective's two payloads and two column-weight vectors
+BUCKET_ALL_REDUCES = {"f32": 2, "int8": 4}
+
+
+def _vit_server(engine: str, transport=None, device=None):
+    """Phase 4's ViT-base round on ``engine`` with the kernel backend,
+    from the base state fl.seed draws on the card (the same in every
+    process)."""
+    from repro_torch.federation.experiment import make_batch_fn
+    from repro_torch.federation.server import FederatedLoRA
+    from repro_torch.federation.topology import ClientRegistry
+    from repro_torch.federation.transport import TransportConfig
+    from repro_torch.models.transformer import Model
+    cfg, fl, lora, shards, x_tr, y_tr, patches = _vit_base_setup()
+    registry = ClientRegistry.create(fl, lora, shards)
+    return FederatedLoRA(
+        Model(cfg, lora, device=device or DEV), fl, lora, registry,
+        make_batch_fn(registry, x_tr, y_tr, fl, 2, patches),
+        backend="kernel", round_engine=engine,
+        transport=transport and TransportConfig(mode=transport,
+                                                error_feedback=True))
+
+
+class _TimedCollectives:
+    """Within the block, every ``torch.distributed.all_reduce`` (the
+    engine's collective, ``core.collective.all_reduce``) is bracketed by CUDA
+    events on the current stream; ``take_ms()`` sums and clears their
+    device time (after a synchronize)."""
+
+    def __init__(self, torch):
+        self.torch, self.pairs = torch, []
+
+    def __enter__(self):
+        import torch.distributed as dist
+        self.dist, self.orig = dist, dist.all_reduce
+
+        def timed(*a, **k):
+            start = self.torch.cuda.Event(enable_timing=True)
+            end = self.torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = self.orig(*a, **k)
+            end.record()
+            self.pairs.append((start, end))
+            return out
+        dist.all_reduce = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.dist.all_reduce = self.orig
+        return False
+
+    def take_ms(self) -> float:
+        self.torch.cuda.synchronize()
+        ms = sum(a.elapsed_time(b) for a, b in self.pairs)
+        self.pairs.clear()
+        return ms
+
+
+def _sharded_round(torch, server, times: dict, coll) -> tuple:
+    """One round of a sharded server with its stages timed (summed into
+    ``times``, cleared first), the all-reduces of each bucket and of the
+    round counted, the collectives' device time and the peak memory."""
+    from repro_torch.core import collective
+    from repro_torch.kernels import rank_partition_agg as rpa
+    times.clear()
+    per_bucket = []
+    agg = server.aggregator
+    inner = type(agg).aggregate_grouped_sharded
+
+    def counted(*a, **k):
+        before = collective.all_reduce.calls
+        res = inner(agg, *a, **k)
+        per_bucket.append(collective.all_reduce.calls - before)
+        return res
+    agg.aggregate_grouped_sharded = counted
+    before = {k.__name__: k.launches for k in rpa.KERNELS}
+    calls = collective.all_reduce.calls
+    torch.cuda.reset_peak_memory_stats()
+    stats = server.run_round()
+    torch.cuda.synchronize()
+    grew = {k.__name__: k.launches - before[k.__name__] for k in rpa.KERNELS}
+    row = {"round": stats.round, "clients": stats.clients,
+           "ranks": stats.ranks, **times,
+           "collective_ms": coll.take_ms(),
+           "round_wall_s": stats.wall_time_s,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "launches": grew, "bucket_all_reduces": per_bucket,
+           "round_all_reduces": collective.all_reduce.calls - calls,
+           "mean_client_loss": stats.mean_client_loss}
+    del agg.aggregate_grouped_sharded
+    return stats, row
+
+
+def _timed_stages(torch, server, times: dict) -> None:
+    timed = _stage_timer(torch, times, accumulate=True)
+    server._plan_round = timed("plan_ms", server._plan_round)
+    server._train_grouped = timed("train_ms", server._train_grouped)
+    server._aggregate_grouped = timed("aggregate_ms",
+                                      server._aggregate_grouped)
+
+
+def _factors_of(server) -> dict:
+    return {p: (b.clone(), a.clone()) for p, (b, a) in
+            server._extract_factors(server.global_lora,
+                                    server.lora_cfg.r_max).items()}
+
+
+def _round_parity(stats, ref_stats, factors, ref_factors) -> dict:
+    """``tests/test_torch_round.py``'s kernel-backend checks of one round
+    against a reference round: the same clients and ranks, the loss at
+    rtol 1e-4, the spectrum at 1e-3 and the products at 2e-3 of
+    sigma_max."""
+    import numpy as np
+    scale = max(1.0, float(np.abs(ref_stats.sigma_probe).max()))
+    loss_rel = abs(stats.mean_client_loss - ref_stats.mean_client_loss) \
+        / abs(ref_stats.mean_client_loss)
+    sig = float(np.abs(stats.sigma_probe - ref_stats.sigma_probe).max())
+    prod, _ = _products_err(factors, ref_factors)
+    out = {"same_clients": stats.clients == ref_stats.clients
+           and stats.ranks == ref_stats.ranks,
+           "loss_rel_err": loss_rel, "sigma_max_abs_err": sig,
+           "product_max_abs_err": prod,
+           "tol": {"loss_rtol": 1e-4,
+                   "sigma_atol": ROUND_TOL["sigma"] * scale,
+                   "product_atol": ROUND_TOL["product"] * scale}}
+    out["ok"] = bool(out["same_clients"] and loss_rel <= 1e-4
+                     and sig <= ROUND_TOL["sigma"] * scale
+                     and prod <= ROUND_TOL["product"] * scale)
+    return out
+
+
+def _sharded_world2_rank(rank: int, world: int, bucket_all_reduces: int
+                         ) -> dict:
+    """Rank ``rank`` of (c): one sharded round on the card's device 0
+    (both ranks share it, so the group runs gloo), K1/K2's launches read just
+    after and each distinct call then held to its plain version; the
+    global adapters come back as numpy for the parent's checks."""
+    import torch
+    from repro_torch.core.lora import flatten
+    from repro_torch.kernels import ops
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    server = _vit_server("sharded")   # a fresh process: the card's device 0
+    times: dict = {}
+    _timed_stages(torch, server, times)
+    summary = {n: {"max_abs_err": 0.0} for n in K12}
+    ops.reset_launches()          # this rank's count of the path
+    with _TimedCollectives(torch) as coll, _CaptureK12() as capture:
+        stats, row = _sharded_round(torch, server, times, coll)
+    k12 = _check_k12_calls(torch, capture.calls, summary,
+                           f"round_sharded world 2 rank {rank}")
+    require(row["bucket_all_reduces"] == [bucket_all_reduces] * VIT_BUCKETS,
+            f"world 2 rank {rank}: all-reduces {row['bucket_all_reduces']}")
+    return {"row": row, "stats": stats, "k12": k12,
+            "max_abs_err": {n: v["max_abs_err"] for n, v in summary.items()},
+            "lora": {p: x.cpu().numpy()
+                     for p, x in flatten(server.global_lora).items()}}
+
+
+def phase_round_sharded(torch) -> dict:
+    """Main path 7, in the child (split-K off): the sharded round engine at
+    ViT-base width (phase 4's setup, kernel backend, f32).
+    (a) world 1 on NCCL, 3 rounds, against the batched engine from the same
+        base state and seed, each round at the round tolerances; K1/K2
+        3 launches a round, 2 all-reduces a bucket;
+    (b) world 1 on NCCL with int8 and error feedback, 1 round, against the
+        batched engine with the same transport (the first aggregation);
+        the quantized collective runs no K1, K2 3 launches, 4 all-reduces
+        a bucket;
+    (c) world 2 on the one card (gloo: NCCL refuses two ranks on one
+        device), 1 round: 5 clients over 2 ranks, one ghost; products held
+        to (a)'s batched round 0, both ranks' global adapters bit-equal.
+    The first all-reduce of (a) sets up NCCL's communicator, inside round
+    0's train stage (the losses' gather).
+    Each sub-phase's counts start at 0 just before its rounds and are read
+    just after; every distinct K1/K2 call is then held to its plain
+    version. The last line holds the path's launches."""
+    import hashlib
+    import numpy as np
+    from repro_torch.core.lora import flatten
+    from repro_torch.core import collective
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import spawn_ranks
+    summary = {n: {"max_abs_err": 0.0} for n in K12}
+    path_launches = dict.fromkeys(K12, 0)
+    # (a)'s reference: the batched engine, 3 rounds, its stages timed in
+    # this call for the comparison
+    batched = _vit_server("batched")
+    times: dict = {}
+    _timed_stages(torch, batched, times)
+    ref, batched_rows = [], []
+    for _ in range(SHARDED_ROUNDS):
+        times.clear()
+        stats = batched.run_round()
+        ref.append((stats, _factors_of(batched)))
+        batched_rows.append({"round": stats.round, **times,
+                             "round_wall_s": stats.wall_time_s})
+    del batched
+    gc.collect()
+    torch.cuda.empty_cache()
+    for label, transport, rounds, want_k1 in (
+            ("a", None, SHARDED_ROUNDS, VIT_BUCKETS),
+            ("b", "int8", 1, 0)):
+        if transport:
+            other = _vit_server("batched", transport=transport)
+            ref = [(other.run_round(), _factors_of(other))]
+            del other
+        server = _vit_server("sharded", transport=transport)
+        require(collective.shard_count(server.mesh) == 1
+                and torch.distributed.get_backend() == "nccl",
+                f"round_sharded ({label}): not a one-rank NCCL group")
+        times: dict = {}
+        _timed_stages(torch, server, times)
+        rows, fails = [], []
+        ops.reset_launches()      # the sub-phase's count starts here
+        with _TimedCollectives(torch) as coll, _CaptureK12() as capture:
+            for r in range(rounds):
+                stats, row = _sharded_round(torch, server, times, coll)
+                row["parity"] = _round_parity(stats, ref[r][0],
+                                              _factors_of(server), ref[r][1])
+                rows.append(row)
+                want = {"weighted_stack_b": want_k1,
+                        "weighted_stack_a": want_k1,
+                        "gram_left": VIT_BUCKETS, "gram_right": VIT_BUCKETS}
+                per = BUCKET_ALL_REDUCES[transport or "f32"]
+                if row["launches"] != want:
+                    fails.append(f"round {r}: launches {row['launches']}, "
+                                 f"expected {want}")
+                if row["bucket_all_reduces"] != [per] * VIT_BUCKETS:
+                    fails.append(f"round {r}: all-reduces "
+                                 f"{row['bucket_all_reduces']}")
+                if not row["parity"]["ok"]:
+                    fails.append(f"round {r}: off the batched engine "
+                                 f"{row['parity']}")
+                if not all(bool(torch.isfinite(t).all())
+                           for t in _leaves(server.global_lora)):
+                    fails.append(f"round {r}: non-finite global factors")
+        launches = _k12_launches()   # read just after the sub-phase
+        for k, n in launches.items():
+            path_launches[k] += n
+        k12 = _check_k12_calls(torch, capture.calls, summary,
+                               f"round_sharded ({label})")
+        emit({"phase": "round_sharded_vit_base", "sub": label,
+              "world": 1, "backend": "nccl", "transport": transport,
+              "rounds": rows, "launches": launches, "k12_vs_plain": k12,
+              "batched_rounds": batched_rows if label == "a" else None,
+              "card": card_line()})
+        require(not fails, f"round_sharded ({label}): " + "; ".join(fails))
+        if label == "a":
+            ref0 = ref[0]
+        server.close()        # the one-rank group it made
+        del server
+        gc.collect()
+        torch.cuda.empty_cache()
+    # (c) two ranks on the one card
+    t0 = time.perf_counter()
+    ranks = spawn_ranks(_sharded_world2_rank, 2, BUCKET_ALL_REDUCES["f32"],
+                        backend="gloo")
+    spawn_s = time.perf_counter() - t0
+    dev = torch.device(DEV)
+    factors = {}
+    for p, x in ranks[0]["lora"].items():
+        factors.setdefault(p[:-1], {})[p[-1]] = torch.from_numpy(x).to(dev)
+    factors = {p: (ab["lora_a"].mT, ab["lora_b"].mT)
+               for p, ab in factors.items()}
+    parity = _round_parity(ranks[0]["stats"], ref0[0],
+                           {p: factors[p] for p in ref0[1]}, ref0[1])
+    digests = [hashlib.sha256(b"".join(
+        np.ascontiguousarray(r["lora"][p]).tobytes()
+        for p in sorted(r["lora"]))).hexdigest() for r in ranks]
+    for r in ranks:
+        for k, n in r["row"]["launches"].items():
+            path_launches[k] += n
+        for k, e in r["max_abs_err"].items():
+            summary[k]["max_abs_err"] = max(summary[k]["max_abs_err"], e)
+    members = ranks[0]["stats"].clients
+    emit({"phase": "round_sharded_vit_base", "sub": "c", "world": 2,
+          "backend": "gloo", "device": "the card's device 0, both ranks",
+          "spawn_s": spawn_s, "rows": [r["row"] for r in ranks],
+          "parity_vs_batched_round0": parity,
+          "ranks_bit_equal": digests[0] == digests[1],
+          "sha256": digests, "k12_vs_plain": [r["k12"] for r in ranks],
+          "card": card_line()})
+    require(len(members) % 2 == 1, f"world 2: {len(members)} clients, "
+                                   "no ghost")
+    require(parity["ok"], f"round_sharded (c): off the batched round "
+                          f"{parity}")
+    require(digests[0] == digests[1],
+            "round_sharded (c): the two ranks' global adapters differ")
+    require(all(r["row"]["launches"] == dict.fromkeys(K12, VIT_BUCKETS)
+                for r in ranks),
+            f"round_sharded (c): launches "
+            f"{[r['row']['launches'] for r in ranks]}")
+    last = {"phase": "round_sharded_vit_base", "path_launches": path_launches,
+            "max_abs_err": {k: s["max_abs_err"] for k, s in summary.items()},
+            "card": card_line()}
+    emit(last)
+    return last
+
+
+def phase_round_sharded_child() -> dict:
+    """``phase_round_sharded`` in a child process with cuBLAS's split-K
+    off, as round_methods: the sharded and batched engines' parity needs
+    it (ROADMAP.md queue 3, "Watch"). Its launches come back from its
+    last line."""
+    out = _run_child("--round-sharded", "round_sharded_vit_base",
+                     env=dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":0:0"))
+    for line in reversed(out.splitlines()):
+        if line.startswith("{") and "path_launches" in line:
+            return json.loads(line)
+    raise SmokeFailure("round_sharded_vit_base: the child printed no "
+                       "launch counts")
 
 
 def phase_profile(torch, server) -> None:
@@ -2598,7 +2935,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     for flag, child in (("--round-methods", phase_round_methods),
-                        ("--paper-benches", phase_paper_benches)):
+                        ("--paper-benches", phase_paper_benches),
+                        ("--round-sharded", phase_round_sharded)):
         if flag in sys.argv[1:]:          # a phase's child process
             try:
                 child(torch)
@@ -2638,6 +2976,11 @@ def main() -> int:
             for k, n in counts.items():
                 by_path.setdefault(k, {})[bench] = n
         for k, err in benches["max_abs_err"].items():
+            summary[k]["max_abs_err"] = max(summary[k]["max_abs_err"], err)
+        sharded = phase_round_sharded_child()
+        for k, n in sharded["path_launches"].items():
+            by_path[k]["round_sharded_vit_base"] = n
+        for k, err in sharded["max_abs_err"].items():
             summary[k]["max_abs_err"] = max(summary[k]["max_abs_err"], err)
         phase_serve_small(torch)
         by_path["batched_lora_apply"] = {

@@ -1,7 +1,7 @@
 """Round-engine latency studies (a copy of
-``benchmarks/bench_round_latency.py``): sequential vs batched vs async,
-the kernel aggregation backend, the compressed transport and the event
-engine.
+``benchmarks/bench_round_latency.py``): sequential vs batched vs sharded
+vs async, the kernel aggregation backend, the compressed transport and
+the event engine.
 
 Measures the ``FederatedLoRA.run_round`` hot path at
 ``clients_per_round=8`` (full participation of 8 heterogeneous-rank
@@ -17,13 +17,16 @@ round_latency.json``; the JAX package's ``BENCH_round_latency.json`` and
 ``benchmarks/artifacts/`` are never written):
 
 * ``run``: sequential vs batched.
+* ``run_sharded``: the sharded engine against its shard count, one
+  process group of S ranks for each S that fits the visible cards (gloo
+  ranks on the CPU with ``--device cpu``); rank 0's times.
 * ``run_async``: the async buffered-aggregation engine swept over
   ``pipeline_depth`` (1, 2, 4) against batched, with the server-momentum
   dispatch audit (at most one bucket call per bucket per aggregation).
 * ``run_kernel_backend``: the kernel aggregation backend (K1 weighted
-  stacks + K2 Gram cores) on the batched engine against the factored
-  backend. Its sharded half, like ``run_sharded``, waits for the sharded
-  engine (ROADMAP.md queue 1 item 9).
+  stacks + K2 Gram cores) on the batched and sharded engines against the
+  factored backend; the sharded server runs on this process's group (a
+  one-rank group made in process if there is none, and destroyed after).
 * ``run_transport``: f32 uploads vs int8 and bf16 with error feedback,
   plus the analytic upload bytes a round.
 * ``run_event``: the event engine on the virtual clock, trigger type x
@@ -31,7 +34,8 @@ round_latency.json``; the JAX package's ``BENCH_round_latency.json`` and
   Rows APPEND to the artifact's ``event.rows``.
 
   PYTHONPATH=src python -m repro_torch.benchmarks.bench_round_latency \
-      [--engine batched|async|event|transport|all] [--backend kernel] \
+      [--engine batched|sharded|async|event|transport|all] \
+      [--backend kernel] \
       [--device cpu]
 """
 from __future__ import annotations
@@ -42,12 +46,14 @@ import time
 
 import numpy as np
 
+import torch
+
 from repro_torch.benchmarks.common import emit, sync
+from repro_torch.device import resolve_device
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))))
 ARTIFACT = os.path.join(ROOT, "build", "bench_torch", "round_latency.json")
-SHARDED = ("the sharded engine is not ported (ROADMAP.md queue 1 item 9)")
 
 
 def _merge_artifact(update: dict) -> dict:
@@ -67,7 +73,7 @@ def _merge_artifact(update: dict) -> dict:
 def _make(engine: str, *, rounds: int, d_model: int, batches_per_round: int,
           local_batch_size: int, pipeline_depth: int = 1,
           server_momentum_beta: float = 0.0, backend: str = "factored",
-          transport=None, device=None, base_params=None):
+          transport=None, mesh=None, device=None, base_params=None):
     from repro_torch.federation.experiment import build_experiment
     return build_experiment(
         "raflora",
@@ -77,7 +83,7 @@ def _make(engine: str, *, rounds: int, d_model: int, batches_per_round: int,
         lora_overrides={"rank_levels": (4, 8, 16),
                         "rank_probs": (0.34, 0.33, 0.33)},
         samples_per_class=40, num_classes=8, d_model=d_model,
-        batches_per_round=batches_per_round, round_engine=engine,
+        batches_per_round=batches_per_round, round_engine=engine, mesh=mesh,
         pipeline_depth=pipeline_depth, backend=backend,
         server_momentum_beta=server_momentum_beta, transport=transport,
         device=device, base_params=base_params)
@@ -139,8 +145,60 @@ def run(rounds: int = 12, warmup: int = 2, d_model: int = 64,
     return result
 
 
-def run_sharded(*args, **kw) -> dict:
-    raise NotImplementedError(f"run_sharded: {SHARDED}")
+def _sharded_rank(rank: int, world: int, kw: dict, device: str) -> list:
+    """One rank of ``run_sharded``'s group of ``world``: its sharded
+    server, timed like ``run``; rank r of a card group runs on card r,
+    and CPU ranks share the cores (oversubscribed thread pools spin)."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", rank)
+    else:
+        torch.set_num_threads(max(1, torch.get_num_threads() // world))
+    rounds, warmup = kw.pop("rounds"), kw.pop("warmup")
+    server = _make("sharded", rounds=rounds + warmup, device=dev,
+                   **kw).server
+    return _time_blocks({world: server}, blocks=rounds, rounds_per_block=1,
+                        warmup=warmup)[world]
+
+
+def run_sharded(rounds: int = 8, warmup: int = 2, d_model: int = 64,
+                batches_per_round: int = 1, local_batch_size: int = 16,
+                device=None) -> dict:
+    """Sharded-engine latency against the shard count: one process group
+    of S ranks (NCCL on the cards, gloo on the CPU) for each S in 1, 2,
+    4, 8, 16 that fits the visible cards (S 1 and 2 with ``device``
+    "cpu"), each timed like ``run``; rank 0's times are reported. Merges
+    into the shared artifact."""
+    from repro_torch.launch.mesh import default_backend, spawn_ranks
+    dev = resolve_device(device)
+    fits = torch.cuda.device_count() if dev.type == "cuda" else 2
+    shard_counts = [s for s in (1, 2, 4, 8, 16) if s <= fits]
+    kw = dict(rounds=rounds, warmup=warmup, d_model=d_model,
+              batches_per_round=batches_per_round,
+              local_batch_size=local_batch_size)
+    times = {s: spawn_ranks(_sharded_rank, s, dict(kw), str(dev),
+                            backend=default_backend(dev))[0]
+             for s in shard_counts}
+
+    medians = {s: float(np.median(ts)) for s, ts in times.items()}
+    sharded = {
+        "config": {"clients_per_round": 8, "rounds_timed": rounds,
+                   "warmup_rounds": warmup, "d_model": d_model,
+                   "batches_per_round": batches_per_round,
+                   "local_batch_size": local_batch_size,
+                   "rank_levels": [4, 8, 16], "method": "raflora",
+                   "device": str(dev)},
+        "shard_counts": shard_counts,
+        "per_round_s": {str(s): ts for s, ts in times.items()},
+        "median_s": {str(s): m for s, m in medians.items()},
+    }
+    _merge_artifact({"sharded": sharded})
+
+    for s in shard_counts:
+        emit(f"round_latency/sharded_{s}", medians[s] * 1e6,
+             f"median_round_ms={medians[s] * 1e3:.1f}")
+    print(f"# artifact: {ARTIFACT}")
+    return sharded
 
 
 def _momentum_dispatch_audit(*, d_model: int, local_batch_size: int,
@@ -222,24 +280,29 @@ def run_async(rounds: int = 8, warmup: int = 4, d_model: int = 128,
 
 def run_kernel_backend(rounds: int = 8, warmup: int = 2, d_model: int = 64,
                        batches_per_round: int = 1,
-                       local_batch_size: int = 16, sharded: bool = False,
+                       local_batch_size: int = 16, sharded: bool = True,
                        device=None) -> dict:
     """The kernel aggregation backend on the batched engine against the
-    factored baseline, interleaved-block-timed like every other study.
-    ``sharded=True`` (the reference's sharded half) is refused."""
-    if sharded:
-        raise NotImplementedError(f"run_kernel_backend(sharded=True): "
-                                  f"{SHARDED}")
+    factored baseline, and (``sharded``) on the sharded engine over this
+    process's group, interleaved-block-timed like every other study; a
+    one-rank group the sharded server made is destroyed after."""
     total = rounds + warmup
+    runs = [("batched_factored", "batched", "factored"),
+            ("batched_kernel", "batched", "kernel")]
+    if sharded:
+        runs.append(("sharded_kernel", "sharded", "kernel"))
     servers = {
-        f"batched_{backend}": _make(
-            "batched", rounds=total, d_model=d_model,
-            batches_per_round=batches_per_round,
-            local_batch_size=local_batch_size, backend=backend,
-            device=device).server
-        for backend in ("factored", "kernel")}
-    times = _time_blocks(servers, blocks=rounds, rounds_per_block=1,
-                         warmup=warmup)
+        key: _make(engine, rounds=total, d_model=d_model,
+                   batches_per_round=batches_per_round,
+                   local_batch_size=local_batch_size, backend=backend,
+                   device=device).server
+        for key, engine, backend in runs}
+    try:
+        times = _time_blocks(servers, blocks=rounds, rounds_per_block=1,
+                             warmup=warmup)
+    finally:
+        for srv in servers.values():
+            srv.close()
 
     medians = {k: float(np.median(ts)) for k, ts in times.items()}
     result = {
@@ -247,8 +310,7 @@ def run_kernel_backend(rounds: int = 8, warmup: int = 2, d_model: int = 64,
                    "warmup_rounds": warmup, "d_model": d_model,
                    "batches_per_round": batches_per_round,
                    "local_batch_size": local_batch_size,
-                   "rank_levels": [4, 8, 16], "method": "raflora",
-                   "sharded_kernel": SHARDED},
+                   "rank_levels": [4, 8, 16], "method": "raflora"},
         "per_round_s": {k: ts for k, ts in times.items()},
         "median_s": medians,
         "kernel_over_factored_batched":
@@ -430,7 +492,7 @@ def main(argv=None) -> int:
     if args.backend == "kernel":
         run_kernel_backend(device=dev)
     elif args.engine == "sharded":
-        run_sharded()
+        run_sharded(device=dev)
     elif args.engine == "async":
         run_async(device=dev)
     elif args.engine == "event":
@@ -439,6 +501,7 @@ def main(argv=None) -> int:
         run_transport(device=dev)
     elif args.engine == "all":
         run(device=dev)
+        run_sharded(device=dev)
         run_async(device=dev)
         run_kernel_backend(device=dev)
         run_event(device=dev)

@@ -1,5 +1,5 @@
 """Server-side aggregation of heterogeneous-rank LoRA uploads (a port of
-``repro/core/aggregation.py`` without its sharded parts).
+``repro/core/aggregation.py``).
 
 Implements the paper's method and every baseline it compares against
 (Table 1), all over one stacked-factor representation, as in the
@@ -25,6 +25,10 @@ omega is data, not code. ``backend="dense"`` materializes dW
 ``backend="kernel"`` builds the sqrt(omega)-weighted stacks and their Gram
 cores with the hand-written kernels (K1, K2) and reallocates through
 ``svd_realloc_gram``, never forming the (d, n) update.
+
+``Aggregator.aggregate_grouped_sharded`` is the sharded round engine's
+path: each rank reduces its resident clients and one all-reduce per
+reduced tensor sums the ranks (DESIGN.md §5).
 """
 from __future__ import annotations
 
@@ -35,9 +39,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core import collective
 from repro_torch.core import partitions as parts
-from repro_torch.core.svd import (check_fallback_globals, dense_from_weighted,
-                                  factored_from_weighted, ieee_f32,
+from repro_torch.core.svd import (check_fallback_globals, dense_fallback_term,
+                                  dense_from_weighted,
+                                  factored_append_fallback,
+                                  factored_from_weighted,
+                                  factored_stack_batched, ieee_f32,
                                   svd_realloc_dense, svd_realloc_factored,
                                   svd_realloc_gram)
 from repro_torch.kernels import ops as kernel_ops
@@ -280,31 +288,156 @@ def _dispatch_stacked(bs, as_, warg, global_b, global_a, fallback, r_max,
     return res.b_g, res.a_g, res.sigma, None
 
 
+def _assemble(group_bs, group_as, r_max, part=dequantize):
+    """Stack a shape bucket from per-rank-group factor tuples: group_bs
+    over rank groups, over bucket adapters, of (G, ..., d, r_group) ->
+    (M, P, ..., d, r_max), and the A side likewise. ``part`` picks what
+    of each entry is stacked: transport-quantized entries dequantize here,
+    once, by default."""
+    bs = torch.cat([_pad_rank(torch.stack([part(b) for b in bt], dim=1),
+                              r_max, -1) for bt in group_bs])
+    as_ = torch.cat([_pad_rank(torch.stack([part(a) for a in at], dim=1),
+                               r_max, -2) for at in group_as])
+    return bs, as_
+
+
+def _stack_globals(global_bs, global_as):
+    return (None if global_bs is None else torch.stack(list(global_bs)),
+            None if global_as is None else torch.stack(list(global_as)))
+
+
 def _grouped_core(group_bs, group_as, warg, global_bs, global_as, fallback,
                   *, r_max, backend, method):
     """Assemble a shape bucket from per-rank-group factor tuples and
-    aggregate it. group_bs: over rank groups, over bucket adapters, of
-    (G, ..., d, r_group) tensors; global_bs: over bucket adapters.
-    Transport-quantized entries dequantize here, once."""
-    bs = torch.cat([_pad_rank(torch.stack([dequantize(b) for b in bt],
-                                          dim=1),
-                              r_max, -1)
-                    for bt in group_bs])              # (M, P, ..., d, r_max)
-    as_ = torch.cat([_pad_rank(torch.stack([dequantize(a) for a in at],
-                                           dim=1),
-                               r_max, -2)
-                     for at in group_as])             # (M, P, ..., r_max, n)
-    gb = None if global_bs is None else torch.stack(list(global_bs))
-    ga = None if global_as is None else torch.stack(list(global_as))
+    aggregate it; global_bs: over bucket adapters."""
+    bs, as_ = _assemble(group_bs, group_as, r_max)
+    gb, ga = _stack_globals(global_bs, global_as)
     return _dispatch_stacked(bs, as_, warg, gb, ga, fallback, r_max, backend,
                              method)
+
+
+# -- sharded whole-bucket pipelines (sharded round engine) -------------------
+#
+# DESIGN.md §5: each rank holds a contiguous block of every rank group's
+# client axis, and every reduction of a method -- the weighted factor
+# averages, FLoRA's dW, the weighted-diagonal contraction of the SVD
+# family -- becomes a partial over the resident clients plus one
+# all-reduce per reduced tensor. The dense backend all-reduces the
+# (..., d, n) contraction; the factored and kernel backends all-reduce the
+# zero-scattered (d, S * width) / (S * width, n) stacks (each rank writes
+# its own column block, so the sum is a gather; the client order differs
+# from the batched engine's, which the SVD does not see), the kernel
+# backend building its block with K1 (``ops.factored_stack_lead``) and the
+# Gram cores of the reduced stack with K2 (``ops.factored_gram_lead``).
+# The Eq. 8 fallback is appended once, after the reduction, and the SVD
+# reallocation is the unchanged math on the reduced, replicated result.
+# The reference vmaps its one-slice realloc (``_realloc_*_lead``); the
+# port's ``svd_realloc_*`` take the leading axes natively.
+
+def _sharded_partial_quantized(group_bs, group_as, group_w, *, r_max,
+                               mesh):
+    """The factored / kernel partial of transport-quantized uploads: the
+    raw int8 or bf16 payload blocks and f32 per-column weights (scale *
+    sqrt(omega)) are all-reduced, zero-scattered in the stack's column
+    layout (column = client * r_max + rank), and dequantized once after
+    the reduction. The blocks are disjoint, so each sum has one nonzero
+    term and is exact. Returns the reduced f32 (u_c, v_c)."""
+    qs, qa = _assemble(group_bs, group_as, r_max, part=lambda f: f.q)
+    sb, sa = _assemble(group_bs, group_as, r_max, part=lambda f: f.scale)
+    w = torch.cat(group_w)                            # (m_loc, r_max)
+    m, r = qs.shape[0], qs.shape[-1]
+    lead = tuple(qs.shape[1:-2])
+    sq = torch.sqrt(torch.clamp(w.float(), min=0.0))
+    sqr = sq.reshape((m,) + (1,) * len(lead) + (r,))
+    colw_u = sb[..., 0, :] * sqr                      # (m, *lead, r)
+    colw_v = sa[..., 0] * sqr
+    u_pay = qs.movedim(0, -2).reshape(lead + (qs.shape[-2], m * r))
+    v_pay = qa.movedim(0, -3).reshape(lead + (m * r, qa.shape[-1]))
+    cu = colw_u.movedim(0, -2).reshape(lead + (m * r,))
+    cv = colw_v.movedim(0, -2).reshape(lead + (m * r,))
+    u_full = collective.gather_blocks(u_pay, mesh, -1)
+    v_full = collective.gather_blocks(v_pay, mesh, -2)
+    cu_full = collective.gather_blocks(cu, mesh, -1)
+    cv_full = collective.gather_blocks(cv, mesh, -1)
+    return (u_full.float() * cu_full[..., None, :],
+            v_full.float() * cv_full[..., :, None])
+
+
+def _sharded_partial(group_bs, group_as, group_w, gb, *, r_max, backend,
+                     method, mesh):
+    """One rank's partial of a bucket over its resident clients, reduced
+    across the ranks. ``group_w``: per group, this rank's rows of the
+    client weights (averaging family, flora) or of omega (SVD family),
+    zero at ghosts. Returns the reduced tensors of the method: (b_g, a_g),
+    (b_g, a_g, dw), (u_c, v_c) or dw."""
+    quantized = any(is_quantized(b) for bt in group_bs for b in bt)
+    svd_family = method not in _AVG_FAMILY + ("flora",)
+    if quantized and svd_family and backend in ("factored", "kernel"):
+        return _sharded_partial_quantized(group_bs, group_as, group_w,
+                                          r_max=r_max, mesh=mesh)
+    bs, as_ = _assemble(group_bs, group_as, r_max)
+    w = torch.cat(group_w)
+    if method in _AVG_FAMILY:
+        w = w.to(bs.dtype)
+        a_g = collective.all_reduce(weighted_avg(as_, w), mesh)
+        if method == "ffa":           # frozen factor: keep the global value
+            return gb, a_g
+        return collective.all_reduce(weighted_avg(bs, w), mesh), a_g
+    if method == "flora":
+        b_g, a_g, dw = _flora_delta(bs, as_, w)
+        return b_g, a_g, collective.all_reduce(dw, mesh)
+    if backend in ("factored", "kernel"):
+        if backend == "kernel":
+            u_loc, v_loc = kernel_ops.factored_stack_lead(bs, as_, w)
+        else:
+            u_loc, v_loc = factored_stack_batched(bs, as_, w)
+        return (collective.gather_blocks(u_loc, mesh, -1),
+                collective.gather_blocks(v_loc, mesh, -2))
+    with ieee_f32():
+        dw = torch.einsum("m...dr,mr,m...rn->...dn", bs.float(), w.float(),
+                          as_.float())
+    return collective.all_reduce(dw, mesh)
+
+
+def sharded_grouped_fn(mesh, r_max: int, backend: str, method: str):
+    """The sharded-bucket pipeline of one (mesh, method, backend):
+    fn(group_bs, group_as, group_w, global_bs, global_as, fallback) ->
+    (b_g, a_g, sigma|None, merge_delta|None), ``_grouped_core`` with each
+    group's client axis this rank's block and every reduction an
+    all-reduce over ``mesh``."""
+    def fn(group_bs, group_as, group_w, global_bs, global_as, fallback):
+        check_fallback_globals(fallback, global_bs, global_as)
+        gb, ga = _stack_globals(global_bs, global_as)
+        red = _sharded_partial(group_bs, group_as, group_w, gb,
+                               r_max=r_max, backend=backend, method=method,
+                               mesh=mesh)
+        if method in _AVG_FAMILY:
+            return red + (None, None)
+        if method == "flora":
+            b_g, a_g, dw = red
+            return b_g, a_g, None, dw
+        if backend == "dense":
+            dw = red
+            if fallback is not None:
+                dw = dw + dense_fallback_term(gb, ga, fallback)
+            return svd_realloc_dense(dw, r_max) + (None,)
+        u_c, v_c = red
+        if fallback is not None:
+            # appended exactly once, after the cross-rank reduction
+            u_c, v_c = factored_append_fallback(u_c, v_c, gb, ga, fallback)
+        if backend == "kernel":
+            g_u, g_v = kernel_ops.factored_gram_lead(u_c, v_c)
+            return svd_realloc_gram(u_c, v_c, g_u, g_v, r_max) + (None,)
+        return svd_realloc_factored(u_c, v_c, r_max) + (None,)
+    return fn
 
 
 @dataclass
 class Aggregator:
     """Aggregates a round of client adapter uploads, adapter by adapter
     (``aggregate_layer``, the sequential engine) or bucket by bucket
-    (``aggregate_stack`` / ``aggregate_grouped``, the batched engine)."""
+    (``aggregate_stack`` / ``aggregate_grouped``, the batched engine;
+    ``aggregate_grouped_sharded``, the sharded one)."""
 
     method: str
     rank_levels: Sequence[int]
@@ -432,3 +565,38 @@ class Aggregator:
             group_bs, group_as, warg, global_bs, global_as, fallback,
             r_max=max(self.rank_levels), backend=self.backend,
             method=self.method))
+
+    def aggregate_grouped_sharded(self, group_bs, group_as, ranks, n_k,
+                                  mesh, global_bs=None, global_as=None,
+                                  staleness=None, gamma: float = 1.0,
+                                  present=None) -> AggregationResult:
+        """Sharded round engine hot path: ``aggregate_grouped`` with each
+        group's client axis split over ``mesh``'s ranks and every
+        reduction an all-reduce (DESIGN.md §5). group_bs/group_as hold
+        THIS rank's contiguous block of each group (``collective.block``
+        of the group padded to a multiple of the shard count); ranks/n_k
+        cover the whole padded cohort in group order, ``n_k[j] == 0``
+        marking a ghost. Weights are computed on the real (and present)
+        clients alone and scattered back with zeros, so ghosts add
+        exactly nothing and leave raFLoRA's contributor sets and the Eq. 8
+        fallback untouched; ``staleness``/``gamma`` discount as in
+        ``aggregate_grouped``."""
+        shards = collective.shard_count(mesh)
+        sizes = [(b.q if is_quantized(b) else b).shape[0] * shards
+                 for b in (bt[0] for bt in group_bs)]
+        assert sum(sizes) == len(n_k), (sizes, len(n_k))
+        n_arr = staleness_discount(n_k, staleness, gamma)
+        warg, fallback = self._present_weight_args(
+            ranks, n_arr,
+            np.ones(len(n_arr), dtype=bool) if present is None else present)
+        device = _device(group_bs[0][0])
+        group_w = [torch.as_tensor(w[collective.block(len(w), mesh)],
+                                   dtype=torch.float32, device=device)
+                   for w in np.split(warg, np.cumsum(sizes)[:-1])]
+        if fallback is not None:
+            fallback = torch.as_tensor(fallback, dtype=torch.float32,
+                                       device=device)
+        fn = sharded_grouped_fn(mesh, max(self.rank_levels), self.backend,
+                                self.method)
+        return AggregationResult(*fn(group_bs, group_as, group_w,
+                                     global_bs, global_as, fallback))

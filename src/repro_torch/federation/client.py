@@ -12,6 +12,10 @@ aggregation expects. The client axis is a batch dimension written out:
 shared base weights, per-client adapter leaves (C, ...), one autograd pass
 over the summed per-client losses per local step.
 
+``train_group_masked_sharded`` is the same step on one rank's resident
+block of the sharded round engine (DESIGN.md §5): per-client training is
+independent, so where a client trains changes nothing mathematically.
+
 FFA-LoRA (``freeze_a``) zeroes the gradients of the model's ``lora_a``
 before the AdamW update, in both steps, as the reference does.
 """
@@ -113,3 +117,23 @@ class LocalTrainer:
                 self._grads(loss.sum(), leaves), opt_state, lora, lr)
             metrics = {k: v.detach() for k, v in metrics.items()}
         return unflatten(lora), metrics
+
+    def train_group_masked_sharded(self, base: dict, global_lora: dict,
+                                   ranks: Sequence[int],
+                                   batch_stacks: List[dict], lr: float,
+                                   mesh) -> Tuple[dict, dict]:
+        """``train_group_masked`` on this rank's resident block of the
+        sharded engine's client axis. ``ranks`` cover the whole group,
+        padded with ghosts to a multiple of the shard count (the server
+        does that); this rank trains the contiguous block
+        ``core.collective.block`` gives it, with its slice of the ranks and
+        scales. ``batch_stacks`` hold that block's batches only, so no
+        other rank's data crosses to this rank's card. Returns the block's
+        lora tree and metrics."""
+        from repro_torch.core.collective import block
+        local = list(ranks)[block(len(ranks), mesh)]
+        for batch in batch_stacks:
+            for k, v in batch.items():
+                assert v.shape[0] == len(local), (k, v.shape, len(local))
+        return self.train_group_masked(base, global_lora, local,
+                                       batch_stacks, lr)

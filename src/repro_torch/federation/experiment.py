@@ -115,8 +115,10 @@ def build_experiment(method: str = "raflora", *,
     or ``TransportConfig`` compressing the uploads (None ships f32).
     ``noisy_low_rank_std`` > 0 adds Gaussian noise to the minimum-rank
     clients' training data (Table 4's extension), drawn from
-    ``default_rng(123)`` as in the reference. ``mesh=`` (the sharded
-    engine) is not ported: the server refuses it."""
+    ``default_rng(123)`` as in the reference. ``mesh``: a
+    ``launch.mesh.make_fl_mesh`` mesh for ``round_engine="sharded"``
+    (None: one over the process group, or a one-rank group in this
+    process) or for the async engine's sharded dispatches."""
     fl = FLConfig(aggregator=method, num_clients=20, participation=0.25,
                   num_rounds=40, local_batch_size=32, learning_rate=2e-3,
                   partition="pathological", dirichlet_alpha=1.0,

@@ -1,6 +1,5 @@
 """Federated server: Algorithm 1's round loop (port of
-``repro/federation/server.py::FederatedLoRA``) without its sharded
-engine, with three round engines:
+``repro/federation/server.py::FederatedLoRA``), with four round engines:
 
 * ``round_engine="batched"`` (default): all sampled clients train at once
   in the all-rank masked step, and every same-shape adapter is stacked
@@ -8,6 +7,19 @@ engine, with three round engines:
 * ``round_engine="sequential"``: the reference loop, one ``trainer.train``
   per client at its own rank and one ``aggregate_layer`` per adapter
   parent, kept to hold the batched engine to;
+* ``round_engine="sharded"`` (DESIGN.md §5): the batched engine over the
+  ranks of a ``torch.distributed`` process group, each rank one shard of
+  the reference's ``("data",)`` mesh (``launch/mesh.py::make_fl_mesh``;
+  without a group, a one-rank group in this process). Every rank plans
+  the same round from the same seed; each step group's client axis is
+  padded with zero-weight ghosts to a multiple of the shard count and
+  placed round-robin (stacked position j on shard j % S), and each rank
+  trains and reduces its contiguous block; one all-reduce per reduced
+  tensor of a bucket gives every rank the same aggregate, on which the
+  Eq. 8 fallback and the unchanged SVD reallocation run replicated.
+  Losses and the transport's error-feedback residuals are gathered with
+  all-reduces of zero-scattered blocks, so every rank holds every
+  client's;
 * ``round_engine="async"`` (DESIGN.md §6): FedBuff-style BUFFERED
   aggregation. Every round plans and trains one ``RoundPlan`` into a
   ``pipeline_depth``-deep buffer; when it fills, ONE staleness-discounted
@@ -18,7 +30,8 @@ engine, with three round engines:
   the cadence: triggers fire aggregations over exactly the updates that
   have arrived (partial cohorts ride the ``present`` mask), staleness is
   arrival-time-derived, and client lifecycle events reshape the sampling
-  pool.
+  pool. Given a ``mesh``, its stages run the sharded engine's
+  dispatches.
 
 Every engine runs every method and backend of ``core.aggregation``, with
 optional FactoredServerMomentum (``core/server_opt.py``) and compressed
@@ -33,7 +46,8 @@ async engine keeps ``pipeline_depth - 1`` rounds unread, and between a
 dispatch and the flush the buffered engines read nothing back from the
 device themselves. ``save``/``restore`` write and read the reference's
 checkpoint layout (``checkpointing/checkpoint.py``), so a checkpoint of
-either package resumes in the other.
+either package resumes in the other; under a mesh, rank 0 writes the
+gathered buffer and every rank reads the file and keeps its block.
 """
 from __future__ import annotations
 
@@ -46,8 +60,10 @@ from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import FLConfig, LoRAConfig
+from repro_torch.core import collective
 from repro_torch.core.aggregation import Aggregator
 from repro_torch.core.energy import EnergyTrace
 from repro_torch.core.lora import (adapter_parents, flatten, merge_lora,
@@ -109,11 +125,6 @@ class RoundPlan:
     losses: Optional[list] = None
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP.md queue 1 item 9)")
-
-
 class FederatedLoRA:
     """End-to-end heterogeneous-rank FedLoRA server."""
 
@@ -137,12 +148,12 @@ class FederatedLoRA:
         None. ``transport``: an UpdateTransport (or TransportConfig)
         compressing the uploads, None ships f32. ``pipeline_depth``,
         ``staleness_gamma`` and ``event_scheduler`` shape the async
-        engine."""
-        if round_engine == "sharded" or mesh is not None:
-            raise _not_ported("the sharded engine (round_engine='sharded', "
-                              "mesh=)")
-        assert round_engine in ("batched", "sequential", "async"), \
-            round_engine
+        engine. ``mesh``: a ``launch.mesh.make_fl_mesh`` mesh for the
+        sharded engine (None makes one over the whole process group, or a
+        one-rank group in this process, which ``close`` destroys), or for
+        the async engine, whose stages then run the sharded dispatches."""
+        assert round_engine in ("batched", "sequential", "sharded",
+                                "async"), round_engine
         assert pipeline_depth >= 1, pipeline_depth
         assert 0.0 < staleness_gamma <= 1.0, staleness_gamma
         assert event_scheduler is None or round_engine == "async", \
@@ -152,6 +163,17 @@ class FederatedLoRA:
         self.staleness_gamma = staleness_gamma
         self.model = model
         self.device = model.device
+        self._own_group = False
+        if round_engine == "sharded" and mesh is None:
+            from repro_torch.launch.mesh import make_fl_mesh
+            self._own_group = not dist.is_initialized()
+            mesh = make_fl_mesh(device=self.device)
+        if mesh is not None:
+            assert collective.AXIS in mesh.mesh_dim_names, \
+                mesh.mesh_dim_names
+            assert mesh.get_coordinate() is not None, \
+                "this rank is not in the mesh"
+        self.mesh = mesh
         self.fl = fl
         self.lora_cfg = lora
         self.registry = registry
@@ -289,26 +311,63 @@ class FederatedLoRA:
         counts are homogeneous in the common case). Factors stay stacked
         over each group's client axis, zero beyond each client's rank;
         with a transport each group's upload is encoded under the clients'
-        GLOBAL ids (quantization keeps the zero columns zero: scale 0)."""
+        GLOBAL ids (quantization keeps the zero columns zero: scale 0).
+
+        Sharded dispatch: each group is padded with GHOST clients (member -1)
+        to a multiple of the shard count and placed round-robin (stacked
+        position j on shard j % S, so ghosts spread evenly), then cut into
+        contiguous per-rank blocks; this rank trains its block, and its
+        factors stay this block's. Ghosts train on the group's first
+        member's batches: their weight is exactly zero, and finite data
+        keeps a zero-weighted NaN out of the all-reduce. The group's
+        losses (and the transport's residuals) are gathered onto every
+        rank. ``members`` always lists the whole group."""
         groups: Dict[int, List[int]] = {}
         for i, batches in enumerate(client_batches):
             groups.setdefault(len(batches), []).append(i)
         group_factors, loss_parts = [], []
         r_max = self.lora_cfg.r_max
-        for steps, members in sorted(groups.items()):
-            stacks = [self._stack_batches([client_batches[i][t]
-                                           for i in members])
-                      for t in range(steps)]
-            lora_g, metrics = self.trainer.train_group_masked(
-                self.base, self.global_lora, [ranks[i] for i in members],
-                stacks, lr)
+        r_min = min(self.lora_cfg.rank_levels)
+        sharded = self._sharded_dispatch
+        for steps, idxs in sorted(groups.items()):
+            members, local = idxs, slice(None)
+            if sharded:
+                shards = collective.shard_count(self.mesh)
+                members = idxs + [-1] * ((-len(idxs)) % shards)
+                order = sorted(range(len(members)),
+                               key=lambda j: (j % shards, j // shards))
+                members = [members[j] for j in order]
+                local = collective.block(len(members), self.mesh)
+            g_ranks = [ranks[i] if i >= 0 else r_min for i in members]
+            stacks = [self._stack_batches(
+                [client_batches[i if i >= 0 else idxs[0]][t]
+                 for i in members[local]]) for t in range(steps)]
+            if sharded:
+                lora_g, metrics = self.trainer.train_group_masked_sharded(
+                    self.base, self.global_lora, g_ranks, stacks, lr,
+                    self.mesh)
+            else:
+                lora_g, metrics = self.trainer.train_group_masked(
+                    self.base, self.global_lora, g_ranks, stacks, lr)
             factors = self._extract_factors(lora_g, r_max)
-            if self.transport is not None:
-                factors = self.transport.encode_group(
-                    [clients[i] for i in members], factors)
+            loss = metrics.get("loss")
+            gids = [clients[i] if i >= 0 else -1 for i in members]
+            if sharded:
+                gather = self._gather
+                if loss is not None:
+                    loss = gather(loss)
+                if self.transport is not None:
+                    factors = self.transport.encode_group(
+                        gids[local], factors, replicate=(gids, gather))
+            elif self.transport is not None:
+                factors = self.transport.encode_group(gids, factors)
             group_factors.append((members, r_max, factors))
-            loss_parts.append((members, metrics.get("loss")))
+            loss_parts.append((members, loss))
         return group_factors, loss_parts
+
+    def _gather(self, x: torch.Tensor) -> torch.Tensor:
+        """Every rank's block of a client-stacked tensor, on every rank."""
+        return collective.gather_blocks(x, self.mesh, 0)
 
     @staticmethod
     def _losses_from_parts(loss_parts, num_clients: int) -> List[float]:
@@ -365,12 +424,15 @@ class FederatedLoRA:
 
     def _aggregate_grouped(self, group_factors, ranks, n_k, *,
                            staleness=None, present=None):
-        """AGGREGATE, batched and async engines: bucket adapters by factor
-        shape (first-seen, i.e. sorted-key, order) and aggregate each
-        bucket in one call, then (if configured) its server momentum in
-        one ``apply_bucket``. ``staleness``: per-sampled-client ages (async
-        engine); ``present``: per-sampled-client arrival mask (event
-        engine). The energy probe is the FIRST adapter's spectrum."""
+        """AGGREGATE, batched, sharded and async engines: bucket adapters
+        by factor shape (first-seen, i.e. sorted-key, order) and aggregate
+        each bucket in one call, then (if configured) its server momentum
+        in one ``apply_bucket`` (on the replicated result, on every rank,
+        under the sharded dispatch: each bucket then goes through
+        ``aggregate_grouped_sharded``, ghosts riding along at n_k = 0).
+        ``staleness``: per-sampled-client ages (async engine);
+        ``present``: per-sampled-client arrival mask (event engine). The
+        energy probe is the FIRST adapter's spectrum."""
         results, deltas = {}, {}
         sigma_probe = None
         r_max = self.lora_cfg.r_max
@@ -385,14 +447,18 @@ class FederatedLoRA:
             buckets.setdefault((tuple(gb0.shape), tuple(ga0.shape)),
                                []).append(parent)
         for group in buckets.values():
-            res = self.aggregator.aggregate_grouped(
-                [[fg[p][0] for p in group] for _, _, fg in group_factors],
-                [[fg[p][1] for p in group] for _, _, fg in group_factors],
-                ranks_o, n_k_o,
-                global_bs=[global_factors[p][0] for p in group],
-                global_as=[global_factors[p][1] for p in group],
-                staleness=stal_o, gamma=self.staleness_gamma,
-                present=pres_o)
+            args = ([[fg[p][0] for p in group] for _, _, fg in group_factors],
+                    [[fg[p][1] for p in group] for _, _, fg in group_factors],
+                    ranks_o, n_k_o)
+            kwargs = dict(global_bs=[global_factors[p][0] for p in group],
+                          global_as=[global_factors[p][1] for p in group],
+                          staleness=stal_o, gamma=self.staleness_gamma,
+                          present=pres_o)
+            if self._sharded_dispatch:
+                res = self.aggregator.aggregate_grouped_sharded(
+                    *args, self.mesh, **kwargs)
+            else:
+                res = self.aggregator.aggregate_grouped(*args, **kwargs)
             b_new, a_new = res.b_g, res.a_g
             if self.server_momentum is not None:
                 b_new, a_new = self.server_momentum.apply_bucket(
@@ -415,6 +481,21 @@ class FederatedLoRA:
         if self.event_scheduler is not None:
             return self.event_scheduler.clock.now
         return time.time()
+
+    @property
+    def _sharded_dispatch(self) -> bool:
+        """Whether the grouped stages run the sharded dispatches (the
+        sharded engine always; the async engine iff given a mesh)."""
+        return (self.round_engine == "sharded"
+                or (self.round_engine == "async" and self.mesh is not None))
+
+    def close(self) -> None:
+        """Destroy the one-rank process group this server made for the
+        sharded engine (given neither a mesh nor a group); a no-op
+        otherwise. The server runs no sharded round after it."""
+        if self._own_group and dist.is_initialized():
+            dist.destroy_process_group()
+        self._own_group = False
 
     def _plan_round(self) -> RoundPlan:
         """PLAN: sample clients/ranks/n_k/lr and draw the data batches, in
@@ -714,7 +795,9 @@ class FederatedLoRA:
     # "bq"/"bs" and "aq"/"as" leaves (payload and scales) for quantized
     # ones, "g{gi}/loss" for a group's losses. A bf16 payload is stored as
     # its raw 2-byte words (numpy has no bfloat16; the reference's file
-    # holds the same bytes).
+    # holds the same bytes). Under a mesh a plan's factor stacks are this
+    # rank's blocks: ``save`` gathers the whole groups (rank 0 writes them)
+    # and ``restore`` keeps this rank's block of each.
 
     @staticmethod
     def _payload_array(q: torch.Tensor) -> np.ndarray:
@@ -737,14 +820,18 @@ class FederatedLoRA:
         else:
             arrays[f"{key}/{leaf}"] = val.detach().cpu().numpy()
 
-    @classmethod
-    def _plan_arrays(cls, plan: RoundPlan) -> Dict[str, np.ndarray]:
+    def _plan_arrays(self, plan: RoundPlan) -> Dict[str, np.ndarray]:
         arrays: Dict[str, np.ndarray] = {}
         for gi, (_, _, factors) in enumerate(plan.group_factors):
-            for parent, (b, a) in factors.items():
+            for parent, pair in factors.items():
+                if self._sharded_dispatch:
+                    pair = tuple(
+                        QuantFactor(self._gather(x.q), self._gather(x.scale))
+                        if is_quantized(x) else self._gather(x)
+                        for x in pair)
                 key = f"g{gi}/P/" + "/".join(parent)
-                cls._factor_arrays(arrays, key, b, "b")
-                cls._factor_arrays(arrays, key, a, "a")
+                self._factor_arrays(arrays, key, pair[0], "b")
+                self._factor_arrays(arrays, key, pair[1], "a")
         for gi, (_, loss_g) in enumerate(plan.loss_parts):
             if loss_g is not None:
                 arrays[f"g{gi}/loss"] = loss_g.detach().cpu().numpy()
@@ -768,16 +855,18 @@ class FederatedLoRA:
                 if key.startswith(prefix):
                     path, leaf = key[len(prefix):].rsplit("/", 1)
                     pairs.setdefault(tuple(path.split("/")), {})[leaf] = arr
+            members = [int(m) for m in g["members"]]
+            mine = (collective.block(len(members), self.mesh)
+                    if self._sharded_dispatch else slice(None))
             factors = {}
             for parent, ba in pairs.items():
                 factors[parent] = tuple(
-                    QuantFactor(self._payload_tensor(ba[f + "q"]),
-                                torch.as_tensor(ba[f + "s"],
+                    QuantFactor(self._payload_tensor(ba[f + "q"][mine]),
+                                torch.as_tensor(ba[f + "s"][mine],
                                                 device=self.device))
                     if f + "q" in ba else
-                    torch.as_tensor(ba[f], device=self.device)
+                    torch.as_tensor(ba[f][mine], device=self.device)
                     for f in ("b", "a"))
-            members = [int(m) for m in g["members"]]
             group_factors.append((members, int(g["r_max"]), factors))
             loss = arrays.get(f"g{gi}/loss")
             loss_parts.append((members, None if loss is None else
@@ -793,9 +882,20 @@ class FederatedLoRA:
         """Checkpoint the whole server state: base and global adapters,
         the rng stream, energy trace and history, momentum, the transport's
         residuals, the async buffer's trained plans and the event
-        scheduler (the reference's files and keys)."""
-        from repro_torch.checkpointing.checkpoint import save_flat, save_pytree
+        scheduler (the reference's files and keys). Under a mesh every
+        rank takes part (the buffer's blocks are gathered; the rest is
+        replicated), rank 0 writes, and no rank returns before the files
+        are written."""
         self.flush_stats()      # checkpointed history/energy are complete
+        pending = [self._plan_arrays(p) for p in self._pending]
+        sharded = self._sharded_dispatch
+        if not sharded or collective.shard_index(self.mesh) == 0:
+            self._write_checkpoint(path, pending)
+        if sharded:
+            collective.barrier(self.mesh, self.device)
+
+    def _write_checkpoint(self, path: str, pending: list) -> None:
+        from repro_torch.checkpointing.checkpoint import save_flat, save_pytree
         save_pytree(path + ".base", self.base)
         meta = {"round": self.round_idx,
                 "adapter_version": self.adapter_version,
@@ -812,8 +912,8 @@ class FederatedLoRA:
             meta["transport"] = True
         if self._pending:
             meta["pending"] = [self._plan_meta(p) for p in self._pending]
-            for i, plan in enumerate(self._pending):
-                save_flat(path + f".pending{i}", self._plan_arrays(plan))
+            for i, arrays in enumerate(pending):
+                save_flat(path + f".pending{i}", arrays)
         if self.event_scheduler is not None:
             meta["events"] = self.event_scheduler.state_dict()
         save_pytree(path + ".lora", self.global_lora, metadata=meta)
@@ -821,7 +921,9 @@ class FederatedLoRA:
     def restore(self, path: str) -> None:
         """Reset the server to a checkpoint of either package: in-flight
         state (queued stats, pending plans, momentum, residuals) always
-        comes from the checkpoint, never from before the restore."""
+        comes from the checkpoint, never from before the restore. Under a
+        mesh every rank reads the files and keeps its block of the
+        buffer."""
         from repro_torch.checkpointing.checkpoint import (load_flat,
                                                           load_metadata,
                                                           load_pytree)

@@ -97,6 +97,20 @@ def _residual(x: torch.Tensor, qf: QuantFactor) -> torch.Tensor:
     return (x.double() - qf.q.double() * qf.scale.double()).float()
 
 
+def _gather_residuals(residuals: Dict[tuple, tuple], gather
+                      ) -> Dict[tuple, tuple]:
+    """{parent: (rb, ra)} block stacks -> every rank's, through one
+    ``gather`` of all of them flattened side by side."""
+    flat = [t for pair in residuals.values() for t in pair]
+    width = flat[0].shape[0]
+    full = gather(torch.cat([t.reshape(width, -1) for t in flat], dim=1))
+    parts = iter(torch.split(full, [t[0].numel() for t in flat], dim=1))
+    return {parent: tuple(next(parts).reshape((full.shape[0],)
+                                              + tuple(t.shape[1:]))
+                          for t in pair)
+            for parent, pair in residuals.items()}
+
+
 @dataclasses.dataclass(frozen=True)
 class TransportConfig:
     """``mode`` "int8" or "bf16"; ``error_feedback`` carries per-client
@@ -124,11 +138,21 @@ class UpdateTransport:
     # -- encoding ------------------------------------------------------------
 
     def encode_group(self, client_ids: List[int],
-                     factors: Dict[tuple, tuple]) -> Dict[tuple, tuple]:
+                     factors: Dict[tuple, tuple], *,
+                     replicate: Optional[tuple] = None
+                     ) -> Dict[tuple, tuple]:
         """Encode one grouped-engine factor stack ({parent: (B, A)} with a
         leading client axis). ``client_ids[j]`` is the GLOBAL client id at
         stacked position j, or -1 for a ghost (zero residual in, residual
-        out discarded)."""
+        out discarded).
+
+        ``replicate`` (the sharded engine): (all_ids, gather), where the
+        stack is this rank's block of the group whose ids are
+        ``all_ids``, and ``gather`` maps a block-stacked tensor to every
+        rank's blocks (``core.collective.gather_blocks``). The accumulators
+        are keyed by client and a client lands on another rank from round
+        to round, so every rank keeps every client's residual: the
+        residuals of all parents travel in ONE gather a group."""
         out, residuals = {}, {}
         for parent, (b, a) in factors.items():
             eb, ea = self._residual_stack(client_ids, parent, b, a)
@@ -137,6 +161,9 @@ class UpdateTransport:
             out[parent] = (qb, qa)
             residuals[parent] = (rb, ra)
         if self.cfg.error_feedback:
+            if replicate is not None:
+                client_ids, gather = replicate
+                residuals = _gather_residuals(residuals, gather)
             for parent, (rb, ra) in residuals.items():
                 for j, cid in enumerate(client_ids):
                     if cid >= 0:

@@ -1,9 +1,7 @@
 """The port's kernel API, with the wrapper semantics of
 ``repro/kernels/ops.py``: every TPU kernel reached from there is reached
 from here too, on the port's hand-written CUDA kernels (each wrapper
-computes its plain PyTorch version for CPU tensors). Not yet here: the
-reference's ``factored_stack_lead`` / ``factored_gram_lead`` of the
-sharded engine (ROADMAP.md queue 1 item 9). The factored stack entries
+computes its plain PyTorch version for CPU tensors). The factored stack entries
 take transport-quantized factors (``QuantFactor``: int8 or bf16 payload
 and f32 per-column scales) as well as plain tensors: ``dequantize`` turns
 them into f32 with one elementwise op before K1, as the reference does
@@ -14,7 +12,9 @@ layout; aggregation and the transport import it from here.
   backend's round path runs: ``factored_stack_layered`` (K1),
   ``factored_gram_layered`` (K2), ``factored_stack_gram_layered`` for a
   shape bucket, and ``factored_stack_gram`` for one adapter (the same
-  kernels at L = 1);
+  kernels at L = 1), and ``factored_stack_lead`` / ``factored_gram_lead``
+  (K1, K2 over any batch axes between the client and matrix axes) of the
+  sharded round engine;
 * the dense aggregate ``rank_partition_agg`` / ``..._layered`` (K3);
 * the fused LoRA applies: single-adapter ``lora_apply`` (K5) and the paged
   multi-adapter ``batched_lora_apply`` of the serving engine (K4);
@@ -117,6 +117,45 @@ def factored_gram_layered(u_c: torch.Tensor, v_c: torch.Tensor
     g_u = gram_left(_pad_to(u_c, 2, 8))
     g_v = gram_right(_pad_to(v_c, 1, 8))
     return g_u[:, :rr, :rr], g_v[:, :rr, :rr]
+
+
+def _layers(lead) -> int:
+    layers = 1
+    for s in lead:
+        layers *= s
+    return layers
+
+
+def factored_stack_lead(bs, as_, omega: torch.Tensor
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``svd.factored_stack_batched`` on K1, for factor stacks with ANY
+    batch axes between the client and matrix axes: bs (M, *B, d, r); as_
+    (M, *B, r, n); omega (M, r). Returns u_c (*B, d, M*r8) and v_c
+    (*B, M*r8, n), the layout the sharded round engine zero-scatters and
+    all-reduces (DESIGN.md §5). *B flattens into K1's layer axis."""
+    bs, as_ = dequantize(bs), dequantize(as_)
+    m, r = bs.shape[0], bs.shape[-1]
+    d, n = bs.shape[-2], as_.shape[-1]
+    lead = tuple(bs.shape[1:-2])
+    layers = _layers(lead)
+    u_c, v_c = factored_stack_layered(
+        bs.reshape(m, layers, d, r).movedim(0, 1),
+        as_.reshape(m, layers, r, n).movedim(0, 1), omega)
+    width = u_c.shape[-1]
+    return (u_c.reshape(lead + (d, width)),
+            v_c.reshape(lead + (width, n)))
+
+
+def factored_gram_lead(u_c: torch.Tensor, v_c: torch.Tensor
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``factored_gram_layered`` (K2) over ANY leading batch axes (or
+    none): u_c (*B, d, R); v_c (*B, R, n) -> (*B, R, R) x2."""
+    lead = tuple(u_c.shape[:-2])
+    d, rr = u_c.shape[-2:]
+    layers = _layers(lead)
+    g_u, g_v = factored_gram_layered(u_c.reshape(layers, d, rr),
+                                     v_c.reshape(layers, rr, v_c.shape[-1]))
+    return g_u.reshape(lead + (rr, rr)), g_v.reshape(lead + (rr, rr))
 
 
 def factored_stack_gram_layered(bs: torch.Tensor, as_: torch.Tensor,

@@ -1,0 +1,139 @@
+"""The port's sharded round engine at world 2: what each gloo rank of
+``tests/test_torch_sharded.py``'s one two-rank spawn runs, and the
+port's batched engine it is held to. In a module of its own so the
+spawned ranks import neither JAX nor the reference package.
+
+The sampled cohort is 5 clients, so at world 2 every round pads one ghost.
+Each case's round starts from the weights the reference's experiment of
+that case drew (a numpy tree, ``weights[label]``).
+"""
+import torch
+
+from repro_torch.convert import params_from_numpy
+from repro_torch.core import collective
+from repro_torch.core.lora import flatten
+from repro_torch.federation.experiment import build_experiment
+from repro_torch.federation.transport import TransportConfig
+from repro_torch.launch import mesh as fl_mesh
+
+SMALL = dict(fl_overrides={"num_rounds": 3, "num_clients": 10,
+                           "participation": 0.5},
+             lora_overrides={"rank_levels": (4, 8, 16),
+                             "rank_probs": (0.34, 0.33, 0.33)},
+             samples_per_class=30, num_classes=6, d_model=32,
+             batches_per_round=1, device="cpu")
+HOMOGENEOUS = {"rank_levels": (8,), "rank_probs": (1.0,)}   # fedavg
+# label -> (method, options): each one round against the batched engine
+CASES = {
+    "raflora-kernel": ("raflora", dict(backend="kernel")),
+    "flora": ("flora", dict(backend="kernel")),
+    "fedavg": ("fedavg", dict(backend="kernel",
+                              lora_overrides=HOMOGENEOUS)),
+    "raflora-factored-int8": ("raflora", dict(backend="factored",
+                                              transport="int8")),
+}
+# all-reduces of one bucket: the average family two factor averages,
+# flora its dW, the factored / kernel backends u and v, and the quantized
+# collective the two payloads and their two column-weight vectors
+BUCKET_ALL_REDUCES = {"raflora-kernel": 2, "flora": 1, "fedavg": 2,
+                      "raflora-factored-int8": 4}
+ASYNC = dict(backend="kernel", round_engine="async", pipeline_depth=2,
+             staleness_gamma=0.8, server_momentum_beta=0.9,
+             transport="int8")
+
+
+def build(method: str, engine: str, **kw):
+    kw = dict(SMALL, **kw)
+    if kw.get("transport") == "int8":
+        kw["transport"] = TransportConfig(mode="int8")
+    kw.setdefault("round_engine", engine)
+    return build_experiment(method, **kw)
+
+
+def residuals(server) -> dict:
+    """{client: {parent: (eb, ea)}} of the transport, numpy."""
+    tr = server.transport
+    if tr is None:
+        return {}
+    return {cid: {p: (b.numpy().copy(), a.numpy().copy())
+                  for p, (b, a) in acc.items()}
+            for cid, acc in tr._acc.items()}
+
+
+def round_result(server, stats) -> dict:
+    r_max = server.lora_cfg.r_max
+    return {"clients": stats.clients, "ranks": stats.ranks,
+            "loss": stats.mean_client_loss, "sigma": stats.sigma_probe,
+            "products": {p: (b @ a).numpy() for p, (b, a) in
+                         server._extract_factors(server.global_lora,
+                                                 r_max).items()},
+            "base": {p: x.numpy().copy()
+                     for p, x in flatten(server.base).items()},
+            "residuals": residuals(server)}
+
+
+def one_round(label: str, engine: str, weights) -> dict:
+    """One round of a case on ``engine`` from ``weights`` (a numpy
+    tree); the sharded engine also records the all-reduces of each
+    bucket."""
+    method, kw = CASES[label]
+    exp = build(method, engine, base_params=params_from_numpy(weights, "cpu"),
+                **kw)
+    per_bucket = []
+    agg = exp.server.aggregator
+    if engine == "sharded":
+        inner = agg.aggregate_grouped_sharded
+
+        def counted(*a, **k):
+            before = collective.all_reduce.calls
+            res = inner(*a, **k)
+            per_bucket.append(collective.all_reduce.calls - before)
+            return res
+        agg.aggregate_grouped_sharded = counted
+    before = collective.all_reduce.calls
+    stats = exp.server.run(1)[0]
+    out = round_result(exp.server, stats)
+    out["bucket_all_reduces"] = per_bucket
+    out["round_all_reduces"] = collective.all_reduce.calls - before
+    return out
+
+
+def _async_state(server) -> dict:
+    return {"history": [(s.clients, s.ranks, s.mean_client_loss)
+                        for s in server.history],
+            "energy": list(server.energy.higher_rank_ratio),
+            "lora": {p: x.numpy().copy()
+                     for p, x in flatten(server.global_lora).items()}}
+
+
+def async_save_restore(ckpt: str) -> dict:
+    """The async engine at depth 2 on the mesh: three rounds and the
+    drain uninterrupted, and one round, a save (mid-buffer: a pending
+    plan, residuals, momentum), a restore into a fresh server and two
+    more rounds and the drain."""
+    full = build("raflora", "async", mesh=fl_mesh.make_fl_mesh(device="cpu"),
+                 **ASYNC)
+    full.server.run(3)
+    full.server.drain_pending()
+    part = build("raflora", "async", mesh=fl_mesh.make_fl_mesh(device="cpu"),
+                 **ASYNC)
+    part.server.run(1)
+    mid_buffer = bool(part.server._pending) and \
+        part.server.transport.has_state()
+    part.server.save(ckpt)
+    resumed = build("raflora", "async",
+                    mesh=fl_mesh.make_fl_mesh(device="cpu"), **ASYNC)
+    resumed.server.restore(ckpt)
+    resumed.server.run(2)
+    resumed.server.drain_pending()
+    return {"full": _async_state(full.server),
+            "resumed": _async_state(resumed.server),
+            "mid_buffer": mid_buffer}
+
+
+def rank_main(rank: int, world: int, ckpt: str, weights: dict) -> dict:
+    torch.set_num_threads(1)
+    out = {label: one_round(label, "sharded", weights[label])
+           for label in CASES}
+    out["async"] = async_save_restore(ckpt)
+    return out

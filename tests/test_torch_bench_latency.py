@@ -10,6 +10,7 @@ import json
 
 import pytest
 import torch
+import torch.distributed as dist
 
 import benchmarks.bench_round_latency as j_latency
 import benchmarks.common as j_common
@@ -44,30 +45,42 @@ def _names():
 
 # where each study's result lands in the artifact (None: the top level)
 SECTIONS = {"run": None, "run_kernel_backend": "kernel_backend",
-            "run_async": "async", "run_transport": "transport"}
+            "run_sharded": "sharded", "run_async": "async",
+            "run_transport": "transport"}
 
 
 @pytest.mark.parametrize("study,kw", [
     ("run", dict(rounds=1, warmup=0)),
     ("run_kernel_backend", dict(rounds=1, warmup=0)),
+    ("run_sharded", dict(rounds=1, warmup=0)),
     ("run_async", dict(rounds=1, warmup=0, depths=(2,),
                        rounds_per_block=2, d_model=32)),
     ("run_transport", dict(rounds=1, warmup=0)),
-], ids=["engines", "kernel_backend", "async", "transport"])
+], ids=["engines", "kernel_backend", "sharded", "async", "transport"])
 def test_round_latency_study_matches_reference(study, kw, latency):
     """One timed round (a block of two for async depth 2) per engine:
     the same rows and artifact keys; the transport's bytes exactly; the
-    momentum audit's counts equal. The JAX study's sharded half is left
-    out on both sides (``run_kernel_backend``'s sharded server needs a
-    mesh the port refuses, ROADMAP.md queue 1 item 9)."""
-    if study == "run_kernel_backend":
-        j_res = _jax_kernel_backend_batched(**kw)
-    else:
-        j_res = getattr(j_latency, study)(**kw)
+    momentum audit's counts equal. ``run_kernel_backend`` includes its
+    sharded half on both sides: the reference on its one-device mesh, the
+    port on a one-rank group, which it destroys after. ``run_sharded``:
+    the reference sweeps the devices this process sees (one); the port
+    spawns a gloo group of S ranks for each S that fits, 1 and 2 on the
+    CPU, so it adds the S 2 row."""
+    j_res = getattr(j_latency, study)(**kw)
     t_res = getattr(t_latency, study)(device="cpu", **kw)
+    assert not dist.is_initialized()       # no study leaves a group behind
     t_names, j_names = _names()
+    j_keys = set(j_res["median_s"])
+    if study == "run_sharded":
+        assert j_res["shard_counts"] == [1]
+        assert t_res["shard_counts"] == [1, 2]
+        assert t_res.keys() == j_res.keys()
+        assert t_res["config"].keys() - {"device"} == \
+            j_res["config"].keys() - {"device_count"}
+        j_names = j_names + ["round_latency/sharded_2"]
+        j_keys.add("2")
     assert t_names == j_names
-    assert t_res["median_s"].keys() == j_res["median_s"].keys()
+    assert t_res["median_s"].keys() == j_keys
     if study == "run_transport":
         assert t_res["bytes_per_round"] == j_res["bytes_per_round"]
     if study == "run_async":
@@ -77,24 +90,6 @@ def test_round_latency_study_matches_reference(study, kw, latency):
     section = SECTIONS[study]
     assert (saved[section] if section else saved)["median_s"] == \
         t_res["median_s"]
-
-
-def _jax_kernel_backend_batched(**kw):
-    """The JAX study's batched half (its sharded server left out)."""
-    real = j_latency._make
-
-    def make(engine, **k):
-        if engine == "sharded":
-            return real("batched", **{**k, "mesh": None})
-        return real(engine, **k)
-    import unittest.mock as mock
-    with mock.patch.object(j_latency, "_make", make), \
-            mock.patch("repro.launch.mesh.make_fl_mesh", lambda *a: None):
-        res = j_latency.run_kernel_backend(**kw)
-    res["median_s"].pop("sharded_kernel")
-    j_common.ROWS[:] = [r for r in j_common.ROWS
-                        if r["name"] != "round_latency/sharded_kernel"]
-    return res
 
 
 def test_round_latency_event_matches_reference(latency):

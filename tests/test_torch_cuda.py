@@ -1005,3 +1005,52 @@ def test_cuda_launcher_two_kernel_rounds(cuda_device, tmp_path):
     assert got.keys() == want.keys()
     for path, x in want.items():
         assert torch.equal(got[path], x), path
+
+
+@pytest.mark.cuda
+def test_cuda_sharded_round_world1_nccl_matches_batched(cuda_device):
+    """One fedvit-tiny round of the sharded engine on a one-rank NCCL group
+    (made in this process) against the batched engine on the card from
+    the same weights, at the round tolerances (loss rtol 1e-4, spectra
+    1e-3 and products 2e-3 of sigma_max); K1 and K2 launch once per
+    shape bucket (3), and each bucket makes 2 all-reduces."""
+    import torch.distributed as dist
+    from repro_torch.core import collective
+    from repro_torch.federation.experiment import build_experiment
+    args = dict(fl_overrides={"num_rounds": 1, "num_clients": 10,
+                              "participation": 0.5},
+                lora_overrides={"rank_levels": (4, 8, 16),
+                                "rank_probs": (0.34, 0.33, 0.33)},
+                samples_per_class=30, num_classes=6, d_model=32,
+                batches_per_round=1, backend="kernel")
+    batched = build_experiment("raflora", **args)
+    base = batched.server.global_params()
+    assert not dist.is_initialized()
+    sharded = build_experiment("raflora", round_engine="sharded",
+                               base_params=base, **args)
+    try:
+        assert dist.get_backend() == "nccl"
+        (sb,) = batched.server.run(1)
+        ops.reset_launches()
+        calls = collective.all_reduce.calls
+        (ss,) = sharded.server.run(1)
+        torch.cuda.synchronize()
+        assert [k.launches for k in rpa.KERNELS] == [3, 3, 3, 3]
+        # 3 buckets of u and v, and the round's losses
+        assert collective.all_reduce.calls - calls == 3 * 2 + 1
+    finally:
+        sharded.server.close()      # the one-rank NCCL group it made
+    assert not dist.is_initialized()
+    assert ss.clients == sb.clients and ss.ranks == sb.ranks
+    np.testing.assert_allclose(ss.mean_client_loss, sb.mean_client_loss,
+                               rtol=1e-4)
+    scale = max(1.0, float(np.abs(sb.sigma_probe).max()))
+    np.testing.assert_allclose(ss.sigma_probe, sb.sigma_probe,
+                               atol=1e-3 * scale)
+    r_max = batched.server.lora_cfg.r_max
+    fb = batched.server._extract_factors(batched.server.global_lora, r_max)
+    fs = sharded.server._extract_factors(sharded.server.global_lora, r_max)
+    for parent, (b, a) in fb.items():
+        sb_, sa_ = fs[parent]
+        np.testing.assert_allclose((sb_ @ sa_).cpu().numpy(),
+                                   (b @ a).cpu().numpy(), atol=2e-3 * scale)

@@ -19,6 +19,7 @@ MODULES = [
     "repro_torch.configs.qwen2_7b",
     "repro_torch.convert", "repro_torch.device",
     "repro_torch.core", "repro_torch.core.aggregation",
+    "repro_torch.core.collective",
     "repro_torch.core.energy", "repro_torch.core.lora",
     "repro_torch.core.partitions", "repro_torch.core.server_opt",
     "repro_torch.core.svd", "repro_torch.core.theory",
@@ -41,7 +42,8 @@ MODULES = [
     "repro_torch.optim.schedules",
     "repro_torch.serving", "repro_torch.serving.adapter_store",
     "repro_torch.serving.engine",
-    "repro_torch.launch", "repro_torch.launch.train",
+    "repro_torch.launch", "repro_torch.launch.mesh",
+    "repro_torch.launch.train",
     "repro_torch.benchmarks", "repro_torch.benchmarks.common",
     "repro_torch.benchmarks.run", "repro_torch.benchmarks.bench_accuracy",
     "repro_torch.benchmarks.bench_cost",
@@ -117,26 +119,13 @@ SMALL_EXP = dict(d_model=32, backend="kernel", samples_per_class=10,
 
 
 def test_unported_options_name_their_roadmap_item():
-    """The options still refused -- the sharded engine, by name or by a
-    mesh, and the benches that need it, the DoRA/QLoRA variants or the TPU
-    dry runs -- name their ROADMAP item; the ported ones are held to the
-    reference in test_torch_aggregation.py, test_torch_round.py,
-    test_torch_transport.py, test_torch_events.py,
-    test_torch_buffered.py, test_torch_launch.py, test_torch_benches.py
-    and test_torch_bench_latency.py."""
-    from repro_torch.benchmarks import bench_round_latency, run
-    from repro_torch.federation.experiment import build_experiment
-    for kw in (dict(round_engine="sharded"), dict(mesh=object()),
-               dict(round_engine="async", mesh=object())):
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP.md queue 1 item 9"):
-            build_experiment("raflora", **kw, **SMALL_EXP)
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md queue 1 item 9"):
-        bench_round_latency.run_sharded()
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md queue 1 item 9"):
-        bench_round_latency.run_kernel_backend(sharded=True, device="cpu")
+    """The options still refused -- the benches that need the DoRA/QLoRA
+    variants or the TPU dry runs -- name their ROADMAP item; the ported
+    ones are held to the reference in test_torch_aggregation.py,
+    test_torch_round.py, test_torch_transport.py, test_torch_events.py,
+    test_torch_buffered.py, test_torch_sharded.py, test_torch_launch.py,
+    test_torch_benches.py and test_torch_bench_latency.py."""
+    from repro_torch.benchmarks import run
     with pytest.raises(NotImplementedError,
                        match="ROADMAP.md queue 1 item 10"):
         run.run_bench("variants", "cpu")
