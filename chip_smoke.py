@@ -103,6 +103,29 @@ JAX. Phases, each printing one JSON line:
                   train / aggregate / collective ms, all-reduce counts,
                   peak memory and the card; every distinct K1/K2 call
                   held to its plain version.
+4f. round_variants_vit_base  main path 8: the PEFT variants of Table 5
+                  at phase 4's setup (kernel backend, f32): DoRA and QLoRA
+                  (4 bits) x FlexLoRA and raFLoRA, 2 rounds each and one
+                  more DoRA raFLoRA round under torch.profiler. K1/K2 3
+                  launches a round (DoRA's magnitudes enter no bucket);
+                  under DoRA every global magnitude moved, is finite and
+                  equals the host's float64 FedAvg of the round's client
+                  magnitudes (rtol 1e-5); under QLoRA every adapted w has
+                  at most 16 levels a column and the base is unchanged by
+                  a round; every distinct K1/K2 call held to its plain
+                  version; stage ms, higher-rank ratio, peak GiB.
+4g. round_paper_lms  main path 9, in a child process with split-K off:
+                  one raFLoRA round (after an untimed one) of LLaMA-3.2-3B
+                  (28 layers, d 3072, GQA 24/8, vocab 128256, tied head,
+                  LoRA on q/v: 2 buckets; 12.9 GB of f32 weights) and of
+                  RoBERTa-base under DoRA (3 buckets), 5 clients at rank
+                  levels 8/16/32 on ``SequenceCopy`` tokens (64, batch
+                  2), batched engine, kernel backend, under
+                  torch.profiler: K1/K2 once per bucket, finite spectra
+                  and products, the products equal to the factored
+                  backend's on the same trained factors (round
+                  tolerance), DoRA's magnitude check, every distinct
+                  K1/K2 call held to its plain version.
 5. serve_small    a reduced qwen2 serving engine on cuda (K4) and on cpu
                   (plain) from the same weights: equal greedy tokens.
 6. serve_qwen2_7b main path 2: Qwen2-7B at full width in f32, 4 slots of
@@ -208,7 +231,8 @@ RUNS_ON.update(lora_apply="mma_tf32x3", flash_attention="mma_tf32x3",
 # the main paths each kernel's launches are counted on
 K12_PATHS = ("round_vit_base", "round_async_vit_base",
              "round_event_vit_base", "train_launcher", "bench_cost",
-             "bench_round_latency", "round_sharded_vit_base")
+             "bench_round_latency", "round_sharded_vit_base",
+             "round_variants_vit_base", "round_paper_lms")
 PATHS = {"weighted_stack_b": ", ".join(K12_PATHS),
          "weighted_stack_a": ", ".join(K12_PATHS),
          "gram_left": ", ".join(K12_PATHS),
@@ -2631,6 +2655,327 @@ def phase_round_sharded_child() -> dict:
                        "launch counts")
 
 
+# main path 8: the PEFT variants (paper Table 5) at ViT-base width
+VARIANT_RUNS = (("dora", "flexlora"), ("dora", "raflora"),
+                ("qlora", "flexlora"), ("qlora", "raflora"))
+VARIANT_ROUNDS = 2
+MAGNITUDE_RTOL = 1e-5     # the global magnitudes vs the host's FedAvg
+
+
+def _variant_checks(torch, server, plan, lora_before, base_before) -> dict:
+    """What main paths 8 and 9 check after a round, from the round's
+    trained plan and the global and base trees it started from: under
+    DoRA every global magnitude moved, is finite and equals the host's
+    float64 FedAvg of the plan's client magnitudes (n_k / sum n_k in
+    group order, ``MAGNITUDE_RTOL``); under QLoRA every adapted ``w``
+    has at most 2^bits distinct values a column and the base is
+    unchanged by the round."""
+    import numpy as np
+    from repro_torch.core.lora import flatten
+    from repro_torch.federation.transport import is_magnitude
+    lora = server.lora_cfg
+    out = {}
+    if lora.variant == "dora":
+        members = [i for mem, _, _ in plan.group_factors for i in mem]
+        n = np.asarray([plan.n_k[i] for i in members], np.float64)
+        w = n / n.sum()
+        flat = flatten(server.global_lora)
+        errs, moved, finite = [], True, True
+        for key in plan.group_factors[0][2]:
+            if not is_magnitude(key):
+                continue
+            ms = torch.cat([fg[key] for _, _, fg in plan.group_factors])
+            want = np.tensordot(w, ms.double().cpu().numpy(), axes=1)
+            got = flat[key[0] + ("lora_m",)]
+            finite &= bool(torch.isfinite(got).all())
+            moved &= not torch.equal(got, lora_before[key[0] + ("lora_m",)])
+            errs.append(float(np.abs(got.double().cpu().numpy() - want).max()
+                              / np.abs(want).max()))
+        out.update(magnitudes=len(errs), magnitude_max_rel_err=max(errs),
+                   magnitudes_moved=moved, magnitudes_finite=finite)
+        require(errs and max(errs) <= MAGNITUDE_RTOL and moved and finite,
+                f"DoRA magnitudes: {out}")
+    if lora.variant == "qlora":
+        levels, same = 0, True
+        adapted = flatten(server.global_lora)
+        for path, x in flatten(server.base).items():
+            if path[-1] == "w" and path[:-1] + ("lora_a",) in adapted:
+                srt = torch.sort(x, dim=-2).values
+                levels = max(levels, int(((srt[..., 1:, :] != srt[..., :-1, :])
+                                          .sum(-2) + 1).max()))
+            same &= torch.equal(x, base_before[path])
+        out.update(max_levels_per_column=levels, base_unchanged=same)
+        require(levels <= 2 ** lora.quant_bits and same,
+                f"QLoRA base: {out}")
+    return out
+
+
+def _instrumented_round(torch, server, profile: bool = False) -> dict:
+    """One round of ``server`` with its plan / train / aggregate stages
+    timed (CUDA events), K1/K2's launches counted around it, each
+    distinct K1/K2 call captured, every aggregated spectrum kept, the
+    trained plan and the trees the round started from; ``profile`` runs
+    the round under torch.profiler (device idle share)."""
+    from repro_torch.core.lora import flatten
+    from repro_torch.kernels import rank_partition_agg as rpa
+    times, kept, agg, sigmas = {}, {}, {}, []
+    timed = _stage_timer(torch, times)
+    live = {name: getattr(server, name) for name in
+            ("_plan_round", "_train_stage", "_aggregate_grouped")}
+    server._plan_round = timed("plan_ms", live["_plan_round"])
+    server._train_stage = timed("train_ms", live["_train_stage"], kept)
+    server._aggregate_grouped = timed("aggregate_ms",
+                                      live["_aggregate_grouped"], agg)
+    inner = server.aggregator.aggregate_grouped
+
+    def capture(*a, **k):
+        res = inner(*a, **k)
+        if res.sigma is not None:
+            sigmas.append(res.sigma)
+        return res
+    server.aggregator.aggregate_grouped = capture
+    lora_before = flatten(server.global_lora)
+    base_before = {p: x.clone() for p, x in flatten(server.base).items()} \
+        if server.lora_cfg.variant == "qlora" else {}
+    before = [k.launches for k in rpa.KERNELS]
+    torch.cuda.reset_peak_memory_stats()
+    prof = None
+    try:
+        with _CaptureK12() as k12:
+            if profile:
+                box = {}
+                prof = _profile(torch, lambda: box.update(
+                    stats=server.run_round()), "gram")
+                stats = box["stats"]
+            else:
+                stats = server.run_round()
+            torch.cuda.synchronize()
+    finally:
+        for name, fn in live.items():
+            setattr(server, name, fn)
+        server.aggregator.aggregate_grouped = inner
+    return {"stats": stats, "plan": kept["args"][0], "times": times,
+            "agg_args": agg["args"], "sigmas": sigmas,
+            "launches": {k.__name__: k.launches - b
+                         for k, b in zip(rpa.KERNELS, before)},
+            "k12_calls": k12.calls, "profile": prof,
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "lora_before": lora_before, "base_before": base_before}
+
+
+def phase_round_variants_vit_base(torch, summary: dict) -> dict:
+    """Main path 8: the PEFT variants of Table 5 at ViT-base width
+    (phase 4's setup: 20 clients, participation 0.25, batch 32, rank
+    levels 4..32, batched engine, kernel backend, f32), DoRA and QLoRA
+    (4 bits) x FlexLoRA and raFLoRA, ``VARIANT_ROUNDS`` rounds each
+    from the base state fl.seed draws, and one more DoRA raFLoRA round
+    under torch.profiler. K1/K2 launch once per bucket (3) every round
+    (the magnitudes enter no bucket); ``_variant_checks`` after each
+    round; every distinct K1/K2 call of the path is then held to its
+    plain version. Returns the path's launches."""
+    import dataclasses
+    from repro_torch.federation.experiment import make_batch_fn
+    from repro_torch.federation.server import FederatedLoRA
+    from repro_torch.federation.topology import ClientRegistry
+    from repro_torch.models.transformer import Model
+    cfg, fl0, lora0, shards, x_tr, y_tr, patches = _vit_base_setup()
+    path_launches = dict.fromkeys(K12, 0)
+    calls, seen = [], set()
+    for variant, method in VARIANT_RUNS:
+        lora = dataclasses.replace(lora0, variant=variant, quant_bits=4)
+        fl = dataclasses.replace(fl0, aggregator=method)
+        registry = ClientRegistry.create(fl, lora, shards)
+        server = FederatedLoRA(
+            Model(cfg, lora, device=DEV), fl, lora, registry,
+            make_batch_fn(registry, x_tr, y_tr, fl, 2, patches),
+            backend="kernel")
+        profiled = (variant, method) == ("dora", "raflora")
+        for rnd in range(VARIANT_ROUNDS + profiled):
+            run = _instrumented_round(torch, server,
+                                      profile=rnd == VARIANT_ROUNDS)
+            stats = run["stats"]
+            require(run["launches"] == dict.fromkeys(K12, VIT_BUCKETS),
+                    f"round_variants {variant}/{method} round {rnd}: "
+                    f"launches {run['launches']}")
+            for k, n in run["launches"].items():
+                path_launches[k] += n
+            for name, x in run["k12_calls"]:
+                key = (name,) + tuple(tuple(t.shape) for t in x
+                                      if hasattr(t, "shape"))
+                if key not in seen:
+                    seen.add(key)
+                    calls.append((name, x))
+            checks = _variant_checks(torch, server, run["plan"],
+                                     run["lora_before"], run["base_before"])
+            finite = all(bool(torch.isfinite(t).all())
+                         for t in _leaves(server.global_lora))
+            require(finite, f"round_variants {variant}/{method}: non-finite "
+                            "global adapters")
+            emit({"phase": "round_variants_vit_base", "variant": variant,
+                  "method": method, "round": stats.round,
+                  "clients": stats.clients, "ranks": stats.ranks,
+                  **run["times"], "round_wall_s": stats.wall_time_s,
+                  "mean_client_loss": stats.mean_client_loss,
+                  "higher_rank_energy_ratio":
+                      float(server.energy.higher_rank_ratio[-1]),
+                  "peak_mem_gib": run["peak_mem_gib"],
+                  "launches": run["launches"], **checks,
+                  "profile": run["profile"], "card": card_line()})
+        del server
+        gc.collect()
+        torch.cuda.empty_cache()
+    rows = _check_k12_calls(torch, calls, summary, "round_variants")
+    emit({"phase": "round_variants_vit_base", "k12_vs_plain": rows,
+          "path_launches": path_launches})
+    return path_launches
+
+
+# main path 9: the paper's language models at full width, in a child
+LM_LEVELS = (8, 16, 32)
+LM_CLIENTS, LM_BATCH, LM_SEQ = 5, 2, 64
+LM_RUNS = (("llama3.2-3b", "lora", 2), ("roberta-base", "dora", 3))
+
+
+def _lm_server(cfg, variant: str, method: str = "raflora"):
+    """A batched kernel-backend server over ``cfg`` at full width: 5
+    clients a round (all of them) at rank levels 8/16/32 on
+    ``SequenceCopy`` token data in the model's vocabulary, 64 tokens,
+    batches of 2, one local step; the base state fl.seed draws on the
+    card."""
+    from repro_torch.configs import FLConfig, LoRAConfig
+    from repro_torch.data import SequenceCopy, batches, make_partition
+    from repro_torch.federation.server import FederatedLoRA
+    from repro_torch.federation.topology import ClientRegistry
+    from repro_torch.models.transformer import Model
+    fl = FLConfig(aggregator=method, num_clients=LM_CLIENTS,
+                  participation=1.0, num_rounds=1, local_batch_size=LM_BATCH,
+                  learning_rate=2e-3, partition="pathological",
+                  labels_per_client=4)
+    lora = LoRAConfig(rank_levels=LM_LEVELS,
+                      rank_probs=(1 / 3, 1 / 3, 1 / 3), variant=variant)
+    data = SequenceCopy(vocab_size=cfg.vocab_size, seq_len=LM_SEQ,
+                        num_families=10, samples_per_family=8, seed=0)
+    tokens, targets, family = data.generate()
+    shards = make_partition(fl.partition, family, fl.num_clients,
+                            labels_per_client=fl.labels_per_client,
+                            seed=fl.seed)
+    registry = ClientRegistry.create(fl, lora, shards)
+
+    def batch_fn(cid, rng):
+        idx = registry.shards[cid]
+        bx, by = next(batches(tokens[idx], targets[idx], LM_BATCH, rng))
+        return [{"tokens": bx, "targets": by}]
+    return FederatedLoRA(Model(cfg, lora, device=DEV), fl, lora, registry,
+                         batch_fn, backend="kernel")
+
+
+def phase_round_paper_lms(torch) -> dict:
+    """Main path 9, in the child (split-K off): one raFLoRA round of the
+    batched engine on the kernel backend, after one untimed round, for
+    each of the paper's language models at full width in f32: (a) LLaMA-3.2-3B (28 layers, d 3072, GQA
+    24/8, vocab 128256, tied head, LoRA on q/v: 2 buckets), (b)
+    RoBERTa-base under DoRA (12 layers, d 768, vocab 50265, untied head,
+    LoRA on q/k/v/o/up/down: 3 buckets). Each round runs under
+    torch.profiler with its stages timed; K1/K2 launch once per bucket;
+    the spectra and products are finite; the aggregate's products equal
+    the factored backend's on the same trained factors and global state
+    at ``ROUND_TOL`` (products 2e-3 of max(1, sigma_max)); DoRA's
+    ``_variant_checks``; every distinct K1/K2 call held to its plain
+    version. The last line holds the path's launches."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.aggregation import Aggregator
+    from repro_torch.core.lora import unflatten
+    from repro_torch.federation.server import FederatedLoRA
+    from repro_torch.federation.transport import is_magnitude
+    summary = {n: {"max_abs_err": 0.0} for n in K12}
+    path_launches = dict.fromkeys(K12, 0)
+    for name, variant, n_buckets in LM_RUNS:
+        cfg = get_config(name)
+        t0 = time.perf_counter()
+        server = _lm_server(cfg, variant)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t0
+        # one untimed round first: the process's first cuBLAS, cuSOLVER
+        # and lazily loaded kernels at these shapes (1.4 s of llama's
+        # first train stage) would otherwise land in the measured round
+        t0 = time.perf_counter()
+        first = server.run_round()
+        torch.cuda.synchronize()
+        first_round_s = time.perf_counter() - t0
+        run = _instrumented_round(torch, server, profile=True)
+        stats = run["stats"]
+        require(run["launches"] == dict.fromkeys(K12, n_buckets),
+                f"round_paper_lms {name}: launches {run['launches']}")
+        for k, n in run["launches"].items():
+            path_launches[k] += n
+        sig_ok = all(bool(torch.isfinite(s).all()) for s in run["sigmas"])
+        scale = max([1.0] + [float(s.max()) for s in run["sigmas"]])
+        # the same aggregation on the factored backend, from the round's
+        # trained factors and the global state it started from
+        live = server.global_lora, server.aggregator
+        server.global_lora = unflatten(run["lora_before"])
+        server.aggregator = Aggregator("raflora", LM_LEVELS,
+                                       backend="factored")
+        try:
+            ref, _, _ = FederatedLoRA._aggregate_grouped(server,
+                                                         *run["agg_args"])
+        finally:
+            server.global_lora, server.aggregator = live
+        got = server._extract_factors(server.global_lora, max(LM_LEVELS))
+        err, finite = 0.0, sig_ok
+        for parent, val in ref.items():
+            if is_magnitude(parent):
+                continue
+            b, a = got[parent]
+            prod = b @ a
+            finite &= bool(torch.isfinite(prod).all())
+            err = max(err, float((prod - val[0] @ val[1]).abs().max()))
+            del prod
+        checks = _variant_checks(torch, server, run["plan"],
+                                 run["lora_before"], run["base_before"])
+        k12 = _check_k12_calls(torch, run["k12_calls"], summary, name)
+        tol = ROUND_TOL["product"] * scale
+        emit({"phase": "round_paper_lms", "model": name, "variant": variant,
+              "layers": cfg.num_layers, "d_model": cfg.d_model,
+              "vocab": cfg.vocab_size, "clients": stats.clients,
+              "ranks": stats.ranks, "batch": LM_BATCH, "seq": LM_SEQ,
+              "setup_s": setup_s, "untimed_round_s": first_round_s,
+              "untimed_round_loss": first.mean_client_loss,
+              **run["times"],
+              "round_wall_s": stats.wall_time_s,
+              "mean_client_loss": stats.mean_client_loss,
+              "peak_mem_gib": run["peak_mem_gib"],
+              "launches": run["launches"], "finite": finite,
+              "factored_product_max_abs_err": err, "tol": tol,
+              "sigma_max": scale, **checks, "k12_vs_plain": k12,
+              "profile": run["profile"], "card": card_line()})
+        require(finite, f"round_paper_lms {name}: non-finite spectra or "
+                        "products")
+        require(err <= tol, f"round_paper_lms {name}: products {err} off "
+                            f"the factored backend's (tol {tol})")
+        del server, run, ref, got, live
+        gc.collect()
+        torch.cuda.empty_cache()
+    last = {"phase": "round_paper_lms", "path_launches": path_launches,
+            "max_abs_err": {k: s["max_abs_err"] for k, s in summary.items()},
+            "card": card_line()}
+    emit(last)
+    return last
+
+
+def phase_round_paper_lms_child() -> dict:
+    """``phase_round_paper_lms`` in a child process with cuBLAS's split-K
+    off, as round_methods (it frees the 13 GB model with the process).
+    Its launches come back from its last line."""
+    out = _run_child("--round-paper-lms", "round_paper_lms",
+                     env=dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":0:0"))
+    for line in reversed(out.splitlines()):
+        if line.startswith("{") and "path_launches" in line:
+            return json.loads(line)
+    raise SmokeFailure("round_paper_lms: the child printed no launch "
+                       "counts")
+
+
 def phase_profile(torch, server) -> None:
     """One more vit-base round under torch.profiler: device time by
     kernel, K2's share and the device's idle share of the round."""
@@ -2936,7 +3281,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     for flag, child in (("--round-methods", phase_round_methods),
                         ("--paper-benches", phase_paper_benches),
-                        ("--round-sharded", phase_round_sharded)):
+                        ("--round-sharded", phase_round_sharded),
+                        ("--round-paper-lms", phase_round_paper_lms)):
         if flag in sys.argv[1:]:          # a phase's child process
             try:
                 child(torch)
@@ -2981,6 +3327,13 @@ def main() -> int:
         for k, n in sharded["path_launches"].items():
             by_path[k]["round_sharded_vit_base"] = n
         for k, err in sharded["max_abs_err"].items():
+            summary[k]["max_abs_err"] = max(summary[k]["max_abs_err"], err)
+        for k, n in phase_round_variants_vit_base(torch, summary).items():
+            by_path[k]["round_variants_vit_base"] = n
+        lms = phase_round_paper_lms_child()
+        for k, n in lms["path_launches"].items():
+            by_path[k]["round_paper_lms"] = n
+        for k, err in lms["max_abs_err"].items():
             summary[k]["max_abs_err"] = max(summary[k]["max_abs_err"], err)
         phase_serve_small(torch)
         by_path["batched_lora_apply"] = {

@@ -6,9 +6,9 @@
   PYTHONPATH=src python -m repro_torch.benchmarks.run --only accuracy,kernels
   PYTHONPATH=src python -m repro_torch.benchmarks.run --quick --device cpu
 
-Prints ``name,us_per_call,derived`` CSV (``common.emit``). ``variants``
-and ``roofline`` are not ported: they raise NotImplementedError naming
-their ROADMAP.md item, and count as failed.
+Prints ``name,us_per_call,derived`` CSV (``common.emit``). ``roofline``
+is not ported: it raises NotImplementedError naming its ROADMAP.md item,
+and counts as failed.
 """
 import argparse
 import importlib
@@ -22,7 +22,7 @@ BENCHES = {
     "accuracy": "repro_torch.benchmarks.bench_accuracy",  # Table 2
     "sensitivity": "repro_torch.benchmarks.bench_sensitivity",
     # Fig 2c/2d/5a/6a-d, Tbl 4
-    "variants": None,       # Table 5 (QLoRA/DoRA)
+    "variants": "repro_torch.benchmarks.bench_lora_variants",  # Table 5
     "roofline": None,       # TPU dry-run roofline table
     "round_latency": "repro_torch.benchmarks.bench_round_latency",
 }
@@ -30,8 +30,6 @@ BENCHES = {
 QUICK = ("kernels", "cost", "energy", "roofline", "round_latency")
 
 NOT_PORTED = {
-    "variants": "the DoRA and QLoRA variants are not ported (ROADMAP.md "
-                "queue 1 item 10)",
     "roofline": "the roofline table reads TPU dry-run artifacts (ROADMAP.md "
                 "queue 1 item 13)",
 }

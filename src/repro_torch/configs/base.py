@@ -197,8 +197,9 @@ def register(config: ModelConfig) -> ModelConfig:
 
 
 def get_config(name: str) -> ModelConfig:
-    from repro_torch.configs import (mamba2_1p3b, paper_models,  # noqa: F401
-                                     qwen2_7b)
+    from repro_torch.configs import (granite_3_8b,  # noqa: F401
+                                     hubert_xlarge, mamba2_1p3b,
+                                     nemotron_4_340b, paper_models, qwen2_7b)
     if name not in _REGISTRY:
         raise KeyError(
             f"unknown architecture {name!r}; available: {sorted(_REGISTRY)}")

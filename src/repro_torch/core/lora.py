@@ -63,7 +63,7 @@ def merge_lora(base: dict, lora: dict) -> dict:
 
 def adapter_parents(lora: dict):
     """Adapter parent paths (the dense layer holding lora_a/lora_b) in
-    sorted-key order."""
+    sorted-key order; a DoRA magnitude adds no parent of its own."""
     seen = []
     for path in flatten(lora):
         if path[-1] in ("lora_a", "lora_b") and path[:-1] not in seen:
@@ -76,16 +76,16 @@ def lora_only(params: dict) -> dict:
     return split_lora(params)[1]
 
 
-def _kind(path: Tuple[str, ...]) -> str:
-    return "a" if path[-1] == "lora_a" else "b"
+_FACTOR_KIND = {"lora_a": "a", "lora_b": "b"}
 
 
 def adapter_paths(params: dict) -> Dict[str, Dict[str, object]]:
-    """{"dotted/path": {"a": A, "b": B}} for every adapter in the tree."""
+    """{"dotted/path": {"a": A, "b": B}} for every adapter in the tree
+    (DoRA magnitudes are not factors and are left out)."""
     out: Dict[str, Dict[str, object]] = {}
     for path, x in flatten(params).items():
-        if _is_lora_path(path):
-            out.setdefault("/".join(path[:-1]), {})[_kind(path)] = x
+        if path[-1] in _FACTOR_KIND:
+            out.setdefault("/".join(path[:-1]), {})[_FACTOR_KIND[path[-1]]] = x
     return out
 
 
@@ -114,12 +114,14 @@ def pad_adapters(lora_tree: dict, r_max: int) -> dict:
 
 def map_adapters(fn: Callable, lora_tree: dict) -> dict:
     """Apply fn(parent_path, {"a": A, "b": B}) -> {"a": A', "b": B'} to
-    every adapter pair in the tree; returns a new tree."""
+    every adapter pair in the tree; returns a new tree (DoRA magnitudes
+    pass through whole)."""
     flat = flatten(lora_tree)
     pairs: Dict[tuple, Dict[str, object]] = {}
     for path, x in flat.items():
-        if _is_lora_path(path):
-            pairs.setdefault(path[:-1], {})[_kind(path)] = x
+        if path[-1] in _FACTOR_KIND:
+            pairs.setdefault(path[:-1], {})[_FACTOR_KIND[path[-1]]] = x
     results = {parent: fn(parent, ab) for parent, ab in pairs.items()}
-    return unflatten({p: results[p[:-1]][_kind(p)] if _is_lora_path(p)
-                      else x for p, x in flat.items()})
+    return unflatten({p: results[p[:-1]][_FACTOR_KIND[p[-1]]]
+                      if p[-1] in _FACTOR_KIND else x
+                      for p, x in flat.items()})

@@ -1,4 +1,6 @@
 from repro_torch.data.partition import make_partition
-from repro_torch.data.synthetic import ClusterClassification, batches
+from repro_torch.data.synthetic import (ClusterClassification, SequenceCopy,
+                                        batches)
 
-__all__ = ["ClusterClassification", "batches", "make_partition"]
+__all__ = ["ClusterClassification", "SequenceCopy", "batches",
+           "make_partition"]

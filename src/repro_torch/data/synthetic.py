@@ -1,8 +1,9 @@
-"""Synthetic classification data standing in for the paper's CIFAR100.
+"""Synthetic data standing in for the paper's CIFAR100 and its token tasks.
 
-A numpy copy of ``repro.data.synthetic.ClusterClassification`` and
-``batches``: the same seed gives identical arrays on both sides, so a
-parity test and the chip run draw the data the reference draws.
+A numpy copy of ``repro.data.synthetic.ClusterClassification``,
+``SequenceCopy`` and ``batches``: the same seed gives identical arrays on
+both sides, so a parity test and the chip run draw the data the
+reference draws.
 
 ``ClusterClassification`` draws class prototypes in a D-dim latent space
 and emits patch-sequence inputs (frontend-embedding format). A class is a
@@ -51,6 +52,49 @@ class ClusterClassification:
         x, y = self.generate()
         n_test = int(len(y) * test_frac)
         return (x[n_test:], y[n_test:]), (x[:n_test], y[:n_test])
+
+
+@dataclass
+class SequenceCopy:
+    """Next-token prediction with client-specific structure.
+
+    Sequences are [pattern tokens ... delimiter, pattern tokens] -- the model
+    must copy the prefix after the delimiter. The "label" used for non-IID
+    partitioning is the pattern family id.
+    """
+
+    vocab_size: int = 256
+    seq_len: int = 32
+    num_families: int = 20
+    samples_per_family: int = 100
+    seed: int = 0
+
+    def generate(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Returns (tokens (N, L), targets (N, L), family (N,))."""
+        rng = np.random.default_rng(self.seed)
+        half = self.seq_len // 2
+        delim = self.vocab_size - 1
+        toks, fams = [], []
+        for f in range(self.num_families):
+            # each family draws from a distinct sub-vocabulary band
+            lo = 1 + (f * (self.vocab_size - 2)) // self.num_families
+            hi = 1 + ((f + 1) * (self.vocab_size - 2)) // self.num_families
+            pat = rng.integers(lo, max(hi, lo + 1),
+                               size=(self.samples_per_family, half - 1))
+            seq = np.concatenate(
+                [pat, np.full((self.samples_per_family, 1), delim), pat,
+                 np.zeros((self.samples_per_family,
+                           self.seq_len - 2 * half + 1), np.int64)], axis=1)
+            toks.append(seq[:, :self.seq_len])
+            fams.append(np.full(self.samples_per_family, f, np.int32))
+        tokens = np.concatenate(toks).astype(np.int32)
+        family = np.concatenate(fams)
+        order = rng.permutation(len(family))
+        tokens = tokens[order]
+        family = family[order]
+        targets = np.roll(tokens, -1, axis=1)
+        targets[:, -1] = 0
+        return tokens, targets, family
 
 
 def batches(x: np.ndarray, y: np.ndarray, batch_size: int,

@@ -33,8 +33,13 @@
   pool. Given a ``mesh``, its stages run the sharded engine's
   dispatches.
 
-Every engine runs every method and backend of ``core.aggregation``, with
-optional FactoredServerMomentum (``core/server_opt.py``) and compressed
+Every engine runs every method and backend of ``core.aggregation``, and
+the PEFT variants of the paper's Table 5: under DoRA each adapter's
+magnitude ``lora_m`` travels next to its factors as a ``(parent, "m")``
+entry, bypasses the rank-structured aggregation, the momentum and the
+transport's compression, and is FedAvg'd with the cohort's weights
+(``_aggregate_magnitudes``). Every engine also takes optional
+FactoredServerMomentum (``core/server_opt.py``) and compressed
 uploads (``federation/transport.py``, dequantized once at stack-build
 time). FLoRA folds its dW into the base weights. The plan stage consumes
 the numpy rng in the reference's order, so both packages and every engine
@@ -64,14 +69,16 @@ import torch.distributed as dist
 
 from repro_torch.configs.base import FLConfig, LoRAConfig
 from repro_torch.core import collective
-from repro_torch.core.aggregation import Aggregator
+from repro_torch.core.aggregation import (Aggregator, cohort_weights,
+                                          weighted_avg)
 from repro_torch.core.energy import EnergyTrace
 from repro_torch.core.lora import (adapter_parents, flatten, merge_lora,
                                    split_lora, unflatten)
 from repro_torch.federation.client import LocalTrainer
 from repro_torch.federation.topology import ClientRegistry
 from repro_torch.federation.transport import (QuantFactor, TransportConfig,
-                                              UpdateTransport, is_quantized)
+                                              UpdateTransport, is_magnitude,
+                                              is_quantized)
 from repro_torch.models.transformer import Model
 from repro_torch.optim import get_schedule
 
@@ -236,8 +243,10 @@ class FederatedLoRA:
     @staticmethod
     def _extract_factors(lora_tree: dict, rank: int) -> Dict[tuple, tuple]:
         """{adapter parent: (B (..., d_in, r_k), A (..., r_k, d_out))} in
-        sorted-key (JAX pytree) order. Model layout: lora_a (..., r, in),
-        lora_b (..., out, r); paper layout: B = lora_a^T, A = lora_b^T."""
+        sorted-key (JAX pytree) order, each DoRA adapter followed by its
+        magnitude as ``(parent, "m"): lora_m (..., out)``. Model layout:
+        lora_a (..., r, in), lora_b (..., out, r); paper layout:
+        B = lora_a^T, A = lora_b^T."""
         flat = flatten(lora_tree)
         out = {}
         for parent in adapter_parents(lora_tree):
@@ -245,6 +254,8 @@ class FederatedLoRA:
             b_model = flat[parent + ("lora_b",)]
             out[parent] = (a_model.mT[..., :rank],
                            b_model.mT[..., :rank, :])
+            if parent + ("lora_m",) in flat:
+                out[(parent, "m")] = flat[parent + ("lora_m",)]
         return out
 
     def _write_factors(self, results: Dict[tuple, tuple]) -> None:
@@ -252,7 +263,12 @@ class FederatedLoRA:
         A_g (..., r, n))} back into the global lora tree, bump the adapter
         version and fire the hooks."""
         flat = flatten(self.global_lora)
-        for parent, (b_g, a_g) in results.items():
+        for parent, val in results.items():
+            if is_magnitude(parent):
+                leaf = parent[0] + ("lora_m",)
+                flat[leaf] = val.to(flat[leaf].dtype).contiguous()
+                continue
+            b_g, a_g = val
             dt = flat[parent + ("lora_a",)].dtype
             flat[parent + ("lora_a",)] = b_g.mT.to(dt).contiguous()
             flat[parent + ("lora_b",)] = a_g.mT.to(dt).contiguous()
@@ -385,14 +401,34 @@ class FederatedLoRA:
 
     # -- aggregation ---------------------------------------------------------
 
+    def _aggregate_magnitudes(self, stacks, w_clients, results) -> None:
+        """DoRA magnitudes: the weighted FedAvg of each ``(parent, "m")``
+        stack (M, ..., out) with the cohort's weights ``w_clients`` (M,)
+        (they are not rank-structured, and bypass the momentum). Under the
+        sharded dispatch each rank holds its block of the client axis and
+        of the weights, and one counted all-reduce sums the blocks."""
+        for key, ms in stacks.items():
+            m_g = weighted_avg(ms, w_clients.to(ms.device))
+            if self._sharded_dispatch:
+                m_g = collective.all_reduce(m_g, self.mesh)
+            results[key] = m_g
+
     def _aggregate_sequential(self, client_factors, ranks, n_k):
         """AGGREGATE, sequential engine: one ``aggregate_layer`` call per
-        adapter parent (scan-stacked (L, d, r) factors stay stacked)."""
+        adapter parent (scan-stacked (L, d, r) factors stay stacked), and
+        the magnitudes' FedAvg at n_k / sum(n_k)."""
         results, deltas, sigmas = {}, {}, {}
         global_factors = self._extract_factors(self.global_lora,
                                                self.lora_cfg.r_max)
         parents = list(client_factors[0])
+        n = np.asarray(n_k, dtype=np.float64)
+        self._aggregate_magnitudes(
+            {p: torch.stack([cf[p] for cf in client_factors])
+             for p in parents if is_magnitude(p)},
+            torch.as_tensor(n / n.sum(), dtype=torch.float32), results)
         for parent in parents:
+            if is_magnitude(parent):
+                continue
             g_b, g_a = global_factors[parent]
             res = self.aggregator.aggregate_layer(
                 [cf[parent] for cf in client_factors], ranks, n_k,
@@ -431,8 +467,10 @@ class FederatedLoRA:
         under the sharded dispatch: each bucket then goes through
         ``aggregate_grouped_sharded``, ghosts riding along at n_k = 0).
         ``staleness``: per-sampled-client ages (async engine);
-        ``present``: per-sampled-client arrival mask (event engine). The
-        energy probe is the FIRST adapter's spectrum."""
+        ``present``: per-sampled-client arrival mask (event engine). DoRA
+        magnitudes are FedAvg'd with ``cohort_weights`` over the same
+        group-ordered client axis (ghosts and absent clients exactly
+        zero). The energy probe is the FIRST adapter's spectrum."""
         results, deltas = {}, {}
         sigma_probe = None
         r_max = self.lora_cfg.r_max
@@ -441,8 +479,22 @@ class FederatedLoRA:
         ranks_o, n_k_o, stal_o, pres_o = flatten_cohort(
             members, ranks, n_k, staleness, present,
             min(self.lora_cfg.rank_levels))
+        mags = [p for p in group_factors[0][2] if is_magnitude(p)]
+        if mags:
+            w = cohort_weights(n_k_o, stal_o, pres_o, self.staleness_gamma)
+            if self._sharded_dispatch:   # this rank's block of each group
+                sizes = np.cumsum([len(mem) for mem, _, _ in group_factors])
+                w = np.concatenate([
+                    part[collective.block(len(part), self.mesh)]
+                    for part in np.split(w, sizes[:-1])])
+            self._aggregate_magnitudes(
+                {p: torch.cat([fg[p] for _, _, fg in group_factors])
+                 for p in mags},
+                torch.as_tensor(w, dtype=torch.float32), results)
         buckets: Dict[tuple, List[tuple]] = {}
         for parent in group_factors[0][2]:
+            if is_magnitude(parent):
+                continue
             gb0, ga0 = global_factors[parent]
             buckets.setdefault((tuple(gb0.shape), tuple(ga0.shape)),
                                []).append(parent)
@@ -793,7 +845,8 @@ class FederatedLoRA:
     # so its trained factor stacks themselves are checkpointed, under the
     # reference's keys: "g{gi}/P/{adapter path}/b|a" for f32 factors,
     # "bq"/"bs" and "aq"/"as" leaves (payload and scales) for quantized
-    # ones, "g{gi}/loss" for a group's losses. A bf16 payload is stored as
+    # ones, "g{gi}/M/{adapter path}" for DoRA magnitudes, "g{gi}/loss" for
+    # a group's losses. A bf16 payload is stored as
     # its raw 2-byte words (numpy has no bfloat16; the reference's file
     # holds the same bytes). Under a mesh a plan's factor stacks are this
     # rank's blocks: ``save`` gathers the whole groups (rank 0 writes them)
@@ -824,6 +877,11 @@ class FederatedLoRA:
         arrays: Dict[str, np.ndarray] = {}
         for gi, (_, _, factors) in enumerate(plan.group_factors):
             for parent, pair in factors.items():
+                if is_magnitude(parent):
+                    m = self._gather(pair) if self._sharded_dispatch else pair
+                    arrays[f"g{gi}/M/" + "/".join(parent[0])] = \
+                        m.detach().cpu().numpy()
+                    continue
                 if self._sharded_dispatch:
                     pair = tuple(
                         QuantFactor(self._gather(x.q), self._gather(x.scale))
@@ -849,12 +907,15 @@ class FederatedLoRA:
                           ) -> RoundPlan:
         group_factors, loss_parts = [], []
         for gi, g in enumerate(meta["groups"]):
-            prefix = f"g{gi}/P/"
+            prefix, mprefix = f"g{gi}/P/", f"g{gi}/M/"
             pairs: Dict[tuple, dict] = {}
+            mags: Dict[tuple, np.ndarray] = {}
             for key, arr in arrays.items():
                 if key.startswith(prefix):
                     path, leaf = key[len(prefix):].rsplit("/", 1)
                     pairs.setdefault(tuple(path.split("/")), {})[leaf] = arr
+                elif key.startswith(mprefix):
+                    mags[tuple(key[len(mprefix):].split("/"))] = arr
             members = [int(m) for m in g["members"]]
             mine = (collective.block(len(members), self.mesh)
                     if self._sharded_dispatch else slice(None))
@@ -867,6 +928,9 @@ class FederatedLoRA:
                     if f + "q" in ba else
                     torch.as_tensor(ba[f][mine], device=self.device)
                     for f in ("b", "a"))
+                if parent in mags:
+                    factors[(parent, "m")] = torch.as_tensor(
+                        mags[parent][mine], device=self.device)
             group_factors.append((members, int(g["r_max"]), factors))
             loss = arrays.get(f"g{gi}/loss")
             loss_parts.append((members, None if loss is None else

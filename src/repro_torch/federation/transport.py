@@ -10,6 +10,9 @@ layout) gets scale exactly 0 and decodes to exactly zero. Every consumer
 dequantizes BEFORE weighting, so the rank-partition math downstream is
 unchanged.
 
+DoRA magnitudes (``(parent, "m")`` entries, (..., out) vectors that are
+FedAvg'd, not rank-structured) ship uncompressed and keep no residual.
+
 Error feedback: the encoder compresses x' = x + e, where e is the
 client's residual from its previous participation, and keeps
 e' = x' - deq(q); over K rounds the residuals telescope,
@@ -111,6 +114,12 @@ def _gather_residuals(residuals: Dict[tuple, tuple], gather
             for parent, pair in residuals.items()}
 
 
+def is_magnitude(parent) -> bool:
+    """A DoRA magnitude entry ``(parent, "m")``: shipped uncompressed."""
+    return (len(parent) == 2 and isinstance(parent[0], tuple)
+            and parent[1] == "m")
+
+
 @dataclasses.dataclass(frozen=True)
 class TransportConfig:
     """``mode`` "int8" or "bf16"; ``error_feedback`` carries per-client
@@ -154,7 +163,11 @@ class UpdateTransport:
         to round, so every rank keeps every client's residual: the
         residuals of all parents travel in ONE gather a group."""
         out, residuals = {}, {}
-        for parent, (b, a) in factors.items():
+        for parent, val in factors.items():
+            if is_magnitude(parent):
+                out[parent] = val
+                continue
+            b, a = val
             eb, ea = self._residual_stack(client_ids, parent, b, a)
             qb, qa, rb, ra = _encode_pair(b, a, eb, ea, mode=self.cfg.mode,
                                           top_k=self.cfg.top_k)
@@ -176,7 +189,11 @@ class UpdateTransport:
         """Sequential-engine variant: one client's rank-r_k factors
         ((..., d, r_k) / (..., r_k, n), no client axis)."""
         out, residuals = {}, {}
-        for parent, (b, a) in factors.items():
+        for parent, val in factors.items():
+            if is_magnitude(parent):
+                out[parent] = val
+                continue
+            b, a = val
             eb, ea = self._residual_one(cid, parent, b, a)
             qb, qa, rb, ra = _encode_pair(b, a, eb, ea, mode=self.cfg.mode,
                                           top_k=self.cfg.top_k)

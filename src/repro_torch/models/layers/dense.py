@@ -13,6 +13,13 @@ s = alpha / r (s = 1 under the paper's alpha = r)::
 
     y = x @ w + b + s * (x @ a.T) @ b.T
 
+A magnitude leaf ``lora_m`` (C, out) next to the factors makes the layer
+DoRA's (arXiv:2402.09353, the paper's Table 5): one adapted weight per
+client, ``W'_c = m_c * (W + s_c A_c^T B_c^T) / ||W + s_c A_c^T B_c^T||_col``
+in f32, applied by a batched product of x (C, N, in) against (C, in, out).
+QLoRA keeps the LoRA forward over a base weight fake-quantized once at
+init (``quantize_dequantize``).
+
 Serving is the same layout with C = request slots: each slot carries its
 own tenant's factors. ``use_kernel`` sends such an adapted projection
 through the paged LoRA kernel K4 (``kernels/lora_apply.py``) with row ids
@@ -24,6 +31,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels.lora_apply import batched_lora_apply
 
@@ -51,7 +59,11 @@ def dense_apply(params: dict, x: torch.Tensor, *,
                 lora_rank: int = -1, use_kernel: bool = False
                 ) -> torch.Tensor:
     """x (C, ..., in). ``lora_scale`` (C,) per-client scales; ``lora_rank``
-    -1 uses the full factors, 0 disables the adapter, r > 0 truncates."""
+    -1 uses the full factors, 0 disables the adapter, r > 0 truncates.
+    With a magnitude ``lora_m`` the layer is DoRA's (``use_kernel`` does
+    not apply: K4 has no DoRA form, as in the reference)."""
+    if lora_rank != 0 and "lora_m" in params and "lora_a" in params:
+        return _dora_apply(params, x, lora_scale, lora_rank)
     if use_kernel and lora_rank != 0 and "lora_a" in params:
         return _kernel_lora_dense(params, x, lora_scale, lora_rank)
     y = x @ params["w"].to(x.dtype)
@@ -90,3 +102,71 @@ def _kernel_lora_dense(params: dict, x: torch.Tensor,
     if "b" in params:
         y = y + params["b"].to(y.dtype)
     return y
+
+
+def _dora_apply(params: dict, x: torch.Tensor,
+                lora_scale: Optional[torch.Tensor],
+                lora_rank: int) -> torch.Tensor:
+    """DoRA over the client axis: W'_c = m_c * (W + s_c dW_c) /
+    ||W + s_c dW_c||_col with dW_c = A_c^T B_c^T (in, out), all in f32
+    (the reference's ``_dora_apply`` for each client c)."""
+    a, b = params["lora_a"], params["lora_b"]
+    if lora_rank > 0:
+        a, b = a[..., :lora_rank, :], b[..., :lora_rank]
+    c = x.shape[0]
+    dw = a.float().mT @ b.float().mT                   # (C, in, out)
+    if lora_scale is not None:
+        dw = lora_scale.float().reshape(c, 1, 1) * dw
+    adapted = params["w"].float() + dw
+    col_norm = torch.sqrt(torch.sum(torch.square(adapted), dim=-2) + 1e-8)
+    scaled = adapted * (params["lora_m"].float() / col_norm)[:, None, :]
+    x2 = x.reshape(c, -1, x.shape[-1])
+    y = (x2 @ scaled.to(x.dtype)).reshape(x.shape[:-1] + (scaled.shape[-1],))
+    if "b" in params:
+        y = y + params["b"].to(x.dtype)
+    return y
+
+
+def dora_magnitude_init(w: torch.Tensor) -> torch.Tensor:
+    """DoRA init: m = column norms of the pretrained weight, in f32; for
+    layer-stacked weights (..., in, out) the norm runs over the in dim.
+
+    Bit-equal to the reference as XLA compiles it on the CPU: the column
+    sum runs in XLA's order (``_xla_column_sum``) and the square root is
+    correctly rounded (through f64, as numpy's and XLA's are; torch's CPU
+    f32 ``sqrt`` is not)."""
+    return torch.sqrt(_xla_column_sum(torch.square(w.float())).double()
+                      ).float()
+
+
+def _xla_column_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over dim -2 in the order of XLA's CPU reduction: while the
+    summed dim is longer than 32 it is zero-padded symmetrically (the
+    extra row at the end) to a multiple of 32 and each window of 32 rows
+    is summed in order; the last <= 32 partial sums are summed in order."""
+    while x.shape[-2] > 32:
+        n = x.shape[-2]
+        pad = -n % 32
+        x = F.pad(x, (0, 0, pad // 2, pad - pad // 2))
+        x = _sum_rows(x.reshape(x.shape[:-2] + ((n + pad) // 32, 32,
+                                                x.shape[-1])))
+    return _sum_rows(x)
+
+
+def _sum_rows(x: torch.Tensor) -> torch.Tensor:
+    acc = x[..., 0, :]
+    for i in range(1, x.shape[-2]):
+        acc = acc + x[..., i, :]
+    return acc
+
+
+def quantize_dequantize(w: torch.Tensor, bits: int = 4) -> torch.Tensor:
+    """QLoRA simulation: per-output-channel symmetric fake quantization of
+    the frozen base weight over the in dim (layer-stacked weights too),
+    rounding half to even and clipping to [-levels - 1, levels], as the
+    reference's ``jnp.round`` and ``jnp.clip`` do."""
+    levels = 2 ** (bits - 1) - 1
+    scale = torch.amax(torch.abs(w), dim=-2, keepdim=True) / levels
+    scale = torch.clamp(scale, min=1e-8)
+    q = torch.clamp(torch.round(w / scale), -levels - 1, levels)
+    return (q * scale).to(w.dtype)

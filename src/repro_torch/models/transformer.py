@@ -1,15 +1,24 @@
 """The port's transformer (``repro/models/transformer.py``) for three kinds
-of model: the encoder of the federated round (the ``kind="vlm"`` path:
-vision frontend projection, bidirectional attention, GELU MLP, LoRA on
-q/k/v/o/up/down), dense causal decoders for serving (token embedding,
-RoPE, causal attention with a KV cache, SwiGLU MLP, untied head: Qwen2-7B
-with LoRA on q/k/v/o) and attention-free SSM decoders (``kind="ssm"``:
-norm, SSD mixer and residual per layer, tied head: Mamba-2 1.3B with LoRA
-on the mixer's in/out projections).
+of model: encoders (bidirectional attention, GELU MLP): the federated
+round's ``kind="vlm"`` path (vision frontend projection, LoRA on
+q/k/v/o/up/down; ViT-base), an audio frontend (HuBERT X-Large) or token
+embeddings with no positions and an untied head (RoBERTa-base); dense
+causal decoders (token embedding, RoPE, causal attention with a KV cache,
+a SwiGLU or squared-ReLU MLP, a tied or untied head, GQA: Qwen2-7B,
+LLaMA-3.2-3B, Granite-3-8B, Nemotron-4-340B); and attention-free SSM
+decoders (``kind="ssm"``: norm, SSD mixer and residual per layer, tied
+head: Mamba-2 1.3B with LoRA on the mixer's in/out projections).
+
+The PEFT variants of the paper's Table 5 are applied after ``init`` on
+the stacked leaves, as the reference does: ``variant="dora"`` adds a
+trainable magnitude ``lora_m`` (the column norms of ``w``) next to every
+adapter, ``variant="qlora"`` fake-quantizes the frozen ``w`` of every
+adapted layer at ``quant_bits``; any other name leaves the tree as it is.
 
 Parameters keep the JAX package's tree and layouts at the public
 boundary: ``w (in, out)``, ``lora_a (L, r, in)``, ``lora_b (L, out, r)``,
-per-layer leaves stacked on axis 0 under ``params["layers"]``.
+``lora_m (L, out)``, per-layer leaves stacked on axis 0 under
+``params["layers"]``.
 
 Many adapters at once write the adapter axis out as a leading batch
 dimension C: the ``*_clients`` entry points take the shared base tree, a
@@ -40,7 +49,9 @@ from repro_torch.device import resolve_device
 from repro_torch.models.layers.attention import (bidirectional_attention,
                                                  causal_attention,
                                                  decode_attention)
-from repro_torch.models.layers.dense import dense_apply, dense_init
+from repro_torch.models.layers.dense import (dense_apply, dense_init,
+                                             dora_magnitude_init,
+                                             quantize_dequantize)
 from repro_torch.models.layers.mlp import mlp_apply, mlp_init
 from repro_torch.models.layers.norms import rms_norm, rms_norm_init
 from repro_torch.models.layers.rope import apply_rope
@@ -92,10 +103,6 @@ class Model:
             unsupported.append("logit softcap")
         if cfg.kind == "dense" and cfg.name.startswith("gemma"):
             unsupported.append("Gemma's embedding scale")
-        if cfg.is_encoder_only and cfg.frontend.kind == "none":
-            unsupported.append("frontend-free encoders")
-        if lora is not None and lora.variant != "lora":
-            unsupported.append(f"PEFT variant {lora.variant!r}")
         if unsupported:
             raise NotImplementedError(
                 f"{', '.join(unsupported)} not ported yet (ROADMAP.md "
@@ -161,10 +168,30 @@ class Model:
             _fill(layers, layer, li)
             del layer             # free it before drawing the next layer
         params["layers"] = layers
+        if self.lora is not None and self.lora.variant != "lora":
+            params = self._apply_peft_variant(params)
         if cfg.frontend.kind != "none":
             params["frontend_proj"] = dense_init(
                 gen, cfg.frontend.embed_dim, cfg.d_model, **kw)
         return params
+
+    def _apply_peft_variant(self, params: dict) -> dict:
+        """Table 5's variants: DoRA adds trainable magnitudes next to every
+        adapter; QLoRA fake-quantizes the frozen base of adapted layers."""
+        variant, bits = self.lora.variant, self.lora.quant_bits
+
+        def walk(node):
+            if not isinstance(node, dict):
+                return node
+            out = {k: walk(v) for k, v in node.items()}
+            if "w" in out and "lora_a" in out:
+                if variant == "dora":
+                    out["lora_m"] = dora_magnitude_init(out["w"])
+                elif variant == "qlora":
+                    out["w"] = quantize_dequantize(out["w"], bits)
+            return out
+
+        return walk(params)
 
     def param_shapes(self) -> dict:
         """``init``'s tree as meta tensors (shape and dtype, no storage)

@@ -3,7 +3,8 @@
 port's batched engine it is held to. In a module of its own so the
 spawned ranks import neither JAX nor the reference package.
 
-The sampled cohort is 5 clients, so at world 2 every round pads one ghost.
+The DoRA case carries each adapter's magnitude next to its factors,
+FedAvg'd with one all-reduce a magnitude. The sampled cohort is 5 clients, so at world 2 every round pads one ghost.
 Each case's round starts from the weights the reference's experiment of
 that case drew (a numpy tree, ``weights[label]``).
 """
@@ -31,12 +32,16 @@ CASES = {
                               lora_overrides=HOMOGENEOUS)),
     "raflora-factored-int8": ("raflora", dict(backend="factored",
                                               transport="int8")),
+    "raflora-dora": ("raflora", dict(backend="kernel", lora_overrides=dict(
+        SMALL["lora_overrides"], variant="dora"))),
 }
 # all-reduces of one bucket: the average family two factor averages,
 # flora its dW, the factored / kernel backends u and v, and the quantized
 # collective the two payloads and their two column-weight vectors
 BUCKET_ALL_REDUCES = {"raflora-kernel": 2, "flora": 1, "fedavg": 2,
-                      "raflora-factored-int8": 4}
+                      "raflora-factored-int8": 4, "raflora-dora": 2}
+# DoRA magnitudes of a round: one all-reduce each (vit's six adapters)
+MAGNITUDE_ALL_REDUCES = {"raflora-dora": 6}
 ASYNC = dict(backend="kernel", round_engine="async", pipeline_depth=2,
              staleness_gamma=0.8, server_momentum_beta=0.9,
              transport="int8")
@@ -61,12 +66,14 @@ def residuals(server) -> dict:
 
 
 def round_result(server, stats) -> dict:
-    r_max = server.lora_cfg.r_max
+    factors = server._extract_factors(server.global_lora,
+                                      server.lora_cfg.r_max)
     return {"clients": stats.clients, "ranks": stats.ranks,
             "loss": stats.mean_client_loss, "sigma": stats.sigma_probe,
-            "products": {p: (b @ a).numpy() for p, (b, a) in
-                         server._extract_factors(server.global_lora,
-                                                 r_max).items()},
+            "products": {p: (f[0] @ f[1]).numpy() for p, f in
+                         factors.items() if not isinstance(p[0], tuple)},
+            "mags": {p[0]: m.numpy().copy() for p, m in factors.items()
+                     if isinstance(p[0], tuple)},
             "base": {p: x.numpy().copy()
                      for p, x in flatten(server.base).items()},
             "residuals": residuals(server)}

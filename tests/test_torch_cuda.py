@@ -1054,3 +1054,55 @@ def test_cuda_sharded_round_world1_nccl_matches_batched(cuda_device):
         sb_, sa_ = fs[parent]
         np.testing.assert_allclose((sb_ @ sa_).cpu().numpy(),
                                    (b @ a).cpu().numpy(), atol=2e-3 * scale)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant,engine", [
+    ("dora", "batched"), ("dora", "sequential"), ("qlora", "batched")],
+    ids=["variants-dora-batched", "variants-dora-sequential",
+         "variants-qlora-batched"])
+def test_cuda_variants_round_matches_cpu(cuda_device, variant, engine):
+    """One fedvit-tiny raFLoRA round of the PEFT variants on the card and
+    on the CPU from the same weights (the CPU's, magnitudes or quantized
+    base included): the round tolerances of
+    ``test_cuda_round_methods_match_cpu`` and the DoRA magnitudes at rtol
+    1e-4; K1/K2 once per shape bucket in the batched engine (the
+    magnitudes enter no bucket)."""
+    from repro_torch.federation.experiment import build_experiment
+    from repro_torch.federation.transport import is_magnitude
+    args = dict(fl_overrides={"num_rounds": 1, "num_clients": 8,
+                              "participation": 0.5},
+                lora_overrides={"rank_levels": (4, 8, 16),
+                                "rank_probs": (0.34, 0.33, 0.33),
+                                "variant": variant},
+                samples_per_class=30, num_classes=6, d_model=32,
+                batches_per_round=1, backend="kernel", round_engine=engine)
+    cpu = build_experiment("raflora", device="cpu", **args)
+    gpu = build_experiment("raflora", base_params=cpu.server.global_params(),
+                           **args)
+    before = [k.launches for k in rpa.KERNELS]
+    (sg,), (sc,) = gpu.server.run(1), cpu.server.run(1)
+    if engine == "batched":
+        assert [k.launches - b for k, b in zip(rpa.KERNELS, before)] == \
+            [3] * 4
+    assert sg.clients == sc.clients
+    np.testing.assert_allclose(sg.mean_client_loss, sc.mean_client_loss,
+                               rtol=1e-4)
+    scale = max(1.0, float(np.abs(sc.sigma_probe).max()))
+    np.testing.assert_allclose(sg.sigma_probe, sc.sigma_probe,
+                               atol=1e-3 * scale)
+    fg = gpu.server._extract_factors(gpu.server.global_lora, 16)
+    fc = cpu.server._extract_factors(cpu.server.global_lora, 16)
+    assert list(fg) == list(fc)
+    mags = 0
+    for parent, val in fc.items():
+        if is_magnitude(parent):
+            mags += 1
+            np.testing.assert_allclose(fg[parent].cpu().numpy(),
+                                       val.numpy(), rtol=1e-4)
+            continue
+        gb, ga = fg[parent]
+        np.testing.assert_allclose((gb @ ga).cpu().numpy(),
+                                   (val[0] @ val[1]).numpy(),
+                                   atol=2e-3 * scale)
+    assert mags == (6 if variant == "dora" else 0)

@@ -15,8 +15,9 @@ MODULES = [
     "repro_torch",
     "repro_torch.checkpointing", "repro_torch.checkpointing.checkpoint",
     "repro_torch.configs", "repro_torch.configs.base",
-    "repro_torch.configs.mamba2_1p3b", "repro_torch.configs.paper_models",
-    "repro_torch.configs.qwen2_7b",
+    "repro_torch.configs.granite_3_8b", "repro_torch.configs.hubert_xlarge",
+    "repro_torch.configs.mamba2_1p3b", "repro_torch.configs.nemotron_4_340b",
+    "repro_torch.configs.paper_models", "repro_torch.configs.qwen2_7b",
     "repro_torch.convert", "repro_torch.device",
     "repro_torch.core", "repro_torch.core.aggregation",
     "repro_torch.core.collective",
@@ -43,12 +44,13 @@ MODULES = [
     "repro_torch.serving", "repro_torch.serving.adapter_store",
     "repro_torch.serving.engine",
     "repro_torch.launch", "repro_torch.launch.mesh",
-    "repro_torch.launch.train",
+    "repro_torch.launch.steps", "repro_torch.launch.train",
     "repro_torch.benchmarks", "repro_torch.benchmarks.common",
     "repro_torch.benchmarks.run", "repro_torch.benchmarks.bench_accuracy",
     "repro_torch.benchmarks.bench_cost",
     "repro_torch.benchmarks.bench_energy_dynamics",
     "repro_torch.benchmarks.bench_kernels",
+    "repro_torch.benchmarks.bench_lora_variants",
     "repro_torch.benchmarks.bench_round_latency",
     "repro_torch.benchmarks.bench_sensitivity",
     "repro_torch.examples", "repro_torch.examples.federated_finetune",
@@ -119,19 +121,30 @@ SMALL_EXP = dict(d_model=32, backend="kernel", samples_per_class=10,
 
 
 def test_unported_options_name_their_roadmap_item():
-    """The options still refused -- the benches that need the DoRA/QLoRA
-    variants or the TPU dry runs -- name their ROADMAP item; the ported
-    ones are held to the reference in test_torch_aggregation.py,
-    test_torch_round.py, test_torch_transport.py, test_torch_events.py,
-    test_torch_buffered.py, test_torch_sharded.py, test_torch_launch.py,
-    test_torch_benches.py and test_torch_bench_latency.py."""
+    """The option still refused -- the bench that reads the TPU dry runs
+    -- names its ROADMAP item; the ported ones are held to the reference
+    in test_torch_aggregation.py, test_torch_round.py,
+    test_torch_transport.py, test_torch_events.py, test_torch_buffered.py,
+    test_torch_sharded.py, test_torch_launch.py, test_torch_benches.py,
+    test_torch_bench_latency.py and test_torch_variants.py."""
     from repro_torch.benchmarks import run
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md queue 1 item 10"):
-        run.run_bench("variants", "cpu")
     with pytest.raises(NotImplementedError,
                        match="ROADMAP.md queue 1 item 13"):
         run.run_bench("roofline", "cpu")
+
+
+def test_variants_bench_runs(monkeypatch):
+    """Table 5's bench (the DoRA and QLoRA variants, item 10) runs through
+    ``run.py`` on the CPU: six rows, one round each here."""
+    from repro_torch.benchmarks import bench_lora_variants, common, run
+    monkeypatch.setattr(bench_lora_variants, "ROUNDS", 1)
+    common.ROWS.clear()
+    assert run.run_bench("variants", "cpu")
+    names = [r["name"] for r in common.ROWS]
+    common.ROWS.clear()
+    assert names == [f"table5_variants/{v}/{m}"
+                     for v in ("lora", "qlora", "dora")
+                     for m in ("flexlora", "raflora")]
 
 
 @pytest.mark.parametrize("kw", [
@@ -160,10 +173,8 @@ def test_ported_options_build(kw):
 @pytest.mark.parametrize("change", [
     dict(moe=object()), dict(attn_type="sliding", sliding_window=64),
     dict(rope_type="mrope"), dict(kind="hybrid", ssm="ssm"),
-    dict(logit_softcap=30.0), dict(name="gemma-2b-reduced"),
-    dict(attn_type="bidirectional")],
-    ids=["moe", "sliding", "mrope", "hybrid", "softcap", "gemma",
-         "frontend-free-encoder"])
+    dict(logit_softcap=30.0), dict(name="gemma-2b-reduced")],
+    ids=["moe", "sliding", "mrope", "hybrid", "softcap", "gemma"])
 def test_unported_model_options_name_their_roadmap_item(change):
     import dataclasses
     from repro_torch.configs.base import LoRAConfig, SSMConfig, get_config
@@ -176,15 +187,34 @@ def test_unported_model_options_name_their_roadmap_item(change):
         Model(cfg, LoRAConfig(), device="cpu")
 
 
-def test_unported_peft_variant_and_encoder_decode_raise():
+@pytest.mark.parametrize("change,variant", [
+    (dict(attn_type="bidirectional"), "lora"), ({}, "dora"), ({}, "qlora")],
+    ids=["frontend-free-encoder", "dora", "qlora"])
+def test_ported_model_options_build(change, variant):
+    """Options item 10 lifted build and run a forward: a frontend-free
+    encoder (RoBERTa-base's path) and the DoRA and QLoRA variants (DoRA
+    adds a magnitude next to each of the reduced qwen2's q/k/v/o
+    adapters)."""
     import dataclasses
     from repro_torch.configs.base import LoRAConfig, get_config
+    from repro_torch.core.lora import flatten
+    from repro_torch.models.transformer import Model
+    cfg = dataclasses.replace(get_config("qwen2-7b").reduced(), **change)
+    model = Model(cfg, dataclasses.replace(LoRAConfig(), variant=variant),
+                  device="cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    mags = [p for p in flatten(params) if p[-1] == "lora_m"]
+    assert len(mags) == (4 if variant == "dora" else 0)
+    tokens = torch.zeros(1, 4, dtype=torch.int32)
+    logits = model.forward_seq(params, {"tokens": tokens})[0]
+    assert logits.shape == (1, 4, cfg.vocab_size)
+    assert torch.isfinite(logits).all()
+
+
+def test_encoder_decode_raises():
+    from repro_torch.configs.base import LoRAConfig
     from repro_torch.federation.experiment import fedvit_config
     from repro_torch.models.transformer import Model
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-        Model(get_config("qwen2-7b").reduced(),
-              dataclasses.replace(LoRAConfig(), variant="dora"),
-              device="cpu")
     enc = Model(fedvit_config(d_model=32), LoRAConfig(), device="cpu")
     with pytest.raises(ValueError, match="encoder-only"):
         enc.decode_step_clients({}, {}, {"token": torch.zeros(1, 1, 1)},

@@ -61,9 +61,20 @@ def _pair(method, **kw):
 
 
 def _factors(server):
+    """{parent: (B, A)} numpy of the global adapters (DoRA magnitudes,
+    the ``(parent, "m")`` entries, left out)."""
     r_max = server.lora_cfg.r_max
     return {tuple(p): tuple(np.asarray(x) for x in f) for p, f in
-            server._extract_factors(server.global_lora, r_max).items()}
+            server._extract_factors(server.global_lora, r_max).items()
+            if not isinstance(p[0], tuple)}
+
+
+def _magnitudes(server):
+    """{parent: DoRA magnitude} numpy of the global adapters."""
+    r_max = server.lora_cfg.r_max
+    return {tuple(p[0]): np.asarray(m) for p, m in
+            server._extract_factors(server.global_lora, r_max).items()
+            if isinstance(p[0], tuple)}
 
 
 def _base_leaves(server):

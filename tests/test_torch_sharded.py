@@ -23,8 +23,9 @@ and K2, held to the reference on the CPU.
   residuals following clients across ranks, an async save / restore
   equal to the uninterrupted run, and the all-reduces of a bucket.
 
-The reference's ``TestDoRAMagnitudeEquivalence`` waits for the DoRA
-variant (ROADMAP.md queue 1 item 10)."""
+The reference's ``TestDoRAMagnitudeEquivalence`` runs at world 1 in
+``test_torch_variants.py``; its two-rank case is the spawn's DoRA case
+here, magnitudes at rtol 1e-4."""
 import os
 import pickle
 import subprocess
@@ -47,7 +48,8 @@ from repro_torch.core.lora import flatten
 from repro_torch.federation.experiment import build_experiment as t_build
 from repro_torch.kernels import ops
 from repro_torch.launch import mesh as fl_mesh
-from test_torch_round import HOMOGENEOUS, SMALL, _base_leaves, _factors, _pair
+from test_torch_round import (HOMOGENEOUS, SMALL, _base_leaves, _factors,
+                              _magnitudes, _pair)
 
 torch.set_num_threads(1)
 
@@ -320,6 +322,7 @@ def jax_world2_main(out: str) -> None:
                       "sigma": st.sigma_probe,
                       "products": {p: b @ a for p, (b, a) in
                                    _factors(je.server).items()},
+                      "mags": _magnitudes(je.server),
                       "base": _base_leaves(je.server)}
     with open(out, "wb") as f:
         pickle.dump(res, f)
@@ -390,6 +393,9 @@ def _check_round(got, want):
     for path, x in want["base"].items():
         np.testing.assert_allclose(got["base"][path], x, rtol=1e-4,
                                    atol=1e-5)
+    assert sorted(got["mags"]) == sorted(want["mags"])
+    for parent, m in want["mags"].items():
+        np.testing.assert_allclose(got["mags"][parent], m, rtol=1e-4)
 
 
 @pytest.mark.parametrize("label", sorted(ranks2.CASES))
@@ -415,6 +421,8 @@ def test_world2_round_matches_batched(world2, label):
         np.testing.assert_array_equal(r1[label]["products"][parent], x)
     for path, x in got["base"].items():
         np.testing.assert_array_equal(r1[label]["base"][path], x)
+    for parent, m in got["mags"].items():
+        np.testing.assert_array_equal(r1[label]["mags"][parent], m)
 
 
 def test_world2_residuals_follow_clients_across_ranks(world2):
@@ -466,13 +474,14 @@ def test_world2_async_save_restore_equals_uninterrupted(world2):
 
 def test_world2_all_reduces_per_bucket(world2):
     """One all-reduce per reduced tensor of a bucket, on both ranks, for
-    each of the 3 buckets; a round adds one for the losses and, with the
-    transport, one for the residuals."""
+    each of the 3 buckets; a round adds one for the losses, with the
+    transport one for the residuals, and under DoRA one a magnitude."""
     (r0, r1), _, _ = world2
     for label, per in ranks2.BUCKET_ALL_REDUCES.items():
         for res in (r0, r1):
             assert res[label]["bucket_all_reduces"] == [per] * 3, label
-            extra = 1 + ("int8" in label)
+            extra = (1 + ("int8" in label)
+                     + ranks2.MAGNITUDE_ALL_REDUCES.get(label, 0))
             assert res[label]["round_all_reduces"] == 3 * per + extra
 
 
