@@ -12,7 +12,10 @@ JAX. Phases, each printing one JSON line:
                   at the shapes its main path gives it (K1/K2: the
                   vit-base round's buckets; K4: Qwen2-7B's q/k/v/o at
                   decode and prefill; K6: mamba2-1.3b's prefill layer),
-                  with times, bounds and library yardsticks; K2's to K7's
+                  with times, bounds and library yardsticks; K4 also at
+                  Gemma-2B's and Hymba-1.5B's q/k/v/o, K6 also at
+                  Hymba-1.5B's SSD heads (P 50, N 16, chunk 128,
+                  2048 tokens); K2's to K7's
                   rows carry their plan (tile, splits over the depth,
                   blocks; K6's four CUDA launches a call; K5, K6 and K7
                   on the route "mma_tf32x3") and TFLOP/s, K1's GB/s, and
@@ -135,6 +138,17 @@ JAX. Phases, each printing one JSON line:
                   must equal the same engine's plain path on the card;
                   then two more prefills of each engine, in turns, and
                   one profiled prefill of each (device time).
+6a. serve_qwen2_vl_7b  main path 12, after Qwen2-7B is freed: Qwen2-VL-7B
+                  (M-RoPE sections (16, 24, 24), vision frontend stub) as
+                  phase 6, K4 112 launches a call; then one image prefill,
+                  kernel model against plain model: 4 slots of 16 x 16
+                  patch embeddings and 32 tokens at Qwen2-VL's position
+                  streams (patches at t 0, h row, w column; text at 16 + i
+                  on all three), the last logits by the top-2-gap rule and
+                  unlike those with the three streams equal.
+6b. serve_gemma_2b  main path 10: Gemma-2B (MQA 8/1, head_dim 256, GeGLU,
+                  vocab 256000, tied head, embeddings scaled by sqrt(d))
+                  as phase 6, K4 72 launches a call (k/v at N 256).
 7. serve_small_mamba2  a reduced mamba2 engine on cuda (K6) and on cpu
                   (plain), 64-token prompts (two chunks): equal tokens.
 8. serve_mamba2_1p3b  main path 3: Mamba-2 1.3B at full width in f32, 4
@@ -143,6 +157,15 @@ JAX. Phases, each printing one JSON line:
                   K6 must be called 48 times in the admit call (its
                   wrapper's count; four CUDA launches a call) and never in
                   a decode step, and the tokens must equal the plain path's.
+8a. serve_small_hymba  a reduced hymba engine on cuda (K4 + K6) and on cpu
+                  (plain), 96-token prompts: the window of 64 bites in
+                  layer 1, the scan runs 3 chunks of 32; equal tokens.
+8b. serve_hymba_1p5b  main path 11: Hymba-1.5B (32 layers, GQA 25/5,
+                  window 1024 with layers 0 and 16 global, 64 SSD heads of
+                  P 50 in every layer) as phase 8 with 2048-token prompts:
+                  the window bites in 30 layers at prefill and decode, K6
+                  runs 16 chunks of 128; K4 128 launches a call, K6 32
+                  calls an admit and none a decode step.
 9. kernel summary one {"kernels": [...]} line, then the card's name and
                   power limit, then the final {"ok": true, ...} line.
 
@@ -237,8 +260,9 @@ PATHS = {"weighted_stack_b": ", ".join(K12_PATHS),
          "weighted_stack_a": ", ".join(K12_PATHS),
          "gram_left": ", ".join(K12_PATHS),
          "gram_right": ", ".join(K12_PATHS),
-         "batched_lora_apply": "serve_qwen2_7b",
-         "ssd_scan": "bench_kernels, serve_mamba2_1p3b",
+         "batched_lora_apply": "serve_qwen2_7b, serve_qwen2_vl_7b, "
+                               "serve_gemma_2b, serve_hymba_1p5b",
+         "ssd_scan": "bench_kernels, serve_mamba2_1p3b, serve_hymba_1p5b",
          "rank_partition_agg": "kernel_ops, bench_kernels",
          "rank_partition_agg_layered": "kernel_ops",
          "lora_apply": "kernel_ops, bench_kernels",
@@ -253,10 +277,26 @@ RANK = 32          # r_max, already a multiple of 8
 QWEN_PROJ = (("q", 3584, 3584), ("k", 3584, 512), ("v", 3584, 512),
              ("o", 3584, 3584))
 SLOTS, PROMPT_LEN, NEW_TOKENS, SERVE_RANK = 4, 32, 16, 16
+# K4's projections per layer of the other served models: Gemma-2B's MQA
+# (k/v N 256) and Hymba-1.5B's GQA 25/5 at head_dim 64 (k/v N 320)
+GEMMA_PROJ = (("q", 2048, 2048), ("k", 2048, 256), ("v", 2048, 256),
+              ("o", 2048, 2048))
+HYMBA_PROJ = (("q", 1600, 1600), ("k", 1600, 320), ("v", 1600, 320),
+              ("o", 1600, 1600))
+# Hymba-1.5B prefill: 4 slots of 2048 tokens, so the window of 1024 bites
+# in its 30 windowed layers and the SSD heads' scan runs 16 chunks of 128
+HYMBA_PROMPT = 2048
+# (label, projections, prefill rows) of K4's shape checks
+K4_MODELS = (("qwen2-7b", QWEN_PROJ, SLOTS * PROMPT_LEN),
+             ("gemma-2b", GEMMA_PROJ, SLOTS * PROMPT_LEN),
+             ("hymba-1.5b", HYMBA_PROJ, SLOTS * HYMBA_PROMPT))
+# Qwen2-VL-7B's image prefill: a 16 x 16 grid of patch embeddings a slot
+VL_GRID = 16
 # Mamba-2 1.3B prefill: 4 slots of 1024 tokens, so the scan runs 4 chunks
 MAMBA_PROMPT = 1024
 # K6 shapes (B, L, H, P, G, N, chunk): the full-width prefill, an odd one
 SCAN_FULL = (SLOTS, MAMBA_PROMPT, 64, 64, 1, 128, 256)
+SCAN_HYMBA = (SLOTS, HYMBA_PROMPT, 64, 50, 1, 16, 128)   # hymba's SSD heads
 SCAN_ODD = (2, 96, 12, 24, 3, 20, 32)
 SCAN_TOL = {"atol": 2e-4, "rtol": 1e-3}   # tests/test_kernels.py:377-380
 # K3 at the vit-base round: 5 sampled clients at these ranks (no client
@@ -498,18 +538,56 @@ def _lora_library(torch, x, w, a, b, s, ids):
 
 
 def phase_kernel_lora_apply(torch, summary: dict):
-    """K4 vs its plain version at Qwen2-7B's q/k/v/o shapes: decode (one
-    row per slot) and prefill (32 prompt tokens per slot), 4 pages at
-    r = 16, every slot on its own page."""
+    """K4 vs its plain version at the q/k/v/o shapes of each served model
+    (``K4_MODELS``: Qwen2-7B, Gemma-2B, Hymba-1.5B): decode (one row per
+    slot) and prefill (the prompt's tokens per slot), 4 pages at r = 16,
+    every slot on its own page. The summary row is Qwen2-7B's decode
+    layer; every model's layer totals ride along."""
     from repro_torch.kernels import lora_apply as la
     gen = torch.Generator(device=DEV).manual_seed(1)
+    rows, by_model = [], {}
+    for model, projs, prefill_rows in K4_MODELS:
+        by_model[model] = _k4_layers(torch, la, gen, model, projs,
+                                     prefill_rows, rows)
+    emit({"phase": "kernels", "kernel": "batched_lora_apply",
+          "per_shape": rows, "per_layer": by_model})
+    totals = by_model["qwen2-7b"]
+    dec = totals["decode"]
+    # the summary row is one decode step's four launches of one layer
+    summary["batched_lora_apply"] = {
+        "max_abs_err": max(t["max_abs_err"] for layer in by_model.values()
+                           for t in layer.values()),
+        "ms": dec["ms"], "plain_ms": dec["plain_ms"],
+        "bound_ms": dec["bound_ms"],
+        "bound_by": "bytes" if dec["bytes_ms"] >= dec["ops_ms"]
+        else "operations",
+        "library_ms": dec["library_ms"],
+        "shape": "one qwen2-7b decode layer: q, k, v, o at 4 rows",
+        "decode_layer_device": {key: dec[key] for key in DEVICE_KEYS},
+        "prefill_layer": {key: totals["prefill"][key] for key in
+                          ("ms", "plain_ms", "bound_ms", "library_ms",
+                           *DEVICE_KEYS)},
+        "other_models_layer": {
+            model: {phase: {key: t[key] for key in
+                            ("ms", "plain_ms", "bound_ms", "library_ms",
+                             "max_abs_err", *DEVICE_KEYS)}
+                    for phase, t in layer.items()}
+            for model, layer in by_model.items() if model != "qwen2-7b"}}
+
+
+def _k4_layers(torch, la, gen, model, projs, prefill_rows, rows) -> dict:
+    """One model's q/k/v/o through K4 and its plain version at decode and
+    prefill: each shape held to the plain version within the worst-case
+    rounding of its dot products and timed (eager and graph-replayed,
+    with the library yardstick); returns the layer totals per phase and
+    appends each shape's row to ``rows``."""
     eps = torch.finfo(torch.float32).eps
-    rows, totals = [], {}
-    for phase, m in (("decode", SLOTS), ("prefill", SLOTS * PROMPT_LEN)):
+    totals = {}
+    for phase, m in (("decode", SLOTS), ("prefill", prefill_rows)):
         tot = totals.setdefault(phase, {"ms": 0.0, "plain_ms": 0.0,
                                         "library_ms": 0.0, "bound_ms": 0.0,
                                         "bytes_ms": 0.0, "ops_ms": 0.0})
-        for proj, k, n in QWEN_PROJ:
+        for proj, k, n in projs:
             r, p = SERVE_RANK, SLOTS
             nbytes_w = k * n * 4
             copies = max(2, math.ceil(100e6 / nbytes_w))
@@ -534,10 +612,11 @@ def phase_kernel_lora_apply(torch, summary: dict):
             mag = la.batched_lora_apply_plain(
                 *(t.abs() for t in args[:5]), args[5])
             tol = (k + r) * eps * float(mag.max())
-            require(err <= tol, f"batched_lora_apply {phase} {proj}: "
-                                f"max_abs_err {err} > {tol}")
+            require(err <= tol, f"batched_lora_apply {model} {phase} {proj}:"
+                                f" max_abs_err {err} > {tol}")
             require(torch.equal(got, la.batched_lora_apply(*args)),
-                    f"batched_lora_apply {phase} {proj}: not deterministic")
+                    f"batched_lora_apply {model} {phase} {proj}: not "
+                    "deterministic")
 
             def lib(*t):
                 return _lora_library(torch, *t)
@@ -554,7 +633,8 @@ def phase_kernel_lora_apply(torch, summary: dict):
             nbytes = 4 * (k * n + p * r * (k + n) + m * (k + n) + p) + 4 * m
             flops = 2.0 * m * k * n + 2.0 * m * r * (k + n)
             b_ms, b_by = bound_ms(nbytes, flops)
-            rows.append({"kernel": "batched_lora_apply", "phase": phase,
+            rows.append({"kernel": "batched_lora_apply", "model": model,
+                         "phase": phase,
                          "proj": proj, "m": m, "k": k, "n": n, "pages": p,
                          "rank": r, "plan": la.describe_plan(m, n, k),
                          "max_abs_err": err, "tol": tol,
@@ -577,22 +657,7 @@ def phase_kernel_lora_apply(torch, summary: dict):
             tot["max_abs_err"] = max(tot.get("max_abs_err", 0.0), err)
             del sets, args, got, want, mag
         torch.cuda.empty_cache()
-    emit({"phase": "kernels", "kernel": "batched_lora_apply",
-          "per_shape": rows, "per_layer": totals})
-    dec = totals["decode"]
-    # the summary row is one decode step's four launches of one layer
-    summary["batched_lora_apply"] = {
-        "max_abs_err": max(t["max_abs_err"] for t in totals.values()),
-        "ms": dec["ms"], "plain_ms": dec["plain_ms"],
-        "bound_ms": dec["bound_ms"],
-        "bound_by": "bytes" if dec["bytes_ms"] >= dec["ops_ms"]
-        else "operations",
-        "library_ms": dec["library_ms"],
-        "shape": "one decode layer: q, k, v, o at 4 rows",
-        "decode_layer_device": {key: dec[key] for key in DEVICE_KEYS},
-        "prefill_layer": {key: totals["prefill"][key] for key in
-                          ("ms", "plain_ms", "bound_ms", "library_ms",
-                           *DEVICE_KEYS)}}
+    return totals
 
 
 def _scan_inputs(torch, shape, gen, init):
@@ -649,16 +714,18 @@ def _scan_precision(torch, k6, args, chunk, y) -> dict:
 
 
 def phase_kernel_ssd_scan(torch, summary: dict):
-    """K6 vs its plain version at mamba2-1.3b's prefill shape and at an odd
-    shape, each without and with an initial state; two launches must be
-    bit-equal. Every row prints the plan (CUDA launches a call, blocks a
-    launch, route). At the full shape: eager and device times, TFLOP/s of
-    the counted work (``_scan_work``) and of the work done (the plan's),
-    and the check that tells 3xTF32 from one TF32 pass."""
+    """K6 vs its plain version at mamba2-1.3b's prefill shape, at
+    hymba-1.5b's (P 50, N 16, chunk 128) and at an odd shape, each without
+    and with an initial state; two launches must be bit-equal. Every row
+    prints the plan (CUDA launches a call, blocks a launch, route). At the
+    two models' shapes: eager and device times, TFLOP/s of the counted
+    work (``_scan_work``) and of the work done (the plan's), and the check
+    that tells 3xTF32 from one TF32 pass."""
     from repro_torch.kernels import ssd_scan as k6
     gen = torch.Generator(device=DEV).manual_seed(2)
     rows = []
-    for name, shape in (("full", SCAN_FULL), ("odd", SCAN_ODD)):
+    for name, shape in (("full", SCAN_FULL), ("hymba", SCAN_HYMBA),
+                        ("odd", SCAN_ODD)):
         for init in (False, True):
             args, init_state = _scan_inputs(torch, shape, gen, init)
             chunk = shape[-1]
@@ -684,7 +751,7 @@ def phase_kernel_ssd_scan(torch, summary: dict):
             row = {"kernel": "ssd_scan", "shape": name, "init_state": init,
                    "bLhpgnq": list(shape), "max_abs_err": err,
                    "tol": SCAN_TOL, "plan": plan.report()}
-            if name == "full":
+            if name != "odd":
                 nbytes, flops = _scan_work(shape, init)
                 k_ms = time_ms(torch, kern)
                 p_ms = time_ms(torch, plain, iters=5, warmup=1)
@@ -712,6 +779,8 @@ def phase_kernel_ssd_scan(torch, summary: dict):
     torch.cuda.empty_cache()
     emit({"phase": "kernels", "kernel": "ssd_scan", "per_shape": rows})
     main = rows[0]            # the prefill's launch: no initial state
+    hymba = next(r for r in rows if r["shape"] == "hymba"
+                 and not r["init_state"])
     summary["ssd_scan"] = {
         "max_abs_err": max(r["max_abs_err"] for r in rows),
         "ms": main["kernel_ms"], "plain_ms": main["plain_ms"],
@@ -724,7 +793,14 @@ def phase_kernel_ssd_scan(torch, summary: dict):
         **{key: main[key] for key in ("kernel_device_ms", "plain_device_ms",
                                       "bound_simt_f32_ms", "plan",
                                       "f64_max_abs_err", "f64_err_over_bound",
-                                      "one_pass_tf32_err_over_bound")}}
+                                      "one_pass_tf32_err_over_bound")},
+        "hymba_prefill_layer": {
+            "shape": "B 4, L 2048, H 64, P 50, G 1, N 16, chunk 128",
+            **{key: hymba[key] for key in (
+                "max_abs_err", "kernel_ms", "plain_ms", "kernel_device_ms",
+                "plain_device_ms", "bound_ms", "bound_by",
+                "bound_simt_f32_ms", "plan", "f64_max_abs_err",
+                "f64_err_over_bound", "one_pass_tf32_err_over_bound")}}}
 
 
 def _ops_cases(torch):
@@ -3002,11 +3078,12 @@ def _move(tree, dev):
 
 
 def _serve_small(torch, phase: str, cfg, prompt_len: int, tol: dict,
-                 kernel, admit_launches: int):
+                 admit_launches: dict):
     """A reduced engine on cuda with ``use_kernels`` and on cpu with the
     plain path, from the same weights and tenants (ranks 16 and 4): equal
-    greedy tokens over 5 steps, first-step logits within ``tol``, and
-    ``kernel`` launched ``admit_launches`` times by the card's admit."""
+    greedy tokens over 5 steps, first-step logits within ``tol``, and each
+    kernel of ``admit_launches`` ({wrapper: launches}) launched that many
+    times by the card's admit."""
     from repro_torch.configs import LoRAConfig
     from repro_torch.models.transformer import Model
     from repro_torch.serving import AdapterStore, ServingEngine
@@ -3027,9 +3104,9 @@ def _serve_small(torch, phase: str, cfg, prompt_len: int, tol: dict,
         eng = ServingEngine(Model(cfg, lora, device=dev, use_kernels=kern),
                             _move(params, dev), store,
                             max_len=prompt_len + 6, slots=2)
-        before = kernel.launches
+        before = {k: k.launches for k in admit_launches}
         toks = [eng.admit([0, 1], prompts, ["hi", "lo"]).cpu()]
-        launches = kernel.launches - before
+        launches = {k: k.launches - n for k, n in before.items()}
         first_logits = eng.last_logits.cpu()
         for _ in range(4):
             toks.append(eng.decode([True, True]).cpu())
@@ -3039,10 +3116,12 @@ def _serve_small(torch, phase: str, cfg, prompt_len: int, tol: dict,
     emit({"phase": phase, "tokens_cuda": tc.tolist(),
           "tokens_cpu": th.tolist(), "tokens_equal": ok_tokens,
           "first_logits_max_abs_err": float((lc - lh).abs().max()),
-          "tol": tol, "launches_in_admit": launches})
-    require(launches == admit_launches, f"{phase}: {kernel.__name__} "
-                                        f"launched {launches} times in "
-                                        f"admit, expected {admit_launches}")
+          "tol": tol, "launches_in_admit": {k.__name__: n for k, n in
+                                            launches.items()}})
+    for kernel, want in admit_launches.items():
+        require(launches[kernel] == want,
+                f"{phase}: {kernel.__name__} launched {launches[kernel]} "
+                f"times in admit, expected {want}")
     require(ok_tokens, f"{phase}: cuda and cpu greedy tokens differ")
     require(bool(torch.allclose(lc, lh, **tol)),
             f"{phase}: first-step logits beyond {tol}")
@@ -3056,7 +3135,7 @@ def phase_serve_small(torch):
     cfg = dataclasses.replace(get_config("qwen2-7b").reduced(),
                               num_kv_heads=2)
     _serve_small(torch, "serve_small", cfg, 8, {"rtol": 1e-4, "atol": 1e-5},
-                 la.batched_lora_apply, 4 * cfg.num_layers)
+                 {la.batched_lora_apply: 4 * cfg.num_layers})
 
 
 def phase_serve_small_mamba2(torch):
@@ -3066,13 +3145,32 @@ def phase_serve_small_mamba2(torch):
     from repro_torch.kernels import ssd_scan as k6
     cfg = get_config("mamba2-1.3b").reduced()
     _serve_small(torch, "serve_small_mamba2", cfg, 64,
-                 {"rtol": 1e-4, "atol": 1e-5}, k6.ssd_scan, cfg.num_layers)
+                 {"rtol": 1e-4, "atol": 1e-5}, {k6.ssd_scan: cfg.num_layers})
 
 
-def _profile(torch, fn, match: str) -> dict:
+def phase_serve_small_hymba(torch):
+    """A reduced hymba (layer 0 global, layer 1 windowed at 64; 16 SSD heads
+    of P 32), 96-token prompts so the window bites in layer 1 and the scan
+    carries its state across three chunks of 32; K4 on q/k/v/o and K6 on
+    the SSD heads. First-step logits within the reduced SSD models'
+    tolerance in tests/test_torch_ssd.py (atol 1e-4: the dual form's
+    decays amplify GEMM rounding)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import lora_apply as la
+    from repro_torch.kernels import ssd_scan as k6
+    cfg = get_config("hymba-1.5b").reduced()
+    _serve_small(torch, "serve_small_hymba", cfg, 96,
+                 {"rtol": 1e-4, "atol": 1e-4},
+                 {la.batched_lora_apply: 4 * cfg.num_layers,
+                  k6.ssd_scan: cfg.num_layers})
+
+
+def _profile(torch, fn, match) -> dict:
     """One call of ``fn`` under torch.profiler: wall and device time, the
-    device time of the kernels whose name contains ``match`` and their
-    share, the device's idle share, the top 8 kernels."""
+    device time of the kernels whose name contains ``match`` (a string, or
+    a tuple of them: then also each one's ms and share under
+    ``by_match``) and their share, the device's idle share, the top 8
+    kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -3085,10 +3183,16 @@ def _profile(torch, fn, match: str) -> dict:
     kern = [e for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA]
     dev_ms = sum(e.self_device_time_total for e in kern) / 1e3
+    matches = (match,) if isinstance(match, str) else tuple(match)
+    by_match = {m: sum(e.self_device_time_total for e in kern
+                       if m in e.key) / 1e3 for m in matches}
     match_ms = sum(e.self_device_time_total for e in kern
-                   if match in e.key) / 1e3
+                   if any(m in e.key for m in matches)) / 1e3
     top = sorted(kern, key=lambda e: -e.self_device_time_total)[:8]
-    return {"wall_ms": wall, "device_ms": dev_ms,
+    extra = {} if isinstance(match, str) else {"by_match": {
+        m: {"device_ms": ms, "share_of_device": ms / dev_ms if dev_ms
+            else None} for m, ms in by_match.items()}}
+    return {"wall_ms": wall, "device_ms": dev_ms, **extra,
             "kernel_device_ms": match_ms,
             # None: the profiler saw no device time
             "kernel_share_of_device": match_ms / dev_ms if dev_ms else None,
@@ -3098,18 +3202,36 @@ def _profile(torch, fn, match: str) -> dict:
                             for e in top]}
 
 
-def _serve_full(torch, phase: str, cfg, prompt_len: int, kernel,
-                match: str, admit_launches: int,
-                decode_launches: int) -> int:
+def _top2_rule(torch, label: str, got, want) -> dict:
+    """The serve phases' rule on last-position logits (S, V): every slot's
+    greedy token equals the plain path's, or differs where the plain
+    path's top-2 gap is within twice that slot's largest logit change."""
+    from repro_torch.serving.engine import greedy
+    dl = (got - want).abs()
+    flips = []
+    for slot in (greedy(got) != greedy(want)).nonzero().flatten().tolist():
+        top2 = want[slot].topk(2).values
+        gap, tol = float(top2[0] - top2[1]), 2 * float(dl[slot].max())
+        flips.append({"slot": slot, "top2_gap": gap, "tol": tol})
+        require(gap <= tol, f"{label}: tokens differ at slot {slot} with "
+                            f"top-2 gap {gap} > {tol}")
+    return {"logits_max_abs_diff": float(dl.max()), "flips": flips}
+
+
+def _serve_full(torch, phase: str, cfg, prompt_len: int, kernels,
+                match, after=None) -> dict:
     """A main serving path at full width in f32: 4 slots of ``prompt_len``
     tokens and 16 new tokens over 3 tenants at ranks 16/8/4 (slots on
     16/8/4/16), with a hot swap after 8 decode steps. The engine with
     ``use_kernels`` runs step by step against the same engine's plain path
-    on the card, on one copy of the weights; ``kernel`` must launch
-    ``admit_launches`` times in the admit call and ``decode_launches`` in
-    each decode step. Then two more prefills of each engine in turns, and
-    one more decode step and one more prefill of each engine under the
-    profiler. Returns the kernel's launches on the main path."""
+    on the card, on one copy of the weights; each ``(wrapper, admit,
+    decode)`` of ``kernels`` must launch ``admit`` times in the admit call
+    and ``decode`` in each decode step. Then two more prefills of each
+    engine in turns, and one more decode step and one more prefill of each
+    engine under the profiler (``match``: the kernels' names, see
+    ``_profile``). ``after(eng, ref, gen)``, if given, runs last and its
+    dict joins the phase's line. Returns each wrapper's launches on the
+    main path, by name."""
     from repro_torch.configs import LoRAConfig
     from repro_torch.kernels import ops
     from repro_torch.models.transformer import Model
@@ -3151,50 +3273,45 @@ def _serve_full(torch, phase: str, cfg, prompt_len: int, kernel,
         if step == 9:             # the round landing after 8 decode steps
             store.put("t16", _tenant_tree(torch, params, gen, DEV), 16)
             store.publish()
-        before = kernel.launches
+        before = [k.launches for k, _, _ in kernels]
         if step == 0:
             call, args = (lambda e: e.admit), (range(SLOTS), prompts,
                                                slot_tenants)
-            want = admit_launches
         else:
-            call, args, want = (lambda e: e.decode), (active,), \
-                decode_launches
+            call, args = (lambda e: e.decode), (active,)
         _, ms = timed(call(eng), *args)
-        grew = kernel.launches - before
+        grew = [k.launches - n for (k, _, _), n in zip(kernels, before)]
         _, ms_plain = timed(call(ref), *args)
-        require(grew == want and kernel.launches - before == want,
-                f"{phase} step {step}: {kernel.__name__} launched {grew} "
-                f"times, expected {want}")
+        for (k, admit, dec), n, g in zip(kernels, before, grew):
+            want = admit if step == 0 else dec
+            require(g == want and k.launches - n == want,
+                    f"{phase} step {step}: {k.__name__} launched {g} "
+                    f"times, expected {want}")
         row = {"step": step, "ms": ms, "plain_ms": ms_plain,
-               "launches": grew}
-        if diverged is None:
-            dl = (eng.last_logits - ref.last_logits).abs()
-            row["logits_max_abs_diff"] = float(dl.max())
-            if torch.equal(eng.tokens, ref.tokens):
-                compared += 1
+               "launches": {k.__name__: g
+                            for (k, _, _), g in zip(kernels, grew)}}
+        if diverged is None:     # after a flip the streams differ
+            rule = _top2_rule(torch, f"{phase} step {step}",
+                              eng.last_logits, ref.last_logits)
+            row["logits_max_abs_diff"] = rule["logits_max_abs_diff"]
+            if rule["flips"]:
+                diverged = {"step": step, **rule["flips"][0]}
             else:
-                # a flip only rounding can explain: the plain path's top-2
-                # gap at that slot is within twice the largest logit change
-                slot = int((eng.tokens != ref.tokens).nonzero()[0])
-                top2 = ref.last_logits[slot].topk(2).values
-                gap = float(top2[0] - top2[1])
-                tol = 2 * float(dl[slot].max())
-                diverged = {"step": step, "slot": slot, "top2_gap": gap,
-                            "tol": tol}
-                require(gap <= tol, f"{phase} step {step}: tokens differ "
-                                    f"at slot {slot} with top-2 gap {gap} "
-                                    f"> {tol}")
+                compared += 1
         steps.append(row)
-    launches = kernel.launches    # read just after the main path
+    # read just after the main path
+    launches = {k.__name__: k.launches for k, _, _ in kernels}
     want_log = [1] * 9 + [2] * (NEW_TOKENS - 9)
     require(eng.version_log == want_log and ref.version_log == want_log,
             f"{phase}: version logs {eng.version_log} / {ref.version_log},"
             f" expected {want_log}")
     require(bool(torch.isfinite(eng.last_logits).all()),
             f"{phase}: non-finite logits")
-    want = admit_launches + decode_launches * (NEW_TOKENS - 1)
-    require(launches == want, f"{phase}: {kernel.__name__} launched "
-                              f"{launches} times, expected {want}")
+    for k, admit, dec in kernels:
+        want = admit + dec * (NEW_TOKENS - 1)
+        require(launches[k.__name__] == want,
+                f"{phase}: {k.__name__} launched {launches[k.__name__]} "
+                f"times, expected {want}")
     peak = torch.cuda.max_memory_allocated() / 2**30
     # the prefill again, the engines in turns (kernels, plain, plain,
     # kernels): the first call above also pays the first engine's
@@ -3207,6 +3324,7 @@ def _serve_full(torch, phase: str, cfg, prompt_len: int, kernel,
     prof_prefill, prof_prefill_plain = (_profile(
         torch, lambda e=e: e.admit(range(SLOTS), prompts, slot_tenants),
         match) for e in (eng, ref))
+    extra = {} if after is None else after(eng, ref, gen)
 
     dec = [r["ms"] for r in steps[1:]]
     dec_plain = [r["plain_ms"] for r in steps[1:]]
@@ -3222,10 +3340,12 @@ def _serve_full(torch, phase: str, cfg, prompt_len: int, kernel,
           "prefill_tok_per_s": SLOTS * prompt_len / steps[0]["ms"] * 1e3,
           "peak_mem_gib": peak, "version_log": eng.version_log,
           "tokens_compared_equal_steps": compared, "diverged": diverged,
-          "kernel": kernel.__name__, "launches_per_admit": admit_launches,
-          "launches_per_decode": decode_launches, "launches": launches,
+          "kernels": [k.__name__ for k, _, _ in kernels],
+          "launches_per_admit": {k.__name__: a for k, a, _ in kernels},
+          "launches_per_decode": {k.__name__: d for k, _, d in kernels},
+          "launches": launches,
           "profiled_decode": prof_decode, "profiled_prefill": prof_prefill,
-          "profiled_prefill_plain": prof_prefill_plain,
+          "profiled_prefill_plain": prof_prefill_plain, **extra,
           "steps": steps})
     return launches
 
@@ -3238,7 +3358,8 @@ def phase_serve_qwen2_7b(torch) -> int:
     cfg = get_config("qwen2-7b")
     per_call = 4 * cfg.num_layers
     return _serve_full(torch, "serve_qwen2_7b", cfg, PROMPT_LEN,
-                       la.batched_lora_apply, "lora_", per_call, per_call)
+                       [(la.batched_lora_apply, per_call, per_call)],
+                       "lora_")["batched_lora_apply"]
 
 
 def phase_serve_mamba2_1p3b(torch) -> int:
@@ -3250,7 +3371,119 @@ def phase_serve_mamba2_1p3b(torch) -> int:
     from repro_torch.kernels import ssd_scan as k6
     cfg = get_config("mamba2-1.3b")
     return _serve_full(torch, "serve_mamba2_1p3b", cfg, MAMBA_PROMPT,
-                       k6.ssd_scan, "ssd_scan", cfg.num_layers, 0)
+                       [(k6.ssd_scan, cfg.num_layers, 0)],
+                       "ssd_scan")["ssd_scan"]
+
+
+def phase_serve_gemma_2b(torch) -> int:
+    """Main path 10: Gemma-2B (18 layers, d 2048, MQA 8/1 at head_dim 256,
+    GeGLU, vocab 256000, tied head, embeddings scaled by sqrt(d)),
+    32-token prompts, K4 on every q/k/v/o projection (4 x 18 launches per
+    engine call; k/v at N 256)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import lora_apply as la
+    cfg = get_config("gemma-2b")
+    per_call = 4 * cfg.num_layers
+    return _serve_full(torch, "serve_gemma_2b", cfg, PROMPT_LEN,
+                       [(la.batched_lora_apply, per_call, per_call)],
+                       "lora_")["batched_lora_apply"]
+
+
+def phase_serve_hymba_1p5b(torch) -> dict:
+    """Main path 11: Hymba-1.5B (32 layers, d 1600, GQA 25/5, window 1024
+    with layers 0 and 16 global, 64 SSD heads of P 50 beside attention in
+    every layer), 2048-token prompts, so the window bites in the 30
+    windowed layers at prefill and at decode and the SSD heads' scan runs
+    16 chunks of 128: K4 on q/k/v/o (4 x 32 launches per engine call) and
+    K6 on the SSD heads (32 calls per admit, none per decode step, which
+    runs the one-token recurrence). The SSD projections take the plain
+    per-slot path, as in the reference."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import lora_apply as la
+    from repro_torch.kernels import ssd_scan as k6
+    cfg = get_config("hymba-1.5b")
+    return _serve_full(torch, "serve_hymba_1p5b", cfg, HYMBA_PROMPT,
+                       [(la.batched_lora_apply, 4 * cfg.num_layers,
+                         4 * cfg.num_layers),
+                        (k6.ssd_scan, cfg.num_layers, 0)],
+                       ("lora_", "ssd_scan"))
+
+
+def _vl_positions(torch, grid: int, text: int):
+    """Qwen2-VL's three position streams (temporal, height, width) for a
+    ``grid`` x ``grid`` image followed by ``text`` tokens: patch (r, c)
+    at (0, r, c), text token i at grid + i on all three: (3, grid^2 +
+    text) int32."""
+    rc = torch.arange(grid * grid, dtype=torch.int32, device=DEV)
+    txt = grid + torch.arange(text, dtype=torch.int32, device=DEV)
+    return torch.stack([torch.cat([torch.zeros_like(rc), txt]),
+                        torch.cat([rc // grid, txt]),
+                        torch.cat([rc % grid, txt])])
+
+
+def phase_serve_qwen2_vl_7b(torch) -> int:
+    """Main path 12: Qwen2-VL-7B (28 layers, d 3584, GQA 28/4, qkv bias,
+    M-RoPE sections (16, 24, 24), vision frontend stub), 32-token prompts,
+    K4 on every q/k/v/o projection (4 x 28 launches per engine call). Then
+    one image prefill, kernel model against plain model on the card: 4
+    slots of 16 x 16 patch embeddings and 32 tokens at Qwen2-VL's position
+    streams (``_vl_positions``), each slot through its tenant's pages;
+    the last position's logits by the top-2-gap rule, and unlike those of
+    the same prefill with the three streams equal (the sections are
+    live)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import lora_apply as la
+    from repro_torch.serving.engine import _gather
+    cfg = get_config("qwen2-vl-7b")
+    per_call = 4 * cfg.num_layers
+
+    def image_prefill(eng, ref, gen):
+        patches, text = VL_GRID * VL_GRID, PROMPT_LEN
+        embeds = torch.randn(SLOTS, 1, patches, cfg.frontend.embed_dim,
+                             generator=gen, device=DEV)
+        tokens = torch.randint(0, cfg.vocab_size, (SLOTS, 1, text),
+                               generator=gen, device=DEV)
+        pos = _vl_positions(torch, VL_GRID, text)
+        lora_c = _gather(eng.store.published.pages, eng.slot_pages)
+        scales = torch.ones(SLOTS, device=DEV)
+
+        def run(e, positions):
+            batch = {"embeds": embeds, "tokens": tokens,
+                     "positions": positions[:, None, None].expand(
+                         3, SLOTS, 1, patches + text)}
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            with torch.no_grad():
+                logits = e.model.prefill_clients(e.base, lora_c, batch,
+                                                 scales)[0][:, 0, -1]
+            torch.cuda.synchronize()
+            return logits, (time.perf_counter() - t) * 1e3
+
+        before = la.batched_lora_apply.launches
+        got, ms = run(eng, pos)
+        launches = la.batched_lora_apply.launches - before
+        want, ms_plain = run(ref, pos)
+        require(launches == per_call, f"serve_qwen2_vl_7b image prefill: "
+                                      f"K4 launched {launches} times, "
+                                      f"expected {per_call}")
+        require(bool(torch.isfinite(got).all()),
+                "serve_qwen2_vl_7b image prefill: non-finite logits")
+        rule = _top2_rule(torch, "serve_qwen2_vl_7b image prefill", got, want)
+        flat = torch.arange(patches + text, dtype=torch.int32,
+                            device=DEV).expand(3, -1)
+        same, _ = run(eng, flat)
+        moved = float((same - got).abs().max())
+        require(moved > 1e-3, f"serve_qwen2_vl_7b image prefill: the "
+                              f"position streams moved the logits by "
+                              f"only {moved}")
+        return {"image_prefill": {
+            "patches": patches, "text": text, "ms": ms, "plain_ms": ms_plain,
+            "launches": launches, **rule,
+            "equal_streams_max_abs_diff": moved}}
+
+    return _serve_full(torch, "serve_qwen2_vl_7b", cfg, PROMPT_LEN,
+                       [(la.batched_lora_apply, per_call, per_call)],
+                       "lora_", after=image_prefill)["batched_lora_apply"]
 
 
 def _leaves(tree):
@@ -3336,13 +3569,24 @@ def main() -> int:
         for k, err in lms["max_abs_err"].items():
             summary[k]["max_abs_err"] = max(summary[k]["max_abs_err"], err)
         phase_serve_small(torch)
-        by_path["batched_lora_apply"] = {
-            "serve_qwen2_7b": phase_serve_qwen2_7b(torch)}
-        gc.collect()              # free the 30.5 GB model before mamba2
-        torch.cuda.empty_cache()
+        k4_paths = by_path["batched_lora_apply"] = {}
+        # each full model is freed before the next (Qwen2-7B and
+        # Qwen2-VL-7B hold 30.5 GB of f32 weights each)
+        for path, phase in (("serve_qwen2_7b", phase_serve_qwen2_7b),
+                            ("serve_qwen2_vl_7b", phase_serve_qwen2_vl_7b),
+                            ("serve_gemma_2b", phase_serve_gemma_2b)):
+            k4_paths[path] = phase(torch)
+            gc.collect()
+            torch.cuda.empty_cache()
         phase_serve_small_mamba2(torch)
         by_path["ssd_scan"]["serve_mamba2_1p3b"] = \
             phase_serve_mamba2_1p3b(torch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_serve_small_hymba(torch)
+        hymba = phase_serve_hymba_1p5b(torch)
+        k4_paths["serve_hymba_1p5b"] = hymba["batched_lora_apply"]
+        by_path["ssd_scan"]["serve_hymba_1p5b"] = hymba["ssd_scan"]
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1

@@ -139,6 +139,13 @@ class ModelConfig:
             frontend=frontend,
         )
 
+    def with_sliding_window(self, window: int = 8192,
+                            global_every: int = 0) -> "ModelConfig":
+        """Sliding-window variant (enables long_500k for attention archs)."""
+        return dataclasses.replace(
+            self, name=self.name + "-swa", attn_type=ATTN_SLIDING,
+            sliding_window=window, global_attn_every=global_every)
+
 
 @dataclass(frozen=True)
 class LoRAConfig:
@@ -197,9 +204,10 @@ def register(config: ModelConfig) -> ModelConfig:
 
 
 def get_config(name: str) -> ModelConfig:
-    from repro_torch.configs import (granite_3_8b,  # noqa: F401
-                                     hubert_xlarge, mamba2_1p3b,
-                                     nemotron_4_340b, paper_models, qwen2_7b)
+    from repro_torch.configs import (gemma_2b,  # noqa: F401
+                                     granite_3_8b, hubert_xlarge, hymba_1p5b,
+                                     mamba2_1p3b, nemotron_4_340b,
+                                     paper_models, qwen2_7b, qwen2_vl_7b)
     if name not in _REGISTRY:
         raise KeyError(
             f"unknown architecture {name!r}; available: {sorted(_REGISTRY)}")

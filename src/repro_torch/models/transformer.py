@@ -1,13 +1,19 @@
-"""The port's transformer (``repro/models/transformer.py``) for three kinds
+"""The port's transformer (``repro/models/transformer.py``) for four kinds
 of model: encoders (bidirectional attention, GELU MLP): the federated
 round's ``kind="vlm"`` path (vision frontend projection, LoRA on
 q/k/v/o/up/down; ViT-base), an audio frontend (HuBERT X-Large) or token
-embeddings with no positions and an untied head (RoBERTa-base); dense
-causal decoders (token embedding, RoPE, causal attention with a KV cache,
-a SwiGLU or squared-ReLU MLP, a tied or untied head, GQA: Qwen2-7B,
-LLaMA-3.2-3B, Granite-3-8B, Nemotron-4-340B); and attention-free SSM
-decoders (``kind="ssm"``: norm, SSD mixer and residual per layer, tied
-head: Mamba-2 1.3B with LoRA on the mixer's in/out projections).
+embeddings with no positions and an untied head (RoBERTa-base); causal
+decoders (token embedding, RoPE, causal attention with a KV cache, a
+SwiGLU, GeGLU or squared-ReLU MLP, a tied or untied head, GQA/MQA:
+Qwen2-7B, LLaMA-3.2-3B, Granite-3-8B, Nemotron-4-340B; Gemma-2B with its
+token embeddings scaled by sqrt(d_model); Qwen2-VL-7B with patch
+embeddings before the tokens and M-RoPE); attention-free SSM decoders
+(``kind="ssm"``: norm, SSD mixer and residual per layer, tied head:
+Mamba-2 1.3B with LoRA on the mixer's in/out projections); and hybrid
+decoders (``kind="hybrid"``, Hymba-1.5B: attention and an SSD mixer read
+the same normed input, ``r * attn + (1 - r) * ssm`` joins the residual,
+then the MLP). Causal attention takes a sliding window (every layer but
+each ``global_attn_every``-th) and a softcap on its scores.
 
 The PEFT variants of the paper's Table 5 are applied after ``init`` on
 the stacked leaves, as the reference does: ``variant="dora"`` adds a
@@ -33,7 +39,13 @@ single-model C = 1 cases with the reference's signatures.
 Caches keep the reference's stacked layout, ``{"layers": {...}, "len":
 scalar or (B,) int32}``, rows B = C * (batch per client), client-major:
 ``"k", "v": (G, B, S_c, KVH, hd)`` for attention, ``"conv": (G, B, K-1,
-conv_ch)`` in the model dtype and ``"ssm": (G, B, H, P, N)`` f32 for SSD.
+conv_ch)`` in the model dtype and ``"ssm": (G, B, H, P, N)`` f32 for SSD;
+a hybrid layer's entry holds all four. S_c is ``cache_seq_len``: a ring
+of the window for a pure sliding-window model.
+
+Positions: (..., L) integers, or for M-RoPE (3, ..., L) with the stream
+axis first (the reference's (3, B, L) at the single-model entries, (3, C,
+B, L) at the client-axis ones); by default 0..L-1 on every stream.
 """
 from __future__ import annotations
 
@@ -48,13 +60,14 @@ from repro_torch.core.lora import split_lora
 from repro_torch.device import resolve_device
 from repro_torch.models.layers.attention import (bidirectional_attention,
                                                  causal_attention,
-                                                 decode_attention)
+                                                 decode_attention,
+                                                 decode_attention_windowed)
 from repro_torch.models.layers.dense import (dense_apply, dense_init,
                                              dora_magnitude_init,
                                              quantize_dequantize)
 from repro_torch.models.layers.mlp import mlp_apply, mlp_init
 from repro_torch.models.layers.norms import rms_norm, rms_norm_init
-from repro_torch.models.layers.rope import apply_rope
+from repro_torch.models.layers.rope import apply_mrope, apply_rope
 from repro_torch.models.layers.ssd import (ssd_dims, ssd_init,
                                            ssd_mixer_apply, ssd_mixer_decode)
 
@@ -90,23 +103,10 @@ class Model:
     def __init__(self, cfg: ModelConfig, lora: Optional[LoRAConfig] = None,
                  *, device=None, dtype=torch.float32,
                  use_kernels: bool = False):
-        unsupported = []
         if cfg.moe is not None or cfg.mla is not None:
-            unsupported.append("MoE / MLA mixers")
-        if cfg.kind == "hybrid":
-            unsupported.append("hybrid attention + SSM mixers")
-        if cfg.attn_type == ATTN_SLIDING:
-            unsupported.append("sliding-window attention")
-        if cfg.rope_type == "mrope":
-            unsupported.append("M-RoPE")
-        if cfg.logit_softcap:
-            unsupported.append("logit softcap")
-        if cfg.kind == "dense" and cfg.name.startswith("gemma"):
-            unsupported.append("Gemma's embedding scale")
-        if unsupported:
             raise NotImplementedError(
-                f"{', '.join(unsupported)} not ported yet (ROADMAP.md "
-                "queue 1 item 10)")
+                "MoE / MLA mixers not ported yet (ROADMAP.md queue 1 item "
+                "10)")
         self.cfg = cfg
         self.lora = lora
         self.device = resolve_device(device)
@@ -125,7 +125,7 @@ class Model:
                                     lora_ranks=lr, **kw)}
         hd = cfg.resolved_head_dim
         q_out, kv_out = cfg.num_heads * hd, cfg.num_kv_heads * hd
-        return {
+        layer = {
             "norm1": rms_norm_init(cfg.d_model, **kw),
             "attn": {
                 "q": dense_init(gen, cfg.d_model, q_out, bias=cfg.qkv_bias,
@@ -141,6 +141,10 @@ class Model:
             "mlp": mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.activation,
                             lora_ranks=lr, **kw),
         }
+        if cfg.kind == "hybrid":   # parallel SSD heads beside attention
+            layer["ssm"] = ssd_init(gen, cfg.d_model, cfg.ssm,
+                                    lora_ranks=lr, **kw)
+        return layer
 
     def init(self, gen: torch.Generator) -> dict:
         """Random parameters from ``gen`` (a generator on ``self.device``),
@@ -204,9 +208,24 @@ class Model:
     # -- forward pieces ---------------------------------------------------------
 
     def _apply_rope(self, t: torch.Tensor, positions) -> torch.Tensor:
-        if self.cfg.rope_type == "none":
+        cfg = self.cfg
+        if cfg.rope_type == "none":
             return t
-        return apply_rope(t, positions, self.cfg.rope_theta)
+        if cfg.rope_type == "mrope":
+            return apply_mrope(t, positions, cfg.rope_theta,
+                               cfg.mrope_sections)
+        return apply_rope(t, positions, cfg.rope_theta)
+
+    def _window(self, li: int) -> int:
+        """Layer ``li``'s sliding window: 0 (none) unless the config slides;
+        each ``global_attn_every``-th layer (by absolute index) sees every
+        key, through a window of 2**30, as the reference's ``_is_global``."""
+        cfg = self.cfg
+        if cfg.attn_type != ATTN_SLIDING or not cfg.sliding_window:
+            return 0
+        if cfg.global_attn_every and li % cfg.global_attn_every == 0:
+            return 2 ** 30
+        return cfg.sliding_window
 
     def _qkv(self, p: dict, h: torch.Tensor, positions, lk: dict):
         cfg = self.cfg
@@ -221,19 +240,31 @@ class Model:
         return (self._apply_rope(q, positions),
                 self._apply_rope(k, positions), v)
 
-    def _out(self, p: dict, att: torch.Tensor, x: torch.Tensor, lk: dict):
-        """Residual attention output, then the MLP block."""
+    def _attn_out(self, p: dict, att: torch.Tensor, lk: dict):
+        """The o-projection of the heads' outputs (..., H, hd)."""
         cfg = self.cfg
         att = att.reshape(att.shape[:-2] + (cfg.num_heads
                                             * cfg.resolved_head_dim,))
-        x = x + dense_apply(p["attn"]["o"], att, **lk,
-                            use_kernel=self.use_kernels)
+        return dense_apply(p["attn"]["o"], att, **lk,
+                           use_kernel=self.use_kernels)
+
+    def _mix_mlp(self, p: dict, x: torch.Tensor, attn_out: torch.Tensor,
+                 ssm_out, lk: dict) -> torch.Tensor:
+        """Residual of the mixers' output (a hybrid block's
+        ``r * attn + (1 - r) * ssm``), then norm2 and the MLP block."""
+        cfg = self.cfg
+        mixed = attn_out
+        if ssm_out is not None:
+            r = cfg.hybrid_attn_ratio
+            mixed = r * attn_out + (1.0 - r) * ssm_out
+        x = x + mixed
         h2 = rms_norm(p["norm2"], x, eps=cfg.rms_norm_eps)
         return x + mlp_apply(p["mlp"], h2, cfg.activation, **lk)
 
-    def _block_seq(self, p: dict, x: torch.Tensor, positions, lk: dict):
-        """One layer over full sequences x (C, B, T, D): (x, cache entry
-        with rows C*B: {"k", "v"} or {"conv", "ssm"})."""
+    def _block_seq(self, p: dict, x: torch.Tensor, positions, li: int,
+                   lk: dict):
+        """Layer ``li`` over full sequences x (C, B, T, D): (x, cache entry
+        with rows C*B: {"k", "v"}, {"conv", "ssm"} or, hybrid, all four)."""
         cfg = self.cfg
         h = rms_norm(p["norm1"], x, eps=cfg.rms_norm_eps)
         if cfg.kind == "ssm":
@@ -246,26 +277,39 @@ class Model:
         if cfg.attn_type == ATTN_BIDIR:
             att = bidirectional_attention(q, k, v)
         else:
-            att = causal_attention(q, k, v)
-        return self._out(p, att, x, lk), {
-            "k": k.reshape((rows,) + k.shape[2:]),
-            "v": v.reshape((rows,) + v.shape[2:])}
+            att = causal_attention(q, k, v, sliding_window=self._window(li),
+                                   softcap=cfg.logit_softcap)
+        entry = {"k": k.reshape((rows,) + k.shape[2:]),
+                 "v": v.reshape((rows,) + v.shape[2:])}
+        ssm_out = None
+        if cfg.kind == "hybrid":
+            ssm_out, (conv_s, ssm_s) = ssd_mixer_apply(
+                p["ssm"], h, cfg.d_model, cfg.ssm, **lk,
+                use_kernel=self.use_kernels)
+            entry.update(conv=conv_s, ssm=ssm_s)
+        return self._mix_mlp(p, x, self._attn_out(p, att, lk), ssm_out,
+                             lk), entry
 
     def _block_decode(self, p: dict, x: torch.Tensor, cache_l: dict,
-                      cache_len, positions, lk: dict) -> torch.Tensor:
-        """One layer, one token per row: x (C, B, 1, D). Updates this
+                      cache_len, positions, li: int, lk: dict
+                      ) -> torch.Tensor:
+        """Layer ``li``, one token per row: x (C, B, 1, D). Updates this
         layer's cache views ``cache_l`` (rows B' = C*B) in place: the
-        token's k/v at the ring index ``len % S_c``, or the new conv and
-        SSM states."""
+        token's k/v at the ring index ``len % S_c``, and/or the new conv
+        and SSM states. A sliding window masks the keys only where the
+        cache outlasts it (a pure sliding-window model's ring is the
+        window itself)."""
         cfg = self.cfg
         h = rms_norm(p["norm1"], x, eps=cfg.rms_norm_eps)
-        if cfg.kind == "ssm":
-            mixed, (conv_s, ssm_s) = ssd_mixer_decode(
+        ssm_out = None
+        if cfg.kind in ("ssm", "hybrid"):
+            ssm_out, (conv_s, ssm_s) = ssd_mixer_decode(
                 p["ssm"], h, cfg.d_model, cfg.ssm, cache_l["conv"],
                 cache_l["ssm"], **lk)
             cache_l["conv"].copy_(conv_s)
             cache_l["ssm"].copy_(ssm_s)
-            return x + mixed
+            if cfg.kind == "ssm":
+                return x + ssm_out
         k_cache, v_cache = cache_l["k"], cache_l["v"]
         q, k, v = self._qkv(p["attn"], h, positions, lk)
         rows, s_cache = k_cache.shape[:2]
@@ -275,10 +319,18 @@ class Model:
             k_cache.dtype)
         v_cache[ar, write_idx] = v.reshape((rows,) + v.shape[-2:]).to(
             v_cache.dtype)
-        eff_len = torch.clamp(cache_len, max=s_cache - 1)
-        att = decode_attention(q.reshape((rows, 1) + q.shape[-2:]), k_cache,
-                               v_cache, eff_len + 1)
-        return self._out(p, att.reshape(q.shape), x, lk)
+        total = torch.clamp(cache_len, max=s_cache - 1) + 1
+        q_rows = q.reshape((rows, 1) + q.shape[-2:])
+        window = self._window(li)
+        if window and s_cache > cfg.sliding_window:
+            att = decode_attention_windowed(q_rows, k_cache, v_cache, total,
+                                            total - window,
+                                            softcap=cfg.logit_softcap)
+        else:
+            att = decode_attention(q_rows, k_cache, v_cache, total,
+                                   softcap=cfg.logit_softcap)
+        return self._mix_mlp(p, x, self._attn_out(p, att.reshape(q.shape),
+                                                  lk), ssm_out, lk)
 
     def _layer(self, base: dict, lora_c: dict, li: int) -> dict:
         return _merge(_index(base["layers"], lambda t: t[li]),
@@ -292,9 +344,19 @@ class Model:
             parts.append(dense_apply(base["frontend_proj"],
                                      batch["embeds"].to(self.dtype)))
         if "tokens" in batch:
-            parts.append(base["embed"][batch["tokens"].long()].to(
-                self.dtype))
+            tok = self._scale_embed(base["embed"][batch["tokens"].long()])
+            parts.append(tok.to(self.dtype))
         return parts[0] if len(parts) == 1 else torch.cat(parts, dim=-2)
+
+    def _scale_embed(self, tok: torch.Tensor) -> torch.Tensor:
+        """Gemma multiplies its token embeddings by sqrt(d_model) cast to
+        their dtype; the reference's rule: a dense model whose name starts
+        with "gemma". The factor is a 0-d host tensor, which multiplies
+        on the card with no copy."""
+        cfg = self.cfg
+        if cfg.kind != "dense" or not cfg.name.startswith("gemma"):
+            return tok
+        return tok * torch.tensor(cfg.d_model ** 0.5, dtype=tok.dtype)
 
     def _logits(self, base: dict, x: torch.Tensor) -> torch.Tensor:
         x = rms_norm(base["final_norm"], x, eps=self.cfg.rms_norm_eps)
@@ -310,8 +372,9 @@ class Model:
         """Full sequences: (logits (C, B, T, V), caches). ``mode`` "train"
         returns no caches; "prefill" returns every layer's cache entry
         stacked on a leading layer axis: post-RoPE k/v (G, C*B, T, KVH, hd),
-        or the final conv (G, C*B, K-1, conv_ch) and SSM (G, C*B, H, P, N)
-        states."""
+        and/or the final conv (G, C*B, K-1, conv_ch) and SSM (G, C*B, H, P,
+        N) states. ``batch["positions"]``, if given: (C, B, T) or any
+        shape broadcastable to it, for M-RoPE (3, C, B, T)."""
         if mode not in ("train", "prefill"):
             raise ValueError(f"unknown mode {mode!r}")
         cfg = self.cfg
@@ -320,11 +383,13 @@ class Model:
         positions = batch.get("positions")
         if positions is None:
             positions = torch.arange(t, dtype=torch.int32, device=x.device)
+            if cfg.rope_type == "mrope":
+                positions = positions.expand(3, t)
         lk = dict(lora_scale=scales, lora_rank=lora_rank)
         caches = None
         for li in range(cfg.num_layers):
             x, entry = self._block_seq(self._layer(base, lora_c, li), x,
-                                       positions, lk)
+                                       positions, li, lk)
             if mode != "prefill":
                 continue
             if caches is None:
@@ -360,17 +425,20 @@ class Model:
         if not self.cfg.supports_decode:
             raise ValueError(f"{self.cfg.name} is encoder-only")
         cfg = self.cfg
-        x = base["embed"][batch["token"].long()].to(self.dtype)
+        x = self._scale_embed(base["embed"][batch["token"].long()].to(
+            self.dtype))
         c, b = x.shape[:2]
         cache_len = torch.as_tensor(cache["len"], dtype=torch.int32,
                                     device=x.device)
         positions = cache_len.reshape(-1).expand(c * b).reshape(c, b, 1)
+        if cfg.rope_type == "mrope":   # text: all three streams advance
+            positions = positions.expand(3, c, b, 1)
         layers = _index(cache["layers"], torch.clone)
         lk = dict(lora_scale=scales, lora_rank=lora_rank)
         for li in range(cfg.num_layers):
             x = self._block_decode(self._layer(base, lora_c, li), x,
                                    _index(layers, lambda t: t[li]),
-                                   cache_len, positions, lk)
+                                   cache_len, positions, li, lk)
         return self._logits(base, x), {"layers": layers,
                                        "len": cache_len + 1}
 
@@ -402,6 +470,9 @@ class Model:
         lora_c = _index(lora, lambda t: t[None])
         batch_c = {k: torch.as_tensor(v, device=self.device)[None]
                    for k, v in batch.items()}
+        if self.cfg.rope_type == "mrope" and "positions" in batch_c:
+            # (3, B, L) -> (3, 1, B, L): the client axis after the streams
+            batch_c["positions"] = batch_c["positions"][0][:, None]
         scales = torch.full((1,), float(lora_scale), device=self.device)
         return base, lora_c, batch_c, scales
 
@@ -455,19 +526,19 @@ class Model:
     def cache_shapes(self, batch_size: int, max_len: int) -> dict:
         cfg = self.cfg
         g = cfg.num_layers
-        if cfg.kind == "ssm":
+        layers = {}
+        if cfg.kind in ("ssm", "hybrid"):
             dims = ssd_dims(cfg.d_model, cfg.ssm)
-            layers = {
-                "conv": CacheSpec((g, batch_size, cfg.ssm.conv_dim - 1,
-                                   dims["conv_ch"]), self.dtype),
-                "ssm": CacheSpec((g, batch_size, dims["nheads"],
-                                  dims["head_dim"], cfg.ssm.state_dim),
-                                 torch.float32)}
-        else:
+            layers["conv"] = CacheSpec((g, batch_size, cfg.ssm.conv_dim - 1,
+                                        dims["conv_ch"]), self.dtype)
+            layers["ssm"] = CacheSpec((g, batch_size, dims["nheads"],
+                                       dims["head_dim"], cfg.ssm.state_dim),
+                                      torch.float32)
+        if cfg.kind != "ssm":
             shape = (g, batch_size, self.cache_seq_len(max_len),
                      cfg.num_kv_heads, cfg.resolved_head_dim)
-            layers = {"k": CacheSpec(shape, self.dtype),
-                      "v": CacheSpec(shape, self.dtype)}
+            layers["k"] = CacheSpec(shape, self.dtype)
+            layers["v"] = CacheSpec(shape, self.dtype)
         return {"layers": layers, "len": CacheSpec((), torch.int32)}
 
     def init_cache(self, batch_size: int, max_len: int) -> dict:

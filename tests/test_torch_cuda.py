@@ -1,6 +1,6 @@
 """Card-only checks of the port's hand-written CUDA kernels (K1-K7), of
-the round and of the serving engines (qwen2 with K4, mamba2 with K6) on
-the card. They skip without CUDA (the kernels have no CPU mode)
+the round and of the serving engines (qwen2 with K4, mamba2 with K6,
+hymba with both) on the card. They skip without CUDA (the kernels have no CPU mode)
 and import nothing of JAX, so they run on a GPU machine without it:
 
     PYTHONPATH=src python -m pytest --noconftest tests/test_torch_cuda.py
@@ -288,6 +288,8 @@ def _scan_case(seed, bsz, length, nheads, hp, groups, n, device, init):
     (2, 200, 4, 50, 2, 16, 40, True),       # hymba's P 50, ragged tiles
     (1, 64, 2, 128, 1, 16, 64, False),      # P 128: two P slices
     (4, 1024, 64, 64, 1, 128, 256, False),  # mamba2-1.3b's prefill layer
+    (4, 2048, 64, 50, 1, 16, 128, False),   # hymba-1.5b's prefill layer
+    (4, 2048, 64, 50, 1, 16, 128, True),
     (2, 512, 8, 64, 2, 64, 128, True),      # 2 groups of 4 heads share C B^T
     (1, 24, 4, 8, 2, 16, 24, True)])        # nc 1, Q 24: ragged token tiles
 def test_cuda_ssd_scan_matches_plain(cuda_device, bsz, length, nheads, hp,
@@ -375,6 +377,52 @@ def test_cuda_mamba2_engine_matches_cpu(cuda_device):
             before = k6.ssd_scan.launches
             toks.append(eng.decode([True, True]).cpu())
             assert k6.ssd_scan.launches == before
+        runs.append(torch.stack(toks, dim=1))
+    torch.testing.assert_close(runs[0], runs[1], rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_hymba_engine_matches_cpu(cuda_device):
+    """A reduced hymba engine on the card with ``use_kernels=True`` (K4 on
+    q/k/v/o, K6 on the SSD heads' prefill scan) and on the CPU from the
+    same weights, 96-token prompts (the window of 64 bites in layer 1, the
+    scan runs 3 chunks of 32) and 4 decode steps past the window: equal
+    greedy tokens; per admit 4 K4 launches a layer and one K6 call a
+    layer, per decode step the K4 launches and no K6 call."""
+    from repro_torch.configs import LoRAConfig, get_config
+    from repro_torch.core.lora import flatten, unflatten
+    from repro_torch.models.transformer import Model
+    from repro_torch.serving import AdapterStore, ServingEngine
+    cfg = get_config("hymba-1.5b").reduced()
+    lora = LoRAConfig(rank_levels=(4, 8, 16))
+    params = Model(cfg, lora, device="cpu").init(
+        torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(1)
+    tenants = {name: unflatten({
+        path: 0.05 * torch.randn(t.shape, generator=gen)
+        for path, t in flatten(params).items()
+        if path[-1] in ("lora_a", "lora_b")}) for name in ("hi", "lo")}
+    prompts = torch.randint(0, cfg.vocab_size, (2, 96), generator=gen)
+    runs = []
+    for dev, kern in (("cuda", True), ("cpu", False)):
+        move = lambda tree: unflatten(  # noqa: E731
+            {p: t.to(dev) for p, t in flatten(tree).items()})
+        store = AdapterStore(lora.rank_levels)
+        store.put("hi", move(tenants["hi"]), 16)
+        store.put("lo", move(tenants["lo"]), 4)
+        store.publish()
+        eng = ServingEngine(Model(cfg, lora, device=dev, use_kernels=kern),
+                            move(params), store, max_len=101, slots=2)
+        before = (la.batched_lora_apply.launches, k6.ssd_scan.launches)
+        toks = [eng.admit([0, 1], prompts, ["hi", "lo"]).cpu()]
+        layers = cfg.num_layers if kern else 0
+        assert (la.batched_lora_apply.launches - before[0],
+                k6.ssd_scan.launches - before[1]) == (4 * layers, layers)
+        for _ in range(4):
+            before = (la.batched_lora_apply.launches, k6.ssd_scan.launches)
+            toks.append(eng.decode([True, True]).cpu())
+            assert (la.batched_lora_apply.launches - before[0],
+                    k6.ssd_scan.launches - before[1]) == (4 * layers, 0)
         runs.append(torch.stack(toks, dim=1))
     torch.testing.assert_close(runs[0], runs[1], rtol=0, atol=0)
 

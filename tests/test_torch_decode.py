@@ -70,8 +70,12 @@ def test_rope_matches_reference():
     want = jrope.apply_rope(jnp.asarray(x), jnp.asarray(pos), 1e6)
     got = trope.apply_rope(torch.from_numpy(x), torch.from_numpy(pos), 1e6)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-        trope.apply_mrope(x, pos, 1e6, (2, 3, 3))
+    mpos = np.stack([pos, pos // 3, pos % 7])
+    want = jrope.apply_mrope(jnp.asarray(x), jnp.asarray(mpos), 1e6,
+                             (2, 3, 3))
+    got = trope.apply_mrope(torch.from_numpy(x), torch.from_numpy(mpos),
+                            1e6, (2, 3, 3))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
 @pytest.mark.parametrize("q_offset", [0, 3])

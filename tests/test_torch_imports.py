@@ -15,9 +15,11 @@ MODULES = [
     "repro_torch",
     "repro_torch.checkpointing", "repro_torch.checkpointing.checkpoint",
     "repro_torch.configs", "repro_torch.configs.base",
-    "repro_torch.configs.granite_3_8b", "repro_torch.configs.hubert_xlarge",
+    "repro_torch.configs.gemma_2b", "repro_torch.configs.granite_3_8b",
+    "repro_torch.configs.hubert_xlarge", "repro_torch.configs.hymba_1p5b",
     "repro_torch.configs.mamba2_1p3b", "repro_torch.configs.nemotron_4_340b",
     "repro_torch.configs.paper_models", "repro_torch.configs.qwen2_7b",
+    "repro_torch.configs.qwen2_vl_7b",
     "repro_torch.convert", "repro_torch.device",
     "repro_torch.core", "repro_torch.core.aggregation",
     "repro_torch.core.collective",
@@ -170,17 +172,11 @@ def test_ported_options_build(kw):
     assert len(exp.server.history) == 1
 
 
-@pytest.mark.parametrize("change", [
-    dict(moe=object()), dict(attn_type="sliding", sliding_window=64),
-    dict(rope_type="mrope"), dict(kind="hybrid", ssm="ssm"),
-    dict(logit_softcap=30.0), dict(name="gemma-2b-reduced")],
-    ids=["moe", "sliding", "mrope", "hybrid", "softcap", "gemma"])
+@pytest.mark.parametrize("change", [dict(moe=object()), dict(mla=object())],
+                         ids=["moe", "mla"])
 def test_unported_model_options_name_their_roadmap_item(change):
     import dataclasses
-    from repro_torch.configs.base import LoRAConfig, SSMConfig, get_config
-    if change.get("ssm") == "ssm":
-        change = dict(change, ssm=SSMConfig(state_dim=16, head_dim=32,
-                                            chunk_size=32))
+    from repro_torch.configs.base import LoRAConfig, get_config
     from repro_torch.models.transformer import Model
     cfg = dataclasses.replace(get_config("qwen2-7b").reduced(), **change)
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
@@ -188,23 +184,34 @@ def test_unported_model_options_name_their_roadmap_item(change):
 
 
 @pytest.mark.parametrize("change,variant", [
-    (dict(attn_type="bidirectional"), "lora"), ({}, "dora"), ({}, "qlora")],
-    ids=["frontend-free-encoder", "dora", "qlora"])
+    (dict(attn_type="bidirectional"), "lora"), ({}, "dora"), ({}, "qlora"),
+    (dict(attn_type="sliding", sliding_window=64), "lora"),
+    (dict(rope_type="mrope", mrope_sections=(8, 12, 12)), "lora"),
+    (dict(kind="hybrid", ssm="ssm"), "lora"),
+    (dict(logit_softcap=30.0), "lora"), (dict(name="gemma-2b-reduced"), "lora")],
+    ids=["frontend-free-encoder", "dora", "qlora", "sliding", "mrope",
+         "hybrid", "softcap", "gemma"])
 def test_ported_model_options_build(change, variant):
     """Options item 10 lifted build and run a forward: a frontend-free
-    encoder (RoBERTa-base's path) and the DoRA and QLoRA variants (DoRA
+    encoder (RoBERTa-base's path), the DoRA and QLoRA variants (DoRA
     adds a magnitude next to each of the reduced qwen2's q/k/v/o
-    adapters)."""
+    adapters), a sliding window, M-RoPE, a hybrid SSD mixer beside
+    attention, the attention softcap and Gemma's embedding scale (held to
+    the reference in test_torch_model_families.py)."""
     import dataclasses
-    from repro_torch.configs.base import LoRAConfig, get_config
+    from repro_torch.configs.base import LoRAConfig, SSMConfig, get_config
     from repro_torch.core.lora import flatten
     from repro_torch.models.transformer import Model
+    if change.get("ssm") == "ssm":
+        change = dict(change, ssm=SSMConfig(state_dim=16, head_dim=32,
+                                            chunk_size=32))
     cfg = dataclasses.replace(get_config("qwen2-7b").reduced(), **change)
     model = Model(cfg, dataclasses.replace(LoRAConfig(), variant=variant),
                   device="cpu")
     params = model.init(torch.Generator().manual_seed(0))
     mags = [p for p in flatten(params) if p[-1] == "lora_m"]
     assert len(mags) == (4 if variant == "dora" else 0)
+    assert ("ssm" in params["layers"]) == (cfg.kind == "hybrid")
     tokens = torch.zeros(1, 4, dtype=torch.int32)
     logits = model.forward_seq(params, {"tokens": tokens})[0]
     assert logits.shape == (1, 4, cfg.vocab_size)

@@ -1,7 +1,7 @@
-"""The paper's own language models (``roberta-base``, ``llama3.2-3b``) and
-three more configs the port's model takes (``granite-3-8b``,
-``nemotron-4-340b``, ``hubert-xlarge``), held to the JAX package on the
-CPU: the registered configs field for field, ``SequenceCopy`` bit for bit,
+"""The paper's own language models (``roberta-base``, ``llama3.2-3b``,
+``llama3.1-8b``) and three more configs the port's model takes
+(``granite-3-8b``, ``nemotron-4-340b``, ``hubert-xlarge``), held to the
+JAX package on the CPU: the registered configs field for field, ``SequenceCopy`` bit for bit,
 and each model's reduced forward and ``train_loss`` with the JAX weights
 copied over (atol 1e-5, rtol 1e-4; the loss at rtol 1e-5). LLaMA-3.2-3B's
 tied head and GQA decode (a prefill and a decode step equal the full
@@ -26,8 +26,8 @@ from repro_torch.models.transformer import Model
 
 torch.set_num_threads(1)
 
-MODELS = ["roberta-base", "llama3.2-3b", "granite-3-8b", "nemotron-4-340b",
-          "hubert-xlarge"]
+MODELS = ["roberta-base", "llama3.2-3b", "llama3.1-8b", "granite-3-8b",
+          "nemotron-4-340b", "hubert-xlarge"]
 TOL = dict(atol=1e-5, rtol=1e-4)
 
 
