@@ -166,7 +166,32 @@ JAX. Phases, each printing one JSON line:
                   the window bites in 30 layers at prefill and decode, K6
                   runs 16 chunks of 128; K4 128 launches a call, K6 32
                   calls an admit and none a decode step.
-9. kernel summary one {"kernels": [...]} line, then the card's name and
+8c. serve_small_deepseek_v2  a reduced deepseek-v2 engine (MLA, 8 experts
+                  top-6 + 1 shared) on cuda and on cpu: equal tokens, no K4
+                  launch.
+8d. serve_deepseek_v2  main path 13: DeepSeek-V2 at full width in f32
+                  with 2 of its 60 layers (MLA q_lora 1536, kv_lora 512;
+                  160 routed experts top-6 + 2 shared), ragged slots:
+                  slots 0-2 admit 32-token prompts and decode 3 steps,
+                  then slot 3 admits 20 tokens; 16 new tokens, a hot swap
+                  after 8 decode steps. The cache holds only the latents
+                  (2304 B a token and layer against 163,840 of per-head
+                  K/V), one snapshot version a call, no K4 launch, each
+                  slot's tokens held to a teacher-forced full forward;
+                  call ms, host syncs (one per MoE layer), a profiled
+                  decode step, peak GiB.
+8e. round_deepseek_v2  main path 14, in a child process with split-K off,
+                  after the model above is freed: one raFLoRA round
+                  (after an untimed one) of the same model, batched
+                  engine, kernel backend, 5 clients at 8/16/32 on
+                  ``SequenceCopy`` tokens (batch 2 x 64): K1/K2 once per
+                  shape bucket (3: q_a, kv_a, o), the products held to
+                  the factored backend's, finite spectra, each client's
+                  aux loss finite and in its loss; stage ms, peak GiB,
+                  the profiled round's idle share.
+9. kernel summary one {"phase": "script_seconds"} line (each phase's wall
+                  seconds, a child's with its process, and the total),
+                  one {"kernels": [...]} line, then the card's name and
                   power limit, then the final {"ok": true, ...} line.
 
 The kernels phase holds K6 to its plain version at mamba2-1.3b's prefill
@@ -255,7 +280,8 @@ RUNS_ON.update(lora_apply="mma_tf32x3", flash_attention="mma_tf32x3",
 K12_PATHS = ("round_vit_base", "round_async_vit_base",
              "round_event_vit_base", "train_launcher", "bench_cost",
              "bench_round_latency", "round_sharded_vit_base",
-             "round_variants_vit_base", "round_paper_lms")
+             "round_variants_vit_base", "round_paper_lms",
+             "round_deepseek_v2")
 PATHS = {"weighted_stack_b": ", ".join(K12_PATHS),
          "weighted_stack_a": ", ".join(K12_PATHS),
          "gram_left": ", ".join(K12_PATHS),
@@ -2945,6 +2971,41 @@ def _lm_server(cfg, variant: str, method: str = "raflora"):
                          batch_fn, backend="kernel")
 
 
+def _factored_check(torch, server, run) -> tuple:
+    """The round ``run`` of ``_instrumented_round`` aggregated again on the
+    factored backend, from its trained factors and the global state it
+    started from: (the largest |B_g A_g| difference to the kernel
+    backend's, whether every product and spectrum is finite, max(1,
+    sigma_max) of the round's spectra)."""
+    from repro_torch.core.aggregation import Aggregator
+    from repro_torch.core.lora import unflatten
+    from repro_torch.federation.server import FederatedLoRA
+    from repro_torch.federation.transport import is_magnitude
+    levels = server.lora_cfg.rank_levels
+    finite = all(bool(torch.isfinite(s).all()) for s in run["sigmas"])
+    scale = max([1.0] + [float(s.max()) for s in run["sigmas"]])
+    live = server.global_lora, server.aggregator
+    server.global_lora = unflatten(run["lora_before"])
+    server.aggregator = Aggregator(server.fl.aggregator, levels,
+                                   backend="factored")
+    try:
+        ref, _, _ = FederatedLoRA._aggregate_grouped(server,
+                                                     *run["agg_args"])
+    finally:
+        server.global_lora, server.aggregator = live
+    got = server._extract_factors(server.global_lora, max(levels))
+    err = 0.0
+    for parent, val in ref.items():
+        if is_magnitude(parent):
+            continue
+        b, a = got[parent]
+        prod = b @ a
+        finite &= bool(torch.isfinite(prod).all())
+        err = max(err, float((prod - val[0] @ val[1]).abs().max()))
+        del prod
+    return err, finite, scale
+
+
 def phase_round_paper_lms(torch) -> dict:
     """Main path 9, in the child (split-K off): one raFLoRA round of the
     batched engine on the kernel backend, after one untimed round, for
@@ -2959,10 +3020,6 @@ def phase_round_paper_lms(torch) -> dict:
     ``_variant_checks``; every distinct K1/K2 call held to its plain
     version. The last line holds the path's launches."""
     from repro_torch.configs import get_config
-    from repro_torch.core.aggregation import Aggregator
-    from repro_torch.core.lora import unflatten
-    from repro_torch.federation.server import FederatedLoRA
-    from repro_torch.federation.transport import is_magnitude
     summary = {n: {"max_abs_err": 0.0} for n in K12}
     path_launches = dict.fromkeys(K12, 0)
     for name, variant, n_buckets in LM_RUNS:
@@ -2984,29 +3041,7 @@ def phase_round_paper_lms(torch) -> dict:
                 f"round_paper_lms {name}: launches {run['launches']}")
         for k, n in run["launches"].items():
             path_launches[k] += n
-        sig_ok = all(bool(torch.isfinite(s).all()) for s in run["sigmas"])
-        scale = max([1.0] + [float(s.max()) for s in run["sigmas"]])
-        # the same aggregation on the factored backend, from the round's
-        # trained factors and the global state it started from
-        live = server.global_lora, server.aggregator
-        server.global_lora = unflatten(run["lora_before"])
-        server.aggregator = Aggregator("raflora", LM_LEVELS,
-                                       backend="factored")
-        try:
-            ref, _, _ = FederatedLoRA._aggregate_grouped(server,
-                                                         *run["agg_args"])
-        finally:
-            server.global_lora, server.aggregator = live
-        got = server._extract_factors(server.global_lora, max(LM_LEVELS))
-        err, finite = 0.0, sig_ok
-        for parent, val in ref.items():
-            if is_magnitude(parent):
-                continue
-            b, a = got[parent]
-            prod = b @ a
-            finite &= bool(torch.isfinite(prod).all())
-            err = max(err, float((prod - val[0] @ val[1]).abs().max()))
-            del prod
+        err, finite, scale = _factored_check(torch, server, run)
         checks = _variant_checks(torch, server, run["plan"],
                                  run["lora_before"], run["base_before"])
         k12 = _check_k12_calls(torch, run["k12_calls"], summary, name)
@@ -3029,7 +3064,7 @@ def phase_round_paper_lms(torch) -> dict:
                         "products")
         require(err <= tol, f"round_paper_lms {name}: products {err} off "
                             f"the factored backend's (tol {tol})")
-        del server, run, ref, got, live
+        del server, run
         gc.collect()
         torch.cuda.empty_cache()
     last = {"phase": "round_paper_lms", "path_launches": path_launches,
@@ -3049,6 +3084,127 @@ def phase_round_paper_lms_child() -> dict:
         if line.startswith("{") and "path_launches" in line:
             return json.loads(line)
     raise SmokeFailure("round_paper_lms: the child printed no launch "
+                       "counts")
+
+
+# main paths 13 and 14: DeepSeek-V2 at full width, f32, its depth cut to 2
+# of 60 layers (35.97 GB of weights: routed experts 15.10 GB a layer, MLA
+# 0.60, shared experts 0.19, embedding and untied head 4.19)
+DEEPSEEK_LAYERS = 2
+DS_LATE_PROMPT = 20      # the late slot's shorter prompt
+DS_LATE_AFTER = 3        # decode steps of slots 0-2 before it is admitted
+DS_SWAP_AFTER = 8        # decode steps before the hot swap (tenant t4)
+
+
+def _deepseek_cfg():
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("deepseek-v2-236b"),
+                               num_layers=DEEPSEEK_LAYERS)
+
+
+def _watch_train_loss(server, fn):
+    """``fn()`` with the server model's ``train_loss_clients`` watched:
+    (fn's result, the last training step's per-client (loss, metrics))."""
+    model, seen = server.model, []
+    inner = model.train_loss_clients
+
+    def watched(*a, **k):
+        loss, metrics = inner(*a, **k)
+        seen.append((loss.detach(), {n: v.detach()
+                                     for n, v in metrics.items()}))
+        return loss, metrics
+    model.train_loss_clients = watched
+    try:
+        out = fn()
+    finally:
+        del model.train_loss_clients
+    return out, seen[-1]
+
+
+def phase_round_deepseek_v2(torch) -> dict:
+    """Main path 14, in the child (split-K off): one raFLoRA round of the
+    batched engine on the kernel backend, after one untimed round, for
+    DeepSeek-V2 at full width with 2 layers (``_lm_server``: 5 clients at
+    rank levels 8/16/32, batch 2 x 64 ``SequenceCopy`` tokens, one local
+    step; LoRA on q_a, kv_a and o). Under torch.profiler with its stages
+    timed: K1/K2 launch once per shape bucket (the bucketing's count: q_a
+    5120 -> 1536, kv_a 5120 -> 576 and o 16384 -> 5120 give 3), the
+    products equal the factored backend's on the same trained factors at
+    ``ROUND_TOL``, the spectra are finite, each client's MoE aux loss is
+    finite, positive and part of its training loss; every distinct K1/K2
+    call held to its plain version. The last line holds the path's
+    launches."""
+    from repro_torch.models.layers import moe
+    cfg = _deepseek_cfg()
+    summary = {n: {"max_abs_err": 0.0} for n in K12}
+    t0 = time.perf_counter()
+    server = _lm_server(cfg, "lora")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    factors = server._extract_factors(server.global_lora,
+                                      max(LM_LEVELS)).values()
+    buckets = len({(tuple(b.shape), tuple(a.shape)) for b, a in factors})
+    require(buckets == 3, f"round_deepseek_v2: {buckets} shape buckets, "
+                          "expected 3 (q_a, kv_a, o)")
+    t0 = time.perf_counter()
+    first = server.run_round()
+    torch.cuda.synchronize()
+    first_round_s = time.perf_counter() - t0
+    syncs = moe.moe_apply.host_syncs
+    run, (loss, metrics) = _watch_train_loss(
+        server, lambda: _instrumented_round(torch, server, profile=True))
+    syncs = moe.moe_apply.host_syncs - syncs
+    stats = run["stats"]
+    require(run["launches"] == dict.fromkeys(K12, buckets),
+            f"round_deepseek_v2: launches {run['launches']}")
+    aux = metrics["aux_loss"]
+    aux_ok = bool(torch.isfinite(aux).all() and (aux > 0).all()
+                  and torch.allclose(loss, metrics["loss"] + aux,
+                                     rtol=1e-6, atol=0))
+    err, finite, scale = _factored_check(torch, server, run)
+    k12 = _check_k12_calls(torch, run["k12_calls"], summary,
+                           "deepseek-v2-236b")
+    tol = ROUND_TOL["product"] * scale
+    emit({"phase": "round_deepseek_v2", "model": cfg.name,
+          "layers": f"{cfg.num_layers} of 60", "d_model": cfg.d_model,
+          "experts": cfg.moe.num_experts, "top_k": cfg.moe.top_k,
+          "vocab": cfg.vocab_size, "clients": stats.clients,
+          "ranks": stats.ranks, "batch": LM_BATCH, "seq": LM_SEQ,
+          "buckets": buckets, "setup_s": setup_s,
+          "untimed_round_s": first_round_s,
+          "untimed_round_loss": first.mean_client_loss, **run["times"],
+          "round_wall_s": stats.wall_time_s,
+          "mean_client_loss": stats.mean_client_loss,
+          "aux_loss": aux.tolist(), "aux_in_loss": aux_ok,
+          "moe_host_syncs": syncs,
+          "peak_mem_gib": run["peak_mem_gib"],
+          "launches": run["launches"], "finite": finite,
+          "factored_product_max_abs_err": err, "tol": tol,
+          "sigma_max": scale, "k12_vs_plain": k12,
+          "profile": run["profile"], "card": card_line()})
+    require(finite, "round_deepseek_v2: non-finite spectra or products")
+    require(err <= tol, f"round_deepseek_v2: products {err} off the "
+                        f"factored backend's (tol {tol})")
+    require(aux_ok, f"round_deepseek_v2: aux loss {aux.tolist()} not "
+                    f"finite, positive and in the loss")
+    last = {"phase": "round_deepseek_v2", "path_launches": run["launches"],
+            "max_abs_err": {k: s["max_abs_err"] for k, s in summary.items()},
+            "card": card_line()}
+    emit(last)
+    return last
+
+
+def phase_round_deepseek_v2_child() -> dict:
+    """``phase_round_deepseek_v2`` in a child process with cuBLAS's
+    split-K off, as round_paper_lms (the 36 GB model goes with the
+    process). Its launches come back from its last line."""
+    out = _run_child("--round-deepseek-v2", "round_deepseek_v2",
+                     env=dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":0:0"))
+    for line in reversed(out.splitlines()):
+        if line.startswith("{") and "path_launches" in line:
+            return json.loads(line)
+    raise SmokeFailure("round_deepseek_v2: the child printed no launch "
                        "counts")
 
 
@@ -3486,6 +3642,199 @@ def phase_serve_qwen2_vl_7b(torch) -> int:
                        "lora_", after=image_prefill)["batched_lora_apply"]
 
 
+def phase_serve_small_deepseek_v2(torch):
+    """A reduced deepseek-v2 (MLA at a latent of 64, 8 experts top-6 plus
+    one shared), 12-token prompts: the card's engine with ``use_kernels``
+    and the CPU's plain one give equal tokens, and K4 launches no time
+    (MLA's projections and the experts take the plain route, as the
+    reference's)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import lora_apply as la
+    cfg = get_config("deepseek-v2-236b").reduced(max_experts=8)
+    _serve_small(torch, "serve_small_deepseek_v2", cfg, 12,
+                 {"rtol": 1e-4, "atol": 1e-5}, {la.batched_lora_apply: 0})
+
+
+def _teacher_forced(torch, eng, snap, tenant, prompt, tokens, logits):
+    """A slot's greedy ``tokens`` (and the engine's logits (n, V) that
+    chose them) against one full ``prefill_clients`` forward of its
+    prompt and tokens under ``tenant``'s pages of ``snap``: each token the
+    forward's greedy choice at its position, or, by ``_top2_rule``, where
+    the forward's top-2 gap is within twice the logits' difference."""
+    from repro_torch.serving.engine import _gather
+    seq = torch.cat([prompt.to(torch.int32),
+                     tokens[:-1].to(torch.int32)])[None, None]
+    pages = _gather(snap.pages, snap.page_ids([tenant]))
+    with torch.no_grad():
+        full = eng.model.prefill_clients(
+            eng.base, pages, {"tokens": seq},
+            torch.ones(1, device=DEV))[0][0, 0]
+    want = full[prompt.numel() - 1:]
+    rule = _top2_rule(torch, f"serve_deepseek_v2 {tenant}", logits, want)
+    return {"tokens": len(tokens), **rule}
+
+
+def phase_serve_deepseek_v2(torch) -> dict:
+    """Main path 13: DeepSeek-V2 at full width in f32 with 2 of its 60
+    layers (MLA: q_lora 1536, kv_lora 512, 128 heads of 128 + 64 rope; 160
+    routed experts top-6 and 2 shared in both layers), ``launch/serve.py``'s
+    shape with ragged slots: slots 0-2 admit 32-token prompts (tenants at
+    ranks 16/8/4 on q_a, kv_a and o) and decode 3 steps alone, then slot 3
+    admits a 20-token prompt (rank 8), so the per-slot lengths differ as
+    all four decode together; 16 new tokens on slots 0-2, 13 on slot 3,
+    with a hot swap of tenant t4 after 8 decode steps. Checks: the cache
+    holds only the latents {"ckv", "krope"}; each call runs one snapshot
+    version; K4 launches no time (MLA takes the plain route, as in the
+    reference); each slot's tokens equal a teacher-forced full forward
+    under its tenant's pages (slot 2's up to the swap, after which its
+    cache mixes two adapters). Records the calls' ms and host syncs (one
+    per MoE layer a call: the expert group sizes), two more prefills,
+    one profiled decode step (idle share, top device operations), the
+    peak GiB."""
+    from repro_torch.configs import LoRAConfig
+    from repro_torch.core.lora import flatten
+    from repro_torch.kernels import lora_apply as la
+    from repro_torch.kernels import ops
+    from repro_torch.models.layers import moe
+    from repro_torch.models.transformer import Model
+    from repro_torch.serving import AdapterStore, ServingEngine
+    cfg = _deepseek_cfg()
+    mla = cfg.mla
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    lora = LoRAConfig(rank_levels=(4, 8, 16))
+    model = Model(cfg, lora, device=DEV, use_kernels=True)
+    gen = torch.Generator(device=DEV).manual_seed(0)
+    params = model.init(gen)
+    store = AdapterStore(lora.rank_levels)
+    for name, rank in {"t16": 16, "t8": 8, "t4": 4}.items():
+        store.put(name, _tenant_tree(torch, params, gen, DEV), rank)
+    store.publish()
+    prompts = torch.randint(0, cfg.vocab_size, (SLOTS, PROMPT_LEN),
+                            generator=gen, device=DEV)
+    prompts = [prompts[i] for i in range(3)] + [prompts[3, :DS_LATE_PROMPT]]
+    tenants = ["t16", "t8", "t4", "t8"]
+    max_len = PROMPT_LEN + NEW_TOKENS + 1
+    eng = ServingEngine(model, params, store, max_len=max_len, slots=SLOTS)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    cache = flatten(eng.cache["layers"])
+    require(sorted(p[-1] for p in cache) == ["ckv", "krope"],
+            f"serve_deepseek_v2: cache leaves {sorted(cache)}")
+    latent_bytes = sum(t.shape[-1] * t.element_size() for t in
+                       cache.values())
+    per_head_bytes = cfg.num_heads * (mla.qk_nope_head_dim
+                                      + mla.qk_rope_head_dim
+                                      + mla.v_head_dim) * 4
+
+    def timed(fn, *a):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn(*a)
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t) * 1e3
+
+    first3 = torch.tensor([True] * 3 + [False], device=DEV)
+    all4 = torch.ones(SLOTS, dtype=torch.bool, device=DEV)
+    calls = ([("admit", ([0, 1, 2], torch.stack(prompts[:3]),
+                         tenants[:3]))]
+             + [("decode", (first3,))] * DS_LATE_AFTER
+             + [("admit", ([3], prompts[3][None], tenants[3:]))]
+             + [("decode", (all4,))] * (NEW_TOKENS - 1 - DS_LATE_AFTER))
+    ops.reset_launches()          # the main path's count starts here
+    rows, decodes, swap_call, snap0 = [], 0, None, store.published
+    gen_tok = [[] for _ in range(SLOTS)]
+    gen_logits = [[] for _ in range(SLOTS)]
+    for i, (kind, args) in enumerate(calls):
+        if kind == "decode":
+            if decodes == DS_SWAP_AFTER:     # the round landing
+                store.put("t4", _tenant_tree(torch, params, gen, DEV), 4)
+                store.publish()
+                swap_call = i
+            decodes += 1
+        syncs, k4 = moe.moe_apply.host_syncs, la.batched_lora_apply.launches
+        _, ms = timed(getattr(eng, kind), *args)
+        row = {"call": i, "kind": kind, "ms": ms,
+               "host_syncs": moe.moe_apply.host_syncs - syncs,
+               "k4_launches": la.batched_lora_apply.launches - k4,
+               "slot_len": eng.slot_len().tolist()}
+        rows.append(row)
+        slots = args[0] if kind == "admit" else \
+            args[0].nonzero().flatten().tolist()
+        for slot in slots:
+            gen_tok[slot].append(eng.tokens[slot].clone())
+            gen_logits[slot].append(eng.last_logits[slot].clone())
+    k4_launches = la.batched_lora_apply.launches    # read just after
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    want_log = [1] * swap_call + [2] * (len(calls) - swap_call)
+    require(eng.version_log == want_log,
+            f"serve_deepseek_v2: version log {eng.version_log}, expected "
+            f"{want_log}")
+    require(k4_launches == 0 and all(r["k4_launches"] == 0 for r in rows),
+            f"serve_deepseek_v2: K4 launched {k4_launches} times")
+    ragged = rows[DS_LATE_AFTER + 2]["slot_len"]
+    require(len(set(ragged)) > 1, f"serve_deepseek_v2: slot lengths "
+                                  f"{ragged} are not ragged")
+    require(bool(torch.isfinite(eng.last_logits).all()),
+            "serve_deepseek_v2: non-finite logits")
+    checks = []
+    for slot in range(SLOTS):
+        toks = torch.stack(gen_tok[slot])
+        lg = torch.stack(gen_logits[slot])
+        snap, n = store.published, len(toks)
+        if tenants[slot] == "t4":    # before the swap only
+            snap, n = snap0, 1 + DS_SWAP_AFTER
+        checks.append({"slot": slot, "tenant": tenants[slot],
+                       **_teacher_forced(torch, eng, snap, tenants[slot],
+                                         prompts[slot], toks[:n], lg[:n])})
+    # the first prefill again, twice (the first call above also paid the
+    # engine's first allocations), then one profiled decode step
+    warm = [timed(eng.admit, *calls[0][1])[1] for _ in range(2)]
+    prof_decode = _profile(torch, lambda: eng.decode(all4),
+                           ("gemm", "index", "sort"))
+    dec = [r["ms"] for r in rows if r["kind"] == "decode"
+           and r["slot_len"][3] > 0]
+    dec_ms = sum(dec) / len(dec)
+    emit({"phase": "serve_deepseek_v2", "model": cfg.name,
+          "layers": f"{cfg.num_layers} of 60",
+          "params": sum(t.numel() for t in _leaves(params)),
+          "setup_s": setup_s, "prompt_len": PROMPT_LEN,
+          "late_prompt_len": DS_LATE_PROMPT,
+          "prefill_ms": rows[0]["ms"],
+          "late_prefill_ms": rows[DS_LATE_AFTER + 1]["ms"],
+          "prefill_warm_ms": warm, "decode_ms_per_step": dec_ms,
+          "decode_ms_median": sorted(dec)[len(dec) // 2],
+          "tok_per_s": SLOTS / dec_ms * 1e3,
+          "host_syncs_per_call": sorted({r["host_syncs"] for r in rows}),
+          "cache_leaves": sorted(p[-1] for p in cache),
+          "cache_bytes_per_token_layer": latent_bytes,
+          "per_head_kv_bytes_per_token_layer": per_head_bytes,
+          "peak_mem_gib": peak, "version_log": eng.version_log,
+          "k4_launches": k4_launches, "ragged_slot_len": ragged,
+          "teacher_forced": checks, "profiled_decode": prof_decode,
+          "calls": rows, "card": card_line()})
+    return {"k4_launches": k4_launches}
+
+
+PHASE_SECONDS: dict = {}
+
+
+def _time_phases() -> None:
+    """Wrap every ``phase_*`` function of this module so that main's run
+    adds each call's wall seconds to ``PHASE_SECONDS`` under its name (a
+    child phase's seconds include its process)."""
+    for name, fn in list(globals().items()):
+        if name.startswith("phase_") and callable(fn):
+            def timed(*a, _fn=fn, _name=name, **k):
+                t = time.perf_counter()
+                try:
+                    return _fn(*a, **k)
+                finally:
+                    PHASE_SECONDS[_name] = (PHASE_SECONDS.get(_name, 0.0)
+                                            + time.perf_counter() - t)
+            globals()[name] = timed
+
+
 def _leaves(tree):
     for v in tree.values():
         if isinstance(v, dict):
@@ -3515,7 +3864,8 @@ def main() -> int:
     for flag, child in (("--round-methods", phase_round_methods),
                         ("--paper-benches", phase_paper_benches),
                         ("--round-sharded", phase_round_sharded),
-                        ("--round-paper-lms", phase_round_paper_lms)):
+                        ("--round-paper-lms", phase_round_paper_lms),
+                        ("--round-deepseek-v2", phase_round_deepseek_v2)):
         if flag in sys.argv[1:]:          # a phase's child process
             try:
                 child(torch)
@@ -3524,6 +3874,8 @@ def main() -> int:
                 return 1
             return 0
     summary: dict = {}
+    t_start = time.perf_counter()
+    _time_phases()
     try:
         phase_build()
         phase_kernels(torch, summary)
@@ -3587,6 +3939,18 @@ def main() -> int:
         hymba = phase_serve_hymba_1p5b(torch)
         k4_paths["serve_hymba_1p5b"] = hymba["batched_lora_apply"]
         by_path["ssd_scan"]["serve_hymba_1p5b"] = hymba["ssd_scan"]
+        gc.collect()
+        torch.cuda.empty_cache()
+        # DeepSeek-V2 served, freed, then trained in a child process
+        phase_serve_small_deepseek_v2(torch)
+        phase_serve_deepseek_v2(torch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        deepseek = phase_round_deepseek_v2_child()
+        for k, n in deepseek["path_launches"].items():
+            by_path[k]["round_deepseek_v2"] = n
+        for k, err in deepseek["max_abs_err"].items():
+            summary[k]["max_abs_err"] = max(summary[k]["max_abs_err"], err)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1
@@ -3604,6 +3968,8 @@ def main() -> int:
                         "launches": sum(paths.values()),
                         "launches_by_path": paths,
                         "runs_on": RUNS_ON[name], **s})
+    emit({"phase": "script_seconds", "by_phase": PHASE_SECONDS,
+          "total": time.perf_counter() - t_start})
     emit({"kernels": kernels})
     print(card_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

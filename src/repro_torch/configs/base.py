@@ -2,7 +2,8 @@
 
 A copy of the parts of ``repro.configs.base`` that the federated round
 and the serving engine use, so the port imports nothing of the JAX
-package: ``ModelConfig`` (with ``reduced()``), ``FrontendConfig``,
+package: ``ModelConfig`` (with ``reduced()``), the mixer sub-configs
+``MoEConfig``, ``MLAConfig`` and ``SSMConfig``, ``FrontendConfig``,
 ``LoRAConfig``, ``FLConfig`` and the ``ACT_*`` / ``ATTN_*`` constants. Field names, defaults and derived properties are the
 reference's, so a config built on one side means the same on the other.
 """
@@ -10,7 +11,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass, field
-from typing import Any, Optional, Tuple
+from typing import Optional, Tuple
 
 ATTN_FULL = "full"            # causal full attention
 ATTN_SLIDING = "sliding"      # sliding-window causal attention
@@ -20,6 +21,35 @@ ACT_GELU = "gelu"
 ACT_GEGLU = "geglu"
 ACT_SWIGLU = "swiglu"
 ACT_RELU2 = "relu2"           # squared ReLU
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    """Mixture-of-experts settings (deepseek-v2, llama4-maverick)."""
+
+    num_experts: int
+    top_k: int
+    num_shared_experts: int = 0
+    expert_d_ff: int = 0           # per-expert FFN hidden size
+    shared_d_ff: int = 0           # shared-expert FFN hidden size
+    router_aux_loss_coef: float = 0.001
+    # llama4 interleaves dense and MoE layers; period 1: every layer MoE
+    moe_layer_period: int = 1
+    moe_layer_offset: int = 0
+
+    def is_moe_layer(self, layer_idx: int) -> bool:
+        return (layer_idx % self.moe_layer_period) == self.moe_layer_offset
+
+
+@dataclass(frozen=True)
+class MLAConfig:
+    """Multi-head latent attention (deepseek-v2)."""
+
+    kv_lora_rank: int = 512
+    q_lora_rank: int = 0           # 0: a full-rank q projection
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
 
 
 @dataclass(frozen=True)
@@ -46,9 +76,10 @@ class FrontendConfig:
 
 @dataclass(frozen=True)
 class ModelConfig:
-    """One architecture. ``ssm`` is an :class:`SSMConfig` (mamba2's SSD
-    mixer); the MoE / MLA sub-configs are kept as opaque fields, and the
-    port's model refuses them (ROADMAP.md queue 1 item 10)."""
+    """One architecture. ``ssm`` is an :class:`SSMConfig` (mamba2's and
+    hymba's SSD mixer), ``moe`` a :class:`MoEConfig` (the FFN of
+    deepseek-v2 and of llama4's odd layers), ``mla`` an :class:`MLAConfig`
+    (deepseek-v2's latent attention)."""
 
     name: str
     kind: str
@@ -69,8 +100,8 @@ class ModelConfig:
     rms_norm_eps: float = 1e-6
     tie_embeddings: bool = False
     logit_softcap: float = 0.0
-    moe: Optional[Any] = None
-    mla: Optional[Any] = None
+    moe: Optional[MoEConfig] = None
+    mla: Optional[MLAConfig] = None
     ssm: Optional[SSMConfig] = None
     frontend: FrontendConfig = field(default_factory=FrontendConfig)
     hybrid_attn_ratio: float = 0.5
@@ -93,11 +124,14 @@ class ModelConfig:
         return not self.is_encoder_only
 
     def reduced(self, num_layers: int = 2, d_model: int = 256,
-                vocab_size: int = 512) -> "ModelConfig":
+                vocab_size: int = 512, max_experts: int = 4
+                ) -> "ModelConfig":
         """A smoke-test variant of the same family (<=2 layers, d<=512),
-        with the reference's numbers for every field the port knows,
-        including the SSM sub-config. The opaque MoE / MLA sub-configs
-        stay as they are: the port's model refuses them."""
+        with the reference's rules for every field and sub-config: at
+        most ``max_experts`` experts (top-k capped to them), one shared
+        expert and expert widths scaled with d_model; MLA at a latent of
+        64, a full-rank q, nope = head_dim and rope = max(8, head_dim //
+        2)."""
         d_model = min(d_model, 512)
         scale = d_model / self.d_model
         num_heads = max(2, min(self.num_heads, 4))
@@ -106,6 +140,22 @@ class ModelConfig:
             num_kv -= 1
         head_dim = max(16, d_model // num_heads)
         d_ff = max(32, int(self.d_ff * scale)) if self.d_ff else 0
+        moe = None
+        if self.moe is not None:
+            n_e = min(self.moe.num_experts, max_experts)
+            moe = dataclasses.replace(
+                self.moe, num_experts=n_e, top_k=min(self.moe.top_k, n_e),
+                num_shared_experts=min(self.moe.num_shared_experts, 1),
+                expert_d_ff=max(32, int((self.moe.expert_d_ff or self.d_ff)
+                                        * scale)),
+                shared_d_ff=max(32, int((self.moe.shared_d_ff or self.d_ff)
+                                        * scale)))
+        mla = None
+        if self.mla is not None:
+            mla = dataclasses.replace(
+                self.mla, kv_lora_rank=64, q_lora_rank=0,
+                qk_nope_head_dim=head_dim,
+                qk_rope_head_dim=max(8, head_dim // 2), v_head_dim=head_dim)
         frontend = self.frontend
         if frontend.kind != "none":
             frontend = dataclasses.replace(
@@ -135,6 +185,8 @@ class ModelConfig:
             sliding_window=(min(self.sliding_window, 64)
                             if self.sliding_window else 0),
             mrope_sections=mrope_sections,
+            moe=moe,
+            mla=mla,
             ssm=ssm,
             frontend=frontend,
         )
@@ -204,8 +256,9 @@ def register(config: ModelConfig) -> ModelConfig:
 
 
 def get_config(name: str) -> ModelConfig:
-    from repro_torch.configs import (gemma_2b,  # noqa: F401
-                                     granite_3_8b, hubert_xlarge, hymba_1p5b,
+    from repro_torch.configs import (deepseek_v2_236b,  # noqa: F401
+                                     gemma_2b, granite_3_8b, hubert_xlarge,
+                                     hymba_1p5b, llama4_maverick_400b_a17b,
                                      mamba2_1p3b, nemotron_4_340b,
                                      paper_models, qwen2_7b, qwen2_vl_7b)
     if name not in _REGISTRY:

@@ -15,6 +15,22 @@ the same normed input, ``r * attn + (1 - r) * ssm`` joins the residual,
 then the MLP). Causal attention takes a sliding window (every layer but
 each ``global_attn_every``-th) and a softcap on its scores.
 
+Two more mixers follow the reference's routing: DeepSeek-V2's multi-head
+latent attention (``cfg.mla``: ``models/layers/mla.py``, K and V from a
+shared latent, a decode cache of the latents only) and mixture-of-experts
+FFNs (``cfg.moe``: ``models/layers/moe.py``, a router's top-k over stacked
+experts plus shared experts, its Switch aux loss times
+``router_aux_loss_coef`` summed over the layers and added to each
+client's training loss). A dense layer of an MoE model has ``d_ff = 2 *
+expert_d_ff``. Llama-4 alternates dense and MoE layers (period 2): layers
+are stacked in GROUPS of ``moe_layer_period``, ``params["layers"]
+["sub{i}"]`` for layer ``g * period + i``, each leaf stacked over the G =
+L / period groups, and the caches' layer trees likewise; with period 1
+(every other model) the layer leaves sit under ``params["layers"]``
+directly, G = L. The reference's expert-parallel dispatch (``moe_impl=
+"ep"``, ``moe_capacity_factor``) is a distribution hook the port does not
+take yet (ROADMAP.md queue 1 item 10).
+
 The PEFT variants of the paper's Table 5 are applied after ``init`` on
 the stacked leaves, as the reference does: ``variant="dora"`` adds a
 trainable magnitude ``lora_m`` (the column norms of ``w``) next to every
@@ -22,9 +38,9 @@ adapter, ``variant="qlora"`` fake-quantizes the frozen ``w`` of every
 adapted layer at ``quant_bits``; any other name leaves the tree as it is.
 
 Parameters keep the JAX package's tree and layouts at the public
-boundary: ``w (in, out)``, ``lora_a (L, r, in)``, ``lora_b (L, out, r)``,
-``lora_m (L, out)``, per-layer leaves stacked on axis 0 under
-``params["layers"]``.
+boundary: ``w (in, out)``, ``lora_a (G, r, in)``, ``lora_b (G, out, r)``,
+``lora_m (G, out)``, per-layer leaves stacked on axis 0 under
+``params["layers"]`` (and ``["sub{i}"]`` in groups).
 
 Many adapters at once write the adapter axis out as a leading batch
 dimension C: the ``*_clients`` entry points take the shared base tree, a
@@ -38,10 +54,12 @@ single-model C = 1 cases with the reference's signatures.
 
 Caches keep the reference's stacked layout, ``{"layers": {...}, "len":
 scalar or (B,) int32}``, rows B = C * (batch per client), client-major:
-``"k", "v": (G, B, S_c, KVH, hd)`` for attention, ``"conv": (G, B, K-1,
-conv_ch)`` in the model dtype and ``"ssm": (G, B, H, P, N)`` f32 for SSD;
-a hybrid layer's entry holds all four. S_c is ``cache_seq_len``: a ring
-of the window for a pure sliding-window model.
+``"k", "v": (G, B, S_c, KVH, hd)`` for attention, ``"ckv": (G, B, S_c,
+kv_lora_rank)`` and ``"krope": (G, B, S_c, qk_rope_head_dim)`` for MLA,
+``"conv": (G, B, K-1, conv_ch)`` in the model dtype and ``"ssm": (G, B, H,
+P, N)`` f32 for SSD; a hybrid layer's entry holds k, v, conv and ssm. S_c
+is ``cache_seq_len``: a ring of the window for a pure sliding-window
+model.
 
 Positions: (..., L) integers, or for M-RoPE (3, ..., L) with the stream
 axis first (the reference's (3, B, L) at the single-model entries, (3, C,
@@ -65,7 +83,9 @@ from repro_torch.models.layers.attention import (bidirectional_attention,
 from repro_torch.models.layers.dense import (dense_apply, dense_init,
                                              dora_magnitude_init,
                                              quantize_dequantize)
+from repro_torch.models.layers.mla import mla_attention, mla_decode, mla_init
 from repro_torch.models.layers.mlp import mlp_apply, mlp_init
+from repro_torch.models.layers.moe import moe_apply, moe_init
 from repro_torch.models.layers.norms import rms_norm, rms_norm_init
 from repro_torch.models.layers.rope import apply_mrope, apply_rope
 from repro_torch.models.layers.ssd import (ssd_dims, ssd_init,
@@ -102,32 +122,47 @@ class Model:
 
     def __init__(self, cfg: ModelConfig, lora: Optional[LoRAConfig] = None,
                  *, device=None, dtype=torch.float32,
-                 use_kernels: bool = False):
-        if cfg.moe is not None or cfg.mla is not None:
+                 use_kernels: bool = False, moe_impl: str = "tp",
+                 moe_capacity_factor: float = 0.0):
+        if moe_impl == "ep" or moe_capacity_factor > 0:
             raise NotImplementedError(
-                "MoE / MLA mixers not ported yet (ROADMAP.md queue 1 item "
-                "10)")
+                "the expert-parallel MoE dispatch (moe_impl='ep') and its "
+                "capacity factor are not ported yet (ROADMAP.md queue 1 "
+                "item 10)")
+        if moe_impl != "tp":
+            raise ValueError(f"unknown moe_impl {moe_impl!r}")
         self.cfg = cfg
         self.lora = lora
         self.device = resolve_device(device)
         self.dtype = dtype
         self.use_kernels = use_kernels
         self.lora_ranks = _lora_ranks_for(cfg, lora)
+        moe = cfg.moe
+        self.group_size = (moe.moe_layer_period
+                           if moe and moe.moe_layer_period > 1 else 1)
+        if cfg.num_layers % self.group_size:
+            raise ValueError(f"{cfg.num_layers} layers do not split into "
+                             f"groups of {self.group_size}")
+        self.num_groups = cfg.num_layers // self.group_size
 
     # -- init -----------------------------------------------------------------
 
-    def _layer_init(self, gen: torch.Generator) -> dict:
+    def _layer_init(self, gen: torch.Generator, li: int) -> dict:
+        """Layer ``li``'s parameters (its index picks an MoE or a dense
+        FFN)."""
         cfg, lr = self.cfg, self.lora_ranks
         kw = dict(dtype=self.dtype, device=self.device)
         if cfg.kind == "ssm":   # mamba2 block: norm + mixer + residual only
             return {"norm1": rms_norm_init(cfg.d_model, **kw),
                     "ssm": ssd_init(gen, cfg.d_model, cfg.ssm,
                                     lora_ranks=lr, **kw)}
-        hd = cfg.resolved_head_dim
-        q_out, kv_out = cfg.num_heads * hd, cfg.num_kv_heads * hd
-        layer = {
-            "norm1": rms_norm_init(cfg.d_model, **kw),
-            "attn": {
+        if cfg.mla is not None:
+            attn = mla_init(gen, cfg.d_model, cfg.num_heads, cfg.mla,
+                            lora_ranks=lr, **kw)
+        else:
+            hd = cfg.resolved_head_dim
+            q_out, kv_out = cfg.num_heads * hd, cfg.num_kv_heads * hd
+            attn = {
                 "q": dense_init(gen, cfg.d_model, q_out, bias=cfg.qkv_bias,
                                 lora_rank=lr.get("q_proj", 0), **kw),
                 "k": dense_init(gen, cfg.d_model, kv_out, bias=cfg.qkv_bias,
@@ -136,21 +171,36 @@ class Model:
                                 lora_rank=lr.get("v_proj", 0), **kw),
                 "o": dense_init(gen, q_out, cfg.d_model,
                                 lora_rank=lr.get("o_proj", 0), **kw),
-            },
-            "norm2": rms_norm_init(cfg.d_model, **kw),
-            "mlp": mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.activation,
-                            lora_ranks=lr, **kw),
-        }
+            }
+        layer = {"norm1": rms_norm_init(cfg.d_model, **kw), "attn": attn,
+                 "norm2": rms_norm_init(cfg.d_model, **kw)}
+        if cfg.moe is not None and cfg.moe.is_moe_layer(li):
+            layer["moe"] = moe_init(gen, cfg.d_model, cfg.moe,
+                                    cfg.activation, **kw)
+        else:
+            d_ff = cfg.d_ff if cfg.moe is None else 2 * cfg.moe.expert_d_ff
+            layer["mlp"] = mlp_init(gen, cfg.d_model, d_ff, cfg.activation,
+                                    lora_ranks=lr, **kw)
         if cfg.kind == "hybrid":   # parallel SSD heads beside attention
             layer["ssm"] = ssd_init(gen, cfg.d_model, cfg.ssm,
                                     lora_ranks=lr, **kw)
         return layer
 
+    def _group_init(self, gen: torch.Generator, g: int) -> dict:
+        if self.group_size == 1:
+            return self._layer_init(gen, g)
+        return {f"sub{i}": self._layer_init(gen, g * self.group_size + i)
+                for i in range(self.group_size)}
+
+    def _sub(self, tree: dict, i: int) -> dict:
+        """A group-stacked tree's part for the group's i-th layer."""
+        return tree if self.group_size == 1 else tree.get(f"sub{i}", {})
+
     def init(self, gen: torch.Generator) -> dict:
         """Random parameters from ``gen`` (a generator on ``self.device``),
         with the reference's shapes and init distributions. Each stacked
-        layer leaf is allocated once and filled layer by layer, so the
-        peak is the model plus one layer."""
+        layer leaf is allocated once and filled group by group, so the
+        peak is the model plus one layer group."""
         cfg, kw = self.cfg, dict(dtype=self.dtype, device=self.device)
         params = {
             # the token table is unused by the frontend path, kept so the
@@ -164,13 +214,13 @@ class Model:
             params["lm_head"] = dense_init(gen, cfg.d_model, cfg.vocab_size,
                                            **kw)
         layers = None
-        for li in range(cfg.num_layers):
-            layer = self._layer_init(gen)
+        for g in range(self.num_groups):
+            group = self._group_init(gen, g)
             if layers is None:
-                layers = _index(layer, lambda t: t.new_empty(
-                    (cfg.num_layers,) + tuple(t.shape)))
-            _fill(layers, layer, li)
-            del layer             # free it before drawing the next layer
+                layers = _index(group, lambda t: t.new_empty(
+                    (self.num_groups,) + tuple(t.shape)))
+            _fill(layers, group, g)
+            del group             # free it before drawing the next group
         params["layers"] = layers
         if self.lora is not None and self.lora.variant != "lora":
             params = self._apply_peft_variant(params)
@@ -248,10 +298,11 @@ class Model:
         return dense_apply(p["attn"]["o"], att, **lk,
                            use_kernel=self.use_kernels)
 
-    def _mix_mlp(self, p: dict, x: torch.Tensor, attn_out: torch.Tensor,
-                 ssm_out, lk: dict) -> torch.Tensor:
+    def _mix_ffn(self, p: dict, x: torch.Tensor, attn_out: torch.Tensor,
+                 ssm_out, lk: dict):
         """Residual of the mixers' output (a hybrid block's
-        ``r * attn + (1 - r) * ssm``), then norm2 and the MLP block."""
+        ``r * attn + (1 - r) * ssm``), then norm2 and the FFN block: (x,
+        the MoE's aux loss (C,) times its coefficient, or None)."""
         cfg = self.cfg
         mixed = attn_out
         if ssm_out is not None:
@@ -259,19 +310,39 @@ class Model:
             mixed = r * attn_out + (1.0 - r) * ssm_out
         x = x + mixed
         h2 = rms_norm(p["norm2"], x, eps=cfg.rms_norm_eps)
-        return x + mlp_apply(p["mlp"], h2, cfg.activation, **lk)
+        if "moe" in p:
+            out, aux = moe_apply(p["moe"], h2, cfg.moe, cfg.activation)
+            return x + out, aux * cfg.moe.router_aux_loss_coef
+        return x + mlp_apply(p["mlp"], h2, cfg.activation, **lk), None
+
+    def _mla_seq(self, p: dict, h: torch.Tensor, positions, lk: dict):
+        """MLA over full sequences: (output, cache entry {"ckv", "krope"}
+        with rows C*B)."""
+        cfg = self.cfg
+        rows = h.shape[0] * h.shape[1]
+        out, (ckv, krope) = mla_attention(
+            p["attn"], h, positions, cfg.num_heads, cfg.mla,
+            rope_theta=cfg.rope_theta, causal=cfg.attn_type != ATTN_BIDIR,
+            sliding_window=(cfg.sliding_window
+                            if cfg.attn_type == ATTN_SLIDING else 0), **lk)
+        return out, {"ckv": ckv.reshape((rows,) + ckv.shape[2:]),
+                     "krope": krope.reshape((rows,) + krope.shape[2:])}
 
     def _block_seq(self, p: dict, x: torch.Tensor, positions, li: int,
                    lk: dict):
-        """Layer ``li`` over full sequences x (C, B, T, D): (x, cache entry
-        with rows C*B: {"k", "v"}, {"conv", "ssm"} or, hybrid, all four)."""
+        """Layer ``li`` over full sequences x (C, B, T, D): (x, aux (C,) or
+        None, cache entry with rows C*B: {"k", "v"}, {"ckv", "krope"},
+        {"conv", "ssm"} or, hybrid, k, v, conv and ssm)."""
         cfg = self.cfg
         h = rms_norm(p["norm1"], x, eps=cfg.rms_norm_eps)
         if cfg.kind == "ssm":
             mixed, (conv_s, ssm_s) = ssd_mixer_apply(
                 p["ssm"], h, cfg.d_model, cfg.ssm, **lk,
                 use_kernel=self.use_kernels)
-            return x + mixed, {"conv": conv_s, "ssm": ssm_s}
+            return x + mixed, None, {"conv": conv_s, "ssm": ssm_s}
+        if cfg.mla is not None:
+            attn_out, entry = self._mla_seq(p, h, positions, lk)
+            return self._mix_ffn(p, x, attn_out, None, lk) + (entry,)
         rows = x.shape[0] * x.shape[1]
         q, k, v = self._qkv(p["attn"], h, positions, lk)
         if cfg.attn_type == ATTN_BIDIR:
@@ -287,18 +358,19 @@ class Model:
                 p["ssm"], h, cfg.d_model, cfg.ssm, **lk,
                 use_kernel=self.use_kernels)
             entry.update(conv=conv_s, ssm=ssm_s)
-        return self._mix_mlp(p, x, self._attn_out(p, att, lk), ssm_out,
-                             lk), entry
+        return self._mix_ffn(p, x, self._attn_out(p, att, lk), ssm_out,
+                             lk) + (entry,)
 
     def _block_decode(self, p: dict, x: torch.Tensor, cache_l: dict,
                       cache_len, positions, li: int, lk: dict
                       ) -> torch.Tensor:
         """Layer ``li``, one token per row: x (C, B, 1, D). Updates this
         layer's cache views ``cache_l`` (rows B' = C*B) in place: the
-        token's k/v at the ring index ``len % S_c``, and/or the new conv
-        and SSM states. A sliding window masks the keys only where the
-        cache outlasts it (a pure sliding-window model's ring is the
-        window itself)."""
+        token's k/v (or MLA latents) at the ring index ``len % S_c``,
+        and/or the new conv and SSM states. A sliding window masks the
+        keys only where the cache outlasts it (a pure sliding-window
+        model's ring is the window itself; MLA's decode takes no window,
+        as the reference's)."""
         cfg = self.cfg
         h = rms_norm(p["norm1"], x, eps=cfg.rms_norm_eps)
         ssm_out = None
@@ -310,6 +382,12 @@ class Model:
             cache_l["ssm"].copy_(ssm_s)
             if cfg.kind == "ssm":
                 return x + ssm_out
+        if cfg.mla is not None:
+            attn_out = mla_decode(
+                p["attn"], h, positions, cache_l["ckv"], cache_l["krope"],
+                cache_len, cfg.num_heads, cfg.mla,
+                rope_theta=cfg.rope_theta, **lk)
+            return self._mix_ffn(p, x, attn_out, None, lk)[0]
         k_cache, v_cache = cache_l["k"], cache_l["v"]
         q, k, v = self._qkv(p["attn"], h, positions, lk)
         rows, s_cache = k_cache.shape[:2]
@@ -329,12 +407,17 @@ class Model:
         else:
             att = decode_attention(q_rows, k_cache, v_cache, total,
                                    softcap=cfg.logit_softcap)
-        return self._mix_mlp(p, x, self._attn_out(p, att.reshape(q.shape),
-                                                  lk), ssm_out, lk)
+        return self._mix_ffn(p, x, self._attn_out(p, att.reshape(q.shape),
+                                                  lk), ssm_out, lk)[0]
 
     def _layer(self, base: dict, lora_c: dict, li: int) -> dict:
-        return _merge(_index(base["layers"], lambda t: t[li]),
-                      _index(lora_c.get("layers", {}), lambda t: t[:, li]))
+        """Layer ``li``'s base leaves and (C, ...) adapter leaves: group
+        ``li // group_size``, its sub-layer ``li % group_size``."""
+        g, i = divmod(li, self.group_size)
+        return _merge(
+            _index(self._sub(base["layers"], i), lambda t: t[g]),
+            _index(self._sub(lora_c.get("layers", {}), i),
+                   lambda t: t[:, g]))
 
     def _embed_inputs(self, base: dict, batch: dict) -> torch.Tensor:
         """Frontend embeddings (C, B, T, E) and/or tokens (C, B, T) ->
@@ -369,12 +452,15 @@ class Model:
     def forward_seq_clients(self, base: dict, lora_c: dict, batch: dict,
                             scales: torch.Tensor, *, mode: str = "train",
                             lora_rank: int = -1):
-        """Full sequences: (logits (C, B, T, V), caches). ``mode`` "train"
-        returns no caches; "prefill" returns every layer's cache entry
-        stacked on a leading layer axis: post-RoPE k/v (G, C*B, T, KVH, hd),
-        and/or the final conv (G, C*B, K-1, conv_ch) and SSM (G, C*B, H, P,
-        N) states. ``batch["positions"]``, if given: (C, B, T) or any
-        shape broadcastable to it, for M-RoPE (3, C, B, T)."""
+        """Full sequences: (logits (C, B, T, V), aux (C,), caches). aux is
+        each client's MoE aux loss, summed over the layers with its
+        coefficient (zeros without MoE). ``mode`` "train" returns no
+        caches; "prefill" returns every layer's cache entry stacked on a
+        leading group axis (per ``sub{i}`` in groups): post-RoPE k/v (G,
+        C*B, T, KVH, hd) or MLA's c_kv and k_rope (G, C*B, T, *), and/or
+        the final conv (G, C*B, K-1, conv_ch) and SSM (G, C*B, H, P, N)
+        states. ``batch["positions"]``, if given: (C, B, T) or any shape
+        broadcastable to it, for M-RoPE (3, C, B, T)."""
         if mode not in ("train", "prefill"):
             raise ValueError(f"unknown mode {mode!r}")
         cfg = self.cfg
@@ -386,18 +472,23 @@ class Model:
             if cfg.rope_type == "mrope":
                 positions = positions.expand(3, t)
         lk = dict(lora_scale=scales, lora_rank=lora_rank)
-        caches = None
+        aux = torch.zeros(c, dtype=torch.float32, device=x.device)
+        caches = {} if mode == "prefill" else None
         for li in range(cfg.num_layers):
-            x, entry = self._block_seq(self._layer(base, lora_c, li), x,
-                                       positions, li, lk)
-            if mode != "prefill":
-                continue
+            x, aux_l, entry = self._block_seq(self._layer(base, lora_c, li),
+                                              x, positions, li, lk)
+            if aux_l is not None:
+                aux = aux + aux_l
             if caches is None:
-                caches = {k: v.new_empty((cfg.num_layers,) + v.shape)
-                          for k, v in entry.items()}
+                continue
+            g, i = divmod(li, self.group_size)
+            sub = (caches if self.group_size == 1
+                   else caches.setdefault(f"sub{i}", {}))
             for k, v in entry.items():
-                caches[k][li] = v
-        return self._logits(base, x), caches
+                if k not in sub:
+                    sub[k] = v.new_empty((self.num_groups,) + v.shape)
+                sub[k][g] = v
+        return self._logits(base, x), aux, caches
 
     def forward_clients(self, base: dict, lora_c: dict, batch: dict,
                         scales: torch.Tensor, *, lora_rank: int = -1
@@ -409,10 +500,11 @@ class Model:
 
     def prefill_clients(self, base: dict, lora_c: dict, batch: dict,
                         scales: torch.Tensor, *, lora_rank: int = -1):
-        """(logits (C, B, T, V), stacked caches: {"k", "v"} or {"conv",
-        "ssm"}, see ``forward_seq_clients``)."""
-        return self.forward_seq_clients(base, lora_c, batch, scales,
-                                        mode="prefill", lora_rank=lora_rank)
+        """(logits (C, B, T, V), stacked caches: {"k", "v"}, {"ckv",
+        "krope"} or {"conv", "ssm"}, see ``forward_seq_clients``)."""
+        logits, _, caches = self.forward_seq_clients(
+            base, lora_c, batch, scales, mode="prefill", lora_rank=lora_rank)
+        return logits, caches
 
     def decode_step_clients(self, base: dict, lora_c: dict, batch: dict,
                             cache: dict, scales: torch.Tensor, *,
@@ -436,17 +528,22 @@ class Model:
         layers = _index(cache["layers"], torch.clone)
         lk = dict(lora_scale=scales, lora_rank=lora_rank)
         for li in range(cfg.num_layers):
+            g, i = divmod(li, self.group_size)
             x = self._block_decode(self._layer(base, lora_c, li), x,
-                                   _index(layers, lambda t: t[li]),
+                                   _index(self._sub(layers, i),
+                                          lambda t: t[g]),
                                    cache_len, positions, li, lk)
         return self._logits(base, x), {"layers": layers,
                                        "len": cache_len + 1}
 
     def train_loss_clients(self, base: dict, lora_c: dict, batch: dict,
                            scales: torch.Tensor, *, lora_rank: int = -1):
-        """Per-client masked cross-entropy: (loss (C,), metrics of (C,))."""
-        logits = self.forward_clients(base, lora_c, batch, scales,
-                                      lora_rank=lora_rank).float()
+        """Per-client masked cross-entropy plus the client's MoE aux loss:
+        (loss (C,), metrics of (C,): "loss" without the aux, "aux_loss",
+        "accuracy"), as the reference's ``train_loss``."""
+        logits, aux, _ = self.forward_seq_clients(base, lora_c, batch,
+                                                  scales, lora_rank=lora_rank)
+        logits = logits.float()
         targets = batch["targets"].long()
         mask = batch.get("loss_mask")
         if mask is None:
@@ -459,9 +556,8 @@ class Model:
         denom = torch.clamp(mask.sum(dim=red), min=1.0)
         loss = ((logz - gold) * mask).sum(dim=red) / denom
         acc = ((logits.argmax(-1) == targets).float() * mask).sum(dim=red)
-        metrics = {"loss": loss, "aux_loss": torch.zeros_like(loss),
-                   "accuracy": acc / denom}
-        return loss, metrics
+        metrics = {"loss": loss, "aux_loss": aux, "accuracy": acc / denom}
+        return loss + aux, metrics
 
     # -- single-model entry points (the reference's signatures) -------------------
 
@@ -488,12 +584,12 @@ class Model:
 
     def forward_seq(self, params: dict, batch: dict, *, mode: str = "train",
                     lora_rank: int = -1, lora_scale: float = 1.0):
-        """(logits (B, T, V), aux (0-d, no MoE), caches or None)."""
+        """(logits (B, T, V), aux (0-d), caches or None)."""
         base, lora_c, batch_c, scales = self._single(params, batch,
                                                      lora_scale)
-        logits, caches = self.forward_seq_clients(
+        logits, aux, caches = self.forward_seq_clients(
             base, lora_c, batch_c, scales, mode=mode, lora_rank=lora_rank)
-        return logits[0], torch.zeros((), device=self.device), caches
+        return logits[0], aux[0], caches
 
     def prefill(self, params: dict, batch: dict, *, lora_rank: int = -1,
                 lora_scale: float = 1.0):
@@ -525,7 +621,7 @@ class Model:
 
     def cache_shapes(self, batch_size: int, max_len: int) -> dict:
         cfg = self.cfg
-        g = cfg.num_layers
+        g = self.num_groups
         layers = {}
         if cfg.kind in ("ssm", "hybrid"):
             dims = ssd_dims(cfg.d_model, cfg.ssm)
@@ -534,11 +630,18 @@ class Model:
             layers["ssm"] = CacheSpec((g, batch_size, dims["nheads"],
                                        dims["head_dim"], cfg.ssm.state_dim),
                                       torch.float32)
-        if cfg.kind != "ssm":
-            shape = (g, batch_size, self.cache_seq_len(max_len),
-                     cfg.num_kv_heads, cfg.resolved_head_dim)
+        s = (g, batch_size, self.cache_seq_len(max_len))
+        if cfg.mla is not None:
+            layers["ckv"] = CacheSpec(s + (cfg.mla.kv_lora_rank,),
+                                      self.dtype)
+            layers["krope"] = CacheSpec(s + (cfg.mla.qk_rope_head_dim,),
+                                        self.dtype)
+        elif cfg.kind != "ssm":
+            shape = s + (cfg.num_kv_heads, cfg.resolved_head_dim)
             layers["k"] = CacheSpec(shape, self.dtype)
             layers["v"] = CacheSpec(shape, self.dtype)
+        if self.group_size > 1:
+            layers = {f"sub{i}": layers for i in range(self.group_size)}
         return {"layers": layers, "len": CacheSpec((), torch.int32)}
 
     def init_cache(self, batch_size: int, max_len: int) -> dict:

@@ -1,6 +1,7 @@
 """Card-only checks of the port's hand-written CUDA kernels (K1-K7), of
 the round and of the serving engines (qwen2 with K4, mamba2 with K6,
-hymba with both) on the card. They skip without CUDA (the kernels have no CPU mode)
+hymba with both) on the card, and of the MLA / MoE models there
+(``-k moe``, ``-k mla``). They skip without CUDA (the kernels have no CPU mode)
 and import nothing of JAX, so they run on a GPU machine without it:
 
     PYTHONPATH=src python -m pytest --noconftest tests/test_torch_cuda.py
@@ -1154,3 +1155,122 @@ def test_cuda_variants_round_matches_cpu(cuda_device, variant, engine):
                                    (val[0] @ val[1]).numpy(),
                                    atol=2e-3 * scale)
     assert mags == (6 if variant == "dora" else 0)
+
+
+def _router_margin(fn):
+    """Run ``fn`` and return the smallest gap between a token's k-th and
+    (k+1)-th router probability of the port's MoE layers in it."""
+    from repro_torch.models.layers import moe
+    gaps, inner = [], moe.router_topk
+
+    def recording(logits, top_k):
+        probs = torch.sort(torch.softmax(logits.float(), -1), -1,
+                           descending=True).values
+        gaps.append(float((probs[..., top_k - 1] - probs[..., top_k]).min()))
+        return inner(logits, top_k)
+    moe.router_topk = recording
+    try:
+        out = fn()
+    finally:
+        moe.router_topk = inner
+    return out, min(gaps)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["deepseek-v2-236b",
+                                  "llama4-maverick-400b-a17b"],
+                         ids=["moe-mla-deepseek", "moe-llama4"])
+def test_cuda_moe_mla_forward_matches_cpu(cuda_device, name):
+    """The reduced model (8 experts; DeepSeek's MLA, Llama-4's dense /
+    MoE layer groups) on the card and on the CPU from the same weights:
+    logits within atol 1e-4, rtol 1e-4 and the aux loss at rtol 1e-5,
+    with the CPU router's smallest top-k margin above 1e-4 (a near-tie may
+    route differently on the two devices)."""
+    from repro_torch.configs import LoRAConfig, get_config
+    from repro_torch.core.lora import flatten, unflatten
+    from repro_torch.models.transformer import Model
+    cfg = get_config(name).reduced(d_model=64, max_experts=8)
+    lora = LoRAConfig(rank_levels=(4, 8, 16))
+    params = Model(cfg, lora, device="cpu").init(
+        torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(1)
+    params = unflatten({p: (0.05 * torch.randn(t.shape, generator=gen)
+                            if p[-1] == "lora_b" else t)
+                        for p, t in flatten(params).items()})
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (2, 16),
+                                     generator=gen)}
+    (want, want_aux, _), margin = _router_margin(
+        lambda: Model(cfg, lora, device="cpu").forward_seq(params, batch))
+    assert margin > 1e-4, margin
+    got, aux, _ = Model(cfg, lora, device="cuda").forward_seq(
+        unflatten({p: t.cuda() for p, t in flatten(params).items()}), batch)
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(aux.cpu(), want_aux, atol=0, rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("top_k", [1, 6])
+def test_cuda_moe_sorted_dispatch_matches_dense_oracle(cuda_device, top_k):
+    """``moe_apply`` (the sorted dispatch, one product a non-empty expert)
+    on the card against ``moe_apply_dense`` (every token through every
+    expert) on the same card inputs, 3 clients x 40 tokens, 16 experts of
+    width 96 plus a shared expert: within atol 1e-5, rtol 1e-4; the aux
+    equal; one host sync a call."""
+    from repro_torch.configs import ACT_SWIGLU, MoEConfig
+    from repro_torch.models.layers import moe
+    cfg = MoEConfig(num_experts=16, top_k=top_k, num_shared_experts=1,
+                    expert_d_ff=96, shared_d_ff=96)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    params = moe.moe_init(gen, 128, cfg, ACT_SWIGLU, device="cuda")
+    x = torch.randn(3, 40, 128, generator=gen, device="cuda")
+    syncs = moe.moe_apply.host_syncs
+    out, aux = moe.moe_apply(params, x, cfg, ACT_SWIGLU)
+    assert moe.moe_apply.host_syncs == syncs + 1
+    want, want_aux = moe.moe_apply_dense(params, x, cfg, ACT_SWIGLU)
+    torch.testing.assert_close(out, want, atol=1e-5, rtol=1e-4)
+    torch.testing.assert_close(aux, want_aux, atol=0, rtol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_mla_moe_engine_matches_cpu(cuda_device):
+    """A reduced DeepSeek-V2 engine on the card with ``use_kernels=True``
+    and on the CPU from the same weights, with ragged slots (slot 1
+    admitted later with a shorter prompt): equal greedy tokens, the
+    compressed cache {"ckv", "krope"}, and no K4 launch (MLA's
+    projections and the experts take the plain route, as the
+    reference's)."""
+    from repro_torch.configs import LoRAConfig, get_config
+    from repro_torch.core.lora import flatten, unflatten
+    from repro_torch.models.transformer import Model
+    from repro_torch.serving import AdapterStore, ServingEngine
+    cfg = get_config("deepseek-v2-236b").reduced(d_model=64, max_experts=8)
+    lora = LoRAConfig(rank_levels=(4, 8, 16))
+    params = Model(cfg, lora, device="cpu").init(
+        torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(1)
+    tenants = {name: unflatten({
+        path: 0.05 * torch.randn(t.shape, generator=gen)
+        for path, t in flatten(params).items()
+        if path[-1] in ("lora_a", "lora_b")}) for name in ("hi", "lo")}
+    p0 = torch.randint(0, cfg.vocab_size, (1, 12), generator=gen)
+    p1 = torch.randint(0, cfg.vocab_size, (1, 7), generator=gen)
+    runs = []
+    for dev, kern in (("cuda", True), ("cpu", False)):
+        move = lambda tree: unflatten(  # noqa: E731
+            {p: t.to(dev) for p, t in flatten(tree).items()})
+        store = AdapterStore(lora.rank_levels)
+        store.put("hi", move(tenants["hi"]), 16)
+        store.put("lo", move(tenants["lo"]), 4)
+        store.publish()
+        eng = ServingEngine(Model(cfg, lora, device=dev, use_kernels=kern),
+                            move(params), store, max_len=20, slots=2)
+        before = la.batched_lora_apply.launches
+        toks = [eng.admit([0], p0, ["hi"]).cpu(),
+                eng.decode([True, False]).cpu(),
+                eng.admit([1], p1, ["lo"]).cpu()]
+        for _ in range(4):
+            toks.append(eng.decode([True, True]).cpu())
+        assert la.batched_lora_apply.launches == before
+        assert set(eng.cache["layers"]) == {"ckv", "krope"}
+        runs.append(torch.cat([t.reshape(-1) for t in toks]))
+    torch.testing.assert_close(runs[0], runs[1], rtol=0, atol=0)

@@ -15,8 +15,10 @@ MODULES = [
     "repro_torch",
     "repro_torch.checkpointing", "repro_torch.checkpointing.checkpoint",
     "repro_torch.configs", "repro_torch.configs.base",
+    "repro_torch.configs.deepseek_v2_236b",
     "repro_torch.configs.gemma_2b", "repro_torch.configs.granite_3_8b",
     "repro_torch.configs.hubert_xlarge", "repro_torch.configs.hymba_1p5b",
+    "repro_torch.configs.llama4_maverick_400b_a17b",
     "repro_torch.configs.mamba2_1p3b", "repro_torch.configs.nemotron_4_340b",
     "repro_torch.configs.paper_models", "repro_torch.configs.qwen2_7b",
     "repro_torch.configs.qwen2_vl_7b",
@@ -39,7 +41,8 @@ MODULES = [
     "repro_torch.kernels.ssd_scan", "repro_torch.kernels.tf32x3",
     "repro_torch.models", "repro_torch.models.transformer",
     "repro_torch.models.layers.attention", "repro_torch.models.layers.dense",
-    "repro_torch.models.layers.mlp", "repro_torch.models.layers.norms",
+    "repro_torch.models.layers.mla", "repro_torch.models.layers.mlp",
+    "repro_torch.models.layers.moe", "repro_torch.models.layers.norms",
     "repro_torch.models.layers.rope", "repro_torch.models.layers.ssd",
     "repro_torch.optim", "repro_torch.optim.adamw",
     "repro_torch.optim.schedules",
@@ -172,15 +175,18 @@ def test_ported_options_build(kw):
     assert len(exp.server.history) == 1
 
 
-@pytest.mark.parametrize("change", [dict(moe=object()), dict(mla=object())],
-                         ids=["moe", "mla"])
-def test_unported_model_options_name_their_roadmap_item(change):
-    import dataclasses
+@pytest.mark.parametrize("kw", [dict(moe_impl="ep"),
+                                dict(moe_capacity_factor=1.25)],
+                         ids=["moe_impl_ep", "moe_capacity_factor"])
+def test_unported_model_options_name_their_roadmap_item(kw):
+    """The reference's expert-parallel MoE dispatch and its capacity
+    factor (a shard_map distribution hook) are refused by name."""
     from repro_torch.configs.base import LoRAConfig, get_config
     from repro_torch.models.transformer import Model
-    cfg = dataclasses.replace(get_config("qwen2-7b").reduced(), **change)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-        Model(cfg, LoRAConfig(), device="cpu")
+    cfg = get_config("deepseek-v2-236b").reduced()
+    with pytest.raises(NotImplementedError,
+                       match="ROADMAP.md queue 1 item 10"):
+        Model(cfg, LoRAConfig(), device="cpu", **kw)
 
 
 @pytest.mark.parametrize("change,variant", [
@@ -188,16 +194,21 @@ def test_unported_model_options_name_their_roadmap_item(change):
     (dict(attn_type="sliding", sliding_window=64), "lora"),
     (dict(rope_type="mrope", mrope_sections=(8, 12, 12)), "lora"),
     (dict(kind="hybrid", ssm="ssm"), "lora"),
-    (dict(logit_softcap=30.0), "lora"), (dict(name="gemma-2b-reduced"), "lora")],
+    (dict(logit_softcap=30.0), "lora"), (dict(name="gemma-2b-reduced"), "lora"),
+    (dict(model="deepseek-v2-236b"), "dora"),
+    (dict(model="llama4-maverick-400b-a17b"), "lora")],
     ids=["frontend-free-encoder", "dora", "qlora", "sliding", "mrope",
-         "hybrid", "softcap", "gemma"])
+         "hybrid", "softcap", "gemma", "deepseek", "llama4"])
 def test_ported_model_options_build(change, variant):
     """Options item 10 lifted build and run a forward: a frontend-free
     encoder (RoBERTa-base's path), the DoRA and QLoRA variants (DoRA
     adds a magnitude next to each of the reduced qwen2's q/k/v/o
     adapters), a sliding window, M-RoPE, a hybrid SSD mixer beside
-    attention, the attention softcap and Gemma's embedding scale (held to
-    the reference in test_torch_model_families.py)."""
+    attention, the attention softcap, Gemma's embedding scale, and the
+    MLA and MoE models: DeepSeek-V2 under DoRA (a magnitude next to each
+    of its q, kv_a and o adapters) and Llama-4 in layer groups (held to
+    the reference in test_torch_model_families.py and
+    test_torch_moe_mla.py)."""
     import dataclasses
     from repro_torch.configs.base import LoRAConfig, SSMConfig, get_config
     from repro_torch.core.lora import flatten
@@ -205,13 +216,18 @@ def test_ported_model_options_build(change, variant):
     if change.get("ssm") == "ssm":
         change = dict(change, ssm=SSMConfig(state_dim=16, head_dim=32,
                                             chunk_size=32))
-    cfg = dataclasses.replace(get_config("qwen2-7b").reduced(), **change)
+    change = dict(change)
+    cfg = get_config(change.pop("model", "qwen2-7b")).reduced()
+    cfg = dataclasses.replace(cfg, **change)
     model = Model(cfg, dataclasses.replace(LoRAConfig(), variant=variant),
                   device="cpu")
     params = model.init(torch.Generator().manual_seed(0))
     mags = [p for p in flatten(params) if p[-1] == "lora_m"]
-    assert len(mags) == (4 if variant == "dora" else 0)
+    assert len(mags) == (len(cfg.lora_targets) if variant == "dora" else 0)
     assert ("ssm" in params["layers"]) == (cfg.kind == "hybrid")
+    if cfg.moe is not None and cfg.moe.moe_layer_period > 1:
+        assert set(params["layers"]) == {"sub0", "sub1"}
+        assert "moe" in params["layers"]["sub1"]
     tokens = torch.zeros(1, 4, dtype=torch.int32)
     logits = model.forward_seq(params, {"tokens": tokens})[0]
     assert logits.shape == (1, 4, cfg.vocab_size)
