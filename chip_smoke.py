@@ -89,7 +89,10 @@ JAX. Phases, each printing one JSON line:
                   K1/K2 once per bucket a kernel-backend round at d 64,
                   ranks 4/8/16, on its batched and its sharded server
                   (a one-rank NCCL group), each distinct call shape held
-                  to its plain version), every CSV row and its ms.
+                  to its plain version; the serving latency study at the
+                  reference's grid (batch 2/4 x adapters 1/4 x swap 0/4,
+                  reduced gemma-2b), its virtual rows equal to the same
+                  cells on the CPU), every CSV row and its ms.
 4e. round_sharded_vit_base  main path 7, in a child process with
                   cuBLAS's split-K off: the sharded round engine at phase
                   4's setup (kernel backend, f32). (a) world 1 on NCCL, 3
@@ -138,6 +141,16 @@ JAX. Phases, each printing one JSON line:
                   must equal the same engine's plain path on the card;
                   then two more prefills of each engine, in turns, and
                   one profiled prefill of each (device time).
+    serve_batcher_qwen2_7b  main path 15, on phase 6's model and weights
+                  before they are freed: the continuous batcher over a
+                  4-slot engine (K4), 10 requests of 32-token prompts and
+                  16 new tokens over tenants at ranks 16/8/4, arrivals
+                  0.02 i virtual s, lognormal(0.02, 0.25) latency, costs
+                  0.01 / 0.05: all complete, 4 requests equal to an
+                  isolated engine, a hot swap after 8 steps with one
+                  version per engine call, stats bit-equal to a host stub
+                  engine's replay, K4 4 x 28 launches every engine call;
+                  steps, virtual p50 / p95 / TTFT, wall ms a step.
 6a. serve_qwen2_vl_7b  main path 12, after Qwen2-7B is freed: Qwen2-VL-7B
                   (M-RoPE sections (16, 24, 24), vision frontend stub) as
                   phase 6, K4 112 launches a call; then one image prefill,
@@ -179,7 +192,15 @@ JAX. Phases, each printing one JSON line:
                   K/V), one snapshot version a call, no K4 launch, each
                   slot's tokens held to a teacher-forced full forward;
                   call ms, host syncs (one per MoE layer), a profiled
-                  decode step, peak GiB.
+                  decode step, peak GiB. Then the expert-parallel
+                  dispatch on a world-1 NCCL ``make_host_mesh`` (destroyed
+                  after): a prefill of the 4 slots' prompts through
+                  ``Model(moe_impl="ep")`` dropless and at capacity 16 (no
+                  overflow) within 1e-5 of the tp path's logits; at
+                  capacity 1.25 finite logits, the dropped assignments,
+                  no host sync (CUDA's sync debug mode raising); layer
+                  0's MoE through ``moe_apply`` and the capacity dispatch
+                  profiled (device ms).
 8e. round_deepseek_v2  main path 14, in a child process with split-K off,
                   after the model above is freed: one raFLoRA round
                   (after an untimed one) of the same model, batched
@@ -286,8 +307,9 @@ PATHS = {"weighted_stack_b": ", ".join(K12_PATHS),
          "weighted_stack_a": ", ".join(K12_PATHS),
          "gram_left": ", ".join(K12_PATHS),
          "gram_right": ", ".join(K12_PATHS),
-         "batched_lora_apply": "serve_qwen2_7b, serve_qwen2_vl_7b, "
-                               "serve_gemma_2b, serve_hymba_1p5b",
+         "batched_lora_apply": "serve_qwen2_7b, serve_batcher_qwen2_7b, "
+                               "serve_qwen2_vl_7b, serve_gemma_2b, "
+                               "serve_hymba_1p5b",
          "ssd_scan": "bench_kernels, serve_mamba2_1p3b, serve_hymba_1p5b",
          "rank_partition_agg": "kernel_ops, bench_kernels",
          "rank_partition_agg_layered": "kernel_ops",
@@ -2249,9 +2271,10 @@ def phase_paper_benches(torch) -> dict:
     phase_kernels' tolerances) and bench_round_latency's ``run`` and
     ``run_kernel_backend`` (K1/K2 once per bucket a kernel-backend round
     of its batched and its sharded server, each distinct call held to the
-    plain versions). Each bench with its
-    counts set to 0 just
-    before and read just after. Its last line holds {kernel: {bench:
+    plain versions) and bench_serve_latency's ``run`` at the reference's
+    grid (8 cells of the reduced gemma-2b), whose virtual rows must equal
+    the same cells run on the CPU. Each bench with its counts set to 0
+    just before and read just after. Its last line holds {kernel: {bench:
     launches}} and each checked kernel's largest error."""
     import numpy as np
     from repro_torch.benchmarks import (bench_accuracy, bench_cost,
@@ -2419,6 +2442,34 @@ def phase_paper_benches(torch) -> dict:
             f"bench_round_latency: K1/K2 launches {got_k12}, calls "
             f"{capture.counts}, expected {want_k12}")
     by_bench["bench_round_latency"] = got_k12
+
+    # the serving latency study at the reference's grid on the card, and
+    # each of its cells again on the CPU (its ``run`` would rewrite the
+    # artifact): the virtual rows bit-equal
+    from repro_torch.benchmarks import bench_serve_latency
+    from repro_torch.core.lora import split_lora
+    res, launches, rows, secs = bench(
+        lambda: bench_serve_latency.run(device=DEV))
+    cfg_s, _, cpu_model = bench_serve_latency._build_model("cpu")
+    cpu_params = cpu_model.init(torch.Generator().manual_seed(0))
+    _, cpu_lora = split_lora(cpu_params)
+    t0 = time.perf_counter()
+    differ = []
+    for row in res["rows"]:
+        want = bench_serve_latency._run_cell(
+            cpu_model, cpu_params, cpu_lora, batch=row["batch"],
+            n_adapters=row["adapters"], swap_every=row["swap_every"],
+            vocab=cfg_s.vocab_size)
+        virtual = [k for k in want if k != "wall_s_context_only"]
+        if {k: row[k] for k in virtual} != {k: want[k] for k in virtual}:
+            differ.append((row, want))
+    emit({"phase": "paper_benches", "bench": "serve_latency", "rows": rows,
+          "seconds": secs, "cpu_seconds": time.perf_counter() - t0,
+          "launches": launches, "cells": res["rows"],
+          "virtual_rows_equal_cpu": not differ, "card": card_line()})
+    require(len(res["rows"]) == 8 and not differ,
+            f"bench_serve_latency: {len(res['rows'])} cells, card and CPU "
+            f"virtual rows differ at {differ}")
     last = {"phase": "paper_benches", "launches_by_bench": by_bench,
             "max_abs_err": {k: s["max_abs_err"] for k, s in summary.items()},
             "card": card_line()}
@@ -3385,8 +3436,8 @@ def _serve_full(torch, phase: str, cfg, prompt_len: int, kernels,
     and ``decode`` in each decode step. Then two more prefills of each
     engine in turns, and one more decode step and one more prefill of each
     engine under the profiler (``match``: the kernels' names, see
-    ``_profile``). ``after(eng, ref, gen)``, if given, runs last and its
-    dict joins the phase's line. Returns each wrapper's launches on the
+    ``_profile``). ``after(eng, ref, gen, params)``, if given, runs last
+    and its dict joins the phase's line. Returns each wrapper's launches on the
     main path, by name."""
     from repro_torch.configs import LoRAConfig
     from repro_torch.kernels import ops
@@ -3480,7 +3531,7 @@ def _serve_full(torch, phase: str, cfg, prompt_len: int, kernels,
     prof_prefill, prof_prefill_plain = (_profile(
         torch, lambda e=e: e.admit(range(SLOTS), prompts, slot_tenants),
         match) for e in (eng, ref))
-    extra = {} if after is None else after(eng, ref, gen)
+    extra = {} if after is None else after(eng, ref, gen, params)
 
     dec = [r["ms"] for r in steps[1:]]
     dec_plain = [r["plain_ms"] for r in steps[1:]]
@@ -3506,16 +3557,202 @@ def _serve_full(torch, phase: str, cfg, prompt_len: int, kernels,
     return launches
 
 
-def phase_serve_qwen2_7b(torch) -> int:
+def phase_serve_qwen2_7b(torch) -> dict:
     """Main path 2: Qwen2-7B, 32-token prompts, K4 on every q/k/v/o
-    projection (4 x 28 launches per engine call)."""
+    projection (4 x 28 launches per engine call); then main path 15, the
+    continuous batcher on the same model and weights before they are
+    freed (``phase_serve_batcher_qwen2_7b``). Returns K4's launches on
+    each path."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import lora_apply as la
     cfg = get_config("qwen2-7b")
     per_call = 4 * cfg.num_layers
-    return _serve_full(torch, "serve_qwen2_7b", cfg, PROMPT_LEN,
-                       [(la.batched_lora_apply, per_call, per_call)],
-                       "lora_")["batched_lora_apply"]
+    batcher = {}
+
+    def after(eng, ref, gen, params):
+        batcher.update(phase_serve_batcher_qwen2_7b(torch, eng.model, params,
+                                                    gen, per_call))
+        return {}
+
+    served = _serve_full(torch, "serve_qwen2_7b", cfg, PROMPT_LEN,
+                         [(la.batched_lora_apply, per_call, per_call)],
+                         "lora_", after=after)["batched_lora_apply"]
+    return {"serve_qwen2_7b": served, **batcher}
+
+
+# main path 15: the continuous batcher over the Qwen2-7B engine
+BATCH_REQUESTS = 10        # requests of PROMPT_LEN tokens, NEW_TOKENS each
+BATCH_ARRIVAL = 0.02       # virtual seconds between arrivals
+BATCH_SWAP_AFTER = 8       # scheduler steps before the hot swap of run (b)
+BATCH_ISOLATED = (0, 4, 8, 9)   # requests held to an isolated engine
+
+
+class _StubEngine:
+    """A host engine of ``slots`` slots whose tokens are all 0: the
+    batcher's virtual time depends only on arrivals, latency draws and
+    lengths, so its stats replay without the model."""
+
+    def __init__(self, slots: int):
+        self.slots = slots
+
+    def admit(self, slot_idx, prompts, adapter_ids):
+        return [0] * len(list(slot_idx))
+
+    def decode(self, active_mask):
+        return [0] * self.slots
+
+
+def phase_serve_batcher_qwen2_7b(torch, model, params, gen,
+                                 per_call: int) -> dict:
+    """Main path 15: ``ContinuousBatcher`` over a 4-slot ``ServingEngine``
+    on Qwen2-7B at full width in f32 (the model and weights of
+    serve_qwen2_7b, K4 on q/k/v/o): 10 requests of 32-token prompts and 16
+    new tokens over 3 tenants at ranks 16/8/4 (cycled), arrivals at 0.02 i
+    virtual s, lognormal(0.02, 0.25) latency draws, step and prefill costs
+    0.01 / 0.05. (a) No swap: all 10 complete, and requests 0, 4, 8 and 9
+    give the tokens of an isolated engine (4 slots, slot 0) on the card.
+    (b) Tenant t16 republished after 8 scheduler steps: one version per
+    engine call, both seen, none old after the publish. (c) Both runs'
+    ``stats()`` bit-equal to the same scenario over a host stub engine.
+    (d) K4 launches 4 x 28 times in every engine call (the main path's
+    count: run (a), reset just before and read just after). Steps, the
+    virtual p50 / p95 / TTFT, wall ms per step (context only), peak
+    GiB."""
+    import numpy as np
+    from repro_torch.federation.events import LognormalLatency
+    from repro_torch.kernels import lora_apply as la
+    from repro_torch.kernels import ops
+    from repro_torch.serving import (AdapterStore, ContinuousBatcher,
+                                     ServeRequest, ServingEngine)
+    cfg = model.cfg
+    torch.cuda.reset_peak_memory_stats()
+    store = AdapterStore((4, 8, 16))
+    tenants = ("t16", "t8", "t4")
+    for name, rank in zip(tenants, (16, 8, 4)):
+        store.put(name, _tenant_tree(torch, params, gen, DEV), rank)
+    store.publish()
+    prompts = torch.randint(0, cfg.vocab_size,
+                            (BATCH_REQUESTS, PROMPT_LEN), generator=gen,
+                            device=DEV)
+    max_len = PROMPT_LEN + NEW_TOKENS
+
+    def requests():
+        return [ServeRequest(rid=i, prompt=prompts[i],
+                             adapter_id=tenants[i % len(tenants)],
+                             max_new_tokens=NEW_TOKENS,
+                             arrival=BATCH_ARRIVAL * i)
+                for i in range(BATCH_REQUESTS)]
+
+    def run(engine, swap: bool):
+        """The scenario over ``engine``; each engine call's K4 launches
+        and the scheduler steps' wall ms."""
+        batcher = ContinuousBatcher(
+            engine, latency=LognormalLatency(0.02, 0.25, seed=0),
+            step_cost=0.01, prefill_cost=0.05)
+        for r in requests():
+            batcher.submit(r)
+        calls = []
+        for kind in ("admit", "decode"):
+            inner = getattr(engine, kind)
+
+            def logged(*a, _inner=inner, **k):
+                before = la.batched_lora_apply.launches
+                out = _inner(*a, **k)
+                calls.append(la.batched_lora_apply.launches - before)
+                return out
+            setattr(engine, kind, logged)
+        step_ms, publish_at = [], None
+        while batcher.queue or any(batcher.slots):
+            if swap and batcher.steps == BATCH_SWAP_AFTER:
+                store.put("t16", _tenant_tree(torch, params, gen, DEV), 16)
+                store.publish()
+                publish_at = len(calls)
+            if batcher.queue and not any(batcher.slots) \
+                    and batcher.queue[0].arrival > batcher.clock.now:
+                batcher.clock.advance(batcher.queue[0].arrival)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            batcher.step()
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t) * 1e3)
+        return batcher, calls, step_ms, publish_at
+
+    eng = ServingEngine(model, params, store, max_len=max_len, slots=SLOTS)
+    ops.reset_launches()          # main path 15's count starts here
+    ba, calls_a, ms_a, _ = run(eng, swap=False)
+    launches = la.batched_lora_apply.launches    # read just after
+    stats_a = ba.stats()
+    require(stats_a["completed"] == BATCH_REQUESTS and not ba.queue,
+            f"serve_batcher_qwen2_7b: {stats_a['completed']} of "
+            f"{BATCH_REQUESTS} requests completed")
+    require(all(len(r.tokens) == NEW_TOKENS for r in ba.done),
+            "serve_batcher_qwen2_7b: a request's length is off")
+    require(len(calls_a) == len(eng.version_log)
+            and all(n == per_call for n in calls_a)
+            and launches == per_call * len(calls_a),
+            f"serve_batcher_qwen2_7b: K4 launched {calls_a} per engine "
+            f"call ({launches} in all), expected {per_call} each")
+    # (a) requests against an isolated engine, slot 0 of 4
+    done = {r.rid: r for r in ba.done}
+    mask = np.zeros(SLOTS, bool)
+    mask[0] = True
+    isolated = {}
+    for rid in BATCH_ISOLATED:
+        req = done[rid]
+        iso = ServingEngine(model, params, store, max_len=max_len,
+                            slots=SLOTS)
+        toks = [int(iso.admit([0], prompts[rid][None],
+                              [req.adapter_id])[0])]
+        for _ in range(NEW_TOKENS - 1):
+            toks.append(int(iso.decode(mask)[0]))
+        isolated[rid] = toks == req.tokens
+        require(isolated[rid], f"serve_batcher_qwen2_7b: request {rid} "
+                               f"gave {req.tokens} batched and {toks} alone")
+    # (b) one hot swap after BATCH_SWAP_AFTER steps
+    eng_b = ServingEngine(model, params, store, max_len=max_len,
+                          slots=SLOTS)
+    bb, calls_b, ms_b, publish_at = run(eng_b, swap=True)
+    log = eng_b.version_log
+    old, new = log[0], store.published.version
+    require(publish_at is not None and len(log) == len(calls_b)
+            and log == [old] * publish_at + [new] * (len(log) - publish_at)
+            and 0 < publish_at < len(log),
+            f"serve_batcher_qwen2_7b: version log {log}, publish before "
+            f"call {publish_at}")
+    require(all(n == per_call for n in calls_b),
+            f"serve_batcher_qwen2_7b: K4 launched {calls_b} per call of "
+            f"the swap run")
+    stats_b = bb.stats()
+    # (c) the stats replayed over a host stub engine
+    for label, stats in (("no swap", stats_a), ("swap", stats_b)):
+        stub = ContinuousBatcher(
+            _StubEngine(SLOTS), latency=LognormalLatency(0.02, 0.25, seed=0),
+            step_cost=0.01, prefill_cost=0.05)
+        for r in requests():
+            stub.submit(r)
+        stub.run()
+        require(stub.stats() == stats,
+                f"serve_batcher_qwen2_7b ({label}): stats {stats} against "
+                f"the stub's {stub.stats()}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    emit({"phase": "serve_batcher_qwen2_7b", "model": cfg.name,
+          "slots": SLOTS, "requests": BATCH_REQUESTS,
+          "prompt_len": PROMPT_LEN, "new_tokens": NEW_TOKENS,
+          "steps": int(stats_a["steps"]), "engine_calls": len(calls_a),
+          "k4_launches": launches, "k4_launches_per_call": per_call,
+          "virtual_p50_s": stats_a["virtual_p50_s"],
+          "virtual_p95_s": stats_a["virtual_p95_s"],
+          "virtual_ttft_p50_s": stats_a["virtual_ttft_p50_s"],
+          "virtual_throughput_tok_per_s":
+              stats_a["virtual_throughput_tok_per_s"],
+          "stats": stats_a, "stats_equal_stub": True,
+          "wall_ms_per_step_context_only": sum(ms_a) / len(ms_a),
+          "wall_ms_per_step_swap_run": sum(ms_b) / len(ms_b),
+          "isolated_equal": isolated,
+          "swap": {"publish_before_call": publish_at, "calls": len(log),
+                   "versions": sorted(set(log))},
+          "peak_mem_gib": peak, "card": card_line()})
+    return {"serve_batcher_qwen2_7b": launches}
 
 
 def phase_serve_mamba2_1p3b(torch) -> int:
@@ -3593,7 +3830,7 @@ def phase_serve_qwen2_vl_7b(torch) -> int:
     cfg = get_config("qwen2-vl-7b")
     per_call = 4 * cfg.num_layers
 
-    def image_prefill(eng, ref, gen):
+    def image_prefill(eng, ref, gen, params):
         patches, text = VL_GRID * VL_GRID, PROMPT_LEN
         embeds = torch.randn(SLOTS, 1, patches, cfg.frontend.embed_dim,
                              generator=gen, device=DEV)
@@ -3710,9 +3947,10 @@ def phase_serve_deepseek_v2(torch) -> dict:
     for name, rank in {"t16": 16, "t8": 8, "t4": 4}.items():
         store.put(name, _tenant_tree(torch, params, gen, DEV), rank)
     store.publish()
-    prompts = torch.randint(0, cfg.vocab_size, (SLOTS, PROMPT_LEN),
-                            generator=gen, device=DEV)
-    prompts = [prompts[i] for i in range(3)] + [prompts[3, :DS_LATE_PROMPT]]
+    full_prompts = torch.randint(0, cfg.vocab_size, (SLOTS, PROMPT_LEN),
+                                 generator=gen, device=DEV)
+    prompts = [full_prompts[i] for i in range(3)] + [
+        full_prompts[3, :DS_LATE_PROMPT]]
     tenants = ["t16", "t8", "t4", "t8"]
     max_len = PROMPT_LEN + NEW_TOKENS + 1
     eng = ServingEngine(model, params, store, max_len=max_len, slots=SLOTS)
@@ -3795,6 +4033,7 @@ def phase_serve_deepseek_v2(torch) -> dict:
     dec = [r["ms"] for r in rows if r["kind"] == "decode"
            and r["slot_len"][3] > 0]
     dec_ms = sum(dec) / len(dec)
+    ep = _deepseek_ep(torch, eng, full_prompts, tenants)
     emit({"phase": "serve_deepseek_v2", "model": cfg.name,
           "layers": f"{cfg.num_layers} of 60",
           "params": sum(t.numel() for t in _leaves(params)),
@@ -3812,8 +4051,132 @@ def phase_serve_deepseek_v2(torch) -> dict:
           "peak_mem_gib": peak, "version_log": eng.version_log,
           "k4_launches": k4_launches, "ragged_slot_len": ragged,
           "teacher_forced": checks, "profiled_decode": prof_decode,
-          "calls": rows, "card": card_line()})
+          "expert_parallel": ep, "calls": rows, "card": card_line()})
     return {"k4_launches": k4_launches}
+
+
+EP_TOL = 1e-5              # EP prefill logits against the "tp" path's
+EP_NO_OVERFLOW = 16.0      # a capacity factor no expert overflows here
+EP_CAPACITY = 1.25         # a capacity factor that drops assignments
+
+
+def _deepseek_ep(torch, eng, prompts, tenants) -> dict:
+    """The expert-parallel dispatch on DeepSeek-V2 at full width (the
+    engine's model and weights; ``Model(moe_impl="ep")`` on a world-1
+    NCCL ``make_host_mesh``, made here and destroyed): one prefill of the
+    4 slots' 32-token prompts under their tenants' pages through the
+    "tp" model, the dropless EP model and the capacity dispatch at
+    factors 16 (no expert overflows: asserted) and 1.25. The first two EP
+    prefills' logits within ``EP_TOL`` of tp's; at 1.25 finite logits,
+    the dropped assignments counted, no host sync (none counted, and CUDA's
+    sync debug mode set to raise inside every ``moe_apply_ep`` call).
+    Then layer 0's MoE input through ``moe_apply`` and through the
+    capacity dispatch at 1.25, each profiled once after a warm-up call:
+    device ms, wall ms and idle share."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import transformer as tr
+    from repro_torch.models.layers import moe
+    from repro_torch.serving.engine import _gather
+    cfg = eng.model.cfg
+    require(not dist.is_initialized(),
+            "serve_deepseek_v2 ep: a process group exists already")
+    mesh = make_host_mesh(device=DEV)
+    inner_tp, inner_ep = tr.moe_apply, tr.moe_apply_ep
+    inner_cap = moe._expert_ffn_capacity
+    moe_inputs, groups = [], []
+
+    def capture(p, x, *a, **k):
+        moe_inputs.append((p, x))
+        return inner_tp(p, x, *a, **k)
+
+    def strict(*a, **k):
+        if not k.get("capacity_factor"):
+            return inner_ep(*a, **k)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return inner_ep(*a, **k)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    def recording(sorted_tokens, group_sizes, params, activation, capacity):
+        groups.append((group_sizes, capacity))
+        return inner_cap(sorted_tokens, group_sizes, params, activation,
+                         capacity)
+
+    snap = eng.store.published
+    pages = _gather(snap.pages, snap.page_ids(tenants))
+    batch = {"tokens": prompts[:, None].to(torch.int32)}
+    scales = torch.ones(len(tenants), device=DEV)
+
+    def prefill(model):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with torch.no_grad():
+            out = model.prefill_clients(eng.base, pages, batch, scales)[0]
+        torch.cuda.synchronize()
+        return out[:, 0], (time.perf_counter() - t) * 1e3
+
+    out = {"mesh": list(mesh.shape), "backend": dist.get_backend(),
+           "tokens": prompts.numel(), "tol": EP_TOL}
+    tr.moe_apply, tr.moe_apply_ep = capture, strict
+    moe._expert_ffn_capacity = recording
+    try:
+        want, out["tp_ms"] = prefill(eng.model)
+        for label, factor in (("dropless", 0.0),
+                              ("no_overflow", EP_NO_OVERFLOW),
+                              ("capacity", EP_CAPACITY)):
+            model = tr.Model(cfg, eng.model.lora, device=DEV,
+                             use_kernels=True, moe_impl="ep", mesh=mesh,
+                             moe_capacity_factor=factor)
+            groups.clear()
+            syncs = moe.moe_apply.host_syncs
+            got, ms = prefill(model)
+            row = {"capacity_factor": factor, "ms": ms,
+                   "host_syncs": moe.moe_apply.host_syncs - syncs,
+                   "max_abs_diff_vs_tp": float((got - want).abs().max())}
+            if factor:
+                row["capacity"] = groups[0][1]
+                row["largest_group"] = max(int(g.max()) for g, _ in groups)
+                row["dropped_assignments"] = sum(
+                    int((g - c).clamp(min=0).sum()) for g, c in groups)
+                require(row["host_syncs"] == 0 and len(groups) ==
+                        cfg.num_layers, f"serve_deepseek_v2 ep {label}: "
+                        f"{row['host_syncs']} host syncs, {len(groups)} "
+                        f"capacity dispatches")
+            out[label] = row
+            require(bool(torch.isfinite(got).all()),
+                    f"serve_deepseek_v2 ep {label}: non-finite logits")
+        for label in ("dropless", "no_overflow"):
+            require(out[label]["max_abs_diff_vs_tp"] <= EP_TOL,
+                    f"serve_deepseek_v2 ep {label}: logits "
+                    f"{out[label]['max_abs_diff_vs_tp']} off tp's")
+        require(out["no_overflow"]["dropped_assignments"] == 0,
+                f"serve_deepseek_v2 ep: {out['no_overflow']} overflowed")
+        require(out["capacity"]["dropped_assignments"] > 0,
+                f"serve_deepseek_v2 ep: nothing dropped at {EP_CAPACITY}")
+        tr.moe_apply, tr.moe_apply_ep = inner_tp, inner_ep
+        moe._expert_ffn_capacity = inner_cap
+        # layer 0's MoE input through both dispatches, profiled
+        p0, x0 = moe_inputs[0]
+        calls = {"moe_apply": lambda: moe.moe_apply(p0, x0, cfg.moe,
+                                                    cfg.activation),
+                 "moe_apply_ep_capacity": lambda: moe.moe_apply_ep(
+                     p0, x0, cfg.moe, cfg.activation, mesh,
+                     capacity_factor=EP_CAPACITY)}
+        out["moe_layer"] = {}
+        with torch.no_grad():
+            for name, fn in calls.items():
+                fn()
+                prof = _profile(torch, fn, ("gemm", "index", "sort"))
+                out["moe_layer"][name] = {k: prof[k] for k in (
+                    "wall_ms", "device_ms", "device_idle_share",
+                    "by_match")}
+    finally:
+        tr.moe_apply, tr.moe_apply_ep = inner_tp, inner_ep
+        moe._expert_ffn_capacity = inner_cap
+        dist.destroy_process_group()
+    return out
 
 
 PHASE_SECONDS: dict = {}
@@ -3924,8 +4287,10 @@ def main() -> int:
         k4_paths = by_path["batched_lora_apply"] = {}
         # each full model is freed before the next (Qwen2-7B and
         # Qwen2-VL-7B hold 30.5 GB of f32 weights each)
-        for path, phase in (("serve_qwen2_7b", phase_serve_qwen2_7b),
-                            ("serve_qwen2_vl_7b", phase_serve_qwen2_vl_7b),
+        k4_paths.update(phase_serve_qwen2_7b(torch))
+        gc.collect()
+        torch.cuda.empty_cache()
+        for path, phase in (("serve_qwen2_vl_7b", phase_serve_qwen2_vl_7b),
                             ("serve_gemma_2b", phase_serve_gemma_2b)):
             k4_paths[path] = phase(torch)
             gc.collect()

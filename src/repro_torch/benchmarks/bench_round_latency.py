@@ -48,7 +48,7 @@ import numpy as np
 
 import torch
 
-from repro_torch.benchmarks.common import emit, sync
+from repro_torch.benchmarks.common import emit, merge_artifact, sync
 from repro_torch.device import resolve_device
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.dirname(
@@ -59,15 +59,7 @@ ARTIFACT = os.path.join(ROOT, "build", "bench_torch", "round_latency.json")
 def _merge_artifact(update: dict) -> dict:
     """Read-modify-write the shared JSON artifact so the studies never
     clobber each other."""
-    result = {}
-    if os.path.exists(ARTIFACT):
-        with open(ARTIFACT) as f:
-            result = json.load(f)
-    result.update(update)
-    os.makedirs(os.path.dirname(ARTIFACT), exist_ok=True)
-    with open(ARTIFACT, "w") as f:
-        json.dump(result, f, indent=2)
-    return result
+    return merge_artifact(ARTIFACT, update)
 
 
 def _make(engine: str, *, rounds: int, d_model: int, batches_per_round: int,

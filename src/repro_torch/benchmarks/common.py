@@ -10,6 +10,8 @@ has finished (``torch.cuda.synchronize``, the counterpart of
 """
 from __future__ import annotations
 
+import json
+import os
 import time
 from typing import Callable, List, Optional
 
@@ -24,6 +26,20 @@ def emit(name: str, us_per_call: float, derived, **extra) -> dict:
     ROWS.append(row)
     print(f"{name},{us_per_call:.1f},{derived}")
     return row
+
+
+def merge_artifact(path: str, update: dict) -> dict:
+    """Read-modify-write the JSON artifact at ``path`` so studies that
+    share it never clobber each other; returns the merged result."""
+    result = {}
+    if os.path.exists(path):
+        with open(path) as f:
+            result = json.load(f)
+    result.update(update)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(result, f, indent=2)
+    return result
 
 
 def sync() -> None:

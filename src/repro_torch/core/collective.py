@@ -1,7 +1,10 @@
 """The sharded round engine's collective over a 1-D ``("data",)`` mesh
 (``launch.mesh.make_fl_mesh``): each rank of the mesh holds one
 contiguous block of every client axis, and each of the reference's
-``jax.lax.psum`` reductions is one ``all_reduce`` here (DESIGN.md §5)."""
+``jax.lax.psum`` reductions is one ``all_reduce`` here (DESIGN.md §5).
+The expert-parallel MoE sums over the ``"model"`` axis of a
+``("data", "model")`` mesh (``launch.mesh.make_host_mesh``) through the
+same counted ``all_reduce``."""
 from __future__ import annotations
 
 import torch
@@ -29,11 +32,12 @@ def block(size: int, mesh: DeviceMesh) -> slice:
     return slice(lo, lo + width)
 
 
-def all_reduce(x: torch.Tensor, mesh: DeviceMesh) -> torch.Tensor:
-    """Sum ``x`` over the mesh's ranks, in place (the reference's
-    ``jax.lax.psum``); a failed collective raises. Counted in
+def all_reduce(x: torch.Tensor, mesh: DeviceMesh,
+               axis: str = AXIS) -> torch.Tensor:
+    """Sum ``x`` over the ranks of the mesh's ``axis``, in place (the
+    reference's ``jax.lax.psum``); a failed collective raises. Counted in
     ``all_reduce.calls``. Returns ``x``."""
-    dist.all_reduce(x, group=mesh.get_group(AXIS))
+    dist.all_reduce(x, group=mesh.get_group(axis))
     all_reduce.calls += 1
     return x
 

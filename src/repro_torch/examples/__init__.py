@@ -1,4 +1,3 @@
 """The reference's examples on the port (``python -m
 repro_torch.examples.quickstart [--device cpu]``, ``federated_finetune``,
-``rank_collapse_demo``). ``serve_finetuned`` waits for the continuous
-batcher (ROADMAP.md queue 1 item 11)."""
+``rank_collapse_demo``, ``serve_finetuned``)."""

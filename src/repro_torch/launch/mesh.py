@@ -1,5 +1,5 @@
-"""The sharded round engine's process mesh (port of
-``repro/launch/mesh.py::make_fl_mesh``).
+"""The port's process meshes (``repro/launch/mesh.py::make_fl_mesh`` and
+``make_host_mesh``).
 
 Each rank of a ``torch.distributed`` process group plays one shard of the
 reference's 1-D ``("data",)`` mesh: where the reference runs one
@@ -7,7 +7,8 @@ reference's 1-D ``("data",)`` mesh: where the reference runs one
 every rank here runs the same program on its own block of clients and
 reduces with ``all_reduce`` (``core/collective.py``, DESIGN.md §5). The
 reference's TPU partition specs (``sharding/specs.py``) have no
-counterpart.
+counterpart. ``make_host_mesh`` adds the reference's ``"model"`` axis,
+over which the expert-parallel MoE shards its experts.
 
 ``spawn_ranks`` starts a process group of ``world`` ranks on this host
 (the CPU tests' gloo ranks, the benches' shard sweeps); nothing on the
@@ -36,6 +37,26 @@ def default_backend(device) -> str:
     return "nccl" if torch.device(device).type == "cuda" else "gloo"
 
 
+def _process_group(dev: torch.device) -> None:
+    """Make a one-rank group over a local store if there is none, and
+    refuse an existing group whose backend does not fit ``dev`` (see
+    ``make_fl_mesh``); make ``dev`` the current CUDA device."""
+    want = default_backend(dev)
+    if not dist.is_initialized():
+        dist.init_process_group(want, store=dist.HashStore(), rank=0,
+                                world_size=1)
+    have = dist.get_backend()
+    shared_card = (have == "gloo" and dev.type == "cuda"
+                   and dist.get_world_size() > 1)
+    if have != want and not shared_card:
+        raise ValueError(f"the process group runs {have}; a "
+                         f"{dist.get_world_size()}-rank mesh on {dev} "
+                         f"needs {want}")
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev if dev.index is not None
+                              else torch.cuda.current_device())
+
+
 def make_fl_mesh(*, device=None) -> DeviceMesh:
     """The 1-D ``("data",)`` mesh of the sharded round engine over every
     rank of the process group. Every rank of the group must call it (a
@@ -58,22 +79,26 @@ def make_fl_mesh(*, device=None) -> DeviceMesh:
     device before the mesh: it never comes from the rank number, so
     several ranks may share one card."""
     dev = resolve_device(device)
-    want = default_backend(dev)
-    if not dist.is_initialized():
-        dist.init_process_group(want, store=dist.HashStore(), rank=0,
-                                world_size=1)
-    have = dist.get_backend()
-    shared_card = (have == "gloo" and dev.type == "cuda"
-                   and dist.get_world_size() > 1)
-    if have != want and not shared_card:
-        raise ValueError(f"the process group runs {have}; a "
-                         f"{dist.get_world_size()}-rank mesh on {dev} "
-                         f"needs {want}")
-    if dev.type == "cuda":
-        torch.cuda.set_device(dev if dev.index is not None
-                              else torch.cuda.current_device())
+    _process_group(dev)
     return DeviceMesh(dev.type, list(range(dist.get_world_size())),
                       mesh_dim_names=(AXIS,))
+
+
+def make_host_mesh(model_axis: int = 1, *, device=None) -> DeviceMesh:
+    """The 2-D ``("data", "model")`` mesh over every rank of the process
+    group (the reference's ``make_host_mesh``): ``world // model_axis``
+    rows of ``model_axis`` ranks, rank r at row ``r // model_axis``. The
+    expert-parallel MoE shards its experts over ``"model"``. The group is
+    made or checked as ``make_fl_mesh`` does (a one-rank group over a
+    local store if there is none; whoever made it destroys it)."""
+    dev = resolve_device(device)
+    _process_group(dev)
+    world = dist.get_world_size()
+    if world % model_axis:
+        raise ValueError(f"{world} ranks do not split into a model axis "
+                         f"of {model_axis}")
+    ranks = torch.arange(world).reshape(world // model_axis, model_axis)
+    return DeviceMesh(dev.type, ranks, mesh_dim_names=(AXIS, "model"))
 
 
 def _free_port() -> int:

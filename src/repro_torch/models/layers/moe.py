@@ -1,5 +1,6 @@
 """Mixture-of-experts FFN with a dropless sorted dispatch (port of
-``repro/models/layers/moe.py``, its default ``"tp"`` path).
+``repro/models/layers/moe.py``: its default ``"tp"`` path, and its
+expert-parallel ``"ep"`` path with the capacity dispatch).
 
 The router takes a softmax over the experts in f32 and keeps each token's
 top-k, renormalised; tokens are replicated k times, stably sorted by
@@ -18,6 +19,16 @@ The expert group sizes reach the host once a call (``moe_apply.host_syncs``
 counts them): the per-expert products need their row counts. The expert
 weights are base leaves and carry no adapter, as in the reference.
 
+``moe_apply_ep`` shards the experts over the ``"model"`` axis of a
+``("data", "model")`` mesh (``launch.mesh.make_host_mesh``): every rank
+of the axis holds the same tokens, routes them over all E experts,
+computes only its own E / model experts and one counted ``all_reduce``
+(``core/collective.py``) sums the ranks' outputs, the reference's
+``psum``. Dropless, it syncs the group sizes to the host as ``moe_apply``
+does; with ``capacity_factor > 0`` it runs ``_expert_ffn_capacity``:
+static shapes, group sizes kept on the device, no host sync, and the
+assignments past an expert's capacity dropped.
+
 ``moe_apply_dense`` runs every token through every expert, weighted by
 its routing (zero off its top-k): a plain oracle for the tests, on no
 path of the model.
@@ -30,6 +41,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import MoEConfig
+from repro_torch.core import collective
 from repro_torch.models.layers.dense import dense_init
 from repro_torch.models.layers.mlp import _act, is_gated, mlp_apply, mlp_init
 
@@ -61,9 +73,14 @@ def moe_init(gen: torch.Generator, d_model: int, cfg: MoEConfig,
 def router_topk(logits: torch.Tensor, top_k: int
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(..., N, E) logits -> (weights (..., N, k), experts (..., N, k),
-    aux (...)): the aux loss over the N tokens of each leading index."""
+    aux (...)): the aux loss over the N tokens of each leading index.
+    The top k are the first k of a stable descending sort, so tied
+    probabilities keep the lower expert first, as ``jax.lax.top_k``
+    does (``torch.topk`` leaves the order of ties open)."""
     probs = torch.softmax(logits.float(), dim=-1)
-    weights, experts = torch.topk(probs, top_k, dim=-1)
+    weights, experts = torch.sort(probs, dim=-1, descending=True,
+                                  stable=True)
+    weights, experts = weights[..., :top_k], experts[..., :top_k]
     weights = weights / torch.clamp(weights.sum(-1, keepdim=True), min=1e-9)
     e = logits.shape[-1]
     fraction = F.one_hot(experts, e).float().sum(-2).mean(-2)   # (..., E)
@@ -90,6 +107,67 @@ def _expert_ffn_sorted(tokens: torch.Tensor, group_sizes, params: dict,
             h = _act(activation, up)
         outs.append(h @ params["w_down"][e].to(dt))
     return torch.cat(outs)
+
+
+def _expert_ffn_capacity(sorted_tokens: torch.Tensor,
+                         group_sizes: torch.Tensor, params: dict,
+                         activation: str, capacity: int) -> torch.Tensor:
+    """Capacity-bounded grouped FFN (the reference's, §Perf iteration A).
+
+    sorted_tokens (Tk, d) are sorted by group, ``group_sizes`` (E,) the
+    row counts of the E experts of ``params`` on the device; rows after
+    the last group (the dispatch's trailing group of other ranks'
+    assignments) get no product and a zero output. Each expert's window
+    is ``starts[e] + arange(capacity)``, clamped to Tk - 1, its rows past
+    the group size zeroed before and after one batched (E, C, d) x (E, d,
+    f) product a weight, and the outputs are added back to their rows:
+    the rows past an expert's capacity are dropped (output zero). The
+    reference also runs the trailing group through an expert of zero
+    weights, whose output is zero; here it is not computed."""
+    tk, d = sorted_tokens.shape
+    dt = sorted_tokens.dtype
+    starts = torch.cumsum(group_sizes, 0) - group_sizes
+    offs = torch.arange(capacity, device=sorted_tokens.device)
+    valid = (offs[None, :] < group_sizes[:, None])[..., None].to(dt)
+    idx = torch.clamp(starts[:, None] + offs[None, :], max=tk - 1)
+    toks = sorted_tokens[idx] * valid                       # (E, C, d)
+    up = torch.bmm(toks, params["w_up"].to(dt))
+    if "w_gate" in params:
+        h = _act(activation, torch.bmm(toks, params["w_gate"].to(dt))) * up
+    else:
+        h = _act(activation, up)
+    out = torch.bmm(h, params["w_down"].to(dt)) * valid
+    return torch.zeros((tk, d), dtype=out.dtype,
+                       device=out.device).index_add(0, idx.reshape(-1),
+                                                    out.reshape(-1, d))
+
+
+class _ExpertSum(torch.autograd.Function):
+    """The sum over the expert axis with a gradient: the forward's
+    counted all-reduce, the backward the identity, which is the gradient
+    at one rank of the axis (``_expert_sum`` refuses more)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        return collective.all_reduce(x.clone(), mesh, axis)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None, None
+
+
+def _expert_sum(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """The reference's ``psum`` over ``axis``, one counted all-reduce. A
+    gradient through it at more than one rank raises: each rank's tokens
+    would also need the other ranks' gradients (the transpose of the
+    replicated input), which is not ported."""
+    if not (torch.is_grad_enabled() and x.requires_grad):
+        return collective.all_reduce(x, mesh, axis)
+    if mesh.shape[mesh.mesh_dim_names.index(axis)] > 1:
+        raise NotImplementedError(
+            "a gradient through the expert-parallel MoE over more than "
+            "one rank is not ported (ROADMAP.md queue 1 item 14)")
+    return _ExpertSum.apply(x, mesh, axis)
 
 
 def _route(params: dict, x: torch.Tensor, cfg: MoEConfig):
@@ -133,6 +211,71 @@ def moe_apply(params: dict, x: torch.Tensor, cfg: MoEConfig,
 
 
 moe_apply.host_syncs = 0
+
+
+def moe_apply_ep(params: dict, x: torch.Tensor, cfg: MoEConfig,
+                 activation: str, mesh, ep_axis: str = "model", *,
+                 batch_axes=("data",), capacity_factor: float = 0.0
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Expert-parallel MoE (DESIGN.md §5). x (C, ..., d) -> (out like x,
+    aux (C,)), as ``moe_apply``.
+
+    x is this rank's block of the batch over ``batch_axes``: ranks hold
+    their own tokens, so the data axes need no collective, and every rank
+    of ``ep_axis`` holds the same x. ``params`` hold all E experts; this
+    rank computes experts [i * E / n, (i + 1) * E / n) of the n ranks of
+    ``ep_axis``. Each assignment to another rank's expert goes to a
+    trailing group with weight 0, a stable sort orders the assignments
+    by local expert, and after the local products one all-reduce over
+    ``ep_axis`` sums the ranks' outputs. ``capacity_factor > 0`` takes
+    ``_expert_ffn_capacity`` at capacity ``int(capacity_factor * T * k /
+    E) + 1`` (T the tokens of the call, E the global expert count):
+    group sizes stay on the device and no host sync is made. Otherwise
+    the group sizes reach the host once (``moe_apply.host_syncs``)."""
+    xt, weights, experts, aux = _route(params, x, cfg)
+    d = xt.shape[-1]
+    flat_x = xt.reshape(-1, d)
+    t, k, e = flat_x.shape[0], cfg.top_k, cfg.num_experts
+    ranks = mesh.shape[mesh.mesh_dim_names.index(ep_axis)]
+    if e % ranks:
+        raise ValueError(f"{e} experts do not split over {ranks} ranks")
+    local_e = e // ranks
+    e_lo = mesh.get_local_rank(ep_axis) * local_e
+    flat_expert = experts.reshape(-1)
+    local = (flat_expert >= e_lo) & (flat_expert < e_lo + local_e)
+    local_expert = torch.where(local, flat_expert - e_lo, local_e)
+    w_masked = torch.where(local, weights.reshape(-1), 0.0)
+    token_idx = torch.arange(t * k, device=x.device) // k
+    order = torch.argsort(local_expert, stable=True)
+    rows = token_idx[order]
+    sorted_tokens = flat_x[rows]
+    w_sorted = w_masked[order]
+    p_local = {name: params[name][e_lo:e_lo + local_e]
+               for name in ("w_up", "w_gate", "w_down") if name in params}
+    if capacity_factor > 0:
+        cap = int(capacity_factor * (t * k) / e) + 1
+        group_sizes = torch.zeros(local_e + 1, dtype=torch.long,
+                                  device=x.device).scatter_add_(
+            0, local_expert, torch.ones_like(local_expert))
+        out_sorted = _expert_ffn_capacity(sorted_tokens,
+                                          group_sizes[:local_e], p_local,
+                                          activation, cap)
+    else:
+        group_sizes = torch.bincount(local_expert,
+                                     minlength=local_e + 1).tolist()
+        moe_apply.host_syncs += 1
+        n_local = sum(group_sizes[:local_e])
+        rows, w_sorted = rows[:n_local], w_sorted[:n_local]
+        out_sorted = (_expert_ffn_sorted(sorted_tokens[:n_local],
+                                         group_sizes[:local_e], p_local,
+                                         activation)
+                      if n_local else sorted_tokens[:0])
+    contrib = out_sorted * w_sorted[:, None].to(out_sorted.dtype)
+    combined = torch.zeros((t, d), dtype=out_sorted.dtype,
+                           device=x.device).index_add(0, rows, contrib)
+    combined = _expert_sum(combined, mesh, ep_axis)
+    out = combined.reshape(xt.shape) + _shared(params, xt, activation)
+    return out.reshape(x.shape), aux
 
 
 def moe_apply_dense(params: dict, x: torch.Tensor, cfg: MoEConfig,

@@ -27,9 +27,12 @@ are stacked in GROUPS of ``moe_layer_period``, ``params["layers"]
 ["sub{i}"]`` for layer ``g * period + i``, each leaf stacked over the G =
 L / period groups, and the caches' layer trees likewise; with period 1
 (every other model) the layer leaves sit under ``params["layers"]``
-directly, G = L. The reference's expert-parallel dispatch (``moe_impl=
-"ep"``, ``moe_capacity_factor``) is a distribution hook the port does not
-take yet (ROADMAP.md queue 1 item 10).
+directly, G = L. ``moe_impl="ep"`` takes the reference's expert-parallel
+dispatch (``moe_apply_ep``) over the ``"model"`` axis of ``mesh`` (without
+one, a ``launch.mesh.make_host_mesh()`` made at the first MoE layer, over
+a one-rank group if there is none, which stays until its caller destroys
+it), and ``moe_capacity_factor > 0`` its capacity dispatch; as in the
+reference, the default ``"tp"`` path ignores the capacity factor.
 
 The PEFT variants of the paper's Table 5 are applied after ``init`` on
 the stacked leaves, as the reference does: ``variant="dora"`` adds a
@@ -85,7 +88,7 @@ from repro_torch.models.layers.dense import (dense_apply, dense_init,
                                              quantize_dequantize)
 from repro_torch.models.layers.mla import mla_attention, mla_decode, mla_init
 from repro_torch.models.layers.mlp import mlp_apply, mlp_init
-from repro_torch.models.layers.moe import moe_apply, moe_init
+from repro_torch.models.layers.moe import moe_apply, moe_apply_ep, moe_init
 from repro_torch.models.layers.norms import rms_norm, rms_norm_init
 from repro_torch.models.layers.rope import apply_mrope, apply_rope
 from repro_torch.models.layers.ssd import (ssd_dims, ssd_init,
@@ -123,14 +126,14 @@ class Model:
     def __init__(self, cfg: ModelConfig, lora: Optional[LoRAConfig] = None,
                  *, device=None, dtype=torch.float32,
                  use_kernels: bool = False, moe_impl: str = "tp",
+                 mesh=None, batch_axes=("data",),
                  moe_capacity_factor: float = 0.0):
-        if moe_impl == "ep" or moe_capacity_factor > 0:
-            raise NotImplementedError(
-                "the expert-parallel MoE dispatch (moe_impl='ep') and its "
-                "capacity factor are not ported yet (ROADMAP.md queue 1 "
-                "item 10)")
-        if moe_impl != "tp":
+        if moe_impl not in ("tp", "ep"):
             raise ValueError(f"unknown moe_impl {moe_impl!r}")
+        self.moe_impl = moe_impl
+        self.mesh = mesh
+        self.batch_axes = batch_axes
+        self.moe_capacity_factor = moe_capacity_factor
         self.cfg = cfg
         self.lora = lora
         self.device = resolve_device(device)
@@ -311,9 +314,21 @@ class Model:
         x = x + mixed
         h2 = rms_norm(p["norm2"], x, eps=cfg.rms_norm_eps)
         if "moe" in p:
-            out, aux = moe_apply(p["moe"], h2, cfg.moe, cfg.activation)
+            out, aux = self._moe(p["moe"], h2)
             return x + out, aux * cfg.moe.router_aux_loss_coef
         return x + mlp_apply(p["mlp"], h2, cfg.activation, **lk), None
+
+    def _moe(self, p_moe: dict, h2: torch.Tensor):
+        """The MoE FFN by ``moe_impl``: (out, aux (C,))."""
+        cfg = self.cfg
+        if self.moe_impl == "ep":
+            if self.mesh is None:
+                from repro_torch.launch.mesh import make_host_mesh
+                self.mesh = make_host_mesh(device=self.device)
+            return moe_apply_ep(p_moe, h2, cfg.moe, cfg.activation,
+                                self.mesh, batch_axes=self.batch_axes,
+                                capacity_factor=self.moe_capacity_factor)
+        return moe_apply(p_moe, h2, cfg.moe, cfg.activation)
 
     def _mla_seq(self, p: dict, h: torch.Tensor, positions, lk: dict):
         """MLA over full sequences: (output, cache entry {"ckv", "krope"}

@@ -3,6 +3,10 @@
 port's batched engine it is held to. In a module of its own so the
 spawned ranks import neither JAX nor the reference package.
 
+Each rank also runs the expert-parallel MoE (``moe_ep_outputs``) on a
+("data", "model") mesh of one row of two ranks, the layer's 4 experts
+split 2 + 2, for ``test_torch_sharded.py`` to hold to one rank.
+
 The DoRA case carries each adapter's magnitude next to its factors,
 FedAvg'd with one all-reduce a magnitude. The sampled cohort is 5 clients, so at world 2 every round pads one ghost.
 Each case's round starts from the weights the reference's experiment of
@@ -10,12 +14,14 @@ that case drew (a numpy tree, ``weights[label]``).
 """
 import torch
 
+from repro_torch.configs.base import MoEConfig
 from repro_torch.convert import params_from_numpy
 from repro_torch.core import collective
 from repro_torch.core.lora import flatten
 from repro_torch.federation.experiment import build_experiment
 from repro_torch.federation.transport import TransportConfig
 from repro_torch.launch import mesh as fl_mesh
+from repro_torch.models.layers import moe
 
 SMALL = dict(fl_overrides={"num_rounds": 3, "num_clients": 10,
                            "participation": 0.5},
@@ -138,9 +144,41 @@ def async_save_restore(ckpt: str) -> dict:
             "mid_buffer": mid_buffer}
 
 
+# the expert-parallel layer: 4 experts top-2 and a shared expert, d 16
+EP_CFG = MoEConfig(num_experts=4, top_k=2, num_shared_experts=1,
+                   expert_d_ff=32, shared_d_ff=32)
+EP_FACTORS = (0.0, 0.5)      # dropless, and a capacity that drops
+
+
+def moe_ep_outputs(mesh) -> dict:
+    """``moe_apply_ep`` on ``mesh`` at each of ``EP_FACTORS`` (2 clients of
+    3 x 8 tokens, the layer drawn from seed 7 on every rank): {factor:
+    (out, aux)} in numpy, the all-reduces made, and the message of the
+    refusal of a gradient (None where none was raised)."""
+    gen = torch.Generator().manual_seed(7)
+    params = moe.moe_init(gen, 16, EP_CFG, "swiglu")
+    x = torch.randn(2, 3, 8, 16, generator=gen)
+    out = {"mesh": tuple(mesh.shape)}
+    calls = collective.all_reduce.calls
+    for factor in EP_FACTORS:
+        y, aux = moe.moe_apply_ep(params, x, EP_CFG, "swiglu", mesh,
+                                  capacity_factor=factor)
+        out[factor] = (y.numpy(), aux.numpy())
+    out["all_reduces"] = collective.all_reduce.calls - calls
+    try:
+        moe.moe_apply_ep(params, x.clone().requires_grad_(), EP_CFG,
+                         "swiglu", mesh)
+        out["grad"] = None
+    except NotImplementedError as e:
+        out["grad"] = str(e)
+    return out
+
+
 def rank_main(rank: int, world: int, ckpt: str, weights: dict) -> dict:
     torch.set_num_threads(1)
     out = {label: one_round(label, "sharded", weights[label])
            for label in CASES}
     out["async"] = async_save_restore(ckpt)
+    out["moe_ep"] = moe_ep_outputs(fl_mesh.make_host_mesh(model_axis=world,
+                                                          device="cpu"))
     return out

@@ -1274,3 +1274,108 @@ def test_cuda_mla_moe_engine_matches_cpu(cuda_device):
         assert set(eng.cache["layers"]) == {"ckv", "krope"}
         runs.append(torch.cat([t.reshape(-1) for t in toks]))
     torch.testing.assert_close(runs[0], runs[1], rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_batcher_matches_cpu(cuda_device):
+    """The continuous batcher over a reduced qwen2-7b (GQA 4/2) engine on
+    the card with ``use_kernels=True`` and over the same engine on the CPU
+    from the same weights: 5 requests over 2 slots (tenants at ranks 16
+    and 4, arrivals 0.01 i, lognormal latency draws): every request's
+    tokens equal, ``stats()`` bit-equal, and K4 4 launches a layer per
+    engine call on the card."""
+    import dataclasses
+    from repro_torch.configs import LoRAConfig, get_config
+    from repro_torch.core.lora import flatten, unflatten
+    from repro_torch.federation.events import LognormalLatency
+    from repro_torch.models.transformer import Model
+    from repro_torch.serving import (AdapterStore, ContinuousBatcher,
+                                     ServeRequest, ServingEngine)
+    cfg = dataclasses.replace(get_config("qwen2-7b").reduced(),
+                              num_kv_heads=2)
+    lora = LoRAConfig(rank_levels=(4, 8, 16))
+    params = Model(cfg, lora, device="cpu").init(
+        torch.Generator().manual_seed(0))
+    gen = torch.Generator().manual_seed(1)
+    tenants = {name: unflatten({
+        path: 0.05 * torch.randn(t.shape, generator=gen)
+        for path, t in flatten(params).items()
+        if path[-1] in ("lora_a", "lora_b")}) for name in ("hi", "lo")}
+    prompts = torch.randint(0, cfg.vocab_size, (5, 8), generator=gen)
+    runs = []
+    for dev, kern in (("cuda", True), ("cpu", False)):
+        move = lambda tree: unflatten(  # noqa: E731
+            {p: t.to(dev) for p, t in flatten(tree).items()})
+        store = AdapterStore(lora.rank_levels)
+        store.put("hi", move(tenants["hi"]), 16)
+        store.put("lo", move(tenants["lo"]), 4)
+        store.publish()
+        eng = ServingEngine(Model(cfg, lora, device=dev, use_kernels=kern),
+                            move(params), store, max_len=13, slots=2)
+        batcher = ContinuousBatcher(
+            eng, latency=LognormalLatency(0.02, 0.25, seed=0))
+        for i in range(5):
+            batcher.submit(ServeRequest(
+                rid=i, prompt=prompts[i].to(dev),
+                adapter_id=("hi", "lo")[i % 2], max_new_tokens=4,
+                arrival=0.01 * i))
+        before = la.batched_lora_apply.launches
+        batcher.run()
+        grew = la.batched_lora_apply.launches - before
+        assert grew == (4 * cfg.num_layers * len(eng.version_log)
+                        if kern else 0)
+        runs.append(({r.rid: r.tokens for r in batcher.done},
+                     batcher.stats()))
+    assert len(runs[0][0]) == 5
+    assert runs[0] == runs[1]
+
+
+@pytest.mark.cuda
+def test_cuda_moe_ep_capacity_makes_no_host_sync(cuda_device):
+    """``moe_apply_ep`` at capacity on a one-rank NCCL group (made here
+    and destroyed): no host sync at all (CUDA's sync debug mode set to
+    raise around the call), none counted; at a factor with no overflow
+    it equals ``moe_apply`` on the card (atol 1e-5, rtol 1e-4), and at
+    0.5 it equals the CPU's capacity path."""
+    import torch.distributed as dist
+    from repro_torch.configs import ACT_SWIGLU, MoEConfig
+    from repro_torch.core.lora import flatten, unflatten
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.layers import moe
+    cfg = MoEConfig(num_experts=16, top_k=6, num_shared_experts=1,
+                    expert_d_ff=96, shared_d_ff=96)
+    gen = torch.Generator().manual_seed(3)
+    params = moe.moe_init(gen, 128, cfg, ACT_SWIGLU)
+    x = torch.randn(3, 40, 128, generator=gen)
+    gpu = unflatten({p: t.cuda() for p, t in flatten(params).items()})
+    assert not dist.is_initialized()
+    mesh = make_host_mesh(device="cuda")
+    try:
+        assert dist.get_backend() == "nccl"
+        xg = x.cuda()
+        moe.moe_apply_ep(gpu, xg, cfg, ACT_SWIGLU, mesh,
+                         capacity_factor=0.5)          # warm-up
+        torch.cuda.synchronize()
+        syncs = moe.moe_apply.host_syncs
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = {f: moe.moe_apply_ep(gpu, xg, cfg, ACT_SWIGLU, mesh,
+                                       capacity_factor=f)[0]
+                   for f in (0.5, float(cfg.num_experts))}
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert moe.moe_apply.host_syncs == syncs
+        want, _ = moe.moe_apply(gpu, xg, cfg, ACT_SWIGLU)
+        torch.testing.assert_close(got[float(cfg.num_experts)], want,
+                                   atol=1e-5, rtol=1e-4)
+    finally:
+        dist.destroy_process_group()
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        cpu, _ = moe.moe_apply_ep(params, x, cfg, ACT_SWIGLU,
+                                  make_host_mesh(device="cpu"),
+                                  capacity_factor=0.5)
+    finally:
+        dist.destroy_process_group()
+    torch.testing.assert_close(got[0.5].cpu(), cpu, atol=1e-5, rtol=1e-4)

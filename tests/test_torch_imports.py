@@ -7,6 +7,7 @@ import sys
 
 import pytest
 import torch
+import torch.distributed
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SRC = os.path.join(ROOT, "src")
@@ -47,9 +48,10 @@ MODULES = [
     "repro_torch.optim", "repro_torch.optim.adamw",
     "repro_torch.optim.schedules",
     "repro_torch.serving", "repro_torch.serving.adapter_store",
-    "repro_torch.serving.engine",
+    "repro_torch.serving.engine", "repro_torch.serving.scheduler",
     "repro_torch.launch", "repro_torch.launch.mesh",
-    "repro_torch.launch.steps", "repro_torch.launch.train",
+    "repro_torch.launch.serve", "repro_torch.launch.steps",
+    "repro_torch.launch.train",
     "repro_torch.benchmarks", "repro_torch.benchmarks.common",
     "repro_torch.benchmarks.run", "repro_torch.benchmarks.bench_accuracy",
     "repro_torch.benchmarks.bench_cost",
@@ -58,9 +60,11 @@ MODULES = [
     "repro_torch.benchmarks.bench_lora_variants",
     "repro_torch.benchmarks.bench_round_latency",
     "repro_torch.benchmarks.bench_sensitivity",
+    "repro_torch.benchmarks.bench_serve_latency",
     "repro_torch.examples", "repro_torch.examples.federated_finetune",
     "repro_torch.examples.quickstart",
     "repro_torch.examples.rank_collapse_demo",
+    "repro_torch.examples.serve_finetuned",
 ]
 
 
@@ -175,20 +179,6 @@ def test_ported_options_build(kw):
     assert len(exp.server.history) == 1
 
 
-@pytest.mark.parametrize("kw", [dict(moe_impl="ep"),
-                                dict(moe_capacity_factor=1.25)],
-                         ids=["moe_impl_ep", "moe_capacity_factor"])
-def test_unported_model_options_name_their_roadmap_item(kw):
-    """The reference's expert-parallel MoE dispatch and its capacity
-    factor (a shard_map distribution hook) are refused by name."""
-    from repro_torch.configs.base import LoRAConfig, get_config
-    from repro_torch.models.transformer import Model
-    cfg = get_config("deepseek-v2-236b").reduced()
-    with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md queue 1 item 10"):
-        Model(cfg, LoRAConfig(), device="cpu", **kw)
-
-
 @pytest.mark.parametrize("change,variant", [
     (dict(attn_type="bidirectional"), "lora"), ({}, "dora"), ({}, "qlora"),
     (dict(attn_type="sliding", sliding_window=64), "lora"),
@@ -196,9 +186,13 @@ def test_unported_model_options_name_their_roadmap_item(kw):
     (dict(kind="hybrid", ssm="ssm"), "lora"),
     (dict(logit_softcap=30.0), "lora"), (dict(name="gemma-2b-reduced"), "lora"),
     (dict(model="deepseek-v2-236b"), "dora"),
-    (dict(model="llama4-maverick-400b-a17b"), "lora")],
+    (dict(model="llama4-maverick-400b-a17b"), "lora"),
+    (dict(model="deepseek-v2-236b", moe_impl="ep"), "lora"),
+    (dict(model="deepseek-v2-236b", moe_impl="ep", moe_capacity_factor=1.25),
+     "lora")],
     ids=["frontend-free-encoder", "dora", "qlora", "sliding", "mrope",
-         "hybrid", "softcap", "gemma", "deepseek", "llama4"])
+         "hybrid", "softcap", "gemma", "deepseek", "llama4", "moe_impl_ep",
+         "moe_capacity_factor"])
 def test_ported_model_options_build(change, variant):
     """Options item 10 lifted build and run a forward: a frontend-free
     encoder (RoBERTa-base's path), the DoRA and QLoRA variants (DoRA
@@ -206,9 +200,12 @@ def test_ported_model_options_build(change, variant):
     adapters), a sliding window, M-RoPE, a hybrid SSD mixer beside
     attention, the attention softcap, Gemma's embedding scale, and the
     MLA and MoE models: DeepSeek-V2 under DoRA (a magnitude next to each
-    of its q, kv_a and o adapters) and Llama-4 in layer groups (held to
-    the reference in test_torch_model_families.py and
-    test_torch_moe_mla.py)."""
+    of its q, kv_a and o adapters) and Llama-4 in layer groups, and
+    DeepSeek-V2 through the expert-parallel dispatch, dropless and at a
+    capacity factor, on the ``make_host_mesh()`` its model makes (a
+    one-rank group, destroyed here) (held to the reference in
+    test_torch_model_families.py, test_torch_moe_mla.py and
+    test_torch_moe_ep.py)."""
     import dataclasses
     from repro_torch.configs.base import LoRAConfig, SSMConfig, get_config
     from repro_torch.core.lora import flatten
@@ -218,9 +215,11 @@ def test_ported_model_options_build(change, variant):
                                             chunk_size=32))
     change = dict(change)
     cfg = get_config(change.pop("model", "qwen2-7b")).reduced()
+    model_kw = {k: change.pop(k) for k in ("moe_impl", "moe_capacity_factor")
+                if k in change}
     cfg = dataclasses.replace(cfg, **change)
     model = Model(cfg, dataclasses.replace(LoRAConfig(), variant=variant),
-                  device="cpu")
+                  device="cpu", **model_kw)
     params = model.init(torch.Generator().manual_seed(0))
     mags = [p for p in flatten(params) if p[-1] == "lora_m"]
     assert len(mags) == (len(cfg.lora_targets) if variant == "dora" else 0)
@@ -229,7 +228,12 @@ def test_ported_model_options_build(change, variant):
         assert set(params["layers"]) == {"sub0", "sub1"}
         assert "moe" in params["layers"]["sub1"]
     tokens = torch.zeros(1, 4, dtype=torch.int32)
-    logits = model.forward_seq(params, {"tokens": tokens})[0]
+    try:
+        logits = model.forward_seq(params, {"tokens": tokens})[0]
+    finally:
+        if model_kw:
+            assert model.mesh.mesh_dim_names == ("data", "model")
+            torch.distributed.destroy_process_group()
     assert logits.shape == (1, 4, cfg.vocab_size)
     assert torch.isfinite(logits).all()
 

@@ -163,6 +163,27 @@ def test_router_topk_matches_reference(top_k):
         np.testing.assert_allclose(float(aux[c]), float(jaux), rtol=1e-6)
 
 
+@pytest.mark.parametrize("top_k", [2, 6])
+def test_router_topk_breaks_ties_as_reference(top_k):
+    """Exact ties (6 tokens over 8 experts: all-equal logits, pairs,
+    triples and a periodic row) route to the reference's experts, lower
+    index first as ``jax.lax.top_k`` orders them, with its weights (at
+    ``TOL``: the renormalising sum may round differently) and aux;
+    ``torch.topk`` left the order of ties open."""
+    logits = np.zeros((6, 8), np.float32)
+    logits[1, [2, 5]] = 1.0
+    logits[2, [5, 6, 7]] = 0.5
+    logits[3] = np.arange(8) % 3
+    logits[4, ::2] = -1.0
+    logits[5] = [3.0, 1.0, 3.0, 1.0, 2.0, 2.0, 2.0, 0.0]
+    w, e, aux = tmoe.router_topk(torch.from_numpy(logits), top_k)
+    jw, je, jaux = jmoe.router_topk(jnp.asarray(logits), top_k)
+    np.testing.assert_array_equal(e.numpy(), np.asarray(je))
+    np.testing.assert_allclose(w.numpy(), np.asarray(jw), **TOL)
+    np.testing.assert_allclose(float(aux), float(jaux), rtol=1e-6)
+    assert e[0].tolist() == list(range(top_k))
+
+
 def _moe_case(name, seed):
     cfg = j_config(name).reduced(**REDUCED)
     jp = jmoe.moe_init(jax.random.PRNGKey(seed), cfg.d_model, cfg.moe,

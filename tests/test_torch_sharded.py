@@ -21,7 +21,8 @@ and K2, held to the reference on the CPU.
   two-device host mesh (a subprocess, as ``tests/test_sharded_engine.py``
   runs it) and against the port's batched engine, the error-feedback
   residuals following clients across ranks, an async save / restore
-  equal to the uninterrupted run, and the all-reduces of a bucket.
+  equal to the uninterrupted run, the all-reduces of a bucket, and the
+  expert-parallel MoE over the ranks' model axis against one rank.
 
 The reference's ``TestDoRAMagnitudeEquivalence`` runs at world 1 in
 ``test_torch_variants.py``; its two-rank case is the spawn's DoRA case
@@ -483,6 +484,25 @@ def test_world2_all_reduces_per_bucket(world2):
             extra = (1 + ("int8" in label)
                      + ranks2.MAGNITUDE_ALL_REDUCES.get(label, 0))
             assert res[label]["round_all_reduces"] == 3 * per + extra
+
+
+def test_world2_moe_ep_equals_world1(world1, world2):
+    """The expert-parallel MoE with its 4 experts split 2 + 2 over the two
+    ranks' model axis equals the one-rank layer (this process's group)
+    within 1e-6, dropless and at capacity 0.5, on both ranks (one
+    all-reduce a call); a gradient through it is refused at two ranks by
+    its ROADMAP item and taken at one."""
+    (r0, r1), _, _ = world2
+    want = ranks2.moe_ep_outputs(fl_mesh.make_host_mesh(device="cpu"))
+    assert want["mesh"] == (1, 1) and want["grad"] is None
+    for res in (r0["moe_ep"], r1["moe_ep"]):
+        assert res["mesh"] == (1, 2)
+        assert res["all_reduces"] == len(ranks2.EP_FACTORS)
+        assert "ROADMAP.md queue 1 item 14" in res["grad"]
+        for factor in ranks2.EP_FACTORS:
+            (y, aux), (wy, waux) = res[factor], want[factor]
+            np.testing.assert_allclose(y, wy, rtol=0, atol=1e-6)
+            np.testing.assert_array_equal(aux, waux)
 
 
 def _buffered(kind, mesh):
