@@ -34,6 +34,21 @@ JAX. Phases, each printing one JSON line:
 4. round_vit_base main path 1: three raFLoRA rounds of the batched engine
                   with the kernel backend at ViT-base width; K1 and K2
                   must launch in every round.
+4-audit.         the port's audit layer on the card (``phase_audit``,
+                  after phase 4's launches are read): the CUDA lint over
+                  this run's ptxas reports of the six libraries (spills
+                  within the waiver table, static shared memory within 48
+                  KiB) and the eight pad-to-tile probes through
+                  ``kernels.ops`` on the kernels, 0 errors; the dispatch
+                  audit of three vit-base rounds (kernel backend, batched
+                  engine, a fixed cohort of five) against a warmup of
+                  one: no library built or loaded after it, equal op
+                  multisets, host syncs a round printed; the peak
+                  allocated bytes of one bucket's aggregate (q/k/v/o at
+                  the cohort's ranks) at d = n in 768, 1536, 3072: the
+                  kernel backend's fitted slope at most 1.35
+                  (``agg-live-linear-dn-kernel``), the dense backend's at
+                  least 1.6 (its control); each line with the card.
 4a. round_methods one round of each method at ViT-base width from one
                   base state drawn once, in a child process with cuBLAS's
                   split-K off (``phase_round_methods_child``): fedavg
@@ -1272,6 +1287,108 @@ def phase_round_vit_base(torch, rounds: int = 3) -> dict:
         require(np.isfinite(stats.mean_client_loss),
                 f"round {stats.round}: non-finite client loss")
     return {k.__name__: k.launches for k in rpa.KERNELS}, server
+
+
+AUDIT_COHORT = 5          # clients, all of them in every audited round
+AUDIT_ROUNDS = 3          # the first is the warmup
+AUDIT_LADDER = (768, 1536, 3072)   # d = n: vit-base's width, x2, x4
+AUDIT_BUCKET = 4          # adapters of vit-base's q/k/v/o bucket
+
+
+def phase_audit(torch) -> dict:
+    """The audit layer on the card: the CUDA lint, the dispatch audit of
+    vit-base rounds and the peak-memory scaling of one bucket's
+    aggregate (module docstring, phase 4-audit). Fails on any finding."""
+    import dataclasses
+    from repro_torch.analysis import (complexity, cuda_lint,
+                                      dispatch_audit, liveness, op_lint)
+    from repro_torch.federation.experiment import make_batch_fn
+    from repro_torch.federation.server import FederatedLoRA
+    from repro_torch.federation.topology import ClientRegistry
+    from repro_torch.kernels import build
+    from repro_torch.models.transformer import Model
+
+    t0 = time.perf_counter()
+    card = card_line()
+    logs = cuda_lint.ptxas_reports()
+    progs = cuda_lint.CudaPrograms(cuda_lint.collect_build(logs),
+                                   cuda_lint.probe_registry("cuda"))
+    torch.cuda.synchronize()
+    findings = cuda_lint.lint_cuda(progs, "cuda/registry",
+                                   {"libraries": sorted(build.SIGNATURES)})
+    emit({"phase": "audit_cuda_lint", "libraries": sorted(logs),
+          "entries": len(progs.entries),
+          "spilling": {e.name: [e.spill_stores, e.spill_loads]
+                       for e in progs.entries
+                       if e.spill_stores or e.spill_loads},
+          "max_registers": max(e.registers for e in progs.entries),
+          "max_static_smem": max(e.smem for e in progs.entries),
+          "probes_ok": sum(p.ok for p in progs.probes),
+          "probes": len(progs.probes),
+          "errors": [str(f) for f in findings], "card": card})
+    require(not findings, f"audit: cuda_lint {[str(f) for f in findings]}")
+
+    cfg, fl, lora, shards, x_tr, y_tr, patches = _vit_base_setup()
+    fl = dataclasses.replace(fl, num_clients=AUDIT_COHORT,
+                             participation=1.0)
+    registry = ClientRegistry.create(fl, lora, shards[:AUDIT_COHORT])
+    model = Model(cfg, lora, device="cuda")
+    server = FederatedLoRA(model, fl, lora, registry,
+                           make_batch_fn(registry, x_tr, y_tr, fl, 2,
+                                         patches), backend="kernel")
+    mon = dispatch_audit.DispatchMonitor()
+    with mon:
+        for r in range(AUDIT_ROUNDS):
+            server.run_round()
+            torch.cuda.synchronize()
+            mon.mark(f"round{r}")
+    findings = dispatch_audit.lint_dispatch(mon, "dispatch/vit_base",
+                                            {"warmup": 1})
+    emit({"phase": "audit_dispatch", "rounds": AUDIT_ROUNDS, "warmup": 1,
+          "cohort": AUDIT_COHORT, "ranks": server.history[-1].ranks,
+          "per_round": [p.to_json() for p in mon.phases],
+          "host_syncs_per_round": [p.sync_count for p in mon.phases],
+          "errors": [str(f) for f in findings], "card": card})
+    require(not findings,
+            f"audit: dispatch {[str(f) for f in findings]}")
+    del server, model
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    slopes, rows = {}, {}
+    for backend in ("kernel", "dense"):
+        meas = []
+        for i, s in enumerate(AUDIT_LADDER):
+            pt = op_lint.ProgramPoint(
+                "batched", "raflora", backend, d=s, n=s,
+                rank_levels=lora.rank_levels, m_per_group=1,
+                p_bucket=AUDIT_BUCKET)
+            fn = op_lint.program_fn(pt, device="cuda")
+            with torch.no_grad():
+                if i == 0:        # one-time handles and scratch, not counted
+                    fn()
+                live = liveness.measure(fn, "cuda")
+            meas.append(complexity.Measurement(
+                "dn", float(s), {"peak_live_bytes": live.peak_live_bytes}))
+            gc.collect()
+            torch.cuda.empty_cache()
+        row = complexity.ScalingRow(f"batched/raflora/{backend}", "batched",
+                                    "raflora", backend, meas)
+        slopes[backend] = row.slopes()[("dn", "peak_live_bytes")]
+        rows[backend] = {int(m.x): m.costs["peak_live_bytes"] for m in meas}
+        findings = complexity.evaluate_row(row)
+        require(not findings, f"audit: {backend} peak-memory contracts "
+                              f"{[str(f) for f in findings]}")
+    require(slopes["kernel"] <= 1.35 and slopes["dense"] >= 1.6,
+            f"audit: peak-memory slopes {slopes}")
+    out = {"phase": "audit", "peak_live_bytes": rows,
+           "peak_live_slope": slopes, "ladder": list(AUDIT_LADDER),
+           "bucket": {"adapters": AUDIT_BUCKET,
+                      "rank_levels": list(lora.rank_levels)},
+           "host_syncs_per_round": [p.sync_count for p in mon.phases],
+           "seconds": time.perf_counter() - t0, "card": card}
+    emit(out)
+    return out
 
 
 # round_methods: (label, method, backend, engine, rank levels, partial_up_to)
@@ -4253,6 +4370,9 @@ def main() -> int:
         if "--profile" in sys.argv[1:]:
             phase_profile(torch, server)
         del server                # free the round before the other methods
+        gc.collect()
+        torch.cuda.empty_cache()
+        phase_audit(torch)
         gc.collect()
         torch.cuda.empty_cache()
         phase_round_methods_child()

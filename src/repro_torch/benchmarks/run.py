@@ -7,8 +7,8 @@
   PYTHONPATH=src python -m repro_torch.benchmarks.run --quick --device cpu
 
 Prints ``name,us_per_call,derived`` CSV (``common.emit``). ``roofline``
-is not ported: it raises NotImplementedError naming its ROADMAP.md item,
-and counts as failed.
+has no counterpart by design (it reads the TPU dry runs' artifacts): it
+raises NotImplementedError saying so, and counts as failed.
 """
 import argparse
 import importlib
@@ -30,8 +30,8 @@ BENCHES = {
 QUICK = ("kernels", "cost", "energy", "roofline", "round_latency")
 
 NOT_PORTED = {
-    "roofline": "the roofline table reads TPU dry-run artifacts (ROADMAP.md "
-                "queue 1 item 13)",
+    "roofline": "reads TPU dry-run artifacts; no counterpart on one card, "
+                "ROADMAP.md",
 }
 
 

@@ -39,6 +39,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.analysis import host_cost
 from repro_torch.core import collective
 from repro_torch.core import partitions as parts
 from repro_torch.core.svd import (check_fallback_globals, dense_fallback_term,
@@ -102,6 +103,7 @@ def staleness_discount(n_k: Sequence[float],
     """Staleness-discounted effective sample counts n_k * gamma**s_k;
     ``staleness=None``, ``gamma=1`` or all-zero staleness are exact
     no-ops."""
+    host_cost.tick("agg/weight_counts", len(n_k))
     n = np.asarray(n_k, dtype=np.float64)
     if staleness is None or gamma == 1.0:
         return n
@@ -152,6 +154,14 @@ def _flora_delta(bs, as_, w):
                         device=as_.device), dw)
 
 
+def f32_tensor(x, device=None) -> torch.Tensor:
+    """Host weights (numpy, any float dtype) -> an f32 tensor on
+    ``device``, cast by numpy on the host: no float64 tensor is made and
+    the copy to the card carries f32 (the same round-to-nearest cast
+    either way)."""
+    return torch.as_tensor(np.asarray(x, dtype=np.float32), device=device)
+
+
 def _client_weights(n_k, like: torch.Tensor, dtype=None) -> torch.Tensor:
     """n_k / sum(n_k) in float64, cast to ``like``'s dtype (or ``dtype``)
     on its device."""
@@ -185,10 +195,10 @@ def aggregate_flora(bs, as_, ranks, n_k) -> AggregationResult:
 def _omega_args(omega, fallback, device):
     """(omega, fallback) numpy -> f32 tensors; an all-zero fallback is
     None."""
-    om = torch.as_tensor(omega, dtype=torch.float32, device=device)
+    om = f32_tensor(omega, device)
     if fallback is None or not np.any(fallback):
         return om, None
-    return om, torch.as_tensor(fallback, dtype=torch.float32, device=device)
+    return om, f32_tensor(fallback, device)
 
 
 def aggregate_flexlora(bs, as_, ranks, n_k, *, backend: str = "factored"
@@ -531,9 +541,8 @@ class Aggregator:
             warg, fallback = self._weight_args(ranks, n_k)
         else:
             warg, fallback = self._present_weight_args(ranks, n_k, present)
-        return (torch.as_tensor(warg, dtype=torch.float32, device=device),
-                None if fallback is None else torch.as_tensor(
-                    fallback, dtype=torch.float32, device=device))
+        return (f32_tensor(warg, device),
+                None if fallback is None else f32_tensor(fallback, device))
 
     def aggregate_stack(self, bs, as_, ranks, n_k, global_b=None,
                         global_a=None) -> AggregationResult:
@@ -590,12 +599,10 @@ class Aggregator:
             ranks, n_arr,
             np.ones(len(n_arr), dtype=bool) if present is None else present)
         device = _device(group_bs[0][0])
-        group_w = [torch.as_tensor(w[collective.block(len(w), mesh)],
-                                   dtype=torch.float32, device=device)
+        group_w = [f32_tensor(w[collective.block(len(w), mesh)], device)
                    for w in np.split(warg, np.cumsum(sizes)[:-1])]
         if fallback is not None:
-            fallback = torch.as_tensor(fallback, dtype=torch.float32,
-                                       device=device)
+            fallback = f32_tensor(fallback, device)
         fn = sharded_grouped_fn(mesh, max(self.rank_levels), self.backend,
                                 self.method)
         return AggregationResult(*fn(group_bs, group_as, group_w,

@@ -36,13 +36,16 @@ def all_reduce(x: torch.Tensor, mesh: DeviceMesh,
                axis: str = AXIS) -> torch.Tensor:
     """Sum ``x`` over the ranks of the mesh's ``axis``, in place (the
     reference's ``jax.lax.psum``); a failed collective raises. Counted in
-    ``all_reduce.calls``. Returns ``x``."""
+    ``all_reduce.calls``, its payload in ``all_reduce.bytes``. Returns
+    ``x``."""
     dist.all_reduce(x, group=mesh.get_group(axis))
     all_reduce.calls += 1
+    all_reduce.bytes += x.numel() * x.element_size()
     return x
 
 
 all_reduce.calls = 0
+all_reduce.bytes = 0
 
 
 def gather_blocks(x: torch.Tensor, mesh: DeviceMesh,

@@ -51,6 +51,7 @@ from typing import Callable, Dict, Iterator, List, Optional, Sequence, Set
 
 import numpy as np
 
+from repro_torch.analysis import host_cost
 from repro_torch.data.traces import TraceRecord
 
 
@@ -466,12 +467,16 @@ class EventScheduler:
         rng-stream-preserving fast path)."""
         if not self._inactive:
             return None
+        # O(num_clients) pool scan, only on the lifecycle-event slow path:
+        # the host-cost registry contract rides on the None fast path
+        host_cost.tick("events/active_scan", num_clients)
         pool = np.array([c for c in range(num_clients)
                          if c not in self._inactive], dtype=np.int64)
         assert pool.size > 0, "every client has dropped out"
         return pool
 
     def dispatch(self, plan_round: int, clients: Sequence[int]) -> None:
+        host_cost.tick("events/dispatch", len(clients))
         t = self.clock.now
         self._book[plan_round] = {"size": len(clients), "arrived": {},
                                   "consumed": set(), "dropped": set()}
@@ -508,6 +513,7 @@ class EventScheduler:
         """{plan_round: {member: arrival_time}} of every buffered update,
         marking them consumed. Called by the aggregation at a fire."""
         out: Dict[int, Dict[int, float]] = {}
+        host_cost.tick("events/book_scan", len(self._book))
         # explicit client-iteration order: ascending plan round, ascending
         # member within a plan -- the aggregation's client axis (and thus
         # the fire log and the consumed bookkeeping) must not depend on
@@ -519,6 +525,7 @@ class EventScheduler:
             if ready:
                 out[pr] = ready
                 b["consumed"].update(ready)
+                host_cost.tick("events/ready", len(ready))
         if out:
             stal = max(self.staleness_of(self.clock.now, t)
                        for rd in out.values() for t in rd.values())

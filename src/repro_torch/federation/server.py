@@ -67,10 +67,11 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from repro_torch.analysis import host_cost
 from repro_torch.configs.base import FLConfig, LoRAConfig
 from repro_torch.core import collective
 from repro_torch.core.aggregation import (Aggregator, cohort_weights,
-                                          weighted_avg)
+                                          f32_tensor, weighted_avg)
 from repro_torch.core.energy import EnergyTrace
 from repro_torch.core.lora import (adapter_parents, flatten, merge_lora,
                                    split_lora, unflatten)
@@ -341,11 +342,13 @@ class FederatedLoRA:
         groups: Dict[int, List[int]] = {}
         for i, batches in enumerate(client_batches):
             groups.setdefault(len(batches), []).append(i)
+        host_cost.tick("server/train_groups", len(groups))
         group_factors, loss_parts = [], []
         r_max = self.lora_cfg.r_max
         r_min = min(self.lora_cfg.rank_levels)
         sharded = self._sharded_dispatch
         for steps, idxs in sorted(groups.items()):
+            host_cost.tick("server/train_stack_steps", steps * len(idxs))
             members, local = idxs, slice(None)
             if sharded:
                 shards = collective.shard_count(self.mesh)
@@ -425,7 +428,7 @@ class FederatedLoRA:
         self._aggregate_magnitudes(
             {p: torch.stack([cf[p] for cf in client_factors])
              for p in parents if is_magnitude(p)},
-            torch.as_tensor(n / n.sum(), dtype=torch.float32), results)
+            f32_tensor(n / n.sum()), results)
         for parent in parents:
             if is_magnitude(parent):
                 continue
@@ -476,6 +479,7 @@ class FederatedLoRA:
         r_max = self.lora_cfg.r_max
         global_factors = self._extract_factors(self.global_lora, r_max)
         members = [i for mem, _, _ in group_factors for i in mem]
+        host_cost.tick("server/agg_members", len(members))
         ranks_o, n_k_o, stal_o, pres_o = flatten_cohort(
             members, ranks, n_k, staleness, present,
             min(self.lora_cfg.rank_levels))
@@ -490,7 +494,7 @@ class FederatedLoRA:
             self._aggregate_magnitudes(
                 {p: torch.cat([fg[p] for _, _, fg in group_factors])
                  for p in mags},
-                torch.as_tensor(w, dtype=torch.float32), results)
+                f32_tensor(w), results)
         buckets: Dict[tuple, List[tuple]] = {}
         for parent in group_factors[0][2]:
             if is_magnitude(parent):
@@ -498,6 +502,7 @@ class FederatedLoRA:
             gb0, ga0 = global_factors[parent]
             buckets.setdefault((tuple(gb0.shape), tuple(ga0.shape)),
                                []).append(parent)
+        host_cost.tick("server/agg_buckets", len(buckets))
         for group in buckets.values():
             args = ([[fg[p][0] for p in group] for _, _, fg in group_factors],
                     [[fg[p][1] for p in group] for _, _, fg in group_factors],
@@ -532,7 +537,7 @@ class FederatedLoRA:
         of its seed), wall time otherwise."""
         if self.event_scheduler is not None:
             return self.event_scheduler.clock.now
-        return time.time()
+        return time.time()  # host-clock: ok (wall-clock engines only)
 
     @property
     def _sharded_dispatch(self) -> bool:
@@ -561,6 +566,7 @@ class FederatedLoRA:
                       self.registry.num_clients))
         clients = self.registry.sample_round(fl.clients_per_round, self.rng,
                                              active=active).tolist()
+        host_cost.tick("server/plan_clients", len(clients))
         plan = RoundPlan(
             round=self._plan_idx, version=self.round_idx, clients=clients,
             ranks=[int(self.registry.ranks[c]) for c in clients],

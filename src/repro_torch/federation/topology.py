@@ -8,6 +8,7 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 
+from repro_torch.analysis import host_cost
 from repro_torch.configs.base import FLConfig, LoRAConfig
 
 
@@ -40,6 +41,9 @@ class ClientRegistry:
         lifecycle event) and return its id. Ids are append-only, so plans
         and shards recorded before the join stay valid."""
         cid = self.num_clients
+        # np.append copies the whole (K,) rank vector: an O(K) cost per
+        # join event (not per round), which the host-cost shim records
+        host_cost.tick("registry/add_client")
         self.ranks = np.append(self.ranks, int(rank)).astype(int)
         self.shards.append(np.asarray(shard, dtype=np.int64))
         return cid
@@ -65,7 +69,9 @@ class ClientRegistry:
         caps m at its size; ``active=None`` keeps the rng stream of the
         cadence engines exactly."""
         if active is None:
+            host_cost.tick("registry/sample", m)
             return rng.choice(self.num_clients, size=m, replace=False)
         active = np.asarray(active)
+        host_cost.tick("registry/active_pool", active.size)
         m = min(int(m), active.size)
         return active[rng.choice(active.size, size=m, replace=False)]

@@ -57,6 +57,8 @@ SIGNATURES = {
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 build_seconds = 0.0       # wall time of the last build_all() that compiled
+builds = 0                # nvcc compiles run (one per library built)
+loads = 0                 # libraries loaded with ctypes
 ptxas_log: Dict[str, str] = {}
 
 
@@ -85,7 +87,7 @@ def _lib_path(stem: str) -> Path:
 def build_all() -> Dict[str, ctypes.CDLL]:
     """Compile every missing library in parallel (one nvcc per source),
     then load them all. Raises with nvcc's output if a build fails."""
-    global build_seconds
+    global build_seconds, builds, loads
     todo = {stem: _lib_path(stem) for stem in SIGNATURES
             if stem not in _LIBS}
     missing = {s: p for s, p in todo.items() if not p.exists()}
@@ -97,6 +99,7 @@ def build_all() -> Dict[str, ctypes.CDLL]:
         for stem, out in missing.items():
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
             cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{stem}.cu")]
+            builds += 1
             procs[stem] = (tmp, out, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True))
@@ -113,6 +116,7 @@ def build_all() -> Dict[str, ctypes.CDLL]:
             raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     for stem, path in todo.items():
         lib = ctypes.CDLL(str(path))
+        loads += 1
         for fn, argtypes in SIGNATURES[stem].items():
             getattr(lib, fn).argtypes = argtypes
             getattr(lib, fn).restype = ctypes.c_int

@@ -1,5 +1,5 @@
 """The port's launchers (``python -m repro_torch.launch.train`` and
 ``python -m repro_torch.launch.serve``), the train, prefill and serve
 step functions (``launch/steps.py``) and the process meshes
-(``launch/mesh.py``). The reference's TPU dry runs have no counterpart
-here yet (ROADMAP.md queue 1 item 13)."""
+(``launch/mesh.py``). The reference's TPU dry runs read TPU dry-run
+artifacts; no counterpart on one card, ROADMAP.md."""

@@ -1379,3 +1379,27 @@ def test_cuda_moe_ep_capacity_makes_no_host_sync(cuda_device):
     finally:
         dist.destroy_process_group()
     torch.testing.assert_close(got[0.5].cpu(), cpu, atol=1e-5, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_lint_over_the_real_build(cuda_device):
+    """The CUDA lint over ptxas's report of all six libraries (compiled
+    again for their report if already built): every entry parsed, the
+    spills within the waiver table, static shared memory within 48 KiB,
+    and the pad-to-tile probes through ``kernels.ops`` on the card
+    returning their contract shapes, f32 and finite."""
+    from repro_torch.analysis import cuda_lint
+    from repro_torch.kernels import build
+    build.build_all()
+    logs = cuda_lint.ptxas_reports()
+    assert sorted(logs) == sorted(build.SIGNATURES)
+    before = {k.__name__: k.launches for k in ops.KERNELS}
+    progs = cuda_lint.CudaPrograms(cuda_lint.collect_build(logs),
+                                   cuda_lint.probe_registry(cuda_device))
+    assert cuda_lint.lint_cuda(progs, "cuda/registry", {
+        "libraries": sorted(build.SIGNATURES)}) == []
+    assert len(progs.entries) >= 40
+    assert {p.name for p in progs.probes if p.ok} == set(cuda_lint.REGISTRY)
+    launched = {k.__name__ for k in ops.KERNELS
+                if k.launches > before[k.__name__]}
+    assert len(launched) == len(ops.KERNELS), launched

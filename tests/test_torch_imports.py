@@ -65,6 +65,15 @@ MODULES = [
     "repro_torch.examples.quickstart",
     "repro_torch.examples.rank_collapse_demo",
     "repro_torch.examples.serve_finetuned",
+    "repro_torch.analysis", "repro_torch.analysis.complexity",
+    "repro_torch.analysis.cuda_lint", "repro_torch.analysis.dispatch_audit",
+    "repro_torch.analysis.host_cost", "repro_torch.analysis.liveness",
+    "repro_torch.analysis.op_lint", "repro_torch.analysis.protocol",
+    "repro_torch.analysis.report", "repro_torch.analysis.rng_lint",
+    "repro_torch.analysis.rules",
+    "repro_torch.tools", "repro_torch.tools.bench_trend",
+    "repro_torch.tools.certify_scaling", "repro_torch.tools.ci",
+    "repro_torch.tools.lint_programs", "repro_torch.tools.verify_protocol",
 ]
 
 
@@ -131,14 +140,16 @@ SMALL_EXP = dict(d_model=32, backend="kernel", samples_per_class=10,
 
 def test_unported_options_name_their_roadmap_item():
     """The option still refused -- the bench that reads the TPU dry runs
-    -- names its ROADMAP item; the ported ones are held to the reference
+    -- says it has no counterpart by design and names ROADMAP.md; the
+    ported ones are held to the reference
     in test_torch_aggregation.py, test_torch_round.py,
     test_torch_transport.py, test_torch_events.py, test_torch_buffered.py,
     test_torch_sharded.py, test_torch_launch.py, test_torch_benches.py,
     test_torch_bench_latency.py and test_torch_variants.py."""
     from repro_torch.benchmarks import run
     with pytest.raises(NotImplementedError,
-                       match="ROADMAP.md queue 1 item 13"):
+                       match="reads TPU dry-run artifacts; no counterpart on "
+                             "one card, ROADMAP.md"):
         run.run_bench("roofline", "cpu")
 
 
