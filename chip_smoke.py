@@ -13,7 +13,11 @@ JAX. Phases, each printing one JSON line:
                   vit-base round's buckets; K4: Qwen2-7B's q/k/v/o at
                   decode and prefill; K6: mamba2-1.3b's prefill layer),
                   with times, bounds and library yardsticks; K4 also at
-                  Gemma-2B's and Hymba-1.5B's q/k/v/o, K6 also at
+                  Gemma-2B's and Hymba-1.5B's q/k/v/o, K4's bf16
+                  instances at Qwen2-7B's and Llama-4 Maverick's q/k/v/o
+                  (decode and prefill, every element within one bf16 ulp
+                  of its row's largest |value| of the plain version; the
+                  summary's ``batched_lora_apply_bf16`` row), K6 also at
                   Hymba-1.5B's SSD heads (P 50, N 16, chunk 128,
                   2048 tokens); K2's to K7's
                   rows carry their plan (tile, splits over the depth,
@@ -27,7 +31,11 @@ JAX. Phases, each printing one JSON line:
                   67 TFLOP/s of IEEE f32, or 3xTF32's 165 on the tensor
                   cores (K5 above 32 rows, K6, K7; their rows also carry
                   ``bound_simt_f32_ms``, the same work at 67, and the
-                  summary's ``runs_on`` names the route).
+                  summary's ``runs_on`` names the route). K4's bf16 rows
+                  take bf16 work at the tensor cores' 989 TFLOP/s
+                  (``bound_route`` "mma_bf16"), and carry
+                  ``bound_simt_f32_ms`` too: their instances run on the
+                  CUDA cores (``runs_on`` "simt_f32").
 3. round_small    one fedvit-tiny (d_model=32) round on cuda and on cpu
                   from the same weights and seed; products and spectra
                   must agree to the kernel-path tolerance.
@@ -225,6 +233,24 @@ JAX. Phases, each printing one JSON line:
                   the factored backend's, finite spectra, each client's
                   aux loss finite and in its loss; stage ms, peak GiB,
                   the profiled round's idle share.
+8f. serve_llama4_maverick  main path 16, after DeepSeek-V2 is freed:
+                  Llama-4 Maverick at full width in bf16 with 2 of its 48
+                  layers (a dense layer and an MoE layer of 128 experts
+                  top-1 + 1 shared; 37.42 GB), its init's seconds and
+                  peak (at most 1 GiB over the model's bytes), served as
+                  phase 6 (K4 engine against the plain engine on the same
+                  weights): K4 8 launches a call, all bf16 instances',
+                  one MoE host sync a call, greedy tokens by the top-2
+                  rule and against a teacher-forced full forward; first
+                  and in-turn prefill ms, a profiled decode step.
+8g. train_step_llama4_maverick  main path 17, inside 8f on its weights:
+                  one client step of ``launch.steps.build_train_step``
+                  (LoRA-only AdamW, f32 gradient accumulation) on
+                  ``SequenceCopy`` tokens, batch 1 x 2048, with and
+                  without ``remat`` (after an untimed step): finite losses
+                  equal within 1e-3 relative, LoRA gradients within 8
+                  bf16 ulps of each leaf's largest |value|, remat's peak
+                  the lower; step ms and peak GiB of each.
 9. kernel summary one {"phase": "script_seconds"} line (each phase's wall
                   seconds, a child's with its process, and the total),
                   one {"kernels": [...]} line, then the card's name and
@@ -270,14 +296,19 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 # Published H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s,
-# float32 FLOP/s outside the tensor cores, and the f32-accurate rate of
-# 3xTF32 on the tensor cores (three passes at 495 TFLOP/s TF32)
+# float32 FLOP/s outside the tensor cores, the f32-accurate rate of
+# 3xTF32 on the tensor cores (three passes at 495 TFLOP/s TF32), and bf16
+# operands on the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 PEAK_TF32X3_FLOPS = 495e12 / 3
-# the operations' peak by route: IEEE f32 on the CUDA cores, or 3xTF32 on
-# the tensor cores (csrc/mma_tf32x3.cuh)
-PEAK_FLOPS = {"simt_f32": PEAK_F32_FLOPS, "mma_tf32x3": PEAK_TF32X3_FLOPS}
+PEAK_BF16_FLOPS = 989e12
+# the operations' peak by route: IEEE f32 on the CUDA cores, 3xTF32 on
+# the tensor cores (csrc/mma_tf32x3.cuh), or bf16 products on the tensor
+# cores: the least time for work on bf16 operands, whatever route a
+# kernel takes
+PEAK_FLOPS = {"simt_f32": PEAK_F32_FLOPS, "mma_tf32x3": PEAK_TF32X3_FLOPS,
+              "mma_bf16": PEAK_BF16_FLOPS}
 # every kernel's row also carries its graph-replayed device times
 DEVICE_KEYS = ("kernel_device_ms", "plain_device_ms", "library_device_ms")
 REPLACES = {
@@ -286,6 +317,7 @@ REPLACES = {
     "gram_left": "src/repro/kernels/rank_partition_agg.py:287",
     "gram_right": "src/repro/kernels/rank_partition_agg.py:320",
     "batched_lora_apply": "src/repro/kernels/lora_apply.py:153",
+    "batched_lora_apply_bf16": "src/repro/kernels/lora_apply.py:153",
     "ssd_scan": "src/repro/kernels/ssd_scan.py:88",
     "rank_partition_agg": "src/repro/kernels/rank_partition_agg.py:107",
     "rank_partition_agg_layered":
@@ -299,6 +331,7 @@ SOURCES = {
     "gram_left": "src/repro_torch/kernels/csrc/gram.cu",
     "gram_right": "src/repro_torch/kernels/csrc/gram.cu",
     "batched_lora_apply": "src/repro_torch/kernels/csrc/lora_apply.cu",
+    "batched_lora_apply_bf16": "src/repro_torch/kernels/csrc/lora_apply.cu",
     "ssd_scan": "src/repro_torch/kernels/csrc/ssd_scan.cu",
     "rank_partition_agg": "src/repro_torch/kernels/csrc/rank_partition_agg.cu",
     "rank_partition_agg_layered":
@@ -325,6 +358,7 @@ PATHS = {"weighted_stack_b": ", ".join(K12_PATHS),
          "batched_lora_apply": "serve_qwen2_7b, serve_batcher_qwen2_7b, "
                                "serve_qwen2_vl_7b, serve_gemma_2b, "
                                "serve_hymba_1p5b",
+         "batched_lora_apply_bf16": "serve_llama4_maverick",
          "ssd_scan": "bench_kernels, serve_mamba2_1p3b, serve_hymba_1p5b",
          "rank_partition_agg": "kernel_ops, bench_kernels",
          "rank_partition_agg_layered": "kernel_ops",
@@ -353,6 +387,12 @@ HYMBA_PROMPT = 2048
 K4_MODELS = (("qwen2-7b", QWEN_PROJ, SLOTS * PROMPT_LEN),
              ("gemma-2b", GEMMA_PROJ, SLOTS * PROMPT_LEN),
              ("hymba-1.5b", HYMBA_PROJ, SLOTS * HYMBA_PROMPT))
+# K4's bf16 instances: Qwen2-7B's shapes and Llama-4 Maverick's (d 5120,
+# 40 heads and 8 KV heads of 128), the latter the path of main path 16
+LLAMA4_PROJ = (("q", 5120, 5120), ("k", 5120, 1024), ("v", 5120, 1024),
+               ("o", 5120, 5120))
+K4_BF16_MODELS = (("qwen2-7b", QWEN_PROJ, SLOTS * PROMPT_LEN),
+                  ("llama4-maverick", LLAMA4_PROJ, SLOTS * PROMPT_LEN))
 # Qwen2-VL-7B's image prefill: a 16 x 16 grid of patch embeddings a slot
 VL_GRID = 16
 # Mamba-2 1.3B prefill: 4 slots of 1024 tokens, so the scan runs 4 chunks
@@ -594,10 +634,11 @@ def time_graph_ms(torch, fn, arg_sets=((),), iters: int = 20) -> float:
 
 
 def _lora_library(torch, x, w, a, b, s, ids):
-    """cuBLAS f32 x @ W plus the gathered bmm adapter term."""
+    """cuBLAS x @ W plus the gathered bmm adapter term, in the inputs'
+    dtype (f32, or bf16 with f32 sums)."""
     i = ids.long()
     z = torch.bmm(x[:, None, :], a[i].mT)
-    return x @ w + s[i][:, None] * torch.bmm(z, b[i].mT)[:, 0]
+    return x @ w + s[i][:, None].to(x.dtype) * torch.bmm(z, b[i].mT)[:, 0]
 
 
 def phase_kernel_lora_apply(torch, summary: dict):
@@ -612,8 +653,41 @@ def phase_kernel_lora_apply(torch, summary: dict):
     for model, projs, prefill_rows in K4_MODELS:
         by_model[model] = _k4_layers(torch, la, gen, model, projs,
                                      prefill_rows, rows)
+    bf16_rows, bf16_by_model = [], {}
+    for model, projs, prefill_rows in K4_BF16_MODELS:
+        bf16_by_model[model] = _k4_layers(torch, la, gen, model, projs,
+                                          prefill_rows, bf16_rows,
+                                          torch.bfloat16)
     emit({"phase": "kernels", "kernel": "batched_lora_apply",
           "per_shape": rows, "per_layer": by_model})
+    emit({"phase": "kernels", "kernel": "batched_lora_apply_bf16",
+          "per_shape": bf16_rows, "per_layer": bf16_by_model,
+          "card": card_line()})
+    dec = bf16_by_model["llama4-maverick"]["decode"]
+    summary["batched_lora_apply_bf16"] = {
+        "max_abs_err": max(t["max_abs_err"] for layer in
+                           bf16_by_model.values() for t in layer.values()),
+        "max_err_row_ulps": max(t["max_err_row_ulps"] for layer in
+                                bf16_by_model.values()
+                                for t in layer.values()),
+        "ms": dec["ms"], "plain_ms": dec["plain_ms"],
+        "bound_ms": dec["bound_ms"],
+        "bound_by": "bytes" if dec["bytes_ms"] >= dec["ops_ms"]
+        else "operations",
+        "bound_route": "mma_bf16",
+        "bound_simt_f32_ms": dec["bound_simt_f32_ms"],
+        "library_ms": dec["library_ms"],
+        "shape": "one llama4-maverick decode layer in bf16: q, k, v, o at "
+                 "4 rows",
+        "decode_layer_device": {key: dec[key] for key in DEVICE_KEYS},
+        "other_layers": {
+            model: {phase: {key: t[key] for key in
+                            ("ms", "plain_ms", "bound_ms",
+                             "bound_simt_f32_ms", "library_ms",
+                             "max_abs_err", "max_err_row_ulps",
+                             *DEVICE_KEYS)}
+                    for phase, t in layer.items()}
+            for model, layer in bf16_by_model.items()}}
     totals = by_model["qwen2-7b"]
     dec = totals["decode"]
     # the summary row is one decode step's four launches of one layer
@@ -638,45 +712,90 @@ def phase_kernel_lora_apply(torch, summary: dict):
             for model, layer in by_model.items() if model != "qwen2-7b"}}
 
 
-def _k4_layers(torch, la, gen, model, projs, prefill_rows, rows) -> dict:
+def _bf16_ulp(torch, v):
+    """The bf16 spacing at |v| (elementwise), from 2^-133 up."""
+    a = v.float().abs().clamp(min=2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(a)) - 7)
+
+
+def _k4_layers(torch, la, gen, model, projs, prefill_rows, rows,
+               dtype=None) -> dict:
     """One model's q/k/v/o through K4 and its plain version at decode and
-    prefill: each shape held to the plain version within the worst-case
-    rounding of its dot products and timed (eager and graph-replayed,
-    with the library yardstick); returns the layer totals per phase and
-    appends each shape's row to ``rows``."""
+    prefill: each shape held to the plain version and timed (eager and
+    graph-replayed, with the library yardstick); returns the layer totals
+    per phase and appends each shape's row to ``rows``. In f32 the
+    tolerance is the worst-case rounding of the dot products. In bf16
+    (x, W and the pages bf16, the bf16 instances) every element within
+    one bf16 ulp of the largest |value| of its row of the plain version:
+    both compute in f32 and round once, so they differ by at most one
+    rounding step wherever the two f32 sums lie far closer together
+    than a bf16 ulp, which an element's own ulp is not near 0 (a sum in
+    another order differs there by more than that tiny ulp). The bound
+    takes f32 work at the SIMT peak and bf16 work at the bf16 tensor
+    cores' (each bf16 row keeps ``bound_simt_f32_ms`` beside it, the same
+    work at the SIMT peak its instances run at)."""
+    dtype = dtype or torch.float32
+    route = "mma_bf16" if dtype == torch.bfloat16 else "simt_f32"
+    size = torch.finfo(dtype).bits // 8
     eps = torch.finfo(torch.float32).eps
     totals = {}
     for phase, m in (("decode", SLOTS), ("prefill", prefill_rows)):
         tot = totals.setdefault(phase, {"ms": 0.0, "plain_ms": 0.0,
                                         "library_ms": 0.0, "bound_ms": 0.0,
-                                        "bytes_ms": 0.0, "ops_ms": 0.0})
+                                        "bytes_ms": 0.0, "ops_ms": 0.0,
+                                        "bound_simt_f32_ms": 0.0})
         for proj, k, n in projs:
             r, p = SERVE_RANK, SLOTS
-            nbytes_w = k * n * 4
+            nbytes_w = k * n * size
             copies = max(2, math.ceil(100e6 / nbytes_w))
             sets = []
             for _ in range(copies):
-                x = torch.randn(m, k, generator=gen, device=DEV)
-                w = torch.randn(k, n, generator=gen, device=DEV) * k ** -.5
-                a = torch.randn(p, r, k, generator=gen, device=DEV) \
-                    * k ** -.5
-                b = torch.randn(p, n, r, generator=gen, device=DEV) * 0.1
+                x = torch.randn(m, k, generator=gen, device=DEV).to(dtype)
+                w = (torch.randn(k, n, generator=gen, device=DEV)
+                     * k ** -.5).to(dtype)
+                a = (torch.randn(p, r, k, generator=gen, device=DEV)
+                     * k ** -.5).to(dtype)
+                b = (torch.randn(p, n, r, generator=gen, device=DEV)
+                     * 0.1).to(dtype)
                 s = torch.ones(p, device=DEV)
                 ids = (torch.arange(m, device=DEV) * p // m).to(
                     torch.int32)
                 sets.append((x, w, a, b, s, ids))
             args = sets[0]
+            bf16_before = la.batched_lora_apply.launches_bf16
             got = la.batched_lora_apply(*args)
             want = la.batched_lora_apply_plain(*args)
             torch.cuda.synchronize()
-            err = float((got - want).abs().max())
-            # worst-case rounding of the (K + r)-deep f32 dot products:
-            # (K + r) eps max(|x| @ |W| + |s| (|x| @ |A|^T) @ |B|^T)
-            mag = la.batched_lora_apply_plain(
-                *(t.abs() for t in args[:5]), args[5])
-            tol = (k + r) * eps * float(mag.max())
-            require(err <= tol, f"batched_lora_apply {model} {phase} {proj}:"
-                                f" max_abs_err {err} > {tol}")
+            require(got.dtype == dtype, f"batched_lora_apply {model}: y is "
+                                        f"{got.dtype}, expected {dtype}")
+            diff = (got.float() - want.float()).abs()
+            err = float(diff.max())
+            extra = {}
+            if dtype == torch.bfloat16:
+                require(la.batched_lora_apply.launches_bf16
+                        == bf16_before + 1, f"batched_lora_apply {model} "
+                        f"{phase} {proj}: not a bf16 instance's launch")
+                row_ulp = _bf16_ulp(torch, want.float().abs().amax(
+                    dim=-1, keepdim=True))
+                tol = float(row_ulp.min())
+                extra = {"max_err_row_ulps": float((diff / row_ulp).max()),
+                         "max_err_own_ulps": float(
+                             (diff / _bf16_ulp(torch, want)).max()),
+                         "elements_over_own_ulp": int(
+                             (diff > _bf16_ulp(torch, want)).sum())}
+                require(extra["max_err_row_ulps"] <= 1.0,
+                        f"batched_lora_apply {model} {phase} {proj}: "
+                        f"{extra['max_err_row_ulps']} bf16 ulps of its "
+                        "row's largest value")
+            else:
+                # worst-case rounding of the (K + r)-deep f32 dot products:
+                # (K + r) eps max(|x| @ |W| + |s| (|x| @ |A|^T) @ |B|^T)
+                mag = la.batched_lora_apply_plain(
+                    *(t.abs() for t in args[:5]), args[5])
+                tol = (k + r) * eps * float(mag.max())
+                require(err <= tol, f"batched_lora_apply {model} {phase} "
+                                    f"{proj}: max_abs_err {err} > {tol}")
+                del mag
             require(torch.equal(got, la.batched_lora_apply(*args)),
                     f"batched_lora_apply {model} {phase} {proj}: not "
                     "deterministic")
@@ -693,17 +812,23 @@ def _k4_layers(torch, la, gen, model, projs, prefill_rows, rows) -> dict:
                    "plain_device_ms": time_graph_ms(
                        torch, la.batched_lora_apply_plain, sets),
                    "library_device_ms": time_graph_ms(torch, lib, sets)}
-            nbytes = 4 * (k * n + p * r * (k + n) + m * (k + n) + p) + 4 * m
+            # x, W, the pages and y in the operands' dtype; scales and
+            # ids 4 bytes each
+            nbytes = size * (k * n + p * r * (k + n) + m * (k + n)) \
+                + 4 * (p + m)
             flops = 2.0 * m * k * n + 2.0 * m * r * (k + n)
-            b_ms, b_by = bound_ms(nbytes, flops)
+            b_ms, b_by = bound_ms(nbytes, flops, route)
+            simt_ms = bound_ms(nbytes, flops)[0]
             rows.append({"kernel": "batched_lora_apply", "model": model,
-                         "phase": phase,
+                         "dtype": str(dtype), "phase": phase, **extra,
                          "proj": proj, "m": m, "k": k, "n": n, "pages": p,
                          "rank": r, "plan": la.describe_plan(m, n, k),
                          "max_abs_err": err, "tol": tol,
                          "kernel_ms": k_ms, "plain_ms": p_ms,
                          "library_ms": l_ms, **dev,
                          "bound_ms": b_ms, "bound_by": b_by,
+                         "bound_route": route,
+                         "bound_simt_f32_ms": simt_ms,
                          "bytes": nbytes, "flop": flops,
                          "kernel_gb_per_s": nbytes / k_ms / 1e6,
                          "kernel_tflop_per_s": flops / k_ms / 1e9,
@@ -715,10 +840,15 @@ def _k4_layers(torch, la, gen, model, projs, prefill_rows, rows) -> dict:
             for key, val in dev.items():
                 tot[key] = tot.get(key, 0.0) + val
             tot["bound_ms"] += b_ms
+            tot["bound_simt_f32_ms"] += simt_ms
             tot["bytes_ms"] += nbytes / PEAK_BYTES_PER_S * 1e3
-            tot["ops_ms"] += flops / PEAK_F32_FLOPS * 1e3
+            tot["ops_ms"] += flops / PEAK_FLOPS[route] * 1e3
             tot["max_abs_err"] = max(tot.get("max_abs_err", 0.0), err)
-            del sets, args, got, want, mag
+            if extra:
+                tot["max_err_row_ulps"] = max(
+                    tot.get("max_err_row_ulps", 0.0),
+                    extra["max_err_row_ulps"])
+            del sets, args, got, want, diff
         torch.cuda.empty_cache()
     return totals
 
@@ -1233,7 +1363,9 @@ def phase_round_vit_base(torch, rounds: int = 3) -> dict:
     t0 = time.perf_counter()
     cfg, fl, lora, shards, x_tr, y_tr, patches = _vit_base_setup()
     registry = ClientRegistry.create(fl, lora, shards)
-    model = Model(cfg, lora, device="cuda")
+    # every round builds its model without remat, as the reference's
+    # federation/experiment.py does
+    model = Model(cfg, lora, device="cuda", remat=False)
     batch_fn = make_batch_fn(registry, x_tr, y_tr, fl, 2, patches)
     server = FederatedLoRA(model, fl, lora, registry, batch_fn,
                            backend="kernel")
@@ -1332,7 +1464,7 @@ def phase_audit(torch) -> dict:
     fl = dataclasses.replace(fl, num_clients=AUDIT_COHORT,
                              participation=1.0)
     registry = ClientRegistry.create(fl, lora, shards[:AUDIT_COHORT])
-    model = Model(cfg, lora, device="cuda")
+    model = Model(cfg, lora, device="cuda", remat=False)
     server = FederatedLoRA(model, fl, lora, registry,
                            make_batch_fn(registry, x_tr, y_tr, fl, 2,
                                          patches), backend="kernel")
@@ -1687,7 +1819,7 @@ def phase_round_methods(torch) -> None:
         start = (params if lora.r_max == lora0.r_max else
                  merge_lora(base_p, truncate_adapters(lora_p, lora.r_max)))
         return FederatedLoRA(
-            Model(cfg, lora, device=DEV), fl, lora, registry,
+            Model(cfg, lora, device=DEV, remat=False), fl, lora, registry,
             make_batch_fn(registry, x_tr, y_tr, fl, 2, patches),
             base_params=start, backend=backend, partial_up_to=partial,
             round_engine=engine)
@@ -1853,7 +1985,7 @@ def _buffered_server(torch, events: bool):
     cfg, fl, lora, shards, x_tr, y_tr, patches = _vit_base_setup()
     registry = ClientRegistry.create(fl, lora, shards)
     server = FederatedLoRA(
-        Model(cfg, lora, device=DEV), fl, lora, registry,
+        Model(cfg, lora, device=DEV, remat=False), fl, lora, registry,
         make_batch_fn(registry, x_tr, y_tr, fl, 2, patches),
         backend="kernel", round_engine="async",
         pipeline_depth=1 if events else 2, staleness_gamma=0.8,
@@ -2627,7 +2759,8 @@ def _vit_server(engine: str, transport=None, device=None):
     cfg, fl, lora, shards, x_tr, y_tr, patches = _vit_base_setup()
     registry = ClientRegistry.create(fl, lora, shards)
     return FederatedLoRA(
-        Model(cfg, lora, device=device or DEV), fl, lora, registry,
+        Model(cfg, lora, device=device or DEV, remat=False), fl, lora,
+        registry,
         make_batch_fn(registry, x_tr, y_tr, fl, 2, patches),
         backend="kernel", round_engine=engine,
         transport=transport and TransportConfig(mode=transport,
@@ -3056,7 +3189,7 @@ def phase_round_variants_vit_base(torch, summary: dict) -> dict:
         fl = dataclasses.replace(fl0, aggregator=method)
         registry = ClientRegistry.create(fl, lora, shards)
         server = FederatedLoRA(
-            Model(cfg, lora, device=DEV), fl, lora, registry,
+            Model(cfg, lora, device=DEV, remat=False), fl, lora, registry,
             make_batch_fn(registry, x_tr, y_tr, fl, 2, patches),
             backend="kernel")
         profiled = (variant, method) == ("dora", "raflora")
@@ -3135,8 +3268,8 @@ def _lm_server(cfg, variant: str, method: str = "raflora"):
         idx = registry.shards[cid]
         bx, by = next(batches(tokens[idx], targets[idx], LM_BATCH, rng))
         return [{"tokens": bx, "targets": by}]
-    return FederatedLoRA(Model(cfg, lora, device=DEV), fl, lora, registry,
-                         batch_fn, backend="kernel")
+    return FederatedLoRA(Model(cfg, lora, device=DEV, remat=False), fl,
+                         lora, registry, batch_fn, backend="kernel")
 
 
 def _factored_check(torch, server, run) -> tuple:
@@ -3383,16 +3516,17 @@ def phase_profile(torch, server) -> None:
 
 
 def _tenant_tree(torch, params, gen, device):
-    """Random nonzero factors shaped like the model's adapter leaves."""
+    """Random nonzero factors shaped like the model's adapter leaves, in
+    their dtype."""
     from repro_torch.core.lora import flatten, unflatten
     flat = {}
     for path, t in flatten(params).items():
         if path[-1] == "lora_a":
-            flat[path] = torch.randn(t.shape, generator=gen, device=device) \
-                * t.shape[-1] ** -0.5
+            flat[path] = (torch.randn(t.shape, generator=gen, device=device)
+                          * t.shape[-1] ** -0.5).to(t.dtype)
         elif path[-1] == "lora_b":
-            flat[path] = torch.randn(t.shape, generator=gen, device=device) \
-                * 0.1 * t.shape[-1] ** -0.5
+            flat[path] = (torch.randn(t.shape, generator=gen, device=device)
+                          * 0.1 * t.shape[-1] ** -0.5).to(t.dtype)
     return unflatten(flat)
 
 
@@ -3531,6 +3665,7 @@ def _top2_rule(torch, label: str, got, want) -> dict:
     greedy token equals the plain path's, or differs where the plain
     path's top-2 gap is within twice that slot's largest logit change."""
     from repro_torch.serving.engine import greedy
+    got, want = got.float(), want.float()
     dl = (got - want).abs()
     flips = []
     for slot in (greedy(got) != greedy(want)).nonzero().flatten().tolist():
@@ -3543,8 +3678,11 @@ def _top2_rule(torch, label: str, got, want) -> dict:
 
 
 def _serve_full(torch, phase: str, cfg, prompt_len: int, kernels,
-                match, after=None) -> dict:
-    """A main serving path at full width in f32: 4 slots of ``prompt_len``
+                match, after=None, dtype=None, teacher=False,
+                host_syncs=None, init_slack_gib=None) -> dict:
+    """A main serving path at full width in ``dtype`` (f32 by default; in
+    bf16 every K4 launch must be a bf16 instance's, counted under
+    ``batched_lora_apply_bf16``): 4 slots of ``prompt_len``
     tokens and 16 new tokens over 3 tenants at ranks 16/8/4 (slots on
     16/8/4/16), with a hot swap after 8 decode steps. The engine with
     ``use_kernels`` runs step by step against the same engine's plain path
@@ -3554,20 +3692,39 @@ def _serve_full(torch, phase: str, cfg, prompt_len: int, kernels,
     engine in turns, and one more decode step and one more prefill of each
     engine under the profiler (``match``: the kernels' names, see
     ``_profile``). ``after(eng, ref, gen, params)``, if given, runs last
-    and its dict joins the phase's line. Returns each wrapper's launches on the
-    main path, by name."""
+    and its dict joins the phase's line. Each call's MoE host syncs are
+    recorded; ``init``'s seconds and peak beside the model's bytes.
+    ``teacher``: each slot's greedy tokens also held to a teacher-forced
+    full forward under its tenant's pages (the t16 slots up to the swap).
+    ``host_syncs``: the MoE host syncs every call must make;
+    ``init_slack_gib``: the most ``init``'s peak may exceed the model's
+    bytes. Returns each wrapper's launches on the main path, by name."""
     from repro_torch.configs import LoRAConfig
+    from repro_torch.kernels import lora_apply as la
     from repro_torch.kernels import ops
+    from repro_torch.models.layers import moe
     from repro_torch.models.transformer import Model
     from repro_torch.serving import AdapterStore, ServingEngine
 
+    dtype = dtype or torch.float32
+    bf16 = dtype == torch.bfloat16
+    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     lora = LoRAConfig(rank_levels=(4, 8, 16))
-    model = Model(cfg, lora, device=DEV, use_kernels=True)
-    plain = Model(cfg, lora, device=DEV, use_kernels=False)
+    model = Model(cfg, lora, device=DEV, dtype=dtype, use_kernels=True)
+    plain = Model(cfg, lora, device=DEV, dtype=dtype, use_kernels=False)
     gen = torch.Generator(device=DEV).manual_seed(0)
     params = model.init(gen)
+    torch.cuda.synchronize()
+    init = {"seconds": time.perf_counter() - t0,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "param_gib": sum(t.nbytes for t in _leaves(params)) / 2**30}
+    init["over_params_gib"] = init["peak_gib"] - init["param_gib"]
+    if init_slack_gib is not None:
+        require(init["over_params_gib"] <= init_slack_gib,
+                f"{phase}: init peaked {init['over_params_gib']} GiB over "
+                f"the model's {init['param_gib']} GiB")
     store = AdapterStore(lora.rank_levels)
     for name, rank in {"t16": 16, "t8": 8, "t4": 4}.items():
         store.put(name, _tenant_tree(torch, params, gen, DEV), rank)
@@ -3593,11 +3750,14 @@ def _serve_full(torch, phase: str, cfg, prompt_len: int, kernels,
     ops.reset_launches()          # the main path's count starts here
     active = torch.ones(SLOTS, dtype=torch.bool, device=DEV)
     steps, compared, diverged = [], 0, None
+    snap0, gen_tok, gen_logits = store.published, [], []
     for step in range(NEW_TOKENS):
         if step == 9:             # the round landing after 8 decode steps
             store.put("t16", _tenant_tree(torch, params, gen, DEV), 16)
             store.publish()
         before = [k.launches for k, _, _ in kernels]
+        syncs, k4_bf16 = (moe.moe_apply.host_syncs,
+                          la.batched_lora_apply.launches_bf16)
         if step == 0:
             call, args = (lambda e: e.admit), (range(SLOTS), prompts,
                                                slot_tenants)
@@ -3605,13 +3765,26 @@ def _serve_full(torch, phase: str, cfg, prompt_len: int, kernels,
             call, args = (lambda e: e.decode), (active,)
         _, ms = timed(call(eng), *args)
         grew = [k.launches - n for (k, _, _), n in zip(kernels, before)]
+        moe_syncs = moe.moe_apply.host_syncs - syncs
+        grew_bf16 = la.batched_lora_apply.launches_bf16 - k4_bf16
+        if teacher:
+            gen_tok.append(eng.tokens.clone())
+            gen_logits.append(eng.last_logits.clone())
         _, ms_plain = timed(call(ref), *args)
         for (k, admit, dec), n, g in zip(kernels, before, grew):
             want = admit if step == 0 else dec
             require(g == want and k.launches - n == want,
                     f"{phase} step {step}: {k.__name__} launched {g} "
                     f"times, expected {want}")
+        require(host_syncs is None or moe_syncs == host_syncs,
+                f"{phase} step {step}: {moe_syncs} MoE host syncs, "
+                f"expected {host_syncs}")
+        for (k, _, _), g in zip(kernels, grew):
+            if bf16 and k is la.batched_lora_apply:
+                require(grew_bf16 == g, f"{phase} step {step}: {g} K4 "
+                        f"launches, {grew_bf16} of them bf16")
         row = {"step": step, "ms": ms, "plain_ms": ms_plain,
+               "host_syncs": moe_syncs,
                "launches": {k.__name__: g
                             for (k, _, _), g in zip(kernels, grew)}}
         if diverged is None:     # after a flip the streams differ
@@ -3625,6 +3798,9 @@ def _serve_full(torch, phase: str, cfg, prompt_len: int, kernels,
         steps.append(row)
     # read just after the main path
     launches = {k.__name__: k.launches for k, _, _ in kernels}
+    if bf16:
+        launches["batched_lora_apply_bf16"] = \
+            la.batched_lora_apply.launches_bf16
     want_log = [1] * 9 + [2] * (NEW_TOKENS - 9)
     require(eng.version_log == want_log and ref.version_log == want_log,
             f"{phase}: version logs {eng.version_log} / {ref.version_log},"
@@ -3637,6 +3813,18 @@ def _serve_full(torch, phase: str, cfg, prompt_len: int, kernels,
                 f"{phase}: {k.__name__} launched {launches[k.__name__]} "
                 f"times, expected {want}")
     peak = torch.cuda.max_memory_allocated() / 2**30
+    checks = []
+    if teacher:
+        for slot, tenant in enumerate(slot_tenants):
+            toks = torch.stack([t[slot] for t in gen_tok])
+            lg = torch.stack([t[slot] for t in gen_logits]).float()
+            snap, n = store.published, len(toks)
+            if tenant == "t16":       # its pages changed at the swap
+                snap, n = snap0, 9
+            checks.append({"slot": slot, "tenant": tenant,
+                           **_teacher_forced(torch, eng, snap, tenant,
+                                             prompts[slot], toks[:n],
+                                             lg[:n], phase)})
     # the prefill again, the engines in turns (kernels, plain, plain,
     # kernels): the first call above also pays the first engine's
     # allocations, and the host's speed drifts within a call
@@ -3653,7 +3841,8 @@ def _serve_full(torch, phase: str, cfg, prompt_len: int, kernels,
     dec = [r["ms"] for r in steps[1:]]
     dec_plain = [r["plain_ms"] for r in steps[1:]]
     dec_ms = sum(dec) / len(dec)
-    emit({"phase": phase, "params": n_params, "setup_s": setup_s,
+    emit({"phase": phase, "params": n_params, "dtype": str(dtype),
+          "layers": cfg.num_layers, "init": init, "setup_s": setup_s,
           "prompt_len": prompt_len, "prefill_ms": steps[0]["ms"],
           "prefill_plain_ms": steps[0]["plain_ms"],
           "prefill_warm_ms": warm[True], "prefill_plain_warm_ms": warm[False],
@@ -3668,9 +3857,11 @@ def _serve_full(torch, phase: str, cfg, prompt_len: int, kernels,
           "launches_per_admit": {k.__name__: a for k, a, _ in kernels},
           "launches_per_decode": {k.__name__: d for k, _, d in kernels},
           "launches": launches,
+          "host_syncs_per_call": sorted({r["host_syncs"] for r in steps}),
+          "teacher_forced": checks,
           "profiled_decode": prof_decode, "profiled_prefill": prof_prefill,
           "profiled_prefill_plain": prof_prefill_plain, **extra,
-          "steps": steps})
+          "steps": steps, "card": card_line()})
     return launches
 
 
@@ -4009,7 +4200,8 @@ def phase_serve_small_deepseek_v2(torch):
                  {"rtol": 1e-4, "atol": 1e-5}, {la.batched_lora_apply: 0})
 
 
-def _teacher_forced(torch, eng, snap, tenant, prompt, tokens, logits):
+def _teacher_forced(torch, eng, snap, tenant, prompt, tokens, logits,
+                    phase="serve_deepseek_v2"):
     """A slot's greedy ``tokens`` (and the engine's logits (n, V) that
     chose them) against one full ``prefill_clients`` forward of its
     prompt and tokens under ``tenant``'s pages of ``snap``: each token the
@@ -4023,8 +4215,8 @@ def _teacher_forced(torch, eng, snap, tenant, prompt, tokens, logits):
         full = eng.model.prefill_clients(
             eng.base, pages, {"tokens": seq},
             torch.ones(1, device=DEV))[0][0, 0]
-    want = full[prompt.numel() - 1:]
-    rule = _top2_rule(torch, f"serve_deepseek_v2 {tenant}", logits, want)
+    want = full[prompt.numel() - 1:].float()
+    rule = _top2_rule(torch, f"{phase} {tenant}", logits.float(), want)
     return {"tokens": len(tokens), **rule}
 
 
@@ -4299,6 +4491,148 @@ def _deepseek_ep(torch, eng, prompts, tenants) -> dict:
 PHASE_SECONDS: dict = {}
 
 
+# main paths 16 and 17: Llama-4 Maverick at full width in bf16, 2 of its 48
+# layers (one layer group: a dense layer and an MoE layer of 128 experts)
+LLAMA4_LAYERS = 2
+LLAMA4_INIT_SLACK_GIB = 1.0   # init's peak over the model's own bytes
+LLAMA4_TRAIN_TOKENS = 2048    # the train step's batch: 1 x 2048 tokens
+LLAMA4_TRAIN_RANK = 16
+LLAMA4_LOSS_RTOL = 1e-3       # remat against no remat
+# the LoRA gradients of remat and no remat, as tests/test_torch_bf16.py
+# holds the port's bf16 gradients to the reference's: within this many
+# bf16 ulps of each leaf's largest |value|
+BF16_GRAD_ULPS = 8
+
+
+def _llama4_cfg():
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("llama4-maverick-400b-a17b"),
+                               num_layers=LLAMA4_LAYERS)
+
+
+def phase_serve_llama4_maverick(torch) -> dict:
+    """Main path 16: Llama-4 Maverick at full width in bf16 with 2 of its
+    48 layers (``sub0`` dense, ``sub1`` MoE: 128 experts top-1 and one
+    shared; d 5120, 40 heads and 8 KV heads of 128, vocab 202048): 37.42
+    GB of weights, drawn in place (``Model.init``), its peak at most
+    ``LLAMA4_INIT_SLACK_GIB`` over the model's bytes. Served as
+    ``_serve_full`` serves Qwen2-7B (4 slots of 32-token prompts, 16 new
+    tokens, tenants at ranks 16/8/4 on q/k/v/o, a hot swap after 8 decode
+    steps), the K4 engine against the plain engine on the same weights:
+    K4 8 launches a call (4 projections x 2 layers), every one a bf16
+    instance's, one MoE host sync a call, each slot's tokens also held to
+    a teacher-forced full forward. Then main path 17 on the same weights
+    (``phase_train_step_llama4_maverick``). Returns K4's bf16 launches on
+    path 16 and path 17's line."""
+    from repro_torch.kernels import lora_apply as la
+    cfg = _llama4_cfg()
+    train = {}
+
+    def after(eng, ref, gen, params):
+        train.update(phase_train_step_llama4_maverick(torch, cfg, params,
+                                                      gen))
+        return {}
+
+    launches = _serve_full(
+        torch, "serve_llama4_maverick", cfg, PROMPT_LEN,
+        [(la.batched_lora_apply, 4 * LLAMA4_LAYERS, 4 * LLAMA4_LAYERS)],
+        ("lora_", "gemm", "index"), after=after, dtype=torch.bfloat16,
+        teacher=True, host_syncs=1, init_slack_gib=LLAMA4_INIT_SLACK_GIB)
+    return {"serve_llama4_maverick": launches["batched_lora_apply_bf16"],
+            "train": train}
+
+
+def phase_train_step_llama4_maverick(torch, cfg, params, gen) -> dict:
+    """Main path 17: one client step of ``launch.steps.build_train_step``
+    (LoRA-only AdamW, f32 gradient accumulation; the reference's step for
+    this architecture) on the served weights in bf16, batch 1 x 2048
+    ``SequenceCopy`` tokens, LoRA rank 16 on q/k/v/o (lora_b nonzero),
+    once with ``remat`` (the layer group run again in the backward) and
+    once without. Checks: the losses finite and equal within
+    ``LLAMA4_LOSS_RTOL``; the LoRA gradients of the two (the step's own
+    ``train_loss`` and ``autograd.grad``, taken again) within
+    ``BF16_GRAD_ULPS`` bf16 ulps of each leaf's largest |value|; remat's
+    peak the lower; no kernel launched (training runs the plain path).
+    Records each run's step ms and peak GiB."""
+    from repro_torch.configs import LoRAConfig
+    from repro_torch.core.lora import flatten, merge_lora, split_lora, \
+        unflatten
+    from repro_torch.data import SequenceCopy
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import build_train_step
+    from repro_torch.models.transformer import Model
+    lora = LoRAConfig(rank_levels=(4, 8, LLAMA4_TRAIN_RANK))
+    base, _ = split_lora(params)
+    adapters = _tenant_tree(torch, params, gen, DEV)
+    toks, tgts, _ = SequenceCopy(
+        vocab_size=cfg.vocab_size, seq_len=LLAMA4_TRAIN_TOKENS,
+        num_families=1, samples_per_family=1, seed=0).generate()
+    batch = {"tokens": toks[:1].astype("int32"),
+             "targets": tgts[:1].astype("int32")}
+    runs = {}
+    ops.reset_launches()          # main path 17's count starts here
+    # one untimed step first: the first backward of the process pays
+    # cuBLAS's and the allocator's set-up
+    for remat in (False, True, False):
+        model = Model(cfg, lora, device=DEV, dtype=torch.bfloat16,
+                      remat=remat)
+        step, opt = build_train_step(model, LLAMA4_TRAIN_RANK)
+        state = opt.init(adapters)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        new, state, metrics = step(adapters, state, base, batch, 1e-4)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        leaves = {p: x.detach().requires_grad_(True)
+                  for p, x in flatten(adapters).items()}
+        loss, _ = model.train_loss(
+            merge_lora(base, unflatten(leaves)), batch,
+            lora_rank=LLAMA4_TRAIN_RANK,
+            lora_scale=lora.scaling(LLAMA4_TRAIN_RANK))
+        grads = dict(zip(leaves, torch.autograd.grad(
+            loss, list(leaves.values()))))
+        runs[remat] = {"ms": ms, "peak_gib": peak,
+                       "loss": float(metrics["loss"]), "grads": grads}
+        require(math.isfinite(runs[remat]["loss"]),
+                f"train_step_llama4_maverick remat={remat}: loss "
+                f"{runs[remat]['loss']}")
+        del new, state, leaves, loss, model, step, opt
+    launches = {k.__name__: k.launches for k in ops.KERNELS}
+    require(not any(launches.values()),
+            f"train_step_llama4_maverick: kernels launched {launches}")
+    on, off = runs[True], runs[False]
+    rel = abs(on["loss"] - off["loss"]) / abs(off["loss"])
+    require(rel <= LLAMA4_LOSS_RTOL, f"train_step_llama4_maverick: loss "
+            f"{on['loss']} with remat, {off['loss']} without")
+    grad_ulps = {}
+    for path, g in off["grads"].items():
+        ulp = float(_bf16_ulp(torch, g.float().abs().max()))
+        grad_ulps["/".join(path)] = float(
+            (on["grads"][path].float() - g.float()).abs().max()) / ulp
+    worst = max(grad_ulps.values())
+    require(worst <= BF16_GRAD_ULPS, f"train_step_llama4_maverick: LoRA "
+            f"gradients {worst} bf16 ulps apart with and without remat")
+    require(on["peak_gib"] < off["peak_gib"], f"train_step_llama4_maverick:"
+            f" remat's peak {on['peak_gib']} GiB not below "
+            f"{off['peak_gib']} GiB")
+    line = {"phase": "train_step_llama4_maverick", "model": cfg.name,
+            "layers": f"{cfg.num_layers} of 48", "dtype": "bfloat16",
+            "tokens": LLAMA4_TRAIN_TOKENS, "lora_rank": LLAMA4_TRAIN_RANK,
+            **{("remat" if r else "no_remat"): {
+                k: v for k, v in run.items() if k != "grads"}
+               for r, run in runs.items()},
+            "loss_rel_diff": rel, "grad_max_ulps": worst,
+            "grad_ulps": grad_ulps, "kernel_launches": launches,
+            "card": card_line()}
+    emit(line)
+    return line
+
+
 def _time_phases() -> None:
     """Wrap every ``phase_*`` function of this module so that main's run
     adds each call's wall seconds to ``PHASE_SECONDS`` under its name (a
@@ -4436,6 +4770,13 @@ def main() -> int:
             by_path[k]["round_deepseek_v2"] = n
         for k, err in deepseek["max_abs_err"].items():
             summary[k]["max_abs_err"] = max(summary[k]["max_abs_err"], err)
+        gc.collect()
+        torch.cuda.empty_cache()
+        # Llama-4 Maverick served, then trained a step, on one set of
+        # bf16 weights (everything before it freed)
+        llama4 = phase_serve_llama4_maverick(torch)
+        by_path["batched_lora_apply_bf16"] = {
+            "serve_llama4_maverick": llama4["serve_llama4_maverick"]}
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1

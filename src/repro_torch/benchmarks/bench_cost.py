@@ -21,7 +21,8 @@ from repro_torch.models.transformer import Model
 def comm_bytes_per_client(cfg, lora: LoRAConfig, method: str, m: int,
                           rank: int, dtype_bytes: int = 4) -> int:
     """Upload + download volume per client per round (Table 1 column)."""
-    model = Model(cfg, lora, device="cpu")   # shapes only: no weights
+    model = Model(cfg, lora, device="cpu",   # shapes only: no weights
+                  remat=False)
     shapes = model.param_shapes()
     per_rank_elems = 0  # elements per unit rank across all adapters
     for ab in adapter_paths(shapes).values():

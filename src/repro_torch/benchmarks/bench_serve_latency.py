@@ -54,7 +54,8 @@ def _build_model(device=None):
     from repro_torch.models.transformer import Model
     cfg = get_config(ARCH).reduced()
     lora = LoRAConfig(rank_levels=RANK_LEVELS)
-    model = Model(cfg, lora, device=device, dtype=torch.float32)
+    model = Model(cfg, lora, device=device, dtype=torch.float32,
+                  remat=False)
     return cfg, lora, model
 
 

@@ -141,7 +141,7 @@ def build_experiment(method: str = "raflora", *,
                             seed=fl.seed)
     cfg = fedvit_config(d_model=d_model, num_classes=num_classes,
                         patches=data.patches)
-    model = Model(cfg, lora, dtype=torch.float32, device=device)
+    model = Model(cfg, lora, dtype=torch.float32, remat=False, device=device)
     registry = ClientRegistry.create(fl, lora, shards)
     x_noisy = x_tr
     if noisy_low_rank_std > 0:

@@ -41,6 +41,8 @@ SIGNATURES = {
     "lora_apply": {
         "batched_lora_apply_f32": [_P] * 9 + [_I] * 5 + [_L, _L]
         + [_I] * 4 + [_P],
+        "batched_lora_apply_bf16": [_P] * 9 + [_I] * 5 + [_L, _L]
+        + [_I] * 4 + [_P],
         "lora_apply_f32": [_P] * 7 + [_I] * 4 + [_F] + [_I] * 4 + [_P],
     },
     "rank_partition_agg": {

@@ -1,5 +1,6 @@
 // K4: paged multi-adapter LoRA apply (the serving engine's q/k/v/o
-// projections), and K5: the single-adapter fused LoRA apply; f32.
+// projections), in f32 and in bf16, and K5: the single-adapter fused LoRA
+// apply; f32.
 //
 // K4 replaces src/repro/kernels/lora_apply.py::batched_lora_apply_pallas
 // and the SGMV grouping of repro/kernels/ops.py::batched_lora_apply.
@@ -64,25 +65,65 @@
 //        (gemm_plan.py::plan_gemm_tc) goes through the same (S, M, N)
 //        workspace and lora_split_reduce_kernel; unsplit, the tile adds
 //        the expand itself, in IEEE f32 as above.
+// K4's bf16 instances (batched_lora_apply_bf16, a bf16 model's serve) read
+// x, W and the A and B pages as __nv_bfloat16 and run every launch above
+// with the same f32 arithmetic: each operand is converted to f32 in
+// registers (the shrink, the GEMV's W stream and the expand) or on its way
+// into the shared-memory slabs (the GEMV's x chunk; the SGEMM's two sides,
+// through registers: sgemm_bf16.cuh), the products of bf16 values are
+// exact in f32 and summed in f32 as the f32 instances sum them, scales stay
+// f32, z and the split partials stay f32, and y is rounded to bf16 once,
+// when it is stored. That is the reference kernel's arithmetic (each tile
+// upcast, an f32 dot at Precision.HIGHEST, the output written in x's
+// dtype). They move half the f32 instances' bytes: the decode GEMV, bound
+// by W's bytes, reads 25.7 MB a Qwen2-7B q projection instead of 51.4.
+//
 // K4's products and K5's shrink and expand are IEEE f32 FMAs (no TF32). A
 // row whose page id lies outside [0, P) gets NaN in every column: the
 // wrapper does not read ids back to the host, so a bad id shows in the
 // output instead.
 #include <climits>
 
+#include <type_traits>
+
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "mma_tf32x3.cuh"
+#include "sgemm_bf16.cuh"
 #include "sgemm_f32.cuh"
 
 namespace {
 
+// The operand element type of an instance: f32, or bf16 (kBf16)
+template <bool kBf16>
+using Elem = std::conditional_t<kBf16, __nv_bfloat16, float>;
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) {
+  return sgemm::bf16_bits_to_float(
+      *reinterpret_cast<const unsigned short*>(&v));
+}
+__device__ __forceinline__ void put(float* p, float v) { *p = v; }
+__device__ __forceinline__ void put(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+// 4 consecutive elements as a float4: one 16-byte (f32) or 8-byte (bf16)
+// load, 4 * sizeof(T)-aligned
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 ld4(const __nv_bfloat16* p) {
+  return sgemm::bf16x4_to_float4(*reinterpret_cast<const uint2*>(p));
+}
+
 // The adapter side of one call: pages and ids (K4), or one adapter at page
 // 0 with the scale by value (K5).
+template <bool kBf16>
 struct Adapter {
-  const float* a;           // A pages, a_stride floats apart
-  const float* b;           // B pages, b_stride floats apart
+  const Elem<kBf16>* a;     // A pages, a_stride elements apart
+  const Elem<kBf16>* b;     // B pages, b_stride elements apart
   const float* scales;      // (P,) for K4
   const int* ids;           // (M,) page per row for K4
   long long a_stride, b_stride;
@@ -91,15 +132,15 @@ struct Adapter {
 };
 
 // page of a row, or -1 for an id outside [0, P)
-template <bool kPaged>
-__device__ __forceinline__ int page_of(const Adapter& ad, int row) {
+template <bool kPaged, bool kBf16>
+__device__ __forceinline__ int page_of(const Adapter<kBf16>& ad, int row) {
   if (!kPaged) return 0;
   const int p = ad.ids[row];
   return (p < 0 || p >= ad.P) ? -1 : p;
 }
 
-template <bool kPaged>
-__device__ __forceinline__ float scale_of(const Adapter& ad, int p) {
+template <bool kPaged, bool kBf16>
+__device__ __forceinline__ float scale_of(const Adapter<kBf16>& ad, int p) {
   return kPaged ? ad.scales[p] : ad.scale;
 }
 
@@ -111,34 +152,33 @@ constexpr int kGemvMaxRows = 32;           // M above: the SGEMM route
 
 __device__ __forceinline__ float nan_f32() { return __int_as_float(0x7fc00000); }
 
-template <bool kPaged>
+template <bool kPaged, bool kBf16>
 __global__ void __launch_bounds__(kThreads)
-lora_shrink_kernel(const float* __restrict__ x, const Adapter ad,
+lora_shrink_kernel(const Elem<kBf16>* __restrict__ x, const Adapter<kBf16> ad,
                    float* __restrict__ z, int M, int K, int R, int vec) {
   const int t = blockIdx.x;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int j = blockIdx.y * kShrinkWarps + warp;
   if (t >= M || j >= R) return;
-  const int p = page_of<kPaged>(ad, t);
+  const int p = page_of<kPaged, kBf16>(ad, t);
   if (p < 0) {
     if (lane == 0) z[(size_t)t * R + j] = nan_f32();
     return;
   }
-  const float* xr = x + (size_t)t * K;
-  const float* ar = ad.a + (size_t)p * ad.a_stride + (size_t)j * K;
+  const Elem<kBf16>* xr = x + (size_t)t * K;
+  const Elem<kBf16>* ar = ad.a + (size_t)p * ad.a_stride + (size_t)j * K;
   float acc = 0.f;
   if (vec) {
-    const float4* x4 = reinterpret_cast<const float4*>(xr);
-    const float4* a4 = reinterpret_cast<const float4*>(ar);
     for (int k = lane; k < K / 4; k += 32) {
-      const float4 u = x4[k], v = a4[k];
+      const float4 u = ld4(xr + 4 * k), v = ld4(ar + 4 * k);
       acc = fmaf(u.x, v.x, acc);
       acc = fmaf(u.y, v.y, acc);
       acc = fmaf(u.z, v.z, acc);
       acc = fmaf(u.w, v.w, acc);
     }
   } else {
-    for (int k = lane; k < K; k += 32) acc = fmaf(xr[k], ar[k], acc);
+    for (int k = lane; k < K; k += 32)
+      acc = fmaf(to_f(xr[k]), to_f(ar[k]), acc);
   }
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1)
@@ -147,24 +187,25 @@ lora_shrink_kernel(const float* __restrict__ x, const Adapter ad,
 }
 
 // acc + s_p * (z[row] . B_p[col])
-template <bool kPaged>
+template <bool kPaged, bool kBf16>
 __device__ __forceinline__ float expand(float acc, int row, int col,
-                                        const Adapter& ad,
+                                        const Adapter<kBf16>& ad,
                                         const float* __restrict__ z, int R) {
-  const int p = page_of<kPaged>(ad, row);
+  const int p = page_of<kPaged, kBf16>(ad, row);
   if (p < 0) return nan_f32();
   const float* zr = z + (size_t)row * R;
-  const float* br = ad.b + (size_t)p * ad.b_stride + (size_t)col * R;
+  const Elem<kBf16>* br = ad.b + (size_t)p * ad.b_stride + (size_t)col * R;
   float d = 0.f;
-  for (int j = 0; j < R; ++j) d = fmaf(zr[j], br[j], d);
-  return fmaf(scale_of<kPaged>(ad, p), d, acc);
+  for (int j = 0; j < R; ++j) d = fmaf(zr[j], to_f(br[j]), d);
+  return fmaf(scale_of<kPaged, kBf16>(ad, p), d, acc);
 }
 
-template <int NG, bool kPaged>
+template <int NG, bool kPaged, bool kBf16>
 __global__ void __launch_bounds__(kThreads)
-lora_gemv_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                 const Adapter ad, const float* __restrict__ z,
-                 float* __restrict__ y, int M, int K, int N, int R, int vec) {
+lora_gemv_kernel(const Elem<kBf16>* __restrict__ x,
+                 const Elem<kBf16>* __restrict__ w, const Adapter<kBf16> ad,
+                 const float* __restrict__ z, Elem<kBf16>* __restrict__ y,
+                 int M, int K, int N, int R, int vec) {
   constexpr int BM = kGemvRows, BN = 4 * NG, KS = kThreads / NG;
   static_assert(KS * BM * BN <= kGemvChunk * BM, "partials must fit");
   static_assert(BM * BN <= kThreads, "one output per thread");
@@ -186,20 +227,20 @@ lora_gemv_kernel(const float* __restrict__ x, const float* __restrict__ w,
     for (int e = tid; e < BM * kGemvChunk; e += kThreads) {
       const int m = e / kGemvChunk, k = e % kGemvChunk;
       smem[e] = (k < kn && m0 + m < M)
-                    ? x[(size_t)(m0 + m) * K + kc + k] : 0.f;
+                    ? to_f(x[(size_t)(m0 + m) * K + kc + k]) : 0.f;
     }
     __syncthreads();
-    const float* wk = w + (size_t)kc * N;
+    const Elem<kBf16>* wk = w + (size_t)kc * N;
 #pragma unroll 4
     for (int k = ks; k < kn; k += KS) {
       float wv[4];
       if (vec && n0 < N) {
-        const float4 v = *reinterpret_cast<const float4*>(wk + (size_t)k * N + n0);
+        const float4 v = ld4(wk + (size_t)k * N + n0);
         wv[0] = v.x; wv[1] = v.y; wv[2] = v.z; wv[3] = v.w;
       } else {
 #pragma unroll
         for (int c = 0; c < 4; ++c)
-          wv[c] = (n0 + c < N) ? wk[(size_t)k * N + n0 + c] : 0.f;
+          wv[c] = (n0 + c < N) ? to_f(wk[(size_t)k * N + n0 + c]) : 0.f;
       }
 #pragma unroll
       for (int m = 0; m < BM; ++m) {
@@ -222,7 +263,8 @@ lora_gemv_kernel(const float* __restrict__ x, const float* __restrict__ w,
     float s = 0.f;
     for (int q = 0; q < KS; ++q) s += smem[(q * BM + m) * BN + c];
     if (row < M && col < N)
-      y[(size_t)row * N + col] = expand<kPaged>(s, row, col, ad, z, R);
+      put(y + (size_t)row * N + col,
+          expand<kPaged, kBf16>(s, row, col, ad, z, R));
   }
 }
 
@@ -242,14 +284,15 @@ constexpr int kNoRow = -2;    // page slot of a tile row past M
 // pushes the 128 x 128 tile past 128 registers; fully in the split
 // reduce, so that its staging loads are in flight together. The FMA loop
 // stays rolled in both.
-template <bool kPaged, class T, int kStage>
-__device__ void expand_tile(float* zs, float* bs, int* pg, const Adapter& ad,
+template <bool kPaged, bool kBf16, class T, int kStage>
+__device__ void expand_tile(float* zs, float* bs, int* pg,
+                            const Adapter<kBf16>& ad,
                             const float* __restrict__ z, int M, int N, int R,
                             int m0, int n0, float (&acc)[T::TM][T::TN]) {
   const int tid = threadIdx.x, ty = sgemm::grid_row(),
             tx = sgemm::grid_col();
   for (int i = tid; i < T::BM; i += sgemm::kThreads)
-    pg[i] = m0 + i < M ? page_of<kPaged>(ad, m0 + i) : kNoRow;
+    pg[i] = m0 + i < M ? page_of<kPaged, kBf16>(ad, m0 + i) : kNoRow;
   __syncthreads();
   int last = -1;                 // pages above `last` are still to do
   while (R > 0) {
@@ -272,8 +315,8 @@ __device__ void expand_tile(float* zs, float* bs, int* pg, const Adapter& ad,
 #pragma unroll
     for (int i = 0; i < T::TM; ++i)
       rows |= (pg[sgemm::tile_row(i, ty)] == p ? 1u : 0u) << i;
-    const float s = scale_of<kPaged>(ad, p);
-    const float* bp = ad.b + (size_t)p * ad.b_stride;
+    const float s = scale_of<kPaged, kBf16>(ad, p);
+    const Elem<kBf16>* bp = ad.b + (size_t)p * ad.b_stride;
     for (int r0 = 0; r0 < R; r0 += sgemm::kBK) {
       __syncthreads();           // the last slab (and pg[BM]) read by all
 #pragma unroll (kStage)
@@ -288,7 +331,7 @@ __device__ void expand_tile(float* zs, float* bs, int* pg, const Adapter& ad,
         const int e = tid + it * sgemm::kThreads;
         const int n = e / sgemm::kBK, r = r0 + e % sgemm::kBK;
         bs[(e % sgemm::kBK) * T::LDW + n] =
-            (n0 + n < N && r < R) ? bp[(size_t)(n0 + n) * R + r] : 0.f;
+            (n0 + n < N && r < R) ? to_f(bp[(size_t)(n0 + n) * R + r]) : 0.f;
       }
       __syncthreads();
 #pragma unroll 1
@@ -305,17 +348,34 @@ __device__ void expand_tile(float* zs, float* bs, int* pg, const Adapter& ad,
       for (int j = 0; j < T::TN; ++j) acc[i][j] = nan_f32();
 }
 
+// y's tile in its element type: f32 as it stands, bf16 rounded once
+template <class T>
+__device__ __forceinline__ void store_out(float* y,
+                                          const float (&acc)[T::TM][T::TN],
+                                          int M, int N, int m0, int n0,
+                                          bool vec) {
+  sgemm::store_tile<T>(y, acc, M, N, m0, n0, vec);
+}
+template <class T>
+__device__ __forceinline__ void store_out(__nv_bfloat16* y,
+                                          const float (&acc)[T::TM][T::TN],
+                                          int M, int N, int m0, int n0,
+                                          bool vec) {
+  sgemm::store_tile_bf16<T>(y, acc, M, N, m0, n0, vec);
+}
+
 // One BM x BN output tile over the depth [z * depth, (z + 1) * depth) of
 // K. One split (gridDim.z == 1): the expand is added and y written. More:
 // the partial tile goes to part[z] of (S, M, N) and
 // lora_split_reduce_kernel finishes it. __launch_bounds__(256, 2): at most
 // 128 registers a thread, so two blocks share an SM.
-template <bool kPaged, int BM, int BN, bool kVec>
+template <bool kPaged, int BM, int BN, bool kVec, bool kBf16>
 __global__ void __launch_bounds__(sgemm::kThreads, 2)
-lora_gemm_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                 const Adapter ad, const float* __restrict__ z,
-                 float* __restrict__ y, float* __restrict__ part, int M,
-                 int K, int N, int R, int depth) {
+lora_gemm_kernel(const Elem<kBf16>* __restrict__ x,
+                 const Elem<kBf16>* __restrict__ w, const Adapter<kBf16> ad,
+                 const float* __restrict__ z, Elem<kBf16>* __restrict__ y,
+                 float* __restrict__ part, int M, int K, int N, int R,
+                 int depth) {
   using T = sgemm::Tile<BM, BN>;
   extern __shared__ __align__(16) float smem[];
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
@@ -325,16 +385,20 @@ lora_gemm_kernel(const float* __restrict__ x, const float* __restrict__ w,
   for (int i = 0; i < T::TM; ++i)
 #pragma unroll
     for (int j = 0; j < T::TN; ++j) acc[i][j] = 0.f;
-  sgemm::mainloop<T, kVec>(smem, x, w, M, K, N, m0, n0, kbeg, kend, acc);
+  if constexpr (kBf16)
+    sgemm::mainloop_bf16<T, kVec>(smem, x, w, M, K, N, m0, n0, kbeg, kend,
+                                  acc);
+  else
+    sgemm::mainloop<T, kVec>(smem, x, w, M, K, N, m0, n0, kbeg, kend, acc);
   if (gridDim.z > 1) {
     sgemm::store_tile<T>(part + (size_t)blockIdx.z * M * N, acc, M, N, m0,
                          n0, kVec);
     return;
   }
   int* pg = reinterpret_cast<int*>(smem + T::kRingBytes / 4);
-  expand_tile<kPaged, T, 1>(smem, smem + sgemm::kStages * T::kXFloats, pg,
-                            ad, z, M, N, R, m0, n0, acc);
-  sgemm::store_tile<T>(y, acc, M, N, m0, n0, kVec);
+  expand_tile<kPaged, kBf16, T, 1>(smem, smem + sgemm::kStages * T::kXFloats,
+                                   pg, ad, z, M, N, R, m0, n0, acc);
+  store_out<T>(y, acc, M, N, m0, n0, kVec);
 }
 
 constexpr int kRedStage = 4;   // the reduce's 4-trip staging loops, unrolled
@@ -343,11 +407,11 @@ constexpr int kRedStage = 4;   // the reduce's 4-trip staging loops, unrolled
 // expand; 64 x 64 tiles, 4 x 4 outputs a thread, float4 reads of the
 // partials where N % 4 == 0. (Row by row with 4 splits' loads in flight
 // measured faster on the H100 than all 4 rows' loads at once.)
-template <bool kPaged>
+template <bool kPaged, bool kBf16>
 __global__ void __launch_bounds__(sgemm::kThreads)
 lora_split_reduce_kernel(const float* __restrict__ part, int S,
-                         const Adapter ad, const float* __restrict__ z,
-                         float* __restrict__ y, int M, int N, int R,
+                         const Adapter<kBf16> ad, const float* __restrict__ z,
+                         Elem<kBf16>* __restrict__ y, int M, int N, int R,
                          int vec_y) {
   using T = sgemm::Tile<64, 64>;
   __shared__ __align__(16) float smem[T::kXFloats + T::kWFloats];
@@ -379,69 +443,75 @@ lora_split_reduce_kernel(const float* __restrict__ part, int S,
           if (col + c < N) acc[i][c] += src[(size_t)s * plane + c];
     }
   }
-  expand_tile<kPaged, T, kRedStage>(smem, smem + T::kXFloats, pg, ad, z, M,
-                                    N, R, m0, n0, acc);
-  sgemm::store_tile<T>(y, acc, M, N, m0, n0, vec_y);
+  expand_tile<kPaged, kBf16, T, kRedStage>(smem, smem + T::kXFloats, pg, ad,
+                                           z, M, N, R, m0, n0, acc);
+  store_out<T>(y, acc, M, N, m0, n0, vec_y);
 }
 
-template <bool kPaged, int BM, int BN, bool kVec>
-int launch_gemm(const float* x, const float* w, const Adapter& ad,
-                const float* z, float* y, float* part, int M, int K, int N,
-                int R, int splits, int depth, cudaStream_t s) {
+template <bool kPaged, int BM, int BN, bool kVec, bool kBf16>
+int launch_gemm(const Elem<kBf16>* x, const Elem<kBf16>* w,
+                const Adapter<kBf16>& ad, const float* z, Elem<kBf16>* y,
+                float* part, int M, int K, int N, int R, int splits,
+                int depth, cudaStream_t s) {
   using T = sgemm::Tile<BM, BN>;
   const int smem = T::kRingBytes + (BM + 1) * (int)sizeof(int);
   const cudaError_t err = cudaFuncSetAttribute(
-      lora_gemm_kernel<kPaged, BM, BN, kVec>,
+      lora_gemm_kernel<kPaged, BM, BN, kVec, kBf16>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, splits);
-  lora_gemm_kernel<kPaged, BM, BN, kVec><<<grid, sgemm::kThreads, smem, s>>>(
-      x, w, ad, z, y, part, M, K, N, R, depth);
+  lora_gemm_kernel<kPaged, BM, BN, kVec, kBf16>
+      <<<grid, sgemm::kThreads, smem, s>>>(x, w, ad, z, y, part, M, K, N, R,
+                                            depth);
   if (splits > 1) {
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
     dim3 rgrid((N + 63) / 64, (M + 63) / 64);
-    lora_split_reduce_kernel<kPaged><<<rgrid, sgemm::kThreads, 0, s>>>(
+    lora_split_reduce_kernel<kPaged, kBf16><<<rgrid, sgemm::kThreads, 0, s>>>(
         part, splits, ad, z, y, M, N, R, kVec);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// kVec (16-byte loads and stores) where x's and w's rows are 16-byte
-// aligned: K % 4 == 0 and N % 4 == 0, aligned bases (y and part come
-// from the allocator).
-template <bool kPaged, int BM, int BN>
-int launch_gemm(const float* x, const float* w, const Adapter& ad,
-                const float* z, float* y, float* part, int M, int K, int N,
-                int R, int splits, int depth, cudaStream_t s) {
+// kVec (loads and stores of 4 elements) where x's and w's rows are 4 *
+// sizeof(element)-byte aligned: K % 4 == 0 and N % 4 == 0, aligned bases
+// (y and part come from the allocator).
+template <bool kPaged, int BM, int BN, bool kBf16>
+int launch_gemm_tile(const Elem<kBf16>* x, const Elem<kBf16>* w,
+                     const Adapter<kBf16>& ad, const float* z,
+                     Elem<kBf16>* y, float* part, int M, int K, int N, int R,
+                     int splits, int depth, cudaStream_t s) {
   const bool vec = K % 4 == 0 && N % 4 == 0 &&
                    (reinterpret_cast<uintptr_t>(x) |
-                    reinterpret_cast<uintptr_t>(w)) % 16 == 0;
-  return vec ? launch_gemm<kPaged, BM, BN, true>(x, w, ad, z, y, part, M, K,
-                                                 N, R, splits, depth, s)
-             : launch_gemm<kPaged, BM, BN, false>(x, w, ad, z, y, part, M, K,
-                                                  N, R, splits, depth, s);
+                    reinterpret_cast<uintptr_t>(w)) %
+                           (4 * sizeof(Elem<kBf16>)) == 0;
+  return vec ? launch_gemm<kPaged, BM, BN, true, kBf16>(
+                   x, w, ad, z, y, part, M, K, N, R, splits, depth, s)
+             : launch_gemm<kPaged, BM, BN, false, kBf16>(
+                   x, w, ad, z, y, part, M, K, N, R, splits, depth, s);
 }
 
 // The host planner's choice (lora_apply.py::plan_gemm): a bm x bn tile and
 // `splits` ranges of K, each `depth` deep (a multiple of the slab) but the
 // last. Refused unless the splits cover K exactly.
-template <bool kPaged>
-int launch_sgemm(const float* x, const float* w, const Adapter& ad,
-                 const float* z, float* y, float* part, int M, int K, int N,
-                 int R, int bm, int bn, int splits, int depth,
-                 cudaStream_t s) {
+template <bool kPaged, bool kBf16>
+int launch_sgemm(const Elem<kBf16>* x, const Elem<kBf16>* w,
+                 const Adapter<kBf16>& ad, const float* z, Elem<kBf16>* y,
+                 float* part, int M, int K, int N, int R, int bm, int bn,
+                 int splits, int depth, cudaStream_t s) {
   const bool covers =
       splits >= 1 && depth > 0 && depth % sgemm::kBK == 0 &&
       (long long)splits * depth >= K &&
       (splits == 1 || ((long long)(splits - 1) * depth < K && part));
   if (!covers) return static_cast<int>(cudaErrorInvalidValue);
   if (bm == 128 && bn == 128)
-    return launch_gemm<kPaged, 128, 128>(x, w, ad, z, y, part, M, K, N, R,
-                                         splits, depth, s);
+    return launch_gemm_tile<kPaged, 128, 128, kBf16>(x, w, ad, z, y, part, M,
+                                                     K, N, R, splits, depth,
+                                                     s);
   if (bm == 64 && bn == 128)
-    return launch_gemm<kPaged, 64, 128>(x, w, ad, z, y, part, M, K, N, R,
-                                        splits, depth, s);
+    return launch_gemm_tile<kPaged, 64, 128, kBf16>(x, w, ad, z, y, part, M,
+                                                    K, N, R, splits, depth,
+                                                    s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -544,7 +614,7 @@ __device__ __forceinline__ void store_frags(float* __restrict__ out,
 template <bool kVec>
 __global__ void __launch_bounds__(tc::kThreads, 2)
 lora_tc_kernel(const float* __restrict__ x, const float* __restrict__ w,
-               const Adapter ad, const float* __restrict__ z,
+               const Adapter<false> ad, const float* __restrict__ z,
                float* __restrict__ y, float* __restrict__ part, int M,
                int K, int N, int R, int depth) {
   extern __shared__ __align__(16) float smem[];
@@ -655,7 +725,7 @@ lora_tc_kernel(const float* __restrict__ x, const float* __restrict__ w,
 // (lora_apply.py::plan_gemm_tc): 128 x 128 tiles, `splits` ranges of K,
 // each `depth` deep (a multiple of the slab) but the last. Refused unless
 // the splits cover K exactly.
-int launch_tc(const float* x, const float* w, const Adapter& ad,
+int launch_tc(const float* x, const float* w, const Adapter<false>& ad,
               const float* z, float* y, float* part, int M, int K, int N,
               int R, int bm, int bn, int splits, int depth, cudaStream_t s) {
   const bool covers =
@@ -692,56 +762,58 @@ int launch_tc(const float* x, const float* w, const Adapter& ad,
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
     dim3 rgrid((N + 63) / 64, (M + 63) / 64);
-    lora_split_reduce_kernel<false><<<rgrid, sgemm::kThreads, 0, s>>>(
+    lora_split_reduce_kernel<false, false><<<rgrid, sgemm::kThreads, 0, s>>>(
         part, splits, ad, z, y, M, N, R, vec);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int NG, bool kPaged>
-void launch_gemv(const float* x, const float* w, const Adapter& ad,
-                 const float* z, float* y, int M, int K, int N, int R,
-                 int vec, cudaStream_t s) {
+template <int NG, bool kPaged, bool kBf16>
+void launch_gemv(const Elem<kBf16>* x, const Elem<kBf16>* w,
+                 const Adapter<kBf16>& ad, const float* z, Elem<kBf16>* y,
+                 int M, int K, int N, int R, int vec, cudaStream_t s) {
   dim3 grid((N + 4 * NG - 1) / (4 * NG), (M + kGemvRows - 1) / kGemvRows);
-  lora_gemv_kernel<NG, kPaged><<<grid, kThreads, 0, s>>>(x, w, ad, z, y, M,
-                                                         K, N, R, vec);
+  lora_gemv_kernel<NG, kPaged, kBf16><<<grid, kThreads, 0, s>>>(
+      x, w, ad, z, y, M, K, N, R, vec);
 }
 
 // The shrink, then the base product with the expand in its epilogue. The
 // plan (bm, bn, splits, depth, part) is read only for M > 32.
-template <bool kPaged>
-int lora_apply_launch(const float* x, const float* w, const Adapter& ad,
-                      float* z, float* y, float* part, int M, int K, int N,
-                      int R, int bm, int bn, int splits, int depth,
-                      cudaStream_t s) {
+template <bool kPaged, bool kBf16>
+int lora_apply_launch(const Elem<kBf16>* x, const Elem<kBf16>* w,
+                      const Adapter<kBf16>& ad, float* z, Elem<kBf16>* y,
+                      float* part, int M, int K, int N, int R, int bm, int bn,
+                      int splits, int depth, cudaStream_t s) {
+  constexpr int kAlign = 4 * sizeof(Elem<kBf16>);   // a 4-element load
   if (M <= 0 || N <= 0) return 0;
   if (R > 0) {
     const int vec_a = (K % 4 == 0) && (ad.a_stride % 4 == 0) &&
                       ((reinterpret_cast<uintptr_t>(x) |
-                        reinterpret_cast<uintptr_t>(ad.a)) % 16 == 0);
+                        reinterpret_cast<uintptr_t>(ad.a)) % kAlign == 0);
     dim3 grid(M, (R + kShrinkWarps - 1) / kShrinkWarps);
-    lora_shrink_kernel<kPaged><<<grid, kThreads, 0, s>>>(x, ad, z, M, K, R,
-                                                         vec_a);
+    lora_shrink_kernel<kPaged, kBf16><<<grid, kThreads, 0, s>>>(x, ad, z, M,
+                                                                K, R, vec_a);
     const cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   if (M > kGemvMaxRows) {
     if constexpr (kPaged)
-      return launch_sgemm<true>(x, w, ad, z, y, part, M, K, N, R, bm, bn,
-                                splits, depth, s);
+      return launch_sgemm<true, kBf16>(x, w, ad, z, y, part, M, K, N, R, bm,
+                                       bn, splits, depth, s);
     else
       return launch_tc(x, w, ad, z, y, part, M, K, N, R, bm, bn, splits,
                        depth, s);
   }
-  const int vec_w = (N % 4 == 0) && reinterpret_cast<uintptr_t>(w) % 16 == 0;
+  const int vec_w =
+      (N % 4 == 0) && reinterpret_cast<uintptr_t>(w) % kAlign == 0;
   const int row_blocks = (M + kGemvRows - 1) / kGemvRows;
   // widest column tile that still gives every SM a block (132 SMs)
   if ((N + 31) / 32 * row_blocks >= 132)
-    launch_gemv<8, kPaged>(x, w, ad, z, y, M, K, N, R, vec_w, s);
+    launch_gemv<8, kPaged, kBf16>(x, w, ad, z, y, M, K, N, R, vec_w, s);
   else if ((N + 15) / 16 * row_blocks >= 132)
-    launch_gemv<4, kPaged>(x, w, ad, z, y, M, K, N, R, vec_w, s);
+    launch_gemv<4, kPaged, kBf16>(x, w, ad, z, y, M, K, N, R, vec_w, s);
   else
-    launch_gemv<2, kPaged>(x, w, ad, z, y, M, K, N, R, vec_w, s);
+    launch_gemv<2, kPaged, kBf16>(x, w, ad, z, y, M, K, N, R, vec_w, s);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -758,10 +830,29 @@ extern "C" int batched_lora_apply_f32(const float* x, const float* w,
                                       long long a_stride, long long b_stride,
                                       int bm, int bn, int splits, int depth,
                                       void* stream) {
-  const Adapter ad{a, b, scales, ids, a_stride, b_stride, P, 0.f};
-  return lora_apply_launch<true>(x, w, ad, z, y, part, M, K, N, R, bm, bn,
-                                 splits, depth,
-                                 static_cast<cudaStream_t>(stream));
+  const Adapter<false> ad{a, b, scales, ids, a_stride, b_stride, P, 0.f};
+  return lora_apply_launch<true, false>(x, w, ad, z, y, part, M, K, N, R, bm,
+                                        bn, splits, depth,
+                                        static_cast<cudaStream_t>(stream));
+}
+
+// K4 in bf16: x, w, the A and B pages and y are __nv_bfloat16 (page
+// strides in elements); scales, z and part f32, as for the f32 entry.
+extern "C" int batched_lora_apply_bf16(const void* x, const void* w,
+                                       const void* a, const void* b,
+                                       const float* scales, const int* ids,
+                                       float* z, void* y, float* part, int M,
+                                       int K, int N, int R, int P,
+                                       long long a_stride,
+                                       long long b_stride, int bm, int bn,
+                                       int splits, int depth, void* stream) {
+  using B = __nv_bfloat16;
+  const Adapter<true> ad{static_cast<const B*>(a), static_cast<const B*>(b),
+                         scales, ids, a_stride, b_stride, P, 0.f};
+  return lora_apply_launch<true, true>(
+      static_cast<const B*>(x), static_cast<const B*>(w), ad, z,
+      static_cast<B*>(y), part, M, K, N, R, bm, bn, splits, depth,
+      static_cast<cudaStream_t>(stream));
 }
 
 // K5: x (M, K), W (K, N), A (R, K), B (N, R), both contiguous; z (M, R)
@@ -771,8 +862,8 @@ extern "C" int lora_apply_f32(const float* x, const float* w, const float* a,
                               const float* b, float* z, float* y, float* part,
                               int M, int K, int N, int R, float scale, int bm,
                               int bn, int splits, int depth, void* stream) {
-  const Adapter ad{a, b, nullptr, nullptr, 0, 0, 1, scale};
-  return lora_apply_launch<false>(x, w, ad, z, y, part, M, K, N, R, bm, bn,
-                                  splits, depth,
-                                  static_cast<cudaStream_t>(stream));
+  const Adapter<false> ad{a, b, nullptr, nullptr, 0, 0, 1, scale};
+  return lora_apply_launch<false, false>(x, w, ad, z, y, part, M, K, N, R,
+                                         bm, bn, splits, depth,
+                                         static_cast<cudaStream_t>(stream));
 }

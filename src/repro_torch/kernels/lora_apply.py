@@ -5,6 +5,8 @@ p = ids[t]::
 
     y[t] = x[t] @ W + s_p * (x[t] @ A_p^T) @ B_p^T
 
+in f32 or, for a bf16 model, with x, W and the pages read as bf16 and y
+written in bf16 (every product and sum in f32, y rounded once),
 and K5, the single-adapter apply y = x @ W + s * (x @ A^T) @ B^T
 (replaces ``lora_apply_pallas``; no model calls it, the kernel API ``ops``
 does). Both run ``csrc/lora_apply.cu``, K5 without the page gather.
@@ -22,7 +24,8 @@ kernel's order, then the adapter term.
 ``*_plain`` are the plain PyTorch versions; each wrapper computes its plain
 version for CPU tensors and launches the CUDA kernel for CUDA tensors, with
 no fallback: a failed build or launch raises. ``wrapper.launches`` counts
-kernel calls and nothing else. The kernels have no backward, so the
+kernel calls and nothing else (``batched_lora_apply.launches_bf16`` those
+of them through the bf16 instances). The kernels have no backward, so the
 wrappers refuse inputs that need a gradient.
 """
 from __future__ import annotations
@@ -138,6 +141,10 @@ def lora_apply_tf32x3_plain(x: torch.Tensor, w: torch.Tensor,
         (scale * z) @ b.float().T
 
 
+# K4's operand dtypes: x, w and the pages all of one of them
+OPERAND_DTYPES = (torch.float32, torch.bfloat16)
+
+
 def _check(name: str, t: torch.Tensor, ndim: int, dtype) -> None:
     if t.dtype != dtype:
         raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
@@ -147,10 +154,10 @@ def _check(name: str, t: torch.Tensor, ndim: int, dtype) -> None:
         raise ValueError(f"{name}: unsupported device {t.device}")
 
 
-def _check_pages(name: str, t: torch.Tensor) -> None:
+def _check_pages(name: str, t: torch.Tensor, dtype) -> None:
     """Each page contiguous; the page axis may be strided (a per-layer
     slice of a stacked adapter tree)."""
-    _check(name, t, 3, torch.float32)
+    _check(name, t, 3, dtype)
     if t.shape[1] * t.shape[2] and t.stride()[1:] != (t.shape[2], 1):
         raise ValueError(f"{name}: every page must be contiguous")
 
@@ -159,13 +166,19 @@ def batched_lora_apply(x: torch.Tensor, w: torch.Tensor,
                        a_pages: torch.Tensor, b_pages: torch.Tensor,
                        scales: torch.Tensor,
                        ids: torch.Tensor) -> torch.Tensor:
-    """K4: x (..., K) f32 contiguous; w (K, N) contiguous; a_pages
-    (P, r, K); b_pages (P, N, r); scales (P,) f32; ids (...) int32 page
-    index per row -> (..., N) f32."""
-    _check("batched_lora_apply x", x, x.ndim, torch.float32)
-    _check("batched_lora_apply w", w, 2, torch.float32)
-    _check_pages("batched_lora_apply a_pages", a_pages)
-    _check_pages("batched_lora_apply b_pages", b_pages)
+    """K4: x (..., K) contiguous; w (K, N) contiguous; a_pages (P, r, K);
+    b_pages (P, N, r); scales (P,) f32; ids (...) int32 page index per row
+    -> (..., N) in x's dtype. x, w and the pages are all f32 or all bf16
+    (``OPERAND_DTYPES``); bf16 operands are read as bf16, every product
+    and sum runs in f32 and y is rounded once (the reference's Pallas
+    body)."""
+    if x.dtype not in OPERAND_DTYPES:
+        raise TypeError(f"batched_lora_apply x: expected one of "
+                        f"{OPERAND_DTYPES}, got {x.dtype}")
+    _check("batched_lora_apply x", x, x.ndim, x.dtype)
+    _check("batched_lora_apply w", w, 2, x.dtype)
+    _check_pages("batched_lora_apply a_pages", a_pages, x.dtype)
+    _check_pages("batched_lora_apply b_pages", b_pages, x.dtype)
     _check("batched_lora_apply scales", scales, 1, torch.float32)
     _check("batched_lora_apply ids", ids, ids.ndim, torch.int32)
     for t in (w, a_pages, b_pages, scales, ids):
@@ -192,11 +205,11 @@ def batched_lora_apply(x: torch.Tensor, w: torch.Tensor,
     if x.device.type == "cpu":
         return batched_lora_apply_plain(x, w, a_pages, b_pages, scales, ids)
     m = ids.numel()
-    y = torch.empty(x.shape[:-1] + (n,), dtype=torch.float32,
-                    device=x.device)
+    y = torch.empty(x.shape[:-1] + (n,), dtype=x.dtype, device=x.device)
     z = torch.empty((m, r), dtype=torch.float32, device=x.device)
     part, *plan = _sgemm_args(m, n, k, x.device)
-    fn = "batched_lora_apply_f32"
+    fn = ("batched_lora_apply_bf16" if x.dtype == torch.bfloat16
+          else "batched_lora_apply_f32")
     rc = getattr(build.library("lora_apply"), fn)(
         x.data_ptr(), w.data_ptr(), a_pages.data_ptr(), b_pages.data_ptr(),
         scales.data_ptr(), ids.data_ptr(), z.data_ptr(), y.data_ptr(),
@@ -204,6 +217,8 @@ def batched_lora_apply(x: torch.Tensor, w: torch.Tensor,
         a_pages.stride(0), b_pages.stride(0), *plan, _stream(x))
     build.check(rc, fn)
     batched_lora_apply.launches += 1
+    if x.dtype == torch.bfloat16:
+        batched_lora_apply.launches_bf16 += 1
     return y
 
 
@@ -243,3 +258,4 @@ def lora_apply(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
 KERNELS = (batched_lora_apply, lora_apply)
 for _k in KERNELS:
     _k.launches = 0
+batched_lora_apply.launches_bf16 = 0     # of those launches, the bf16 ones

@@ -28,8 +28,8 @@ For the aggregation: the Eq. 8 empty-partition fallback enters as one extra
 zero-padded to a multiple of 8 (zero columns change nothing) so
 R = M' * r8. Every kernel handles ragged extents itself (d, n, M, K, N,
 Lq, Lkv), so nothing else is padded and nothing needs slicing back; inputs
-of another float dtype are read as f32, and each entry returns the
-reference's output dtype.
+of another float dtype are read as f32 (K4 takes all-bf16 operands as they
+are), and each entry returns the reference's output dtype.
 """
 from __future__ import annotations
 
@@ -56,6 +56,7 @@ KERNELS = (rpa.KERNELS + rpa.DENSE_KERNELS + la.KERNELS + (ssd_scan,)
 def reset_launches() -> None:
     for k in KERNELS:
         k.launches = 0
+    la.batched_lora_apply.launches_bf16 = 0
 
 
 def _pad_to(x: torch.Tensor, axis: int, mult: int) -> torch.Tensor:
@@ -238,10 +239,10 @@ def lora_apply(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
     return y.reshape(lead + (n,)).to(x.dtype)
 
 
-def _pages(t: torch.Tensor) -> torch.Tensor:
-    """Pages as f32, each page contiguous; a strided page axis (a
+def _pages(t: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+    """Pages in ``dtype``, each page contiguous; a strided page axis (a
     per-layer slice of a stacked adapter leaf) is read in place."""
-    t = t.float()
+    t = t.to(dtype)
     if t.shape[1] * t.shape[2] and t.stride()[1:] != (t.shape[2], 1):
         t = t.contiguous()
     return t
@@ -254,11 +255,15 @@ def batched_lora_apply(x: torch.Tensor, w: torch.Tensor,
     """Paged multi-adapter y[t] = x[t] @ w + s_p * (x[t] @ A_p.T) @ B_p.T
     with p = ids[t] (K4); x (..., K), w (K, N), a_pages (P, r, K), b_pages
     (P, N, r), scales (P,), ids (...) of any integer dtype. x, w and the
-    pages of any float dtype are read as f32; returns (..., N) in
-    x.dtype."""
+    pages all bf16 go to K4's bf16 instance as they are; any other mix of
+    float dtypes is read as f32. Returns (..., N) in x.dtype."""
     lead, k = x.shape[:-1], x.shape[-1]
+    dt = (torch.bfloat16 if all(t.dtype == torch.bfloat16
+                                for t in (x, w, a_pages, b_pages))
+          else torch.float32)
     y = la.batched_lora_apply(
-        x.reshape(-1, k).float().contiguous(), w.float().contiguous(),
-        _pages(a_pages), _pages(b_pages), scales.float().contiguous(),
+        x.reshape(-1, k).to(dt).contiguous(), w.to(dt).contiguous(),
+        _pages(a_pages, dt), _pages(b_pages, dt),
+        scales.float().contiguous(),
         ids.reshape(-1).to(torch.int32).contiguous())
     return y.reshape(lead + (w.shape[-1],)).to(x.dtype)

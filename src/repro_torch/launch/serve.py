@@ -49,7 +49,8 @@ def main(argv=None) -> int:
         print(f"{args.arch} is encoder-only; no decode path")
         return 1
     lora = LoRAConfig(rank_levels=(4, 8, 16))
-    model = Model(cfg, lora, device=args.device, dtype=torch.float32)
+    model = Model(cfg, lora, device=args.device, dtype=torch.float32,
+                  remat=False)
     # independent streams: params (torch) and prompts (numpy) never share
     gen = torch.Generator(device=model.device).manual_seed(args.seed)
     params = model.init(gen)

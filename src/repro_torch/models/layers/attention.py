@@ -6,10 +6,20 @@ with ``causal`` False / True, a sliding window and a softcap), single-token
 ``transformer._decode_attention_windowed``).
 
 The reference streams KV blocks through an online softmax, which equals a
-full softmax; at the port's sequence lengths the full softmax(Q K^T *
-scale) V is written out in plain tensor code, scores in f32. GQA: query
-head h reads KV head h // (H / KVH), as ``_gqa_group`` groups them. The
-softcap bounds the attention scores, ``softcap * tanh(s / softcap)``
+full softmax; at the port's sequence lengths the whole score matrix is
+written out in plain tensor code, scores in f32. In f32 that is
+softmax(Q K^T * scale) V. Below f32 its rounding points are the
+reference's: over full sequences the weights p = exp(s - max) are rounded
+to the value dtype before p V (f32 sums) and divided by their f32 sum
+after it, as one block of the online softmax does; the decode takes the
+normalised softmax, rounded to the value dtype, then p V in f32. (In f32
+the two forms differ by rounding only, and the exp form keeps the scores
+for the backward beside the weights: 4.5 GiB more in a vit-base round.)
+The output is rounded to q's dtype once. The scores are f32 sums of the
+inputs' products (the reference's default; its ``bf16_scores`` option
+serves its TPU dry run only). GQA: query head h reads KV head
+h // (H / KVH), as ``_gqa_group`` groups them.
+The softcap bounds the attention scores, ``softcap * tanh(s / softcap)``
 before the mask, as the reference does with the config's
 ``logit_softcap``.
 """
@@ -25,9 +35,12 @@ def _repeat_kv(t: torch.Tensor, h: int) -> torch.Tensor:
     return t if kvh == h else t.repeat_interleave(h // kvh, dim=-2)
 
 
-def _attend(q, k, v, mask=None, softcap: float = 0.0) -> torch.Tensor:
+def _attend(q, k, v, mask=None, softcap: float = 0.0, *,
+            normalized: bool = False) -> torch.Tensor:
     """q (..., Lq, H, D); k, v (..., Lkv, KVH, D); mask broadcastable to
-    (..., H, Lq, Lkv), True where a key may be seen."""
+    (..., H, Lq, Lkv), True where a key may be seen. ``normalized``: the
+    decode's softmax weights; otherwise, below f32, the full-sequence
+    form (weights exp(s - max), divided after p V)."""
     h, d = q.shape[-2:]
     k, v = _repeat_kv(k, h), _repeat_kv(v, h)
     qh, kh, vh = (t.transpose(-3, -2) for t in (q, k, v))   # (..., H, L, D)
@@ -36,8 +49,12 @@ def _attend(q, k, v, mask=None, softcap: float = 0.0) -> torch.Tensor:
         scores = softcap * torch.tanh(scores / softcap)
     if mask is not None:
         scores = torch.where(mask, scores, NEG_INF)
-    p = torch.softmax(scores, dim=-1)
-    out = p.to(vh.dtype) @ vh
+    if normalized or vh.dtype == torch.float32:
+        out = torch.softmax(scores, dim=-1).to(vh.dtype).float() @ vh.float()
+    else:
+        p = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+        out = (p.to(vh.dtype).float() @ vh.float()) / torch.clamp(
+            p.sum(dim=-1, keepdim=True), min=1e-30)
     return out.transpose(-3, -2).to(q.dtype)
 
 
@@ -82,4 +99,5 @@ def decode_attention_windowed(q: torch.Tensor, k_cache: torch.Tensor,
     if lo is not None:
         valid = valid & (pos >= torch.as_tensor(lo, device=q.device
                                                 ).reshape(-1, 1))
-    return _attend(q, k_cache, v_cache, valid[:, None, None, :], softcap)
+    return _attend(q, k_cache, v_cache, valid[:, None, None, :], softcap,
+                   normalized=True)

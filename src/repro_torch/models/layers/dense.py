@@ -34,23 +34,28 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.lora_apply import batched_lora_apply
+from repro_torch.models.layers import draw
 
 
 def dense_init(gen: torch.Generator, d_in: int, d_out: int, *,
                bias: bool = False, lora_rank: int = 0,
-               dtype=torch.float32, device=None) -> dict:
+               dtype=torch.float32, device=None,
+               out: Optional[dict] = None) -> dict:
     """w ~ N(0, 1/d_in); bias zeros; LoRA A ~ N(0, 1/r), B = 0 (the
-    reference's init distributions; the random streams differ)."""
-    params = {"w": (torch.randn(d_in, d_out, generator=gen, device=device)
-                    * d_in ** -0.5).to(dtype)}
+    reference's init distributions; the random streams differ). With
+    ``out``, every leaf goes into its tensor there (``draw``)."""
+    kw = dict(dtype=dtype, device=device)
+    params = {"w": draw.normal(gen, (d_in, d_out), d_in ** -0.5, dtype,
+                               device, draw.sub(out, "w"))}
     if bias:
-        params["b"] = torch.zeros(d_out, dtype=dtype, device=device)
+        params["b"] = draw.keep(torch.zeros(d_out, **kw),
+                                draw.sub(out, "b"))
     if lora_rank > 0:
-        params["lora_a"] = (torch.randn(lora_rank, d_in, generator=gen,
-                                        device=device)
-                            * (1.0 / lora_rank) ** 0.5).to(dtype)
-        params["lora_b"] = torch.zeros(d_out, lora_rank, dtype=dtype,
-                                       device=device)
+        params["lora_a"] = draw.normal(gen, (lora_rank, d_in),
+                                       (1.0 / lora_rank) ** 0.5, dtype,
+                                       device, draw.sub(out, "lora_a"))
+        params["lora_b"] = draw.keep(torch.zeros(d_out, lora_rank, **kw),
+                                     draw.sub(out, "lora_b"))
     return params
 
 
@@ -86,7 +91,9 @@ def dense_apply(params: dict, x: torch.Tensor, *,
 def _kernel_lora_dense(params: dict, x: torch.Tensor,
                        lora_scale: Optional[torch.Tensor],
                        lora_rank: int) -> torch.Tensor:
-    """K4 over the slot axis: slot c's rows use page c (its own factors)."""
+    """K4 over the slot axis: slot c's rows use page c (its own factors).
+    x, W and the factors in the model's dtype (f32 or bf16) go to the
+    kernel as they are; y comes back in that dtype."""
     a, b = params["lora_a"], params["lora_b"]
     if lora_rank > 0:
         a, b = a[..., :lora_rank, :], b[..., :lora_rank].contiguous()

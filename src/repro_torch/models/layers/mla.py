@@ -23,9 +23,12 @@ caches (R, S, ...) with rows R = C * B.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.configs.base import MLAConfig
+from repro_torch.models.layers import draw
 from repro_torch.models.layers.attention import (bidirectional_attention,
                                                  causal_attention,
                                                  decode_attention)
@@ -36,32 +39,36 @@ from repro_torch.models.layers.rope import apply_rope
 
 def mla_init(gen: torch.Generator, d_model: int, num_heads: int,
              cfg: MLAConfig, *, lora_ranks: dict, dtype=torch.float32,
-             device=None) -> dict:
+             device=None, out: Optional[dict] = None) -> dict:
     kw = dict(dtype=dtype, device=device)
+
+    def to(key):
+        return dict(out=draw.sub(out, key), **kw)
     qk_head = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
     params = {}
     if cfg.q_lora_rank:
         params["q_a"] = dense_init(gen, d_model, cfg.q_lora_rank,
                                    lora_rank=lora_ranks.get("q_a_proj", 0),
-                                   **kw)
-        params["q_a_norm"] = rms_norm_init(cfg.q_lora_rank, **kw)
+                                   **to("q_a"))
+        params["q_a_norm"] = rms_norm_init(cfg.q_lora_rank, **to("q_a_norm"))
         params["q_b"] = dense_init(gen, cfg.q_lora_rank, num_heads * qk_head,
-                                   **kw)
+                                   **to("q_b"))
     else:
         params["q"] = dense_init(gen, d_model, num_heads * qk_head,
                                  lora_rank=lora_ranks.get("q_a_proj", 0),
-                                 **kw)
+                                 **to("q"))
     # joint KV compression and the decoupled rope key
     params["kv_a"] = dense_init(gen, d_model,
                                 cfg.kv_lora_rank + cfg.qk_rope_head_dim,
                                 lora_rank=lora_ranks.get("kv_a_proj", 0),
-                                **kw)
-    params["kv_a_norm"] = rms_norm_init(cfg.kv_lora_rank, **kw)
+                                **to("kv_a"))
+    params["kv_a_norm"] = rms_norm_init(cfg.kv_lora_rank, **to("kv_a_norm"))
     params["kv_b"] = dense_init(
         gen, cfg.kv_lora_rank,
-        num_heads * (cfg.qk_nope_head_dim + cfg.v_head_dim), **kw)
+        num_heads * (cfg.qk_nope_head_dim + cfg.v_head_dim), **to("kv_b"))
     params["o"] = dense_init(gen, num_heads * cfg.v_head_dim, d_model,
-                             lora_rank=lora_ranks.get("o_proj", 0), **kw)
+                             lora_rank=lora_ranks.get("o_proj", 0),
+                             **to("o"))
     return params
 
 

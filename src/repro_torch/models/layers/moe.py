@@ -24,7 +24,8 @@ weights are base leaves and carry no adapter, as in the reference.
 of the axis holds the same tokens, routes them over all E experts,
 computes only its own E / model experts and one counted ``all_reduce``
 (``core/collective.py``) sums the ranks' outputs, the reference's
-``psum``. Dropless, it syncs the group sizes to the host as ``moe_apply``
+``psum``, and trains through it at any number of ranks. Dropless, it
+syncs the group sizes to the host as ``moe_apply``
 does; with ``capacity_factor > 0`` it runs ``_expert_ffn_capacity``:
 static shapes, group sizes kept on the device, no host sync, and the
 assignments past an expert's capacity dropped.
@@ -35,38 +36,42 @@ path of the model.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import MoEConfig
 from repro_torch.core import collective
+from repro_torch.models.layers import draw
 from repro_torch.models.layers.dense import dense_init
 from repro_torch.models.layers.mlp import _act, is_gated, mlp_apply, mlp_init
 
 
 def moe_init(gen: torch.Generator, d_model: int, cfg: MoEConfig,
-             activation: str, *, dtype=torch.float32, device=None) -> dict:
+             activation: str, *, dtype=torch.float32, device=None,
+             out: Optional[dict] = None) -> dict:
     """Router ``w`` (d, E) in f32 whatever ``dtype``; ``w_up``, ``w_gate``
     (E, d, ff) and ``w_down`` (E, ff, d) all ~ N(0, 1/d_model); the
     shared experts as one MLP without adapters."""
     e, ff = cfg.num_experts, cfg.expert_d_ff
     scale = d_model ** -0.5
 
-    def w(shape):
-        return torch.randn(shape, generator=gen, device=device).mul_(
-            scale).to(dtype)
+    def w(key, shape):
+        return draw.normal(gen, shape, scale, dtype, device,
+                           draw.sub(out, key))
     params = {"router": dense_init(gen, d_model, e, dtype=torch.float32,
-                                   device=device),
-              "w_up": w((e, d_model, ff)),
-              "w_down": w((e, ff, d_model))}
+                                   device=device,
+                                   out=draw.sub(out, "router")),
+              "w_up": w("w_up", (e, d_model, ff)),
+              "w_down": w("w_down", (e, ff, d_model))}
     if is_gated(activation):
-        params["w_gate"] = w((e, d_model, ff))
+        params["w_gate"] = w("w_gate", (e, d_model, ff))
     if cfg.num_shared_experts:
         params["shared"] = mlp_init(
             gen, d_model, (cfg.shared_d_ff or ff) * cfg.num_shared_experts,
-            activation, lora_ranks={}, dtype=dtype, device=device)
+            activation, lora_ranks={}, dtype=dtype, device=device,
+            out=draw.sub(out, "shared"))
     return params
 
 
@@ -144,8 +149,8 @@ def _expert_ffn_capacity(sorted_tokens: torch.Tensor,
 
 class _ExpertSum(torch.autograd.Function):
     """The sum over the expert axis with a gradient: the forward's
-    counted all-reduce, the backward the identity, which is the gradient
-    at one rank of the axis (``_expert_sum`` refuses more)."""
+    counted all-reduce, the backward the identity (every rank holds the
+    whole output gradient)."""
 
     @staticmethod
     def forward(ctx, x, mesh, axis):
@@ -156,17 +161,37 @@ class _ExpertSum(torch.autograd.Function):
         return grad, None, None
 
 
+class _ToExperts(torch.autograd.Function):
+    """The conjugate of ``_ExpertSum`` where the replicated tokens and
+    routing weights enter this rank's experts: the identity forward, and
+    one counted all-reduce backward that sums the ranks' gradients (each
+    rank's experts see the same tokens and add their own terms), so the
+    gradient into x and the router holds every expert's term on every
+    rank. Both gradients go in one buffer."""
+
+    @staticmethod
+    def forward(ctx, x, w, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return x.view_as(x), w.view_as(w)
+
+    @staticmethod
+    def backward(ctx, gx, gw):
+        flat = torch.cat([gx.reshape(-1).float(), gw.reshape(-1).float()])
+        flat = collective.all_reduce(flat, ctx.mesh, ctx.axis)
+        n = gx.numel()
+        return (flat[:n].reshape(gx.shape).to(gx.dtype),
+                flat[n:].reshape(gw.shape).to(gw.dtype), None, None)
+
+
+def _grad_through(*ts) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
 def _expert_sum(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
-    """The reference's ``psum`` over ``axis``, one counted all-reduce. A
-    gradient through it at more than one rank raises: each rank's tokens
-    would also need the other ranks' gradients (the transpose of the
-    replicated input), which is not ported."""
-    if not (torch.is_grad_enabled() and x.requires_grad):
+    """The reference's ``psum`` over ``axis``, one counted all-reduce,
+    with its gradient (``_ExpertSum``) where one is needed."""
+    if not _grad_through(x):
         return collective.all_reduce(x, mesh, axis)
-    if mesh.shape[mesh.mesh_dim_names.index(axis)] > 1:
-        raise NotImplementedError(
-            "a gradient through the expert-parallel MoE over more than "
-            "one rank is not ported (ROADMAP.md queue 1 item 14)")
     return _ExpertSum.apply(x, mesh, axis)
 
 
@@ -227,9 +252,15 @@ def moe_apply_ep(params: dict, x: torch.Tensor, cfg: MoEConfig,
     ``ep_axis``. Each assignment to another rank's expert goes to a
     trailing group with weight 0, a stable sort orders the assignments
     by local expert, and after the local products one all-reduce over
-    ``ep_axis`` sums the ranks' outputs. ``capacity_factor > 0`` takes
-    ``_expert_ffn_capacity`` at capacity ``int(capacity_factor * T * k /
-    E) + 1`` (T the tokens of the call, E the global expert count):
+    ``ep_axis`` sums the ranks' outputs. Its gradient: the output
+    gradient reaches every rank whole, and one all-reduce in the backward
+    (``_ToExperts``) sums the ranks' gradients into the tokens and routing
+    weights that entered their experts; the shared experts and the aux
+    loss are computed whole on every rank and not summed again. An expert
+    weight's gradient lies on the rank that holds the expert.
+    ``capacity_factor > 0`` takes ``_expert_ffn_capacity`` at capacity
+    ``int(capacity_factor * T * k / E) + 1`` (T the tokens of the call, E
+    the global expert count):
     group sizes stay on the device and no host sync is made. Otherwise
     the group sizes reach the host once (``moe_apply.host_syncs``)."""
     xt, weights, experts, aux = _route(params, x, cfg)
@@ -242,9 +273,13 @@ def moe_apply_ep(params: dict, x: torch.Tensor, cfg: MoEConfig,
     local_e = e // ranks
     e_lo = mesh.get_local_rank(ep_axis) * local_e
     flat_expert = experts.reshape(-1)
+    flat_weight = weights.reshape(-1)
+    if _grad_through(flat_x, flat_weight):
+        flat_x, flat_weight = _ToExperts.apply(flat_x, flat_weight, mesh,
+                                               ep_axis)
     local = (flat_expert >= e_lo) & (flat_expert < e_lo + local_e)
     local_expert = torch.where(local, flat_expert - e_lo, local_e)
-    w_masked = torch.where(local, weights.reshape(-1), 0.0)
+    w_masked = torch.where(local, flat_weight, 0.0)
     token_idx = torch.arange(t * k, device=x.device) // k
     order = torch.argsort(local_expert, stable=True)
     rows = token_idx[order]

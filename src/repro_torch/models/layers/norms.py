@@ -1,11 +1,17 @@
 """RMSNorm (port of ``repro/models/layers/norms.py::rms_norm``)."""
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
+from repro_torch.models.layers import draw
 
-def rms_norm_init(d: int, dtype=torch.float32, device=None) -> dict:
-    return {"scale": torch.ones(d, dtype=dtype, device=device)}
+
+def rms_norm_init(d: int, dtype=torch.float32, device=None,
+                  out: Optional[dict] = None) -> dict:
+    return {"scale": draw.keep(torch.ones(d, dtype=dtype, device=device),
+                               draw.sub(out, "scale"))}
 
 
 def rms_norm(params: dict, x: torch.Tensor, eps: float = 1e-6

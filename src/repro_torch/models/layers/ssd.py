@@ -26,7 +26,9 @@ import torch.nn.functional as F
 from repro_torch.configs.base import SSMConfig
 from repro_torch.kernels.ssd_scan import _expand_groups, ssd_scan
 from repro_torch.kernels.ssd_scan import ssd_scan_plain as ssd_scan_chunked
+from repro_torch.models.layers import draw
 from repro_torch.models.layers.dense import dense_apply, dense_init
+from repro_torch.models.layers.mlp import silu
 from repro_torch.models.layers.norms import rms_norm, rms_norm_init
 
 
@@ -41,29 +43,37 @@ def ssd_dims(d_model: int, cfg: SSMConfig) -> dict:
 
 
 def ssd_init(gen: torch.Generator, d_model: int, cfg: SSMConfig, *,
-             lora_ranks: dict, dtype=torch.float32, device=None) -> dict:
+             lora_ranks: dict, dtype=torch.float32, device=None,
+             out: Optional[dict] = None) -> dict:
     """The reference's leaves and init distributions (the random streams
     differ)."""
     dims = ssd_dims(d_model, cfg)
     kw = dict(dtype=dtype, device=device)
+    f32 = dict(dtype=torch.float32, device=device)
+
+    def to(key):
+        return draw.sub(out, key)
+    h = dims["nheads"]
+    a_log = torch.linspace(1.0, 16.0, h, device=device)
+    if not a_log.is_meta:   # a meta log imports torch._dynamo (seconds)
+        a_log = torch.log(a_log)
     return {
         "in_proj": dense_init(gen, d_model, dims["proj_out"],
                               lora_rank=lora_ranks.get("ssm_in_proj", 0),
-                              **kw),
+                              out=to("in_proj"), **kw),
         "out_proj": dense_init(gen, dims["d_inner"], d_model,
                                lora_rank=lora_ranks.get("ssm_out_proj", 0),
-                               **kw),
+                               out=to("out_proj"), **kw),
         # depthwise causal conv over [x, B, C] channels
-        "conv_w": (torch.randn(cfg.conv_dim, dims["conv_ch"], generator=gen,
-                               device=device)
-                   * (1.0 / cfg.conv_dim) ** 0.5).to(dtype),
-        "conv_b": torch.zeros(dims["conv_ch"], **kw),
-        "A_log": torch.log(torch.linspace(1.0, 16.0, dims["nheads"],
-                                          device=device)),
-        "D": torch.ones(dims["nheads"], dtype=torch.float32, device=device),
-        "dt_bias": torch.zeros(dims["nheads"], dtype=torch.float32,
-                               device=device),
-        "norm": rms_norm_init(dims["d_inner"], **kw),
+        "conv_w": draw.normal(gen, (cfg.conv_dim, dims["conv_ch"]),
+                              (1.0 / cfg.conv_dim) ** 0.5, dtype, device,
+                              to("conv_w")),
+        "conv_b": draw.keep(torch.zeros(dims["conv_ch"], **kw),
+                            to("conv_b")),
+        "A_log": draw.keep(a_log, to("A_log")),
+        "D": draw.keep(torch.ones(h, **f32), to("D")),
+        "dt_bias": draw.keep(torch.zeros(h, **f32), to("dt_bias")),
+        "norm": rms_norm_init(dims["d_inner"], out=to("norm"), **kw),
     }
 
 
@@ -116,7 +126,7 @@ def ssd_decode_step(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
 def _gated_out(params: dict, y: torch.Tensor, z: torch.Tensor, lk: dict):
     """rms_norm(norm, y * silu(z)) (eps 1e-6, as the reference), then
     out_proj."""
-    y = rms_norm(params["norm"], y * F.silu(z))
+    y = rms_norm(params["norm"], y * silu(z))
     return dense_apply(params["out_proj"], y, **lk)
 
 

@@ -34,6 +34,18 @@ a one-rank group if there is none, which stays until its caller destroys
 it), and ``moe_capacity_factor > 0`` its capacity dispatch; as in the
 reference, the default ``"tp"`` path ignores the capacity factor.
 
+``remat`` (default on, as the reference's) runs each layer group of the
+training forward under ``torch.utils.checkpoint`` when a gradient is
+taken: only the group's inputs are kept, and its forward runs again in the
+backward (the reference's ``jax.checkpoint`` with ``nothing_saveable``
+around its layer scan's body); prefill, decode and forwards without a
+gradient never take it. The federated rounds, the serve launcher and the
+benches pass ``remat=False``, as their reference counterparts do. A model
+in ``dtype`` bf16 keeps every leaf bf16 but the router and the SSD
+constants, and ``use_kernels`` sends its q/k/v/o to K4's bf16 instances.
+``init`` writes each leaf straight into its stacked leaf, so its peak is
+the model's bytes plus one group's small constant leaves.
+
 The PEFT variants of the paper's Table 5 are applied after ``init`` on
 the stacked leaves, as the reference does: ``variant="dora"`` adds a
 trainable magnitude ``lora_m`` (the column norms of ``w``) next to every
@@ -74,11 +86,13 @@ import copy
 from typing import NamedTuple, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import (ATTN_BIDIR, ATTN_SLIDING, LoRAConfig,
                                       ModelConfig)
 from repro_torch.core.lora import split_lora
 from repro_torch.device import resolve_device
+from repro_torch.models.layers import draw
 from repro_torch.models.layers.attention import (bidirectional_attention,
                                                  causal_attention,
                                                  decode_attention,
@@ -125,11 +139,12 @@ class Model:
 
     def __init__(self, cfg: ModelConfig, lora: Optional[LoRAConfig] = None,
                  *, device=None, dtype=torch.float32,
-                 use_kernels: bool = False, moe_impl: str = "tp",
-                 mesh=None, batch_axes=("data",),
+                 remat: bool = True, use_kernels: bool = False,
+                 moe_impl: str = "tp", mesh=None, batch_axes=("data",),
                  moe_capacity_factor: float = 0.0):
         if moe_impl not in ("tp", "ep"):
             raise ValueError(f"unknown moe_impl {moe_impl!r}")
+        self.remat = remat
         self.moe_impl = moe_impl
         self.mesh = mesh
         self.batch_axes = batch_axes
@@ -150,49 +165,62 @@ class Model:
 
     # -- init -----------------------------------------------------------------
 
-    def _layer_init(self, gen: torch.Generator, li: int) -> dict:
+    def _layer_init(self, gen: torch.Generator, li: int,
+                    out: Optional[dict] = None) -> dict:
         """Layer ``li``'s parameters (its index picks an MoE or a dense
-        FFN)."""
+        FFN); with ``out``, written into its tensors (``draw``)."""
         cfg, lr = self.cfg, self.lora_ranks
-        kw = dict(dtype=self.dtype, device=self.device)
+
+        def to(*path):
+            o = out
+            for key in path:
+                o = draw.sub(o, key)
+            return dict(dtype=self.dtype, device=self.device, out=o)
         if cfg.kind == "ssm":   # mamba2 block: norm + mixer + residual only
-            return {"norm1": rms_norm_init(cfg.d_model, **kw),
+            return {"norm1": rms_norm_init(cfg.d_model, **to("norm1")),
                     "ssm": ssd_init(gen, cfg.d_model, cfg.ssm,
-                                    lora_ranks=lr, **kw)}
+                                    lora_ranks=lr, **to("ssm"))}
         if cfg.mla is not None:
             attn = mla_init(gen, cfg.d_model, cfg.num_heads, cfg.mla,
-                            lora_ranks=lr, **kw)
+                            lora_ranks=lr, **to("attn"))
         else:
             hd = cfg.resolved_head_dim
             q_out, kv_out = cfg.num_heads * hd, cfg.num_kv_heads * hd
             attn = {
                 "q": dense_init(gen, cfg.d_model, q_out, bias=cfg.qkv_bias,
-                                lora_rank=lr.get("q_proj", 0), **kw),
+                                lora_rank=lr.get("q_proj", 0),
+                                **to("attn", "q")),
                 "k": dense_init(gen, cfg.d_model, kv_out, bias=cfg.qkv_bias,
-                                lora_rank=lr.get("k_proj", 0), **kw),
+                                lora_rank=lr.get("k_proj", 0),
+                                **to("attn", "k")),
                 "v": dense_init(gen, cfg.d_model, kv_out, bias=cfg.qkv_bias,
-                                lora_rank=lr.get("v_proj", 0), **kw),
+                                lora_rank=lr.get("v_proj", 0),
+                                **to("attn", "v")),
                 "o": dense_init(gen, q_out, cfg.d_model,
-                                lora_rank=lr.get("o_proj", 0), **kw),
+                                lora_rank=lr.get("o_proj", 0),
+                                **to("attn", "o")),
             }
-        layer = {"norm1": rms_norm_init(cfg.d_model, **kw), "attn": attn,
-                 "norm2": rms_norm_init(cfg.d_model, **kw)}
+        layer = {"norm1": rms_norm_init(cfg.d_model, **to("norm1")),
+                 "attn": attn,
+                 "norm2": rms_norm_init(cfg.d_model, **to("norm2"))}
         if cfg.moe is not None and cfg.moe.is_moe_layer(li):
             layer["moe"] = moe_init(gen, cfg.d_model, cfg.moe,
-                                    cfg.activation, **kw)
+                                    cfg.activation, **to("moe"))
         else:
             d_ff = cfg.d_ff if cfg.moe is None else 2 * cfg.moe.expert_d_ff
             layer["mlp"] = mlp_init(gen, cfg.d_model, d_ff, cfg.activation,
-                                    lora_ranks=lr, **kw)
+                                    lora_ranks=lr, **to("mlp"))
         if cfg.kind == "hybrid":   # parallel SSD heads beside attention
             layer["ssm"] = ssd_init(gen, cfg.d_model, cfg.ssm,
-                                    lora_ranks=lr, **kw)
+                                    lora_ranks=lr, **to("ssm"))
         return layer
 
-    def _group_init(self, gen: torch.Generator, g: int) -> dict:
+    def _group_init(self, gen: torch.Generator, g: int,
+                    out: Optional[dict] = None) -> dict:
         if self.group_size == 1:
-            return self._layer_init(gen, g)
-        return {f"sub{i}": self._layer_init(gen, g * self.group_size + i)
+            return self._layer_init(gen, g, out)
+        return {f"sub{i}": self._layer_init(gen, g * self.group_size + i,
+                                            draw.sub(out, f"sub{i}"))
                 for i in range(self.group_size)}
 
     def _sub(self, tree: dict, i: int) -> dict:
@@ -202,28 +230,28 @@ class Model:
     def init(self, gen: torch.Generator) -> dict:
         """Random parameters from ``gen`` (a generator on ``self.device``),
         with the reference's shapes and init distributions. Each stacked
-        layer leaf is allocated once and filled group by group, so the
-        peak is the model plus one layer group."""
+        layer leaf is allocated once, and each layer group's init writes
+        its leaves straight into the group's slices of them (``draw``): no
+        drawn group, and no whole-tensor draw in another dtype, exists
+        beside the model, so the peak is the model plus one group's
+        constant leaves, each made before it is copied in. In f32 the
+        values are bit for bit those of drawing each group whole and
+        copying it in."""
         cfg, kw = self.cfg, dict(dtype=self.dtype, device=self.device)
         params = {
             # the token table is unused by the frontend path, kept so the
             # tree matches the reference's
-            "embed": (torch.randn(cfg.vocab_size, cfg.d_model, generator=gen,
-                                  device=self.device)
-                      * cfg.d_model ** -0.5).to(self.dtype),
+            "embed": draw.normal(gen, (cfg.vocab_size, cfg.d_model),
+                                 cfg.d_model ** -0.5, self.dtype,
+                                 self.device),
             "final_norm": rms_norm_init(cfg.d_model, **kw),
         }
         if not cfg.tie_embeddings:
             params["lm_head"] = dense_init(gen, cfg.d_model, cfg.vocab_size,
                                            **kw)
-        layers = None
+        layers = self._stacked_layers()
         for g in range(self.num_groups):
-            group = self._group_init(gen, g)
-            if layers is None:
-                layers = _index(group, lambda t: t.new_empty(
-                    (self.num_groups,) + tuple(t.shape)))
-            _fill(layers, group, g)
-            del group             # free it before drawing the next group
+            self._group_init(gen, g, _index(layers, lambda t: t[g]))
         params["layers"] = layers
         if self.lora is not None and self.lora.variant != "lora":
             params = self._apply_peft_variant(params)
@@ -231,6 +259,15 @@ class Model:
             params["frontend_proj"] = dense_init(
                 gen, cfg.frontend.embed_dim, cfg.d_model, **kw)
         return params
+
+    def _stacked_layers(self) -> dict:
+        """The stacked layer leaves, allocated empty on ``self.device``
+        from one group's tree on the meta device."""
+        meta = copy.copy(self)
+        meta.device = torch.device("meta")
+        return _index(meta._group_init(None, 0), lambda t: torch.empty(
+            (self.num_groups,) + tuple(t.shape), dtype=t.dtype,
+            device=self.device))
 
     def _apply_peft_variant(self, params: dict) -> dict:
         """Table 5's variants: DoRA adds trainable magnitudes next to every
@@ -488,6 +525,11 @@ class Model:
                 positions = positions.expand(3, t)
         lk = dict(lora_scale=scales, lora_rank=lora_rank)
         aux = torch.zeros(c, dtype=torch.float32, device=x.device)
+        if mode == "train" and self.remat and torch.is_grad_enabled():
+            for g in range(self.num_groups):
+                x, aux = checkpoint(self._group_train, base, lora_c, x, aux,
+                                    positions, g, lk, use_reentrant=False)
+            return self._logits(base, x), aux, None
         caches = {} if mode == "prefill" else None
         for li in range(cfg.num_layers):
             x, aux_l, entry = self._block_seq(self._layer(base, lora_c, li),
@@ -504,6 +546,19 @@ class Model:
                     sub[k] = v.new_empty((self.num_groups,) + v.shape)
                 sub[k][g] = v
         return self._logits(base, x), aux, caches
+
+    def _group_train(self, base: dict, lora_c: dict, x: torch.Tensor,
+                     aux: torch.Tensor, positions, g: int, lk: dict):
+        """Layer group ``g`` of the training forward: (x, aux). Under
+        ``remat`` it runs in a checkpoint, which keeps only its inputs and
+        runs it again in the backward (the reference's ``jax.checkpoint``
+        with ``nothing_saveable`` around each group of its layer scan)."""
+        for li in range(g * self.group_size, (g + 1) * self.group_size):
+            x, aux_l, _ = self._block_seq(self._layer(base, lora_c, li), x,
+                                          positions, li, lk)
+            if aux_l is not None:
+                aux = aux + aux_l
+        return x, aux
 
     def forward_clients(self, base: dict, lora_c: dict, batch: dict,
                         scales: torch.Tensor, *, lora_rank: int = -1
@@ -665,9 +720,3 @@ class Model:
                                             device=self.device))
 
 
-def _fill(stacked: dict, layer: dict, li: int) -> None:
-    for k, v in layer.items():
-        if isinstance(v, dict):
-            _fill(stacked[k], v, li)
-        else:
-            stacked[k][li].copy_(v)

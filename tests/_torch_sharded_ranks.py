@@ -3,25 +3,31 @@
 port's batched engine it is held to. In a module of its own so the
 spawned ranks import neither JAX nor the reference package.
 
-Each rank also runs the expert-parallel MoE (``moe_ep_outputs``) on a
-("data", "model") mesh of one row of two ranks, the layer's 4 experts
-split 2 + 2, for ``test_torch_sharded.py`` to hold to one rank.
+Each rank also runs the expert-parallel MoE (``moe_ep_outputs``, with
+its gradients) on a ("data", "model") mesh of one row of two ranks, the
+layer's 4 experts split 2 + 2, for ``test_torch_sharded.py`` to hold to
+one rank, and the LoRA gradients of a reduced Llama-4 whose MoE runs
+expert-parallel over that mesh (``llama4_lora_grads``), to hold to the
+``"tp"`` model's.
 
 The DoRA case carries each adapter's magnitude next to its factors,
 FedAvg'd with one all-reduce a magnitude. The sampled cohort is 5 clients, so at world 2 every round pads one ghost.
 Each case's round starts from the weights the reference's experiment of
 that case drew (a numpy tree, ``weights[label]``).
 """
+import numpy as np
 import torch
 
+from repro_torch.configs import LoRAConfig, get_config
 from repro_torch.configs.base import MoEConfig
 from repro_torch.convert import params_from_numpy
 from repro_torch.core import collective
-from repro_torch.core.lora import flatten
+from repro_torch.core.lora import flatten, merge_lora, split_lora, unflatten
 from repro_torch.federation.experiment import build_experiment
 from repro_torch.federation.transport import TransportConfig
 from repro_torch.launch import mesh as fl_mesh
 from repro_torch.models.layers import moe
+from repro_torch.models.transformer import Model
 
 SMALL = dict(fl_overrides={"num_rounds": 3, "num_clients": 10,
                            "participation": 0.5},
@@ -153,11 +159,14 @@ EP_FACTORS = (0.0, 0.5)      # dropless, and a capacity that drops
 def moe_ep_outputs(mesh) -> dict:
     """``moe_apply_ep`` on ``mesh`` at each of ``EP_FACTORS`` (2 clients of
     3 x 8 tokens, the layer drawn from seed 7 on every rank): {factor:
-    (out, aux)} in numpy, the all-reduces made, and the message of the
-    refusal of a gradient (None where none was raised)."""
+    (out, aux)} in numpy and the all-reduces the forwards made; then, at
+    each factor, the gradient of sum(out * r) + aux.sum() (r drawn from
+    seed 8) into x and into the expert weights ({"grad": {factor: (gx,
+    {name: g})}}) and the all-reduces of those calls, backward included."""
     gen = torch.Generator().manual_seed(7)
     params = moe.moe_init(gen, 16, EP_CFG, "swiglu")
     x = torch.randn(2, 3, 8, 16, generator=gen)
+    r = torch.randn(x.shape, generator=torch.Generator().manual_seed(8))
     out = {"mesh": tuple(mesh.shape)}
     calls = collective.all_reduce.calls
     for factor in EP_FACTORS:
@@ -165,13 +174,47 @@ def moe_ep_outputs(mesh) -> dict:
                                   capacity_factor=factor)
         out[factor] = (y.numpy(), aux.numpy())
     out["all_reduces"] = collective.all_reduce.calls - calls
-    try:
-        moe.moe_apply_ep(params, x.clone().requires_grad_(), EP_CFG,
-                         "swiglu", mesh)
-        out["grad"] = None
-    except NotImplementedError as e:
-        out["grad"] = str(e)
+    calls = collective.all_reduce.calls
+    experts = ("w_up", "w_gate", "w_down")
+    out["grad"] = {}
+    for factor in EP_FACTORS:
+        xg = x.clone().requires_grad_()
+        p = dict(params, **{k: params[k].clone().requires_grad_()
+                            for k in experts})
+        y, aux = moe.moe_apply_ep(p, xg, EP_CFG, "swiglu", mesh,
+                                  capacity_factor=factor)
+        grads = torch.autograd.grad((y * r).sum() + aux.sum(),
+                                    [xg] + [p[k] for k in experts])
+        out["grad"][factor] = (grads[0].numpy(), {
+            k: g.numpy() for k, g in zip(experts, grads[1:])})
+    out["grad_all_reduces"] = collective.all_reduce.calls - calls
     return out
+
+
+# the reduced Llama-4 Maverick (a dense and an MoE layer, 8 experts top-1)
+L4 = "llama4-maverick-400b-a17b"
+L4_REDUCED = dict(d_model=64, max_experts=8)
+
+
+def llama4_lora_grads(moe_impl: str, mesh=None) -> dict:
+    """The gradient of ``train_loss`` into every LoRA factor of the
+    reduced Llama-4 under ``moe_impl`` (weights from seed 11, lora_b drawn
+    away from 0, tokens from seed 2): {path: numpy}."""
+    cfg = get_config(L4).reduced(**L4_REDUCED)
+    lora = LoRAConfig(rank_levels=(4, 8, 16), rank_probs=(1 / 3,) * 3)
+    model = Model(cfg, lora, device="cpu", moe_impl=moe_impl, mesh=mesh)
+    gen = torch.Generator().manual_seed(11)
+    base, adapters = split_lora(model.init(gen))
+    adapters = {path: (t + 0.05 * torch.randn(t.shape, generator=gen)
+                       if path[-1] == "lora_b" else t).requires_grad_()
+                for path, t in flatten(adapters).items()}
+    rng = np.random.default_rng(2)
+    batch = {k: rng.integers(0, cfg.vocab_size, (2, 16)).astype(np.int32)
+             for k in ("tokens", "targets")}
+    loss, _ = model.train_loss(merge_lora(base, unflatten(adapters)), batch,
+                               lora_rank=8)
+    grads = torch.autograd.grad(loss, list(adapters.values()))
+    return {path: g.numpy() for path, g in zip(adapters, grads)}
 
 
 def rank_main(rank: int, world: int, ckpt: str, weights: dict) -> dict:
@@ -179,6 +222,7 @@ def rank_main(rank: int, world: int, ckpt: str, weights: dict) -> dict:
     out = {label: one_round(label, "sharded", weights[label])
            for label in CASES}
     out["async"] = async_save_restore(ckpt)
-    out["moe_ep"] = moe_ep_outputs(fl_mesh.make_host_mesh(model_axis=world,
-                                                          device="cpu"))
+    ep_mesh = fl_mesh.make_host_mesh(model_axis=world, device="cpu")
+    out["moe_ep"] = moe_ep_outputs(ep_mesh)
+    out["llama4_ep"] = llama4_lora_grads("ep", ep_mesh)
     return out

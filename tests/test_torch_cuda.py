@@ -1,8 +1,10 @@
 """Card-only checks of the port's hand-written CUDA kernels (K1-K7), of
 the round and of the serving engines (qwen2 with K4, mamba2 with K6,
-hymba with both) on the card, and of the MLA / MoE models there
-(``-k moe``, ``-k mla``). They skip without CUDA (the kernels have no CPU mode)
-and import nothing of JAX, so they run on a GPU machine without it:
+hymba with both) on the card, of the MLA / MoE models there
+(``-k moe``, ``-k mla``), of K4's bf16 instances (``-k bf16``) and of
+Llama-4 Maverick's init at full width (``-k llama4``). They skip without
+CUDA (the kernels have no CPU mode) and import nothing of JAX, so they
+run on a GPU machine without it:
 
     PYTHONPATH=src python -m pytest --noconftest tests/test_torch_cuda.py
 """
@@ -198,6 +200,87 @@ def test_cuda_lora_apply_matches_plain(cuda_device, m, k, n, p, r):
     assert float((got - want).abs().max()) <= _lora_tol(case)
     # deterministic: no atomics, fixed reduction order
     assert torch.equal(got, la.batched_lora_apply(**case))
+
+
+def _bf16_row_ulp(v):
+    """The bf16 spacing at the largest |value| of each row of v."""
+    a = v.float().abs().amax(dim=-1, keepdim=True).clamp(min=2.0 ** -126)
+    return torch.exp2(torch.floor(torch.log2(a)) - 7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,p,r", [
+    (4, 3584, 3584, 4, 16), (4, 3584, 512, 4, 16),      # qwen2 decode
+    (128, 3584, 3584, 4, 16), (128, 3584, 512, 4, 16),  # qwen2 prefill
+    (4, 5120, 5120, 3, 16), (128, 5120, 5120, 3, 16),   # llama4 q
+    (9, 300, 520, 9, 8), (37, 300, 520, 3, 6)])         # odd
+def test_cuda_lora_apply_bf16_matches_plain(cuda_device, m, k, n, p, r):
+    """K4's bf16 instances (x, W and the pages bf16, y bf16) against the
+    plain version on the same bf16 inputs at Qwen2-7B's decode and
+    prefill shapes, Llama-4 Maverick's q projection and an odd d 300, n
+    520 on the GEMV and the SGEMM routes: every element within one bf16
+    ulp of the largest |value| of its row (both sum in f32 and round
+    once; an element near 0 can differ by more than its own ulp, the two
+    f32 sums running in different orders), a bf16 launch counted, and a
+    second launch bit-equal to the first."""
+    case = _lora_case(21, m, k, n, p, r, cuda_device,
+                      ranks=[max(1, r - 2 * i) for i in range(p)])
+    case = {key: (v.bfloat16() if key in ("x", "w", "a_pages", "b_pages")
+                  else v) for key, v in case.items()}
+    before = (la.batched_lora_apply.launches,
+              la.batched_lora_apply.launches_bf16)
+    got = la.batched_lora_apply(**case)
+    want = la.batched_lora_apply_plain(**case)
+    torch.cuda.synchronize()
+    assert (la.batched_lora_apply.launches,
+            la.batched_lora_apply.launches_bf16) == (before[0] + 1,
+                                                     before[1] + 1)
+    assert got.dtype == torch.bfloat16 and got.shape == (m, n)
+    diff = (got.float() - want.float()).abs()
+    assert bool((diff <= _bf16_row_ulp(want)).all()), float(
+        (diff / _bf16_row_ulp(want)).max())
+    assert torch.equal(got, la.batched_lora_apply(**case))
+
+
+@pytest.mark.cuda
+def test_cuda_lora_apply_refuses_mixed_dtypes(cuda_device):
+    """The raw wrapper takes x, W and the pages all f32 or all bf16; a
+    mix raises (``ops.batched_lora_apply`` reads a mix as f32)."""
+    case = _lora_case(22, 8, 64, 40, 2, 8, cuda_device)
+    with pytest.raises(TypeError):
+        la.batched_lora_apply(**dict(case, w=case["w"].bfloat16()))
+
+
+@pytest.mark.cuda
+def test_cuda_llama4_init_peak_within_a_gib_of_the_model(cuda_device):
+    """``Model.init`` of Llama-4 Maverick at full width in bf16, 2 of its
+    48 layers (37.42 GB): each random draw goes straight into its stacked
+    leaf, so the allocator's peak during init is the model's bytes plus
+    at most 1 GiB."""
+    import dataclasses
+
+    from repro_torch.configs import LoRAConfig, get_config
+    from repro_torch.models.transformer import Model
+    cfg = dataclasses.replace(get_config("llama4-maverick-400b-a17b"),
+                              num_layers=2)
+    model = Model(cfg, LoRAConfig(rank_levels=(4, 8, 16)), device="cuda",
+                  dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    nbytes = sum(t.nbytes for t in _tree_leaves(params))
+    assert nbytes > 37e9
+    assert torch.cuda.max_memory_allocated() - base <= nbytes + 2 ** 30
+    del params
+    torch.cuda.empty_cache()
+
+
+def _tree_leaves(tree):
+    for v in tree.values():
+        yield from (_tree_leaves(v) if isinstance(v, dict) else (v,))
 
 
 @pytest.mark.cuda

@@ -42,6 +42,7 @@ MODULES = [
     "repro_torch.kernels.ssd_scan", "repro_torch.kernels.tf32x3",
     "repro_torch.models", "repro_torch.models.transformer",
     "repro_torch.models.layers.attention", "repro_torch.models.layers.dense",
+    "repro_torch.models.layers.draw",
     "repro_torch.models.layers.mla", "repro_torch.models.layers.mlp",
     "repro_torch.models.layers.moe", "repro_torch.models.layers.norms",
     "repro_torch.models.layers.rope", "repro_torch.models.layers.ssd",

@@ -98,8 +98,9 @@ def test_ops_entry_keeps_reference_contract(dtype, tol, ids_dtype):
     test_heterogeneous_ranks_vs_per_request_dense``: tol 1e-4 in f32,
     3e-2 in bf16). Held to the reference's entry (interpret mode) on the
     same inputs and to the oracle in f32 on the inputs as rounded to
-    ``dtype``; the raw wrapper keeps refusing
-    bf16 and int64 (``test_wrapper_checks_its_inputs``)."""
+    ``dtype``. All-bf16 operands reach the raw wrapper as bf16
+    (``test_ops_entry_passes_all_bf16_operands_through``); it refuses
+    int64 ids (``test_wrapper_checks_its_inputs``)."""
     case = _case(6)
     case["ids"] = case["ids"].astype(ids_dtype)
     t = _torch(case)
@@ -135,6 +136,66 @@ def test_ops_entry_takes_non_contiguous_pages():
     torch.testing.assert_close(
         tops.batched_lora_apply(**dict(t, a_pages=stacked)), want, rtol=0,
         atol=0)
+
+
+def _bf16(case):
+    return {k: (v.bfloat16() if k in ("x", "w", "a_pages", "b_pages")
+                else v) for k, v in _torch(case).items()}
+
+
+def test_wrapper_takes_bf16_operands_as_its_plain_version():
+    """The raw wrapper takes x, W and the pages all bf16 (a bf16 model's
+    serve): on the CPU its plain version, computed in f32 and rounded to
+    bf16 once, so within one bf16 ulp of each row's largest |value| of the
+    oracle on the same bf16 values; no launch counted."""
+    case = _bf16(_case(8))
+    tops.reset_launches()
+    got = la.batched_lora_apply(**case)
+    assert got.dtype == torch.bfloat16 and got.shape == (5, 7, N)
+    torch.testing.assert_close(got, la.batched_lora_apply_plain(**case),
+                               rtol=0, atol=0)
+    want = _oracle({k: (v.float() if v.is_floating_point() else v).numpy()
+                    for k, v in case.items()})
+    row = np.abs(want).max(axis=-1, keepdims=True)
+    ulp = 2.0 ** (np.floor(np.log2(row)) - 7)
+    assert (np.abs(got.float().numpy() - want) <= ulp).all()
+    assert la.batched_lora_apply.launches == 0
+    assert la.batched_lora_apply.launches_bf16 == 0
+
+
+def test_wrapper_refuses_mixed_operand_dtypes():
+    """x, W and the pages all of one dtype of ``OPERAND_DTYPES``: a bf16 W
+    under an f32 x, or f16 operands, raise."""
+    case = _torch(_case(9))
+    with pytest.raises(TypeError):
+        la.batched_lora_apply(**dict(case, w=case["w"].bfloat16()))
+    with pytest.raises(TypeError):
+        la.batched_lora_apply(**_bf16(_case(9)) | {"a_pages":
+                                                   case["a_pages"]})
+    with pytest.raises(TypeError):
+        la.batched_lora_apply(**{k: (v.half() if v.is_floating_point()
+                                     and k != "scales" else v)
+                                 for k, v in case.items()})
+
+
+@pytest.mark.parametrize("mixed", [False, True], ids=["bf16", "mixed"])
+def test_ops_entry_passes_all_bf16_operands_through(monkeypatch, mixed):
+    """``ops.batched_lora_apply`` hands all-bf16 operands to the wrapper as
+    they are (K4's bf16 instance on the card) and reads any mix as f32;
+    both return x's dtype."""
+    seen = []
+    inner = la.batched_lora_apply
+
+    def spy(x, w, a, b, s, ids):
+        seen.append({t.dtype for t in (x, w, a, b)})
+        return inner(x, w, a, b, s, ids)
+    monkeypatch.setattr(la, "batched_lora_apply", spy)
+    case = _bf16(_case(10))
+    if mixed:
+        case["w"] = case["w"].float()
+    got = tops.batched_lora_apply(**case)
+    assert got.dtype == torch.bfloat16
+    assert seen == [{torch.float32 if mixed else torch.bfloat16}]
 
 
 def test_cpu_wrapper_counts_no_launch():

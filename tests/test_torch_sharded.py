@@ -490,19 +490,46 @@ def test_world2_moe_ep_equals_world1(world1, world2):
     """The expert-parallel MoE with its 4 experts split 2 + 2 over the two
     ranks' model axis equals the one-rank layer (this process's group)
     within 1e-6, dropless and at capacity 0.5, on both ranks (one
-    all-reduce a call); a gradient through it is refused at two ranks by
-    its ROADMAP item and taken at one."""
+    all-reduce a call), and so does its gradient into x on both ranks
+    (one more all-reduce a call, in the backward); the expert weights'
+    gradients summed over the two ranks equal the one-rank layer's."""
     (r0, r1), _, _ = world2
     want = ranks2.moe_ep_outputs(fl_mesh.make_host_mesh(device="cpu"))
-    assert want["mesh"] == (1, 1) and want["grad"] is None
+    assert want["mesh"] == (1, 1)
     for res in (r0["moe_ep"], r1["moe_ep"]):
         assert res["mesh"] == (1, 2)
         assert res["all_reduces"] == len(ranks2.EP_FACTORS)
-        assert "ROADMAP.md queue 1 item 14" in res["grad"]
+        assert res["grad_all_reduces"] == 2 * len(ranks2.EP_FACTORS)
         for factor in ranks2.EP_FACTORS:
             (y, aux), (wy, waux) = res[factor], want[factor]
             np.testing.assert_allclose(y, wy, rtol=0, atol=1e-6)
             np.testing.assert_array_equal(aux, waux)
+            np.testing.assert_allclose(res["grad"][factor][0],
+                                       want["grad"][factor][0], rtol=0,
+                                       atol=1e-6)
+    for factor in ranks2.EP_FACTORS:
+        for name, w in want["grad"][factor][1].items():
+            got = (r0["moe_ep"]["grad"][factor][1][name]
+                   + r1["moe_ep"]["grad"][factor][1][name])
+            np.testing.assert_allclose(got, w, rtol=0, atol=1e-6,
+                                       err_msg=f"{factor} {name}")
+
+
+def test_world2_llama4_ep_lora_gradients_equal_tp(world1, world2):
+    """The reduced Llama-4 with ``moe_impl="ep"``, its 8 experts split 4 +
+    4 over the two ranks: on each rank the LoRA gradients of its training
+    loss equal the ``"tp"`` model's within 1e-5, as do the one-rank EP
+    model's."""
+    (r0, r1), _, _ = world2
+    want = ranks2.llama4_lora_grads("tp")
+    one = ranks2.llama4_lora_grads("ep", fl_mesh.make_host_mesh(
+        device="cpu"))
+    assert ("layers", "sub1", "attn", "q", "lora_a") in want
+    for got in (r0["llama4_ep"], r1["llama4_ep"], one):
+        assert set(got) == set(want)
+        for path, w in want.items():
+            np.testing.assert_allclose(got[path], w, rtol=0, atol=1e-5,
+                                       err_msg=str(path))
 
 
 def _buffered(kind, mesh):
