@@ -7,7 +7,11 @@ Needs one CUDA card (exits nonzero without one) and the CUDA toolkit's
 ``nvcc``. Imports ``repro_torch`` from ``src/`` next to this file, never
 JAX. Phases, each printing one JSON line:
 
-1. build          compile every hand-written kernel from the sources.
+1. build          compile every hand-written kernel from the sources, and
+                  check with ``cuobjdump -sass`` (the toolkit's, or
+                  Triton's copy) that each instance of K4's bf16 route
+                  above 32 rows (``lora_mma_bf16_kernel``) holds bf16
+                  HMMA instructions; without the tool the phase fails.
 2. kernels        each kernel against its plain PyTorch version on the card
                   at the shapes its main path gives it (K1/K2: the
                   vit-base round's buckets; K4: Qwen2-7B's q/k/v/o at
@@ -31,11 +35,15 @@ JAX. Phases, each printing one JSON line:
                   67 TFLOP/s of IEEE f32, or 3xTF32's 165 on the tensor
                   cores (K5 above 32 rows, K6, K7; their rows also carry
                   ``bound_simt_f32_ms``, the same work at 67, and the
-                  summary's ``runs_on`` names the route). K4's bf16 rows
-                  take bf16 work at the tensor cores' 989 TFLOP/s
-                  (``bound_route`` "mma_bf16"), and carry
-                  ``bound_simt_f32_ms`` too: their instances run on the
-                  CUDA cores (``runs_on`` "simt_f32").
+                  summary's ``runs_on`` names the route). Every K4 row
+                  names its route and plan (``describe_plan``: "gemv" at
+                  most 32 rows, its split over K; above them "sgemm" in
+                  f32, "mma_bf16" in bf16) and takes its bound at the
+                  peak of what it runs on: the GEMV's IEEE f32 FMAs at
+                  67, the bf16 tensor cores at 989 (``bound_route``);
+                  K4's rows carry ``bound_simt_f32_ms`` too, and
+                  ``rank0_device_ms``, the same call with rank-0 pages
+                  (no shrink launch, no expand).
 3. round_small    one fedvit-tiny (d_model=32) round on cuda and on cpu
                   from the same weights and seed; products and spectra
                   must agree to the kernel-path tolerance.
@@ -453,7 +461,46 @@ def bound_ms(nbytes: float, flops: float, route: str = "simt_f32") -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def _cuobjdump():
+    """The CUDA toolkit's ``cuobjdump``, or the copy Triton ships; None
+    where neither is installed."""
+    import shutil
+    found = shutil.which("cuobjdump")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cands = [os.path.join(home, "bin", "cuobjdump")]
+    try:
+        import triton
+        cands.append(os.path.join(os.path.dirname(triton.__file__),
+                                  "backends", "nvidia", "bin", "cuobjdump"))
+    except ImportError:
+        pass
+    return next((c for c in cands if os.path.exists(c)), None)
+
+
+# K4's bf16 route above 32 rows: its four instances (two tiles, with and
+# without 16-byte copies) and the SASS a bf16 mma.sync compiles to
+BF16_MMA_KERNEL = "lora_mma_bf16_kernel"
+BF16_MMA_INSTANCES = 4
+HMMA_BF16 = ("HMMA", "BF16")      # an HMMA line with bf16 operands
+
+
+def _sass_functions(sass: str) -> dict:
+    """``cuobjdump -sass`` output split into {mangled function name: its
+    instruction lines}."""
+    funcs, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            funcs[name] = []
+        elif name is not None:
+            funcs[name].append(line)
+    return funcs
+
+
 def phase_build():
+    from repro_torch.analysis import cuda_lint
     from repro_torch.kernels import build
     t0 = time.perf_counter()
     build.build_all()
@@ -462,6 +509,20 @@ def phase_build():
              for stem, log in build.ptxas_log.items()}
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
           "compiled": sorted(build.ptxas_log), "ptxas": ptxas})
+    tool = _cuobjdump()
+    require(tool is not None, "build: no cuobjdump (neither the CUDA "
+            "toolkit's nor Triton's) to read K4's bf16 SASS with")
+    sass = subprocess.run([tool, "-sass", str(build._lib_path("lora_apply"))],
+                          capture_output=True, text=True, check=True).stdout
+    hmma = {cuda_lint.demangle(name):
+            sum(all(tok in ln for tok in HMMA_BF16) for ln in lines)
+            for name, lines in _sass_functions(sass).items()
+            if BF16_MMA_KERNEL in name}
+    emit({"phase": "build_sass", "tool": tool, "instruction": "HMMA BF16",
+          "count_by_instance": hmma})
+    require(len(hmma) == BF16_MMA_INSTANCES and min(hmma.values()) > 0,
+            f"build: not every instance of K4's bf16 route holds a bf16 "
+            f"HMMA: {hmma}")
 
 
 def _k12_check(torch, kname, label, kern, plain, args) -> tuple:
@@ -674,18 +735,19 @@ def phase_kernel_lora_apply(torch, summary: dict):
         "bound_ms": dec["bound_ms"],
         "bound_by": "bytes" if dec["bytes_ms"] >= dec["ops_ms"]
         else "operations",
-        "bound_route": "mma_bf16",
+        "bound_route": dec["bound_route"],
         "bound_simt_f32_ms": dec["bound_simt_f32_ms"],
         "library_ms": dec["library_ms"],
         "shape": "one llama4-maverick decode layer in bf16: q, k, v, o at "
                  "4 rows",
-        "decode_layer_device": {key: dec[key] for key in DEVICE_KEYS},
+        "decode_layer_device": {key: dec[key] for key in
+                                DEVICE_KEYS + ("rank0_device_ms",)},
         "other_layers": {
             model: {phase: {key: t[key] for key in
-                            ("ms", "plain_ms", "bound_ms",
+                            ("ms", "plain_ms", "bound_ms", "bound_route",
                              "bound_simt_f32_ms", "library_ms",
                              "max_abs_err", "max_err_row_ulps",
-                             *DEVICE_KEYS)}
+                             *DEVICE_KEYS, "rank0_device_ms")}
                     for phase, t in layer.items()}
             for model, layer in bf16_by_model.items()}}
     totals = by_model["qwen2-7b"]
@@ -700,10 +762,11 @@ def phase_kernel_lora_apply(torch, summary: dict):
         else "operations",
         "library_ms": dec["library_ms"],
         "shape": "one qwen2-7b decode layer: q, k, v, o at 4 rows",
-        "decode_layer_device": {key: dec[key] for key in DEVICE_KEYS},
+        "decode_layer_device": {key: dec[key] for key in
+                                DEVICE_KEYS + ("rank0_device_ms",)},
         "prefill_layer": {key: totals["prefill"][key] for key in
                           ("ms", "plain_ms", "bound_ms", "library_ms",
-                           *DEVICE_KEYS)},
+                           *DEVICE_KEYS, "rank0_device_ms")},
         "other_models_layer": {
             model: {phase: {key: t[key] for key in
                             ("ms", "plain_ms", "bound_ms", "library_ms",
@@ -730,12 +793,15 @@ def _k4_layers(torch, la, gen, model, projs, prefill_rows, rows,
     both compute in f32 and round once, so they differ by at most one
     rounding step wherever the two f32 sums lie far closer together
     than a bf16 ulp, which an element's own ulp is not near 0 (a sum in
-    another order differs there by more than that tiny ulp). The bound
-    takes f32 work at the SIMT peak and bf16 work at the bf16 tensor
-    cores' (each bf16 row keeps ``bound_simt_f32_ms`` beside it, the same
-    work at the SIMT peak its instances run at)."""
+    another order differs there by more than that tiny ulp). Each row
+    names its route and plan (``la.describe_plan``) and takes its bound
+    at the peak of what the route runs on: the GEMV and the SGEMM on the
+    CUDA cores' IEEE f32 FMAs, the bf16 route above 32 rows on the bf16
+    tensor cores (``bound_simt_f32_ms`` beside it, the same work at the
+    SIMT peak). Every row also times the same calls with rank-0 pages
+    (``rank0_device_ms``: no shrink launch and no expand, the base
+    product alone)."""
     dtype = dtype or torch.float32
-    route = "mma_bf16" if dtype == torch.bfloat16 else "simt_f32"
     size = torch.finfo(dtype).bits // 8
     eps = torch.finfo(torch.float32).eps
     totals = {}
@@ -762,6 +828,9 @@ def _k4_layers(torch, la, gen, model, projs, prefill_rows, rows,
                     torch.int32)
                 sets.append((x, w, a, b, s, ids))
             args = sets[0]
+            plan = la.describe_plan(m, n, k, dtype=dtype)
+            route = "mma_bf16" if plan["route"] == "mma_bf16" \
+                else "simt_f32"
             bf16_before = la.batched_lora_apply.launches_bf16
             got = la.batched_lora_apply(*args)
             want = la.batched_lora_apply_plain(*args)
@@ -812,6 +881,11 @@ def _k4_layers(torch, la, gen, model, projs, prefill_rows, rows,
                    "plain_device_ms": time_graph_ms(
                        torch, la.batched_lora_apply_plain, sets),
                    "library_device_ms": time_graph_ms(torch, lib, sets)}
+            rank0 = [(x, w, a[:, :0], b[:, :, :0], s, ids)
+                     for x, w, a, b, s, ids in sets]
+            dev["rank0_device_ms"] = time_graph_ms(
+                torch, la.batched_lora_apply, rank0)
+            del rank0
             # x, W, the pages and y in the operands' dtype; scales and
             # ids 4 bytes each
             nbytes = size * (k * n + p * r * (k + n) + m * (k + n)) \
@@ -822,7 +896,7 @@ def _k4_layers(torch, la, gen, model, projs, prefill_rows, rows,
             rows.append({"kernel": "batched_lora_apply", "model": model,
                          "dtype": str(dtype), "phase": phase, **extra,
                          "proj": proj, "m": m, "k": k, "n": n, "pages": p,
-                         "rank": r, "plan": la.describe_plan(m, n, k),
+                         "rank": r, "plan": plan,
                          "max_abs_err": err, "tol": tol,
                          "kernel_ms": k_ms, "plain_ms": p_ms,
                          "library_ms": l_ms, **dev,
@@ -843,6 +917,7 @@ def _k4_layers(torch, la, gen, model, projs, prefill_rows, rows,
             tot["bound_simt_f32_ms"] += simt_ms
             tot["bytes_ms"] += nbytes / PEAK_BYTES_PER_S * 1e3
             tot["ops_ms"] += flops / PEAK_FLOPS[route] * 1e3
+            tot["bound_route"] = route
             tot["max_abs_err"] = max(tot.get("max_abs_err", 0.0), err)
             if extra:
                 tot["max_err_row_ulps"] = max(

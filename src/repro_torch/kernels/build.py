@@ -39,11 +39,11 @@ SIGNATURES = {
         "gram_right_f32": [_P] * 4 + [_I] * 5 + [_P],
     },
     "lora_apply": {
-        "batched_lora_apply_f32": [_P] * 9 + [_I] * 5 + [_L, _L]
+        "batched_lora_apply_f32": [_P] * 10 + [_I] * 5 + [_L, _L]
         + [_I] * 4 + [_P],
-        "batched_lora_apply_bf16": [_P] * 9 + [_I] * 5 + [_L, _L]
+        "batched_lora_apply_bf16": [_P] * 10 + [_I] * 5 + [_L, _L]
         + [_I] * 4 + [_P],
-        "lora_apply_f32": [_P] * 7 + [_I] * 4 + [_F] + [_I] * 4 + [_P],
+        "lora_apply_f32": [_P] * 8 + [_I] * 4 + [_F] + [_I] * 4 + [_P],
     },
     "rank_partition_agg": {
         "rank_partition_agg_f32": [_P] * 6 + [_I] * 7 + [_P],

@@ -1,9 +1,11 @@
 """Host plans for the f32 SGEMM mainloop of ``csrc/sgemm_f32.cuh``, which
 K2 (``gram.cu``), K3 (``rank_partition_agg.cu``) and K4 (``lora_apply.cu``)
-share, and for K5's tensor-core product (``lora_apply.cu``'s
-``lora_tc_kernel``, 3xTF32): the output tile a block owns, and the split
-of the contraction depth into ranges, one block each, whose partial tiles
-are summed in range order (no atomics, so a repeat gives the same bits).
+share, for K5's tensor-core product (``lora_apply.cu``'s
+``lora_tc_kernel``, 3xTF32), for K4's bf16 tensor-core product
+(``lora_mma_bf16_kernel``) and for K4's and K5's GEMV at most 32 rows
+(``lora_gemv_kernel``): the output tile a block owns, and the split of the
+contraction depth into ranges, one block each, whose partial tiles are
+summed in range order (no atomics, so a repeat gives the same bits).
 
 The plans are pure Python and cached: every wrapper call plans, and the
 host's time per call is as large as the card's at these sizes.
@@ -35,6 +37,19 @@ AGG_RESIDENT = 3
 TC_TILE = (128, 128)
 TC_SLAB = 32
 TC_RESIDENT = 2
+# K4's and K5's GEMV: a block owns 4 or 8 rows and a strip of W 128 bytes
+# wide; its depth is a multiple of 128 and x's rows of it fit in 40 KB of
+# shared memory; two blocks an SM (<= 128 registers a thread)
+GEMV_ROWS = (4, 8)
+GEMV_STRIP_BYTES = 128
+GEMV_SLAB = 128
+GEMV_SMEM_FLOATS = 10240
+GEMV_RESIDENT = 2
+# K4's bf16 tensor-core route: 128 x 128 or 64 x 64 tiles, 32-deep slabs,
+# two blocks an SM (a 74 KB ring at 128 x 128, <= 128 registers)
+BF16_TILES = ((128, 128), (64, 64))
+BF16_SLAB = 32
+BF16_RESIDENT = 2
 
 
 class GemmPlan(NamedTuple):
@@ -194,3 +209,69 @@ def plan_gemm_tc(m: int, n: int, k: int) -> GemmPlan:
         if plan.splits > best.splits:
             best = plan
         s += 1
+
+
+def _gemv_plan(bm: int, bn: int, tiles: int, k: int, s: int) -> GemmPlan:
+    depth = max(GEMV_SLAB, _round_up(-(-k // s), GEMV_SLAB))
+    return GemmPlan(bm, bn, max(1, -(-k // depth)), depth, tiles)
+
+
+@functools.lru_cache(maxsize=1024)
+def plan_gemv(m: int, n: int, k: int, elem_bytes: int = 4) -> GemmPlan:
+    """The GEMV's blocks for m <= 32 rows of (m, k) @ (k, n) with
+    ``elem_bytes``-byte operands (4 f32, 2 bf16): 4 rows a block up to 4
+    rows, else 8; a strip of ``GEMV_STRIP_BYTES`` of each W row (32 f32 or
+    64 bf16 columns); the depth cut into the fewest ranges whose x rows fit
+    ``GEMV_SMEM_FLOATS``, more only while the blocks fall short of the
+    resident slots (``GEMV_RESIDENT`` an SM): then of the splits whose
+    ranges stay at least ``GEMV_SLAB`` deep, the one that gives a slot the
+    least depth to stream, ceil(blocks / slots) x depth, the fewer splits on
+    a tie. At 4 rows: Qwen2-7B's f32 q/o 112 strips x 2 splits of 1792
+    (224 blocks), k/v 16 x 14 of 256; Llama-4's bf16 q/o 80 x 3 of 1792
+    (240), k/v 16 x 14 of 384 (224)."""
+    bm = GEMV_ROWS[0] if m <= GEMV_ROWS[0] else GEMV_ROWS[1]
+    bn = GEMV_STRIP_BYTES // elem_bytes
+    tiles = -(-m // bm) * -(-n // bn)
+    slots = GEMV_RESIDENT * SMS
+    s = max(1, -(-k // (GEMV_SMEM_FLOATS // bm // GEMV_SLAB * GEMV_SLAB)))
+    plans = [_gemv_plan(bm, bn, tiles, k, s)]
+    while plans[-1].blocks < slots and plans[-1].depth > GEMV_SLAB:
+        s += 1
+        plans.append(_gemv_plan(bm, bn, tiles, k, s))
+    return min(plans, key=lambda p: (-(-p.blocks // slots) * p.depth,
+                                     p.splits))
+
+
+def _bf16_cost(p: GemmPlan) -> int:
+    """Bytes the busiest SM moves: its blocks' x and W slabs (bf16), and
+    with a split the tile's partials, written once and read back by the
+    block that sums them (f32)."""
+    operands = -(-p.blocks // SMS) * p.depth * (p.bm + p.bn) * 2
+    return operands + (p.splits + 1) * p.bm * p.bn * 4 * (p.splits > 1)
+
+
+@functools.lru_cache(maxsize=1024)
+def plan_gemm_bf16(m: int, n: int, k: int) -> GemmPlan:
+    """K4's bf16 tensor-core product above 32 rows: of ``BF16_TILES`` and
+    the splits of k into ranges (a multiple of ``BF16_SLAB``, at least
+    ``MIN_SPLIT_DEPTH`` deep when split) up to twice the resident slots,
+    the plan whose busiest SM moves the fewest bytes (``_bf16_cost``; the
+    layer is bound by bytes at these rows), among those whose blocks cover
+    the 132 SMs where any does; the fewer splits, then the larger tile, on
+    a tie. At Llama-4's 128 rows: q/o 40 tiles of 128 x 128 in 6 splits
+    of 864 (240 blocks), k/v 32 tiles of 64 x 64 in 8 of 640 (256)."""
+    plans = []
+    for bm, bn in BF16_TILES:
+        tiles = -(-m // bm) * -(-n // bn)
+        s = 1
+        while True:
+            depth = max(BF16_SLAB, _round_up(-(-k // s), BF16_SLAB))
+            plan = GemmPlan(bm, bn, max(1, -(-k // depth)), depth, tiles)
+            if plan.splits > 1 and depth < MIN_SPLIT_DEPTH:
+                break
+            plans.append(plan)
+            if plan.blocks > 2 * BF16_RESIDENT * SMS or depth == BF16_SLAB:
+                break
+            s += 1
+    full = [p for p in plans if p.blocks >= SMS] or plans
+    return min(full, key=lambda p: (_bf16_cost(p), p.splits, -p.bm))

@@ -11,15 +11,27 @@ and K5, the single-adapter apply y = x @ W + s * (x @ A^T) @ B^T
 (replaces ``lora_apply_pallas``; no model calls it, the kernel API ``ops``
 does). Both run ``csrc/lora_apply.cu``, K5 without the page gather.
 
-Above ``GEMV_MAX_ROWS`` rows the base product is K4's f32 SGEMM of
-``csrc/sgemm_f32.cuh`` (``gemm_plan.plan_gemm`` chooses its tile and its
-split over K) and K5's 3xTF32 product on the tensor cores
-(``csrc/mma_tf32x3.cuh``; ``gemm_plan.plan_gemm_tc``); the plan is made
-here on the host, and the wrapper passes it (and a workspace for the
-partial tiles) to the C entry. ``batched_lora_apply_split_plain`` and
-``lora_apply_tf32x3_plain`` repeat that arithmetic in PyTorch: K cut as
-the plan cuts it, the partials (K5's from 3xTF32 products) summed in the
-kernel's order, then the adapter term.
+Each call's base product takes one of four routes (``describe_plan``
+names it), each planned here on the host (``gemm_plan``) and passed, with
+its scratch, to the C entry:
+
+* ``"gemv"``, at most ``GEMV_MAX_ROWS`` rows, both dtypes, K4 and K5: W
+  streamed in 128-byte strips, K split over blocks (``plan_gemv``), the
+  partials summed in the launch by the last block of each tile;
+* ``"mma_bf16"``, K4's bf16 instances above that: the bf16 tensor cores
+  (``csrc/mma_bf16.cuh``; ``plan_gemm_bf16``), split and summed alike;
+* ``"sgemm"``, K4 in f32 above that: the SIMT SGEMM of
+  ``csrc/sgemm_f32.cuh`` (``plan_gemm``), its splits through an (S, M, N)
+  workspace and a second kernel;
+* ``"mma_tf32x3"``, K5 above that: 3xTF32 on the tensor cores
+  (``csrc/mma_tf32x3.cuh``; ``plan_gemm_tc``), split as the SGEMM.
+
+The GEMV's and the bf16 route's partials and counters live in one
+scratch a device, allocated at a shape's first call and reused (the
+counters reset themselves). ``batched_lora_apply_split_plain`` and
+``lora_apply_tf32x3_plain`` repeat the arithmetic in PyTorch: K cut as
+the route's plan cuts it, the partials (K5's from 3xTF32 products above
+32 rows) summed in the kernel's order, then the adapter term.
 
 ``*_plain`` are the plain PyTorch versions; each wrapper computes its plain
 version for CPU tensors and launches the CUDA kernel for CUDA tensors, with
@@ -35,7 +47,7 @@ import torch
 from repro_torch.kernels import build, tf32x3
 from repro_torch.kernels.gemm_plan import (  # noqa: F401 (kept importable)
     MIN_SPLIT_DEPTH, RESIDENT, SLAB, SMS, TILES, WAVE, GemmPlan, plan_gemm,
-    plan_gemm_tc, split_ranges, split_sum)
+    plan_gemm_bf16, plan_gemm_tc, plan_gemv, split_ranges, split_sum)
 from repro_torch.kernels.rank_partition_agg import _same_device, _stream
 
 
@@ -66,47 +78,90 @@ def lora_apply_plain(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
     return (y + scale * (z @ b.float().T)).to(x.dtype)
 
 
-# -- the SGEMM's plan (gemm_plan.py, shared with K2 and K3) ----------------
+# -- the routes' plans (gemm_plan.py, shared with K2 and K3) ---------------
 
-GEMV_MAX_ROWS = 32        # up to this many rows: the GEMV route, no plan
-
-
-def _plan(m: int, n: int, k: int, tensor_cores: bool) -> GemmPlan:
-    return (plan_gemm_tc if tensor_cores else plan_gemm)(m, n, k)
+GEMV_MAX_ROWS = 32        # up to this many rows: the GEMV route
 
 
-def describe_plan(m: int, n: int, k: int, tensor_cores: bool = False
-                  ) -> dict:
+def _route(m: int, n: int, k: int, tensor_cores: bool,
+           dtype: torch.dtype) -> tuple:
+    """(route, plan) of an (m, k) @ (k, n) base product: K4's, or with
+    ``tensor_cores`` K5's, for operands of ``dtype``."""
+    if m <= GEMV_MAX_ROWS:
+        return "gemv", plan_gemv(m, n, k, torch.finfo(dtype).bits // 8)
+    if dtype == torch.bfloat16:
+        return "mma_bf16", plan_gemm_bf16(m, n, k)
+    if tensor_cores:
+        return "mma_tf32x3", plan_gemm_tc(m, n, k)
+    return "sgemm", plan_gemm(m, n, k)
+
+
+def describe_plan(m: int, n: int, k: int, tensor_cores: bool = False,
+                  dtype: torch.dtype = torch.float32) -> dict:
     """The route and plan of an (m, k) @ (k, n) call, for reports: K4's
-    (the SIMT SGEMM) or, with ``tensor_cores``, K5's (3xTF32)."""
-    if m <= GEMV_MAX_ROWS:
-        return {"route": "gemv"}
-    return {"route": "mma_tf32x3" if tensor_cores else "sgemm",
-            **_plan(m, n, k, tensor_cores).report()}
+    (the GEMV, the SIMT SGEMM in f32, the bf16 tensor cores in bf16) or,
+    with ``tensor_cores``, K5's (the GEMV, 3xTF32)."""
+    route, plan = _route(m, n, k, tensor_cores, dtype)
+    return {"route": route, **plan.report()}
 
 
-def _sgemm_args(m: int, n: int, k: int, device,
-                tensor_cores: bool = False) -> tuple:
-    """(workspace or None, bm, bn, splits, depth) for the C entry."""
-    if m <= GEMV_MAX_ROWS:
-        return None, 0, 0, 1, 0
-    p = _plan(m, n, k, tensor_cores)
-    part = torch.empty((p.splits, m, n), dtype=torch.float32,
-                       device=device) if p.splits > 1 else None
-    return part, p.bm, p.bn, p.splits, p.depth
+# the GEMV's and the bf16 route's split scratch: device -> (partials,
+# counters); the counters start at zero and each launch leaves them so
+_SCRATCH: dict = {}
+
+
+def _split_scratch(plan: GemmPlan, device) -> tuple:
+    """(partials, counters) for a plan summed in its launch, None for one
+    split: splits x tiles x (bm bn, rounded up to a block's 256 threads)
+    floats, a counter a tile; grown, never shrunk."""
+    if plan.splits == 1:
+        return None, None
+    floats = plan.splits * plan.tiles * -(-plan.bm * plan.bn // 256) * 256
+    part, count = _SCRATCH.get(device, (None, None))
+    if part is None or part.numel() < floats or count.numel() < plan.tiles:
+        # a CUDA graph records the zeroing without running it
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("the K4 split scratch grows: make the first "
+                               "call of this shape outside graph capture")
+        if part is None or part.numel() < floats:
+            part = torch.empty(floats, dtype=torch.float32, device=device)
+        if count is None or count.numel() < plan.tiles:
+            count = torch.zeros(max(plan.tiles, 4096), dtype=torch.int32,
+                                device=device)
+        _SCRATCH[device] = (part, count)
+    return part, count
+
+
+def _launch_args(m: int, n: int, k: int, device, tensor_cores: bool,
+                 dtype: torch.dtype) -> tuple:
+    """(partials, counters, bm, bn, splits, depth) for the C entry: the
+    GEMV and the bf16 route take the device's scratch, the SGEMM and
+    3xTF32 routes an (S, M, N) workspace of their own."""
+    route, p = _route(m, n, k, tensor_cores, dtype)
+    if route in ("gemv", "mma_bf16"):
+        part, count = _split_scratch(p, device)
+    else:
+        count = None
+        part = torch.empty((p.splits, m, n), dtype=torch.float32,
+                           device=device) if p.splits > 1 else None
+    return part, count, p.bm, p.bn, p.splits, p.depth
+
+
+def _ptr(t):
+    return t.data_ptr() if t is not None else None
 
 
 def _split_product(x2: torch.Tensor, w: torch.Tensor,
-                   tensor_cores: bool = False) -> torch.Tensor:
-    """x2 @ w as the kernel's route sums it: one partial product per range
-    of the plan (3xTF32 on K5's tensor-core route), added in range
-    order."""
+                   tensor_cores: bool = False,
+                   dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """x2 @ w (both f32) as the kernel's route sums it for operands of
+    ``dtype``: one partial product per range of the route's plan (3xTF32
+    on K5's tensor-core route), added in range order."""
     m, k = x2.shape
-    depth = _plan(m, w.shape[1], k, tensor_cores).depth \
-        if m > GEMV_MAX_ROWS else k
-    product = tf32x3.matmul if tensor_cores else torch.matmul
+    route, plan = _route(m, w.shape[1], k, tensor_cores, dtype)
+    product = tf32x3.matmul if route == "mma_tf32x3" else torch.matmul
     return split_sum(lambda k0, k1: product(x2[:, k0:k1], w[k0:k1]), k,
-                     depth)
+                     plan.depth)
 
 
 def batched_lora_apply_split_plain(x: torch.Tensor, w: torch.Tensor,
@@ -115,13 +170,15 @@ def batched_lora_apply_split_plain(x: torch.Tensor, w: torch.Tensor,
                                    scales: torch.Tensor,
                                    ids: torch.Tensor) -> torch.Tensor:
     """``batched_lora_apply_plain`` with the base product split over K as
-    ``plan_gemm`` splits it; (..., N) f32."""
+    the kernel's route for x's rows and dtype splits it (``plan_gemv`` at
+    most ``GEMV_MAX_ROWS`` rows, else ``plan_gemm`` in f32 and
+    ``plan_gemm_bf16`` in bf16); (..., N) f32."""
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1]).float()
     idf = ids.reshape(-1).long()
     z = torch.einsum("mk,mrk->mr", x2, a_pages.float()[idf])
     s = scales.float()[idf]
-    y = _split_product(x2, w.float()) + torch.einsum(
+    y = _split_product(x2, w.float(), dtype=x.dtype) + torch.einsum(
         "mr,mnr->mn", s[:, None] * z, b_pages.float()[idf])
     return y.reshape(lead + (w.shape[-1],))
 
@@ -131,13 +188,12 @@ def lora_apply_tf32x3_plain(x: torch.Tensor, w: torch.Tensor,
                             scale: float = 1.0) -> torch.Tensor:
     """K5's routes in PyTorch: above ``GEMV_MAX_ROWS`` rows the base product
     split over K as ``plan_gemm_tc`` splits it, each partial from the three
-    TF32 passes (``tf32x3.matmul``); at most that many, the GEMV's one
-    IEEE f32 product; then the shrink and expand in IEEE f32; (M, N)
-    f32."""
+    TF32 passes (``tf32x3.matmul``); at most that many, the GEMV's IEEE f32
+    products split as ``plan_gemv`` splits it; then the shrink and expand
+    in IEEE f32; (M, N) f32."""
     xf = x.float()
     z = xf @ a.float().T
-    tensor_cores = xf.shape[0] > GEMV_MAX_ROWS
-    return _split_product(xf, w.float(), tensor_cores) + \
+    return _split_product(xf, w.float(), tensor_cores=True) + \
         (scale * z) @ b.float().T
 
 
@@ -207,14 +263,14 @@ def batched_lora_apply(x: torch.Tensor, w: torch.Tensor,
     m = ids.numel()
     y = torch.empty(x.shape[:-1] + (n,), dtype=x.dtype, device=x.device)
     z = torch.empty((m, r), dtype=torch.float32, device=x.device)
-    part, *plan = _sgemm_args(m, n, k, x.device)
+    part, count, *plan = _launch_args(m, n, k, x.device, False, x.dtype)
     fn = ("batched_lora_apply_bf16" if x.dtype == torch.bfloat16
           else "batched_lora_apply_f32")
     rc = getattr(build.library("lora_apply"), fn)(
         x.data_ptr(), w.data_ptr(), a_pages.data_ptr(), b_pages.data_ptr(),
         scales.data_ptr(), ids.data_ptr(), z.data_ptr(), y.data_ptr(),
-        part.data_ptr() if part is not None else None, m, k, n, r, p,
-        a_pages.stride(0), b_pages.stride(0), *plan, _stream(x))
+        _ptr(part), _ptr(count), m, k, n, r, p, a_pages.stride(0),
+        b_pages.stride(0), *plan, _stream(x))
     build.check(rc, fn)
     batched_lora_apply.launches += 1
     if x.dtype == torch.bfloat16:
@@ -244,12 +300,13 @@ def lora_apply(x: torch.Tensor, w: torch.Tensor, a: torch.Tensor,
         return lora_apply_plain(x, w, a, b, scale)
     y = torch.empty((m, n), dtype=torch.float32, device=x.device)
     z = torch.empty((m, r), dtype=torch.float32, device=x.device)
-    part, *plan = _sgemm_args(m, n, k, x.device, tensor_cores=True)
+    part, count, *plan = _launch_args(m, n, k, x.device, True,
+                                      torch.float32)
     fn = "lora_apply_f32"
     rc = getattr(build.library("lora_apply"), fn)(
         x.data_ptr(), w.data_ptr(), a.data_ptr(), b.data_ptr(), z.data_ptr(),
-        y.data_ptr(), part.data_ptr() if part is not None else None, m, k, n,
-        r, float(scale), *plan, _stream(x))
+        y.data_ptr(), _ptr(part), _ptr(count), m, k, n, r, float(scale),
+        *plan, _stream(x))
     build.check(rc, fn)
     lora_apply.launches += 1
     return y

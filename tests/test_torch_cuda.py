@@ -213,12 +213,16 @@ def _bf16_row_ulp(v):
     (4, 3584, 3584, 4, 16), (4, 3584, 512, 4, 16),      # qwen2 decode
     (128, 3584, 3584, 4, 16), (128, 3584, 512, 4, 16),  # qwen2 prefill
     (4, 5120, 5120, 3, 16), (128, 5120, 5120, 3, 16),   # llama4 q
-    (9, 300, 520, 9, 8), (37, 300, 520, 3, 6)])         # odd
+    (9, 300, 520, 9, 8), (37, 300, 520, 3, 6),          # odd
+    (128, 5120, 1024, 3, 16),                            # llama4 k/v
+    (33, 5120, 1024, 4, 16), (64, 5120, 5120, 4, 16),    # route boundary
+    (130, 300, 520, 4, 8), (33, 37, 23, 2, 5)])          # odd, bf16 mma
 def test_cuda_lora_apply_bf16_matches_plain(cuda_device, m, k, n, p, r):
     """K4's bf16 instances (x, W and the pages bf16, y bf16) against the
     plain version on the same bf16 inputs at Qwen2-7B's decode and
-    prefill shapes, Llama-4 Maverick's q projection and an odd d 300, n
-    520 on the GEMV and the SGEMM routes: every element within one bf16
+    prefill shapes, Llama-4 Maverick's q and k/v projections, the first
+    rows of the tensor-core route (33, 64) and odd d 300, n 520 and K 37,
+    N 23 on the GEMV and the tensor-core routes: every element within one bf16
     ulp of the largest |value| of its row (both sum in f32 and round
     once; an element near 0 can differ by more than its own ulp, the two
     f32 sums running in different orders), a bf16 launch counted, and a
@@ -300,6 +304,65 @@ def test_cuda_lora_apply_strided_pages_and_bad_ids(cuda_device, m, k):
     bad[2] = 7
     out = la.batched_lora_apply(**dict(case, ids=bad))
     assert torch.isnan(out[2]).all() and torch.isfinite(out[[0, 1, 3]]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k", [(6, 64), (40, 1024), (130, 1024)])
+def test_cuda_lora_apply_bf16_strided_pages_and_bad_ids(cuda_device, m, k):
+    """The bf16 instances read per-layer page slices t[:, li] in place,
+    and a row whose page id is out of range comes back NaN, the others
+    finite: on the GEMV (6 rows), the tensor cores split over K (40 rows:
+    64 x 64 tiles) and two row tiles (130 rows)."""
+    case = _lora_case(12, m, k, 40, 3, 8, cuda_device)
+    case = {key: (v.bfloat16() if key in ("x", "w", "a_pages", "b_pages")
+                  else v) for key, v in case.items()}
+    stacked_a = torch.stack([case["a_pages"] * 0, case["a_pages"]], dim=1)
+    stacked_b = torch.stack([case["b_pages"] * 0, case["b_pages"]], dim=1)
+    got = la.batched_lora_apply(case["x"], case["w"], stacked_a[:, 1],
+                                stacked_b[:, 1], case["scales"], case["ids"])
+    torch.testing.assert_close(got, la.batched_lora_apply(**case),
+                               rtol=0, atol=0)
+    bad = case["ids"].clone()
+    bad[2] = 7
+    bad[m - 1] = -1
+    out = la.batched_lora_apply(**dict(case, ids=bad))
+    assert torch.isnan(out[[2, m - 1]]).all()
+    assert torch.isfinite(out[[0, 1, 3]]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("m", [1, 4, 8, 32])
+def test_cuda_lora_apply_gemv_rows(cuda_device, m, dtype):
+    """The GEMV at 1, 4, 8 and 32 rows in both dtypes at Qwen2-7B's k
+    projection (K 3584, N 512: ``plan_gemv``'s split over K) and at an
+    odd N 520 with K 130 (element-wise W loads): the route reported is
+    "gemv", one launch, within K4's tolerance of the plain version (f32:
+    (K + r) eps max; bf16: one bf16 ulp of each row's largest |value|),
+    and a second launch bit-equal to the first."""
+    for k, n in ((3584, 512), (130, 520)):
+        case = _lora_case(31 + m, m, k, n, 4, 16, cuda_device)
+        tol = _lora_tol(case)
+        if dtype == torch.bfloat16:
+            case = {key: (v.bfloat16() if key in ("x", "w", "a_pages",
+                                                  "b_pages") else v)
+                    for key, v in case.items()}
+        plan = la.describe_plan(m, n, k, dtype=dtype)
+        assert plan["route"] == "gemv"
+        assert plan["splits"] == la.plan_gemv(
+            m, n, k, 2 if dtype == torch.bfloat16 else 4).splits
+        before = la.batched_lora_apply.launches
+        got = la.batched_lora_apply(**case)
+        want = la.batched_lora_apply_plain(**case)
+        torch.cuda.synchronize()
+        assert la.batched_lora_apply.launches == before + 1
+        diff = (got.float() - want.float()).abs()
+        if dtype == torch.bfloat16:
+            assert bool((diff <= _bf16_row_ulp(want)).all())
+        else:
+            assert float(diff.max()) <= tol
+        assert torch.equal(got, la.batched_lora_apply(**case))
 
 
 @pytest.mark.cuda
@@ -1008,6 +1071,36 @@ def test_cuda_batched_lora_apply_keeps_the_simt_route(cuda_device, m, n):
         before[0] + 1, before[1])
     want = la.batched_lora_apply_plain(**case)
     assert float((got - want).abs().max()) <= _lora_tol(case)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n", [(128, 5120), (128, 1024), (64, 512)])
+def test_cuda_batched_lora_apply_bf16_takes_the_tensor_cores(cuda_device, m,
+                                                             n):
+    """Above 32 rows K4's bf16 instances run on the bf16 tensor cores: the
+    route reported is "mma_bf16" with ``plan_gemm_bf16``'s plan (the f32
+    instances keep "sgemm"), a call counts one K4 launch and one bf16
+    launch and no K5 launch, and it lands within one bf16 ulp of each
+    row's largest |value| of the plain version (Llama-4's q and k/v at
+    128 rows, K 5120)."""
+    k = 5120
+    plan = la.describe_plan(m, n, k, dtype=torch.bfloat16)
+    assert plan == {"route": "mma_bf16",
+                    **la.plan_gemm_bf16(m, n, k).report()}
+    assert la.describe_plan(m, n, k)["route"] == "sgemm"
+    case = _lora_case(23, m, k, n, 4, 16, cuda_device)
+    case = {key: (v.bfloat16() if key in ("x", "w", "a_pages", "b_pages")
+                  else v) for key, v in case.items()}
+    before = (la.batched_lora_apply.launches,
+              la.batched_lora_apply.launches_bf16, la.lora_apply.launches)
+    got = la.batched_lora_apply(**case)
+    torch.cuda.synchronize()
+    assert (la.batched_lora_apply.launches,
+            la.batched_lora_apply.launches_bf16, la.lora_apply.launches) == (
+        before[0] + 1, before[1] + 1, before[2])
+    want = la.batched_lora_apply_plain(**case)
+    diff = (got.float() - want.float()).abs()
+    assert bool((diff <= _bf16_row_ulp(want)).all())
 
 
 @pytest.mark.cuda

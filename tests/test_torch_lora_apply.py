@@ -305,7 +305,8 @@ def test_plan_fills_the_card_at_qwen2_128_rows(proj):
     assert la.describe_plan(m, n, k) == {
         "route": "sgemm", "tile": list(want[:2]), "splits": want[2],
         "depth": want[3], "blocks": plan.blocks}
-    assert la.describe_plan(la.GEMV_MAX_ROWS, n, k) == {"route": "gemv"}
+    assert la.describe_plan(la.GEMV_MAX_ROWS, n, k) == {
+        "route": "gemv", **la.plan_gemv(la.GEMV_MAX_ROWS, n, k).report()}
 
 
 def _split_tol(x, w, a, b, s):
@@ -321,14 +322,14 @@ def _split_tol(x, w, a, b, s):
     (40, 1024, 40, 8),       # one tile: 8 splits of 128
     (70, 600, 24, 5),        # 5 splits, the last 88 deep (not a slab)
     (35, 72, 56, 16),        # one split
-    (20, 300, 30, 4),        # the GEMV route: one IEEE f32 product
+    (20, 300, 30, 4),        # the GEMV route: IEEE f32, 3 splits of 128
     (40, 3584, 64, 16),      # Qwen2-7B's depth: 28 splits of 128
     (300, 130, 520, 12),     # the reference test's odd shape
     (128, 256, 192, 16)])
 def test_lora_apply_split_plain_matches_oracle(m, k, n, r):
     """K5's arithmetic in PyTorch (``lora_apply_tf32x3_plain``: above 32
     rows ``plan_gemm_tc``'s ranges, 3xTF32 partials summed in range order;
-    at most 32, the GEMV's IEEE f32 product) against ``ref.lora_apply_ref`` (JAX, CPU) at the kernel's unchanged
+    at most 32, the GEMV's IEEE f32 products over ``plan_gemv``'s ranges) against ``ref.lora_apply_ref`` (JAX, CPU) at the kernel's unchanged
     tolerance (K + r) eps max(|x||W| + |s||x||A|^T|B|^T)."""
     rng = np.random.default_rng(m + k + n + r)
     x = rng.normal(size=(m, k)).astype(np.float32)
