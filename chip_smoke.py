@@ -17,7 +17,8 @@ JAX. Phases, each printing one JSON line:
                   vit-base round's buckets; K4: Qwen2-7B's q/k/v/o at
                   decode and prefill; K6: mamba2-1.3b's prefill layer),
                   with times, bounds and library yardsticks; K4 also at
-                  Gemma-2B's and Hymba-1.5B's q/k/v/o, K4's bf16
+                  Gemma-2B's, Hymba-1.5B's and Granite-3-8B's q/k/v/o,
+                  K4's bf16
                   instances at Qwen2-7B's and Llama-4 Maverick's q/k/v/o
                   (decode and prefill, every element within one bf16 ulp
                   of its row's largest |value| of the plain version; the
@@ -162,7 +163,16 @@ JAX. Phases, each printing one JSON line:
                   and products, the products equal to the factored
                   backend's on the same trained factors (round
                   tolerance), DoRA's magnitude check, every distinct
-                  K1/K2 call held to its plain version.
+                  K1/K2 call held to its plain version. The third model,
+                  HuBERT-XLarge (48 layers, d 1280, MHA 16 x 80 with qkv
+                  bias, the audio frontend, encoder-only; 3.82 GB), trains
+                  the same way on frame embeddings instead of tokens
+                  (``ClusterClassification`` at dim 1280, 64 frames, 20
+                  classes partitioned by class, the label read at
+                  position 0): its q/k/v/o make one bucket of L = 192
+                  adapters, so K1/K2 launch once; each model's buckets'
+                  L must add up to its adapters, and each bucket's K2
+                  plan is printed.
 5. serve_small    a reduced qwen2 serving engine on cuda (K4) and on cpu
                   (plain) from the same weights: equal greedy tokens.
 6. serve_qwen2_7b main path 2: Qwen2-7B at full width in f32, 4 slots of
@@ -193,6 +203,11 @@ JAX. Phases, each printing one JSON line:
 6b. serve_gemma_2b  main path 10: Gemma-2B (MQA 8/1, head_dim 256, GeGLU,
                   vocab 256000, tied head, embeddings scaled by sqrt(d))
                   as phase 6, K4 72 launches a call (k/v at N 256).
+6c. serve_granite_3_8b  main path 18, after 8g's model is freed:
+                  Granite-3-8B at full depth and width in f32 (40 layers,
+                  d 4096, GQA 32/8, SwiGLU 12800, vocab 49155, tied head;
+                  32.75 GB) as phase 6, K4 160 launches a call (k/v at N
+                  1024), tokens equal to the plain engine's every step.
 7. serve_small_mamba2  a reduced mamba2 engine on cuda (K6) and on cpu
                   (plain), 64-token prompts (two chunks): equal tokens.
 8. serve_mamba2_1p3b  main path 3: Mamba-2 1.3B at full width in f32, 4
@@ -259,6 +274,20 @@ JAX. Phases, each printing one JSON line:
                   equal within 1e-3 relative, LoRA gradients within 8
                   bf16 ulps of each leaf's largest |value|, remat's peak
                   the lower; step ms and peak GiB of each.
+8h. serve_nemotron_4_340b  main path 19, after 6c's model is freed:
+                  Nemotron-4-340B at full width in bf16 with 2 of its 96
+                  layers (d 18432, GQA 96/8 at head_dim 192, squared-ReLU
+                  MLP of 73728, vocab 256000, untied head; 32.71 GB) as
+                  8f: K4 on q/k/v/o, 8 launches a call, all bf16
+                  instances' (the MLP's up/down adapters take the plain
+                  path, as the reference's ``mlp_apply``), tokens by the
+                  top-2 rule and against a teacher-forced forward; the
+                  decode step's device time beside the time its bytes
+                  take at 3.35 TB/s. Then K4 alone at the six projections
+                  (q, k, v, o, up, down) on the served W, 4 and 4 x 32
+                  rows: one bf16 ulp of the plain version, a repeat bit
+                  for bit, device ms, rank-0 ms, byte bound, library ms,
+                  the plan (the GEMV's several waves at up and down).
 9. kernel summary one {"phase": "script_seconds"} line (each phase's wall
                   seconds, a child's with its process, and the total),
                   one {"kernels": [...]} line, then the card's name and
@@ -365,8 +394,9 @@ PATHS = {"weighted_stack_b": ", ".join(K12_PATHS),
          "gram_right": ", ".join(K12_PATHS),
          "batched_lora_apply": "serve_qwen2_7b, serve_batcher_qwen2_7b, "
                                "serve_qwen2_vl_7b, serve_gemma_2b, "
-                               "serve_hymba_1p5b",
-         "batched_lora_apply_bf16": "serve_llama4_maverick",
+                               "serve_hymba_1p5b, serve_granite_3_8b",
+         "batched_lora_apply_bf16": "serve_llama4_maverick, "
+                                    "serve_nemotron_4_340b",
          "ssd_scan": "bench_kernels, serve_mamba2_1p3b, serve_hymba_1p5b",
          "rank_partition_agg": "kernel_ops, bench_kernels",
          "rank_partition_agg_layered": "kernel_ops",
@@ -391,16 +421,26 @@ HYMBA_PROJ = (("q", 1600, 1600), ("k", 1600, 320), ("v", 1600, 320),
 # Hymba-1.5B prefill: 4 slots of 2048 tokens, so the window of 1024 bites
 # in its 30 windowed layers and the SSD heads' scan runs 16 chunks of 128
 HYMBA_PROMPT = 2048
+# Granite-3-8B's GQA 32/8 at head_dim 128 (k/v N 1024), main path 18
+GRANITE_PROJ = (("q", 4096, 4096), ("k", 4096, 1024), ("v", 4096, 1024),
+                ("o", 4096, 4096))
 # (label, projections, prefill rows) of K4's shape checks
 K4_MODELS = (("qwen2-7b", QWEN_PROJ, SLOTS * PROMPT_LEN),
              ("gemma-2b", GEMMA_PROJ, SLOTS * PROMPT_LEN),
-             ("hymba-1.5b", HYMBA_PROJ, SLOTS * HYMBA_PROMPT))
+             ("hymba-1.5b", HYMBA_PROJ, SLOTS * HYMBA_PROMPT),
+             ("granite-3-8b", GRANITE_PROJ, SLOTS * PROMPT_LEN))
 # K4's bf16 instances: Qwen2-7B's shapes and Llama-4 Maverick's (d 5120,
 # 40 heads and 8 KV heads of 128), the latter the path of main path 16
 LLAMA4_PROJ = (("q", 5120, 5120), ("k", 5120, 1024), ("v", 5120, 1024),
                ("o", 5120, 5120))
 K4_BF16_MODELS = (("qwen2-7b", QWEN_PROJ, SLOTS * PROMPT_LEN),
                   ("llama4-maverick", LLAMA4_PROJ, SLOTS * PROMPT_LEN))
+# Nemotron-4-340B's projections in bf16 (d 18432, GQA 96/8 at head_dim
+# 192, the squared-ReLU MLP of 73728), timed on main path 19's own weights:
+# a decode layer's W is 6.91 GB, up and down 2.72 GB each
+NEMOTRON_PROJ = (("q", 18432, 18432), ("k", 18432, 1536),
+                 ("v", 18432, 1536), ("o", 18432, 18432),
+                 ("up", 18432, 73728), ("down", 73728, 18432))
 # Qwen2-VL-7B's image prefill: a 16 x 16 grid of patch embeddings a slot
 VL_GRID = 16
 # Mamba-2 1.3B prefill: 4 slots of 1024 tokens, so the scan runs 4 chunks
@@ -782,7 +822,7 @@ def _bf16_ulp(torch, v):
 
 
 def _k4_layers(torch, la, gen, model, projs, prefill_rows, rows,
-               dtype=None) -> dict:
+               dtype=None, weights=None, graph_iters=20) -> dict:
     """One model's q/k/v/o through K4 and its plain version at decode and
     prefill: each shape held to the plain version and timed (eager and
     graph-replayed, with the library yardstick); returns the layer totals
@@ -800,7 +840,10 @@ def _k4_layers(torch, la, gen, model, projs, prefill_rows, rows,
     tensor cores (``bound_simt_f32_ms`` beside it, the same work at the
     SIMT peak). Every row also times the same calls with rank-0 pages
     (``rank0_device_ms``: no shrink launch and no expand, the base
-    product alone)."""
+    product alone). ``weights`` ({proj: [W, ...]}, a served model's own
+    layers) replaces the drawn W, one argument set a layer; W's of
+    gigabytes take ``graph_iters`` calls a graph, so that a graph of the
+    plain version's f32 copies of W fits beside the model."""
     dtype = dtype or torch.float32
     size = torch.finfo(dtype).bits // 8
     eps = torch.finfo(torch.float32).eps
@@ -812,13 +855,17 @@ def _k4_layers(torch, la, gen, model, projs, prefill_rows, rows,
                                         "bound_simt_f32_ms": 0.0})
         for proj, k, n in projs:
             r, p = SERVE_RANK, SLOTS
-            nbytes_w = k * n * size
-            copies = max(2, math.ceil(100e6 / nbytes_w))
+            if weights is None:
+                copies = max(2, math.ceil(100e6 / (k * n * size)))
+                layer_ws = [None] * copies
+            else:
+                layer_ws = weights[proj]
             sets = []
-            for _ in range(copies):
+            for w in layer_ws:
                 x = torch.randn(m, k, generator=gen, device=DEV).to(dtype)
-                w = (torch.randn(k, n, generator=gen, device=DEV)
-                     * k ** -.5).to(dtype)
+                if w is None:
+                    w = (torch.randn(k, n, generator=gen, device=DEV)
+                         * k ** -.5).to(dtype)
                 a = (torch.randn(p, r, k, generator=gen, device=DEV)
                      * k ** -.5).to(dtype)
                 b = (torch.randn(p, n, r, generator=gen, device=DEV)
@@ -877,14 +924,16 @@ def _k4_layers(torch, la, gen, model, projs, prefill_rows, rows,
             l_ms = time_rotating_ms(torch, lib, sets)
             # the same calls replayed from a CUDA graph: device time only
             dev = {"kernel_device_ms": time_graph_ms(
-                       torch, la.batched_lora_apply, sets),
+                       torch, la.batched_lora_apply, sets, graph_iters),
                    "plain_device_ms": time_graph_ms(
-                       torch, la.batched_lora_apply_plain, sets),
-                   "library_device_ms": time_graph_ms(torch, lib, sets)}
+                       torch, la.batched_lora_apply_plain, sets,
+                       graph_iters),
+                   "library_device_ms": time_graph_ms(torch, lib, sets,
+                                                      graph_iters)}
             rank0 = [(x, w, a[:, :0], b[:, :, :0], s, ids)
                      for x, w, a, b, s, ids in sets]
             dev["rank0_device_ms"] = time_graph_ms(
-                torch, la.batched_lora_apply, rank0)
+                torch, la.batched_lora_apply, rank0, graph_iters)
             del rank0
             # x, W, the pages and y in the operands' dtype; scales and
             # ids 4 bytes each
@@ -2395,6 +2444,7 @@ class _CaptureK12:
 
     def __init__(self):
         self.calls, self.counts, self.seen = [], dict.fromkeys(K12, 0), set()
+        self.shapes = []          # (name, input shapes) of every call
 
     def __enter__(self):
         from repro_torch.kernels import ops
@@ -2405,6 +2455,7 @@ class _CaptureK12:
                 self.counts[name] += 1
                 key = (name,) + tuple(tuple(t.shape) for t in x
                                       if hasattr(t, "shape"))
+                self.shapes.append((name, key[1:]))
                 if key not in self.seen:
                     self.seen.add(key)
                     self.calls.append((name, x))
@@ -3236,7 +3287,8 @@ def _instrumented_round(torch, server, profile: bool = False) -> dict:
             "agg_args": agg["args"], "sigmas": sigmas,
             "launches": {k.__name__: k.launches - b
                          for k, b in zip(rpa.KERNELS, before)},
-            "k12_calls": k12.calls, "profile": prof,
+            "k12_calls": k12.calls, "k12_shapes": k12.shapes,
+            "profile": prof,
             "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
             "lora_before": lora_before, "base_before": base_before}
 
@@ -3311,7 +3363,12 @@ def phase_round_variants_vit_base(torch, summary: dict) -> dict:
 # main path 9: the paper's language models at full width, in a child
 LM_LEVELS = (8, 16, 32)
 LM_CLIENTS, LM_BATCH, LM_SEQ = 5, 2, 64
-LM_RUNS = (("llama3.2-3b", "lora", 2), ("roberta-base", "dora", 3))
+LM_RUNS = (("llama3.2-3b", "lora", 2), ("roberta-base", "dora", 3),
+           ("hubert-xlarge", "lora", 1))
+# HuBERT-XLarge's frames: ClusterClassification at the frontend's width,
+# 64 frames (1.28 s at its 20 ms frame rate), 20 classes of 8 clips; the
+# label is read at position 0 (federation/experiment.py's ``to_batch``)
+AUDIO_FRAMES, AUDIO_CLASSES, AUDIO_CLIPS = 64, 20, 8
 
 
 def _lm_server(cfg, variant: str, method: str = "raflora"):
@@ -3319,9 +3376,12 @@ def _lm_server(cfg, variant: str, method: str = "raflora"):
     clients a round (all of them) at rank levels 8/16/32 on
     ``SequenceCopy`` token data in the model's vocabulary, 64 tokens,
     batches of 2, one local step; the base state fl.seed draws on the
-    card."""
+    card. An audio encoder takes frame embeddings instead
+    (``ClusterClassification``, ``AUDIO_*``), partitioned by class."""
     from repro_torch.configs import FLConfig, LoRAConfig
-    from repro_torch.data import SequenceCopy, batches, make_partition
+    from repro_torch.data import (ClusterClassification, SequenceCopy,
+                                  batches, make_partition)
+    from repro_torch.federation.experiment import make_batch_fn
     from repro_torch.federation.server import FederatedLoRA
     from repro_torch.federation.topology import ClientRegistry
     from repro_torch.models.transformer import Model
@@ -3331,9 +3391,16 @@ def _lm_server(cfg, variant: str, method: str = "raflora"):
                   labels_per_client=4)
     lora = LoRAConfig(rank_levels=LM_LEVELS,
                       rank_probs=(1 / 3, 1 / 3, 1 / 3), variant=variant)
-    data = SequenceCopy(vocab_size=cfg.vocab_size, seq_len=LM_SEQ,
-                        num_families=10, samples_per_family=8, seed=0)
-    tokens, targets, family = data.generate()
+    audio = cfg.frontend.kind == "audio"
+    if audio:
+        frames, family = ClusterClassification(
+            num_classes=AUDIO_CLASSES, dim=cfg.frontend.embed_dim,
+            patches=AUDIO_FRAMES, samples_per_class=AUDIO_CLIPS,
+            seed=0).generate()
+    else:
+        data = SequenceCopy(vocab_size=cfg.vocab_size, seq_len=LM_SEQ,
+                            num_families=10, samples_per_family=8, seed=0)
+        tokens, targets, family = data.generate()
     shards = make_partition(fl.partition, family, fl.num_clients,
                             labels_per_client=fl.labels_per_client,
                             seed=fl.seed)
@@ -3343,6 +3410,9 @@ def _lm_server(cfg, variant: str, method: str = "raflora"):
         idx = registry.shards[cid]
         bx, by = next(batches(tokens[idx], targets[idx], LM_BATCH, rng))
         return [{"tokens": bx, "targets": by}]
+    if audio:
+        batch_fn = make_batch_fn(registry, frames, family, fl, 1,
+                                 AUDIO_FRAMES)
     return FederatedLoRA(Model(cfg, lora, device=DEV, remat=False), fl,
                          lora, registry, batch_fn, backend="kernel")
 
@@ -3388,19 +3458,26 @@ def phase_round_paper_lms(torch) -> dict:
     each of the paper's language models at full width in f32: (a) LLaMA-3.2-3B (28 layers, d 3072, GQA
     24/8, vocab 128256, tied head, LoRA on q/v: 2 buckets), (b)
     RoBERTa-base under DoRA (12 layers, d 768, vocab 50265, untied head,
-    LoRA on q/k/v/o/up/down: 3 buckets). Each round runs under
-    torch.profiler with its stages timed; K1/K2 launch once per bucket;
-    the spectra and products are finite; the aggregate's products equal
+    LoRA on q/k/v/o/up/down: 3 buckets), (c) HuBERT-XLarge (48 layers, d
+    1280, MHA 16 x 80 with qkv bias, the audio frontend, encoder-only,
+    LoRA on q/k/v/o: one bucket of 4 x 48 = 192 adapters) on frame
+    embeddings. Each round runs under
+    torch.profiler with its stages timed; K1/K2 launch once per bucket,
+    and the buckets' layers L (each K1 call's leading axis) add up to the
+    model's adapters; the spectra and products are finite; the aggregate's
+    products equal
     the factored backend's on the same trained factors and global state
     at ``ROUND_TOL`` (products 2e-3 of max(1, sigma_max)); DoRA's
     ``_variant_checks``; every distinct K1/K2 call held to its plain
-    version. The last line holds the path's launches."""
+    version; K2's plan at each bucket. The last line holds the path's
+    launches."""
     from repro_torch.configs import get_config
+    from repro_torch.kernels.gemm_plan import plan_gram
     summary = {n: {"max_abs_err": 0.0} for n in K12}
     path_launches = dict.fromkeys(K12, 0)
     for name, variant, n_buckets in LM_RUNS:
         cfg = get_config(name)
-        t0 = time.perf_counter()
+        t0 = t_model = time.perf_counter()
         server = _lm_server(cfg, variant)
         torch.cuda.synchronize()
         setup_s = time.perf_counter() - t0
@@ -3421,6 +3498,16 @@ def phase_round_paper_lms(torch) -> dict:
         checks = _variant_checks(torch, server, run["plan"],
                                  run["lora_before"], run["base_before"])
         k12 = _check_k12_calls(torch, run["k12_calls"], summary, name)
+        # a bucket's K2 calls: U_c (L, d, R) and V_c (L, R, n)
+        grams = {g: [shapes[0] for kname, shapes in run["k12_shapes"]
+                     if kname == g] for g in ("gram_left", "gram_right")}
+        buckets = [{"layers": ll, "d": d, "n": n, "rank_cols": rr,
+                    "k2_plans": {"gram_left": plan_gram(ll, rr, d).report(),
+                                 "gram_right": plan_gram(ll, rr,
+                                                         n).report()}}
+                   for (ll, d, rr), (_, _, n) in zip(grams["gram_left"],
+                                                     grams["gram_right"])]
+        adapters = len(cfg.lora_targets) * cfg.num_layers
         tol = ROUND_TOL["product"] * scale
         emit({"phase": "round_paper_lms", "model": name, "variant": variant,
               "layers": cfg.num_layers, "d_model": cfg.d_model,
@@ -3435,7 +3522,13 @@ def phase_round_paper_lms(torch) -> dict:
               "launches": run["launches"], "finite": finite,
               "factored_product_max_abs_err": err, "tol": tol,
               "sigma_max": scale, **checks, "k12_vs_plain": k12,
-              "profile": run["profile"], "card": card_line()})
+              "buckets": buckets, "adapters": adapters,
+              "profile": run["profile"],
+              "model_seconds": time.perf_counter() - t_model,
+              "card": card_line()})
+        require(sum(b["layers"] for b in buckets) == adapters,
+                f"round_paper_lms {name}: buckets {buckets} do not hold "
+                f"its {adapters} adapters")
         require(finite, f"round_paper_lms {name}: non-finite spectra or "
                         "products")
         require(err <= tol, f"round_paper_lms {name}: products {err} off "
@@ -4708,6 +4801,115 @@ def phase_train_step_llama4_maverick(torch, cfg, params, gen) -> dict:
     return line
 
 
+def phase_serve_granite_3_8b(torch) -> int:
+    """Main path 18: Granite-3-8B at full depth and width in f32 (40
+    layers, d 4096, GQA 32/8 at head_dim 128, SwiGLU of 12800, vocab 49155,
+    tied head: 32.75 GB), served as phase 6 serves Qwen2-7B: K4 on every
+    q/k/v/o projection, 4 x 40 launches per engine call (k/v at N 1024),
+    the tokens equal to the plain engine's on the same weights."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import lora_apply as la
+    cfg = get_config("granite-3-8b")
+    per_call = 4 * cfg.num_layers
+    return _serve_full(torch, "serve_granite_3_8b", cfg, PROMPT_LEN,
+                       [(la.batched_lora_apply, per_call, per_call)],
+                       "lora_")["batched_lora_apply"]
+
+
+# main path 19: Nemotron-4-340B at full width in bf16, its depth cut to 2
+# of 96 layers (32.71 GB: the 256000 x 18432 embedding and untied head
+# 18.87 GB, a layer 6.91 GB)
+NEMOTRON_LAYERS = 2
+NEMOTRON_GRAPH_ITERS = 4      # calls a graph where a W is 2.72 GB
+
+
+def _nemotron_cfg():
+    import dataclasses
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config("nemotron-4-340b"),
+                               num_layers=NEMOTRON_LAYERS)
+
+
+def _decode_step_bytes(params) -> int:
+    """The bytes one decode step must read of the model: every weight but
+    the token embedding (a step gathers 4 of its rows) and the base
+    leaves' own adapters (the engine reads its pages instead)."""
+    from repro_torch.core.lora import flatten
+    return sum(t.nbytes for path, t in flatten(params).items()
+               if path[0] != "embed" and path[-1] not in ("lora_a",
+                                                          "lora_b"))
+
+
+def _k4_nemotron(torch, params, gen, summary: dict) -> dict:
+    """K4 alone at Nemotron-4-340B's six projections (``NEMOTRON_PROJ``)
+    on the served model's own W, one argument set a layer, at 4 rows
+    (decode) and 4 x 32 (prefill), through ``_k4_layers``: each held to
+    its plain version (one bf16 ulp of its row's largest |value|) and a
+    repeat to the first launch bit for bit, timed eagerly and from a
+    graph, with its rank-0 time, byte bound, library call and plan, each
+    row on one "kernels" line. Returns the layer totals, which also join
+    the summary's bf16 row under ``other_layers``."""
+    from repro_torch.kernels import lora_apply as la
+    where = {"q": ("attn", "q"), "k": ("attn", "k"), "v": ("attn", "v"),
+             "o": ("attn", "o"), "up": ("mlp", "up"),
+             "down": ("mlp", "down")}
+    lay = params["layers"]
+    weights = {proj: [lay[a][b]["w"][i] for i in range(NEMOTRON_LAYERS)]
+               for proj, (a, b) in where.items()}
+    rows = []
+    totals = _k4_layers(torch, la, gen, "nemotron-4-340b", NEMOTRON_PROJ,
+                        SLOTS * PROMPT_LEN, rows, torch.bfloat16,
+                        weights=weights, graph_iters=NEMOTRON_GRAPH_ITERS)
+    emit({"phase": "kernels", "kernel": "batched_lora_apply_bf16",
+          "model": "nemotron-4-340b", "on": "serve_nemotron_4_340b's W",
+          "per_shape": rows, "per_layer": totals, "card": card_line()})
+    row = summary.get("batched_lora_apply_bf16")
+    if row is not None:
+        for key in ("max_abs_err", "max_err_row_ulps"):
+            row[key] = max([row[key]] + [t[key] for t in totals.values()])
+        row["other_layers"]["nemotron-4-340b"] = {
+            phase: {key: t[key] for key in
+                    ("ms", "plain_ms", "bound_ms", "bound_route",
+                     "bound_simt_f32_ms", "library_ms", "max_abs_err",
+                     "max_err_row_ulps", *DEVICE_KEYS, "rank0_device_ms")}
+            for phase, t in totals.items()}
+    return totals
+
+
+def phase_serve_nemotron_4_340b(torch, summary: dict) -> int:
+    """Main path 19: Nemotron-4-340B at full width in bf16 with 2 of its
+    96 layers (d 18432, GQA 96/8 at head_dim 192, squared-ReLU MLP of
+    73728, vocab 256000, untied head; LoRA on q/k/v/o/up/down): 32.71 GB
+    drawn in place (``Model.init``), its peak at most
+    ``LLAMA4_INIT_SLACK_GIB`` over the model's bytes. Served as
+    ``_serve_full`` serves Llama-4 (path 16): K4 on q/k/v/o, 4 x 2
+    launches a call, every one a bf16 instance's; the MLP's up and down
+    adapters take the plain per-slot path, as the reference's
+    ``mlp_apply`` does (it passes no ``use_kernel``); each slot's tokens
+    by the top-2 rule and against a teacher-forced full forward. A decode
+    step reads the layers' W and the head, ``_decode_step_bytes``, whose
+    time at the card's byte rate stands beside the profiled step's device
+    time. Then K4 alone at all six projections on the same weights
+    (``_k4_nemotron``). Returns K4's bf16 launches on the path."""
+    from repro_torch.kernels import lora_apply as la
+    cfg = _nemotron_cfg()
+    per_call = 4 * NEMOTRON_LAYERS
+
+    def after(eng, ref, gen, params):
+        nbytes = _decode_step_bytes(params)
+        return {"decode_step_bytes": nbytes,
+                "decode_step_byte_bound_ms": nbytes / PEAK_BYTES_PER_S * 1e3,
+                "k4_alone_per_layer": _k4_nemotron(torch, params, gen,
+                                                   summary)}
+
+    launches = _serve_full(
+        torch, "serve_nemotron_4_340b", cfg, PROMPT_LEN,
+        [(la.batched_lora_apply, per_call, per_call)],
+        ("lora_", "gemm", "nvjet"), after=after, dtype=torch.bfloat16,
+        teacher=True, init_slack_gib=LLAMA4_INIT_SLACK_GIB)
+    return launches["batched_lora_apply_bf16"]
+
+
 def _time_phases() -> None:
     """Wrap every ``phase_*`` function of this module so that main's run
     adds each call's wall seconds to ``PHASE_SECONDS`` under its name (a
@@ -4852,6 +5054,15 @@ def main() -> int:
         llama4 = phase_serve_llama4_maverick(torch)
         by_path["batched_lora_apply_bf16"] = {
             "serve_llama4_maverick": llama4["serve_llama4_maverick"]}
+        gc.collect()
+        torch.cuda.empty_cache()
+        # Granite-3-8B at full depth in f32, freed, then Nemotron-4-340B
+        # in bf16 at 2 of its 96 layers
+        k4_paths["serve_granite_3_8b"] = phase_serve_granite_3_8b(torch)
+        gc.collect()
+        torch.cuda.empty_cache()
+        by_path["batched_lora_apply_bf16"]["serve_nemotron_4_340b"] = \
+            phase_serve_nemotron_4_340b(torch, summary)
     except SmokeFailure as e:
         print(f"chip_smoke: FAIL: {e}", file=sys.stderr)
         return 1

@@ -234,21 +234,26 @@ class Model:
         its leaves straight into the group's slices of them (``draw``): no
         drawn group, and no whole-tensor draw in another dtype, exists
         beside the model, so the peak is the model plus one group's
-        constant leaves, each made before it is copied in. In f32 the
-        values are bit for bit those of drawing each group whole and
-        copying it in."""
+        constant leaves, each made before it is copied in. The embedding
+        and the head are drawn in place too: a draw in f32 and its scaled
+        copy would stand beside them at twice and four times their bf16
+        bytes (Nemotron-4-340B's 256000 x 18432 table: 17.6 GiB each). In
+        f32 the values are bit for bit those of drawing each group whole
+        and copying it in."""
         cfg, kw = self.cfg, dict(dtype=self.dtype, device=self.device)
+        table = (cfg.vocab_size, cfg.d_model)
         params = {
             # the token table is unused by the frontend path, kept so the
             # tree matches the reference's
-            "embed": draw.normal(gen, (cfg.vocab_size, cfg.d_model),
-                                 cfg.d_model ** -0.5, self.dtype,
-                                 self.device),
+            "embed": draw.normal(gen, table, cfg.d_model ** -0.5,
+                                 self.dtype, self.device,
+                                 torch.empty(table, **kw)),
             "final_norm": rms_norm_init(cfg.d_model, **kw),
         }
         if not cfg.tie_embeddings:
-            params["lm_head"] = dense_init(gen, cfg.d_model, cfg.vocab_size,
-                                           **kw)
+            params["lm_head"] = dense_init(
+                gen, cfg.d_model, cfg.vocab_size,
+                out={"w": torch.empty(table[::-1], **kw)}, **kw)
         layers = self._stacked_layers()
         for g in range(self.num_groups):
             self._group_init(gen, g, _index(layers, lambda t: t[g]))

@@ -1,6 +1,8 @@
 """The port's bf16 model held to the JAX package's bf16 model on the CPU:
-reduced qwen2-7b, gemma-2b, deepseek-v2-236b and llama4-maverick (and
-hymba-1.5b on the kernel path), the reference's weights carried over
+reduced qwen2-7b, gemma-2b, deepseek-v2-236b, llama4-maverick and
+nemotron-4-340b (its squared-ReLU MLP: ``relu`` then ``r * r``, one
+rounding each, as the reference; and hymba-1.5b on the kernel path), the
+reference's weights carried over
 (bf16 leaves as bf16, its f32 leaves as f32; lora_b drawn away from 0).
 
 Both packages round at the same points: the port writes out, below f32,
@@ -52,6 +54,7 @@ torch.set_num_threads(1)
 
 QWEN, GEMMA, HYMBA = "qwen2-7b", "gemma-2b", "hymba-1.5b"
 DS, L4 = "deepseek-v2-236b", "llama4-maverick-400b-a17b"
+NEMO = "nemotron-4-340b"
 LORA = dict(rank_levels=(4, 8, 16), rank_probs=(1 / 3,) * 3)
 B, T = 2, 16
 ULPS = 4            # logits and the loss
@@ -194,7 +197,7 @@ def _check_model(name: str, grads: bool = True, **opts) -> None:
                     f"{name} grad {'/'.join(path)}", GRAD_ULPS)
 
 
-@pytest.mark.parametrize("name", [QWEN, GEMMA, DS, L4])
+@pytest.mark.parametrize("name", [QWEN, GEMMA, DS, L4, NEMO])
 def test_bf16_model_matches_reference(name):
     """Logits, loss and every LoRA gradient, remat off on both sides."""
     _check_model(name)
@@ -241,7 +244,7 @@ def test_bf16_kernel_model_single_forward_matches_reference(name):
     assert_ulps(got.float().numpy(), want, f"{name} single-model K4 logits")
 
 
-@pytest.mark.parametrize("name", [QWEN, GEMMA, HYMBA, L4])
+@pytest.mark.parametrize("name", [QWEN, GEMMA, HYMBA, L4, NEMO])
 def test_bf16_kernel_model_matches_reference_kernel(name):
     """The fault: ``Model(dtype=torch.bfloat16, use_kernels=True)`` raised
     on its first forward (K4 took f32 only); its single-model forward now

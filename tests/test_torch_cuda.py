@@ -1,10 +1,11 @@
 """Card-only checks of the port's hand-written CUDA kernels (K1-K7), of
 the round and of the serving engines (qwen2 with K4, mamba2 with K6,
 hymba with both) on the card, of the MLA / MoE models there
-(``-k moe``, ``-k mla``), of K4's bf16 instances (``-k bf16``) and of
-Llama-4 Maverick's init at full width (``-k llama4``). They skip without
-CUDA (the kernels have no CPU mode) and import nothing of JAX, so they
-run on a GPU machine without it:
+(``-k moe``, ``-k mla``), of K4's bf16 instances (``-k bf16``; at
+Nemotron-4-340B's MLP ``-k nemotron``) and of Llama-4 Maverick's and
+Nemotron-4-340B's init at full width (``-k llama4``, ``-k nemotron``).
+They skip without CUDA (the kernels have no CPU mode) and import nothing
+of JAX, so they run on a GPU machine without it:
 
     PYTHONPATH=src python -m pytest --noconftest tests/test_torch_cuda.py
 """
@@ -180,13 +181,15 @@ def _lora_tol(case):
     (9, 300, 520, 9, 8),                                 # a page per row
     (4096, 3584, 3584, 4, 16), (4096, 3584, 512, 4, 16),  # unsplit SGEMM
     (33, 3584, 512, 4, 16), (64, 3584, 3584, 4, 16),     # route boundary
-    (128, 3000, 512, 4, 16)])       # 16 splits of 192, the last 120 deep
+    (128, 3000, 512, 4, 16),        # 16 splits of 192, the last 120 deep
+    (4, 4096, 1024, 4, 16), (128, 4096, 1024, 4, 16)])   # granite k/v
 def test_cuda_lora_apply_matches_plain(cuda_device, m, k, n, p, r):
     """K4 against its plain version at Qwen2-7B's decode (4 rows) and
     prefill (128 rows, split over K) shapes, at 4096 rows (unsplit), at the
     first SGEMM row counts (33, 64), at odd K / N / r on both launch paths,
-    with a K that is no multiple of splits x slab, and with every row on a
-    different page."""
+    with a K that is no multiple of splits x slab, with every row on a
+    different page, and at Granite-3-8B's k/v (N 1024) at 4 and 128
+    rows."""
     case = _lora_case(10, m, k, n, p, r, cuda_device,
                       ranks=[max(1, r - 2 * i) for i in range(p)])
     if m == p:
@@ -247,6 +250,50 @@ def test_cuda_lora_apply_bf16_matches_plain(cuda_device, m, k, n, p, r):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("m", [4, 128])
+@pytest.mark.parametrize("k,n", [(18432, 73728), (73728, 18432)],
+                         ids=["up", "down"])
+def test_cuda_lora_apply_bf16_at_nemotron_mlp(cuda_device, k, n, m):
+    """K4's bf16 instances at Nemotron-4-340B's up and down projections:
+    W of 1.36e9 elements (2.72 GB, offsets past 2^31 bytes), at 4 rows on
+    the GEMV's plans of several waves (up 1152 strips x 8 splits, 9216
+    blocks; down 288 x 29 of 2560, 8352 blocks) and at 128 rows on the
+    bf16 tensor cores. Inputs drawn on the card; every element within one
+    bf16 ulp of its row's largest |value| of the plain version, one bf16
+    launch, and a repeat bit-equal to the first launch (the last block of
+    each tile sums the splits in range order, whatever order they end
+    in)."""
+    p, r = 4, 16
+    gen = torch.Generator(device=cuda_device).manual_seed(k + m)
+
+    def draw(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=cuda_device,
+                           dtype=torch.bfloat16).mul_(scale)
+    case = dict(x=draw(m, k), w=draw(k, n, scale=k ** -0.5),
+                a_pages=draw(p, r, k, scale=k ** -0.5),
+                b_pages=draw(p, n, r),
+                scales=torch.rand(p, generator=gen, device=cuda_device) + 0.5,
+                ids=torch.randint(0, p, (m,), generator=gen,
+                                  device=cuda_device, dtype=torch.int32))
+    plan = la.describe_plan(m, n, k, dtype=torch.bfloat16)
+    assert plan["route"] == ("gemv" if m <= la.GEMV_MAX_ROWS else "mma_bf16")
+    before = (la.batched_lora_apply.launches,
+              la.batched_lora_apply.launches_bf16)
+    got = la.batched_lora_apply(**case)
+    torch.cuda.synchronize()
+    assert (la.batched_lora_apply.launches,
+            la.batched_lora_apply.launches_bf16) == (before[0] + 1,
+                                                     before[1] + 1)
+    want = la.batched_lora_apply_plain(**case)
+    diff = (got.float() - want.float()).abs()
+    assert bool((diff <= _bf16_row_ulp(want)).all()), (
+        plan, float((diff / _bf16_row_ulp(want)).max()))
+    assert torch.equal(got, la.batched_lora_apply(**case))
+    del case, got, want, diff
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
 def test_cuda_lora_apply_refuses_mixed_dtypes(cuda_device):
     """The raw wrapper takes x, W and the pages all f32 or all bf16; a
     mix raises (``ops.batched_lora_apply`` reads a mix as f32)."""
@@ -277,6 +324,33 @@ def test_cuda_llama4_init_peak_within_a_gib_of_the_model(cuda_device):
     torch.cuda.synchronize()
     nbytes = sum(t.nbytes for t in _tree_leaves(params))
     assert nbytes > 37e9
+    assert torch.cuda.max_memory_allocated() - base <= nbytes + 2 ** 30
+    del params
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+def test_cuda_nemotron_init_peak_within_a_gib_of_the_model(cuda_device):
+    """``Model.init`` of Nemotron-4-340B at full width in bf16, 2 of its
+    96 layers (32.71 GB, 18.87 of it the embedding and the untied head):
+    the table and the head are drawn in place as the layers are, so the
+    allocator's peak is the model's bytes plus at most 1 GiB (drawn in
+    f32, scaled, then cast, the head stood 13.59 GiB over)."""
+    import dataclasses
+
+    from repro_torch.configs import LoRAConfig, get_config
+    from repro_torch.models.transformer import Model
+    cfg = dataclasses.replace(get_config("nemotron-4-340b"), num_layers=2)
+    model = Model(cfg, LoRAConfig(rank_levels=(4, 8, 16)), device="cuda",
+                  dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    nbytes = sum(t.nbytes for t in _tree_leaves(params))
+    assert nbytes > 32.7e9
     assert torch.cuda.max_memory_allocated() - base <= nbytes + 2 ** 30
     del params
     torch.cuda.empty_cache()

@@ -85,6 +85,77 @@ def test_plans_at_llama4_and_qwen2():
     assert gp.plan_gemm_bf16(128, 1024, 5120)[:4] == (64, 64, 8, 640)
 
 
+# Nemotron-4-340B's six projections (bf16, main path 19) and Granite-3-8B's
+# four (f32, main path 18), (K, N)
+NEMOTRON = {"q": (18432, 18432), "k": (18432, 1536), "v": (18432, 1536),
+            "o": (18432, 18432), "up": (18432, 73728),
+            "down": (73728, 18432)}
+GRANITE = {"q": (4096, 4096), "k": (4096, 1024), "v": (4096, 1024),
+           "o": (4096, 4096)}
+# (bm, bn, splits, depth, tiles) and the split scratch in bytes at 4 and
+# 128 rows: the GEMV's and the bf16 route's partials (splits x tiles x a
+# tile's floats rounded up to 256), the SGEMM's (S, M, N) workspace
+SERVED_PLANS = {
+    ("nemotron-4-340b", "q", 4): ((4, 64, 8, 2304, 288), 2359296),
+    ("nemotron-4-340b", "k", 4): ((4, 64, 11, 1792, 24), 270336),
+    ("nemotron-4-340b", "up", 4): ((4, 64, 8, 2304, 1152), 9437184),
+    ("nemotron-4-340b", "down", 4): ((4, 64, 29, 2560, 288), 8552448),
+    ("nemotron-4-340b", "q", 128): ((128, 128, 4, 4608, 144), 37748736),
+    ("nemotron-4-340b", "k", 128): ((128, 128, 11, 1696, 12), 8650752),
+    ("nemotron-4-340b", "up", 128): ((128, 128, 1, 18432, 576), 0),
+    ("nemotron-4-340b", "down", 128): ((128, 128, 4, 18432, 144), 37748736),
+    ("granite-3-8b", "q", 4): ((4, 32, 2, 2048, 128), 262144),
+    ("granite-3-8b", "k", 4): ((4, 32, 8, 512, 32), 262144),
+    ("granite-3-8b", "q", 128): ((128, 128, 4, 1024, 32), 8388608),
+    ("granite-3-8b", "k", 128): ((128, 128, 16, 256, 8), 8388608)}
+
+
+def _served_plan(model, proj, m):
+    """(plan, the scratch bytes its launch takes) of K4 at ``m`` rows of
+    a served projection: Nemotron's bf16, Granite's f32."""
+    k, n = (NEMOTRON if model == "nemotron-4-340b" else GRANITE)[proj]
+    dtype = torch.bfloat16 if model == "nemotron-4-340b" else torch.float32
+    route, plan = la._route(m, n, k, False, dtype)
+    if plan.splits == 1:
+        return route, plan, 0
+    if route == "sgemm":
+        return route, plan, plan.splits * m * n * 4
+    return route, plan, 4 * plan.splits * plan.tiles * \
+        -(-plan.bm * plan.bn // 256) * 256
+
+
+@pytest.mark.parametrize("m", [4, 128])
+@pytest.mark.parametrize("model,proj", [("nemotron-4-340b", p)
+                                        for p in NEMOTRON] +
+                         [("granite-3-8b", p) for p in GRANITE])
+def test_plans_at_nemotron_and_granite(model, proj, m):
+    """K4's plans at Nemotron-4-340B's q/k/v/o/up/down (bf16) and
+    Granite-3-8B's q/k/v/o (f32), at 4 rows (decode) and 4 x 32 (prefill):
+    the GEMV at 4 rows, every range at least ``GEMV_SLAB`` deep and x's
+    rows within ``GEMV_SMEM_FLOATS`` (at K 73728 that takes 29 splits;
+    blocks in several waves of the 264 resident slots at up and down);
+    above 32 rows the bf16 tensor cores or the SGEMM; ``split_sum``'s
+    ranges cover K once; the plan and its scratch bytes as stated in
+    ``SERVED_PLANS`` where the projection is listed (v and o share k's
+    and q's)."""
+    route, plan, scratch = _served_plan(model, proj, m)
+    k, _ = (NEMOTRON if model == "nemotron-4-340b" else GRANITE)[proj]
+    assert route == ("gemv" if m == 4 else
+                     "mma_bf16" if model == "nemotron-4-340b" else "sgemm")
+    ranges = gp.split_ranges(k, plan.depth)
+    assert len(ranges) == plan.splits
+    assert ranges[0][0] == 0 and ranges[-1][1] == k
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+    covered = gp.split_sum(lambda k0, k1: torch.ones(k1 - k0).sum(), k,
+                           plan.depth)
+    assert float(covered) == k
+    if route == "gemv":
+        assert all(k1 - k0 >= gp.GEMV_SLAB for k0, k1 in ranges)
+        assert plan.bm * plan.depth <= gp.GEMV_SMEM_FLOATS
+    key = (model, {"v": "k", "o": "q"}.get(proj, proj), m)
+    assert (tuple(plan), scratch) == SERVED_PLANS[key]
+
+
 @pytest.mark.parametrize("m,n,k", [(4, 512, 3584), (32, 40, 130),
                                    (33, 520, 37), (128, 5120, 5120)])
 def test_describe_plan_reports_each_route(m, n, k):

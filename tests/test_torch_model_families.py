@@ -39,6 +39,7 @@ from repro_torch.configs import LoRAConfig, get_config
 from repro_torch.configs.base import FrontendConfig, ModelConfig, SSMConfig
 from repro_torch.convert import params_from_numpy
 from repro_torch.core.lora import flatten, split_lora
+from repro_torch.kernels import lora_apply as la
 from repro_torch.models.layers import attention as tattn
 from repro_torch.models.layers import rope as trope
 from repro_torch.models.transformer import Model
@@ -418,16 +419,25 @@ def _engines_agree(jm, tm_cfg, params, tenants, calls, max_len,
     return engines
 
 
+# the families served at reduced size with GQA kept (2 KV heads of 4)
+GQA_SERVED = ("granite-3-8b", "nemotron-4-340b")
+
+
 @pytest.fixture(scope="module")
 def serve_models():
-    """Reduced gemma and hymba, and qwen2 with a pure sliding window of 16
-    (a ring cache of 16), each from JAX weights with random tenants."""
+    """Reduced gemma and hymba, qwen2 with a pure sliding window of 16
+    (a ring cache of 16), and granite and nemotron at GQA 4/2, each from
+    JAX weights with random tenants."""
     out = {}
-    for name in ("gemma-2b", "hymba-1.5b", "qwen2-7b-swa"):
+    for name in ("gemma-2b", "hymba-1.5b", "qwen2-7b-swa") + GQA_SERVED:
         if name == "qwen2-7b-swa":
             jcfg, tcfg = (dataclasses.replace(
                 g("qwen2-7b").reduced().with_sliding_window(16, 0),
                 num_kv_heads=2) for g in (j_config, get_config))
+        elif name in GQA_SERVED:
+            jcfg, tcfg = (dataclasses.replace(g(name).reduced(),
+                                              num_kv_heads=2)
+                          for g in (j_config, get_config))
         else:
             jcfg, tcfg = j_config(name).reduced(), get_config(name).reduced()
         jm = build_model(jcfg, JLoRA(rank_levels=LEVELS), dtype=jnp.float32,
@@ -443,19 +453,43 @@ def _prompts(vocab, n, length, seed):
 
 
 @pytest.mark.parametrize("name,prompt_len,steps", [
-    ("gemma-2b", 8, 3), ("qwen2-7b-swa", 24, 4)])
-def test_engine_matches_jax_engine(serve_models, name, prompt_len, steps):
+    ("gemma-2b", 8, 3), ("qwen2-7b-swa", 24, 4), ("granite-3-8b", 8, 3),
+    ("nemotron-4-340b", 8, 3)])
+def test_engine_matches_jax_engine(serve_models, monkeypatch, name,
+                                   prompt_len, steps):
     """Two slots at ranks 16 and 4: equal greedy tokens. The sliding
     qwen2's 24-token prompt ring-scatters into a ring of 16, and decode
-    wraps it further."""
+    wraps it further. Granite (tied head, SwiGLU) and Nemotron (untied
+    head, squared-ReLU MLP, LoRA on q/k/v/o/up/down) run with the plain
+    path and with ``use_kernels``: K4 (its plain version on the CPU) takes
+    q/k/v/o, 4 calls a layer and engine call, and never the MLP's W,
+    whose per-slot adapters take the plain path, as the reference's
+    ``mlp_apply`` takes no ``use_kernel``."""
     jm, tcfg, params, tenants = serve_models[name]
     prompts = _prompts(tcfg.vocab_size, 2, prompt_len, 6)
     calls = [("admit", [0, 1], prompts, ["hi", "lo"])] + \
         [("decode", [True, True])] * steps
-    (eng,) = _engines_agree(jm, tcfg, params, tenants, calls,
-                            prompt_len + steps + 1)
+    k4_weights = []
+    inner = la.batched_lora_apply_plain
+
+    def counting(x, w, *rest):
+        k4_weights.append(tuple(w.shape))
+        return inner(x, w, *rest)
+    monkeypatch.setattr(la, "batched_lora_apply_plain", counting)
+    kernels = (False, True) if name in GQA_SERVED else (False,)
+    eng = _engines_agree(jm, tcfg, params, tenants, calls,
+                         prompt_len + steps + 1, use_kernels=kernels)[0]
     if name == "qwen2-7b-swa":
         assert eng.cache["layers"]["k"].shape[2] == 16
+    if name in GQA_SERVED:
+        d, hd = tcfg.d_model, tcfg.resolved_head_dim
+        attn = {(d, tcfg.num_heads * hd), (d, tcfg.num_kv_heads * hd),
+                (tcfg.num_heads * hd, d)}
+        assert len(k4_weights) == len(calls) * 4 * tcfg.num_layers
+        assert set(k4_weights) == attn
+        assert not any(tcfg.d_ff in shape for shape in k4_weights)
+    else:
+        assert not k4_weights
 
 
 def test_hymba_engine_matches_jax_engine(serve_models):
