@@ -12,6 +12,17 @@ JAX. Phases, each printing one JSON line:
                   Triton's copy) that each instance of K4's bf16 route
                   above 32 rows (``lora_mma_bf16_kernel``) holds bf16
                   HMMA instructions; without the tool the phase fails.
+1a. non_finite    the port's choosing seams on non-finite and tied inputs:
+                  ``serving.engine.greedy`` at Qwen2-7B's vocabulary
+                  (152064) in f32 and bf16, on rows with ties, NaNs and
+                  infs placed in different 1024-column blocks and the
+                  8-wide rows of tests/test_torch_serving.py tiled across
+                  the width: equal to ``np.argmax`` of the same rows on the
+                  host and to the CPU's ``greedy``, int32, its device ms at
+                  4 rows beside the rule it replaced;
+                  ``transport._topk_mask`` on the card bit-equal to the
+                  CPU on a NaN column, an inf column, fewer than k nonzero
+                  columns and a tie at the k-th energy.
 2. kernels        each kernel against its plain PyTorch version on the card
                   at the shapes its main path gives it (K1/K2: the
                   vit-base round's buckets; K4: Qwen2-7B's q/k/v/o at
@@ -192,6 +203,13 @@ JAX. Phases, each printing one JSON line:
                   version per engine call, stats bit-equal to a host stub
                   engine's replay, K4 4 x 28 launches every engine call;
                   steps, virtual p50 / p95 / TTFT, wall ms a step.
+    serve_nan_tenant_qwen2_7b  after the batcher, phase 6's K4 engine with
+                  tenant t8 republished clean and then with a NaN in one
+                  ``lora_b`` leaf, admit plus two decode steps on each: the
+                  card synchronizes, every token in [0, V), the clean
+                  slots' tokens unchanged, the poisoned slot's token the
+                  first NaN of its logits on the host, K4 4 x 28 launches
+                  a call.
 6a. serve_qwen2_vl_7b  main path 12, after Qwen2-7B is freed: Qwen2-VL-7B
                   (M-RoPE sections (16, 24, 24), vision frontend stub) as
                   phase 6, K4 112 launches a call; then one image prefill,
@@ -462,6 +480,21 @@ ATTN_SHAPES = (("qwen2-7b prefill", 4, 1024, 28, 4, 128, True, 0),
                ("gemma-2b mqa", 1, 2048, 8, 1, 256, True, 0))
 ATTN_TOL = {"atol": 2e-5, "rtol": 1e-4}   # tests/test_flash_attention.py
 DEV = "cuda"       # the card; the serving phases take their device here
+# greedy's rows: the 8-wide rows of tests/test_torch_serving.py's
+# GREEDY_ROWS (NaN, +-inf, all -inf, all +inf, ties), each tiled across the
+# vocabulary so that it repeats in every block of the card's reduction
+NAN, INF = float("nan"), float("inf")
+GREEDY_ROWS = {"nan_first": [NAN, 1, 2, 3, 0, 5, 1, 2],
+               "nan_middle": [0, 1, NAN, 1, 7, 2, 1, 0],
+               "nan_last": [3, 1, 2, 3, 0, 5, 1, NAN],
+               "two_nans": [1, NAN, 4, 5, NAN, 2, 9, 1],
+               "nan_beside_inf": [0, INF, NAN, 1, 2, INF, NAN, 3],
+               "pm_inf": [INF, 1, INF, 0, -INF, 2, -INF, 3],
+               "all_neg_inf": [-INF] * 8, "all_pos_inf": [INF] * 8,
+               "ties": [0, 2, 2, 1, 2, 0, 1, 2], "all_equal": [5] * 8}
+GREEDY_BLOCK = 1024   # columns a block, for placing ties and NaNs apart
+# the NaN tenant (main path 2's engine): the poisoned tenant's slot
+NAN_SLOT, NAN_STEPS = 1, 3          # admit plus two decode steps
 
 
 class SmokeFailure(Exception):
@@ -563,6 +596,108 @@ def phase_build():
     require(len(hmma) == BF16_MMA_INSTANCES and min(hmma.values()) > 0,
             f"build: not every instance of K4's bf16 route holds a bf16 "
             f"HMMA: {hmma}")
+
+
+def _greedy_rows(np, v: int) -> dict:
+    """(name, row of ``v`` f32 logits) by the case it pins: ``GREEDY_ROWS``
+    tiled, and seeded normal rows with ties, NaNs and infs placed in
+    different ``GREEDY_BLOCK``-column blocks (the first of each is the
+    row's answer where it is the first maximum or the first NaN)."""
+    blk = GREEDY_BLOCK
+    rows = {name: np.resize(np.asarray(row, np.float32), v)
+            for name, row in GREEDY_ROWS.items()}
+    rng = np.random.default_rng(0)
+    placed = {"plain": {},
+              "tie_across_blocks": {3 * blk + 7: 50.0, 70 * blk + 1: 50.0,
+                                    v - 1: 50.0},
+              "nan_across_blocks": {10: 50.0, 40 * blk + 3: NAN,
+                                    2 * blk + 5: NAN},
+              "nan_in_last_block": {0: 50.0, v - 1: NAN},
+              "nan_after_inf": {5 * blk: INF, 100 * blk + 9: NAN},
+              "inf_across_blocks": {9 * blk + 1: INF, 120 * blk: INF},
+              "tie_at_the_end": {v - 2: 50.0, v - 1: 50.0}}
+    for name, cols in placed.items():
+        row = rng.normal(size=v).astype(np.float32)
+        for col, val in cols.items():
+            row[col] = val
+        rows[name] = row
+    return rows
+
+
+def phase_non_finite(torch) -> None:
+    """The port's choosing seams on non-finite and tied inputs, on the
+    card. ``serving.engine.greedy`` at Qwen2-7B's vocabulary (152064) in
+    f32 and bf16 on ``_greedy_rows``: the card's tokens equal
+    ``np.argmax`` of the same rows on the host and the CPU's ``greedy``,
+    int32; its device ms at (4, V) f32 beside the max / where / min rule
+    it replaced. ``federation.transport._topk_mask`` (top-2 of 4 rank
+    columns) on the card against the CPU, bit-equal, on the cases of
+    tests/test_torch_transport.py: a NaN column, an inf column, fewer
+    than k nonzero columns, a tie at the k-th energy."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.federation.transport import _topk_mask
+    from repro_torch.serving.engine import greedy
+    v = get_config("qwen2-7b").vocab_size
+    named = _greedy_rows(np, v)
+    x32 = torch.from_numpy(np.stack(list(named.values())))
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        x = x32.to(dtype)
+        want = np.argmax(x.float().numpy(), axis=-1)
+        got = greedy(x.to(DEV))
+        require(got.dtype == torch.int32, f"greedy gave {got.dtype}")
+        got = got.cpu().numpy()
+        cpu = greedy(x).numpy()
+        bad = [n for n, g, c, w in zip(named, got, cpu, want)
+               if not g == c == w]
+        out[str(dtype)] = {"tokens": dict(zip(named, got.tolist())),
+                           "differ": bad}
+        require(not bad, f"non_finite: greedy in {dtype} differs from "
+                         f"np.argmax on the card or the CPU at {bad}")
+    xs = torch.from_numpy(np.stack([named["plain"]] * SLOTS)).to(DEV)
+    xs[1:, 7 * GREEDY_BLOCK] = NAN
+
+    def replaced_rule():
+        top = xs.max(dim=-1, keepdim=True).values
+        idx = torch.arange(v, device=DEV)
+        return torch.where(xs == top, idx, v).min(dim=-1).values.to(
+            torch.int32)
+    emit({"phase": "non_finite_greedy", "vocab": v,
+          "rows": list(named), "block": GREEDY_BLOCK, **out,
+          "greedy_device_ms_4_rows": time_ms(torch, lambda: greedy(xs)),
+          "replaced_rule_device_ms_4_rows": time_ms(torch, replaced_rule),
+          "card": card_line()})
+    masks = {}
+    for case in ("nan", "inf", "zero", "tie"):
+        b, a = _topk_case(torch, np, case)
+        cpu = _topk_mask(b, a, 2)
+        card = _topk_mask(b.to(DEV), a.to(DEV), 2).cpu()
+        masks[case] = cpu[0].tolist()
+        require(torch.equal(card, cpu), f"non_finite: _topk_mask on the "
+                f"card {card.tolist()} against the CPU's {cpu.tolist()} "
+                f"({case})")
+    emit({"phase": "non_finite_topk", "k": 2, "lead0_masks": masks,
+          "card_equal_cpu": True})
+
+
+def _topk_case(torch, np, case: str):
+    """tests/test_torch_transport.py's ``_special_inputs``: (B, A) torch
+    tensors (2, 6, 4) and (2, 4, 5) from seed 11, lead 0 special."""
+    rng = np.random.default_rng(11)
+    b = rng.normal(size=(2, 6, 4)).astype(np.float32)
+    a = rng.normal(size=(2, 4, 5)).astype(np.float32)
+    if case == "nan":
+        b[0, 2, 1] = np.nan
+    elif case == "inf":
+        b[0, 4, 2] = np.inf
+    elif case == "zero":
+        b[0, :, 1:] = 0.0
+        a[0, 1:] = 0.0
+    elif case == "tie":
+        b[0, :, 2], a[0, 2] = b[0, :, 0], a[0, 0]
+        b[0, :, 3] *= 4.0
+    return torch.from_numpy(b), torch.from_numpy(a)
 
 
 def _k12_check(torch, kname, label, kern, plain, args) -> tuple:
@@ -4048,12 +4183,84 @@ def phase_serve_qwen2_7b(torch) -> dict:
     def after(eng, ref, gen, params):
         batcher.update(phase_serve_batcher_qwen2_7b(torch, eng.model, params,
                                                     gen, per_call))
+        phase_serve_nan_tenant_qwen2_7b(torch, eng, params, gen, per_call)
         return {}
 
     served = _serve_full(torch, "serve_qwen2_7b", cfg, PROMPT_LEN,
                          [(la.batched_lora_apply, per_call, per_call)],
                          "lora_", after=after)["batched_lora_apply"]
     return {"serve_qwen2_7b": served, **batcher}
+
+
+def phase_serve_nan_tenant_qwen2_7b(torch, eng, params, gen,
+                                    per_call: int) -> None:
+    """Main path 2's K4 engine (Qwen2-7B at full width in f32) with one
+    tenant poisoned: t8 republished with fresh factors, then with a NaN at
+    [0, 0, 0] of its first ``lora_b`` leaf; on each snapshot, admit (4
+    slots over t16/t8/t4/t16, fresh 32-token prompts) plus two decode
+    steps. Required: the card synchronizes after every step (a token
+    past the vocabulary would have fired a device assert there), every
+    token is in [0, V), the clean slots' tokens equal the clean run's,
+    the poisoned slot's logits hold a NaN and its token is ``np.argmax``
+    (the first NaN) of its logits on the host, and K4 launches 4 x 28
+    times a call."""
+    import numpy as np
+    from repro_torch.core.lora import flatten, unflatten
+    from repro_torch.kernels import lora_apply as la
+    v = eng.model.cfg.vocab_size
+    flat = flatten(_tenant_tree(torch, params, gen, DEV))
+    path = next(p for p in flat if p[-1] == "lora_b")
+    poisoned = dict(flat)
+    poisoned[path] = flat[path].clone()
+    poisoned[path][(0,) * flat[path].ndim] = NAN
+    prompts = torch.randint(0, v, (SLOTS, PROMPT_LEN), generator=gen,
+                            device=DEV)
+    tenants = ["t16", "t8", "t4", "t16"]
+    active = torch.ones(SLOTS, dtype=torch.bool, device=DEV)
+    runs = {}
+    for label, tree in (("clean", flat), ("nan", poisoned)):
+        eng.store.put("t8", unflatten(tree), 8)
+        eng.store.publish()
+        toks, logits, launches, ms = [], [], [], []
+        for step in range(NAN_STEPS):
+            n, t = la.batched_lora_apply.launches, time.perf_counter()
+            if step == 0:
+                eng.admit(range(SLOTS), prompts, tenants)
+            else:
+                eng.decode(active)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+            launches.append(la.batched_lora_apply.launches - n)
+            toks.append(eng.tokens.cpu().numpy())
+            logits.append(eng.last_logits.float().cpu().numpy())
+        runs[label] = (np.stack(toks), np.stack(logits), launches, ms)
+    (ct, _, cl, cms), (nt, nl, nlaunch, nms) = runs["clean"], runs["nan"]
+    clean = [s for s in range(SLOTS) if s != NAN_SLOT]
+    first_nan = np.argmax(nl[:, NAN_SLOT], axis=-1)
+    emit({"phase": "serve_nan_tenant_qwen2_7b", "vocab": v,
+          "poisoned": {"tenant": "t8", "slot": NAN_SLOT,
+                       "leaf": "/".join(map(str, path))},
+          "tokens_clean": ct.tolist(), "tokens_nan": nt.tolist(),
+          "nan_slot_logits_nan_share": float(
+              np.isnan(nl[:, NAN_SLOT]).mean()),
+          "k4_launches": {"clean": cl, "nan": nlaunch},
+          "step_ms": {"clean": cms, "nan": nms},
+          "synchronized": True, "card": card_line()})
+    require(((nt >= 0) & (nt < v)).all() and ((ct >= 0) & (ct < v)).all(),
+            f"serve_nan_tenant: a token outside [0, {v}): {nt.tolist()}")
+    require(np.array_equal(nt[:, clean], ct[:, clean]),
+            f"serve_nan_tenant: the clean slots' tokens moved: "
+            f"{ct.tolist()} -> {nt.tolist()}")
+    require(bool(np.isnan(nl[:, NAN_SLOT]).any(axis=-1).all())
+            and not np.isnan(nl[:, clean]).any(),
+            "serve_nan_tenant: the NaN did not stay in its slot's logits")
+    require(np.array_equal(nt[:, NAN_SLOT], first_nan),
+            f"serve_nan_tenant: the poisoned slot's tokens "
+            f"{nt[:, NAN_SLOT].tolist()}, its logits' first NaN "
+            f"{first_nan.tolist()}")
+    require(cl == nlaunch == [per_call] * NAN_STEPS,
+            f"serve_nan_tenant: K4 launched {cl} / {nlaunch}, expected "
+            f"{per_call} a call")
 
 
 # main path 15: the continuous batcher over the Qwen2-7B engine
@@ -4969,6 +5176,7 @@ def main() -> int:
     _time_phases()
     try:
         phase_build()
+        phase_non_finite(torch)
         phase_kernels(torch, summary)
         phase_kernel_lora_apply(torch, summary)
         phase_kernel_ssd_scan(torch, summary)

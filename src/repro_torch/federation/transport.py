@@ -71,11 +71,14 @@ def _quantize(x: torch.Tensor, axis: int, mode: str) -> QuantFactor:
 
 def _topk_mask(b: torch.Tensor, a: torch.Tensor, k: int) -> torch.Tensor:
     """(..., r) keep-mask of the k most energetic rank columns; every
-    nonzero column survives when fewer than k are nonzero."""
+    nonzero column survives when fewer than k are nonzero. The k-th
+    largest comes from an ascending sort of -energy, as the reference
+    takes it, so a NaN column sorts last (a descending sort puts it
+    first)."""
     eb = torch.sqrt(torch.sum(b * b, dim=-2))
     ea = torch.sqrt(torch.sum(a * a, dim=-1))
     energy = eb * ea
-    thr = torch.sort(energy, dim=-1, descending=True).values[..., k - 1:k]
+    thr = -torch.sort(-energy, dim=-1).values[..., k - 1:k]
     return ((energy >= thr) | (thr <= 0)).to(b.dtype)
 
 

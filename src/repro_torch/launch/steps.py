@@ -12,6 +12,7 @@ import torch
 from repro_torch.core.lora import flatten, merge_lora, unflatten
 from repro_torch.models.transformer import Model
 from repro_torch.optim import AdamW, AdamWState
+from repro_torch.serving.engine import greedy
 
 
 class TreeAdamW(AdamW):
@@ -74,11 +75,12 @@ def build_prefill_step(model: Model, lora_rank: int) -> Callable:
 
 
 def build_serve_step(model: Model, lora_rank: int) -> Callable:
-    """One decode step with the greedy next token: (params, batch, cache)
-    -> (next token (B,) int32, new cache)."""
+    """One decode step with the greedy next token (the serving engine's
+    ``greedy``): (params, batch, cache) -> (next token (B,) int32, new
+    cache)."""
     @torch.no_grad()
     def serve_step(params: dict, batch: dict, cache: dict):
         logits, new_cache = model.decode_step(params, batch, cache,
                                               lora_rank=lora_rank)
-        return logits[:, -1, :].argmax(-1).to(torch.int32), new_cache
+        return greedy(logits[:, -1, :]), new_cache
     return serve_step

@@ -70,12 +70,13 @@ def seed_cache(cache: dict, prefill_caches: dict, prompt_len: int,
 
 
 def greedy(logits: torch.Tensor) -> torch.Tensor:
-    """Index of the FIRST maximum along the last axis (as ``jnp.argmax``),
-    int32."""
-    top = logits.max(dim=-1, keepdim=True).values
-    idx = torch.arange(logits.shape[-1], device=logits.device)
-    first = torch.where(logits == top, idx, logits.shape[-1])
-    return first.min(dim=-1).values.to(torch.int32)
+    """Index of the FIRST maximum along the last axis, int32, by
+    ``jnp.argmax``'s rule: a NaN counts as greater than every number, so a
+    row that holds one gives its first NaN, and the token stays in range
+    whatever the logits. ``torch.argmax`` keeps that rule on the CPU and
+    on the card, where ties and NaNs in different blocks of its reduction
+    resolve to the lower index."""
+    return torch.argmax(logits, dim=-1).to(torch.int32)
 
 
 def _gather(pages: dict, page_ids: torch.Tensor) -> dict:

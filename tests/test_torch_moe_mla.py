@@ -184,6 +184,33 @@ def test_router_topk_breaks_ties_as_reference(top_k):
     assert e[0].tolist() == list(range(top_k))
 
 
+NONFINITE_ROUTER_ROWS = {
+    "nan": [0.5, np.nan, 1.0, -1.0, 2.0, 0.0, 1.5, -0.5],
+    "pos_inf": [0.5, 1.0, np.inf, -1.0, 2.0, 0.0, 1.5, -0.5],
+    "two_pos_inf": [np.inf, 1.0, 0.0, -1.0, np.inf, 0.0, 1.5, -0.5],
+    "neg_inf": [-np.inf, 1.0, -np.inf, -1.0, 2.0, -np.inf, 1.5, -0.5],
+    "all_neg_inf": [-np.inf] * 8,
+}
+
+
+@pytest.mark.parametrize("case", list(NONFINITE_ROUTER_ROWS))
+def test_router_topk_on_non_finite_logits_as_reference(case):
+    """A token's router logits with a NaN, +inf (one or two), some -inf or
+    all -inf, beside a plain token: the reference's expert ids, weights
+    and aux (NaN where the reference's are NaN) at top-2 and top-6. Each
+    case's softmax is NaN or has exact zeros, so the order comes from the
+    tie and NaN rules of the two sorts."""
+    logits = np.stack([np.asarray(NONFINITE_ROUTER_ROWS[case], np.float32),
+                       np.random.default_rng(3).normal(size=8)]).astype(
+        np.float32)
+    for top_k in (2, 6):
+        w, e, aux = tmoe.router_topk(torch.from_numpy(logits), top_k)
+        jw, je, jaux = jmoe.router_topk(jnp.asarray(logits), top_k)
+        np.testing.assert_array_equal(e.numpy(), np.asarray(je))
+        np.testing.assert_allclose(w.numpy(), np.asarray(jw), **TOL)
+        np.testing.assert_allclose(float(aux), float(jaux), rtol=1e-6)
+
+
 def _moe_case(name, seed):
     cfg = j_config(name).reduced(**REDUCED)
     jp = jmoe.moe_init(jax.random.PRNGKey(seed), cfg.d_model, cfg.moe,

@@ -179,10 +179,90 @@ class TestSeedCache:
                                       np.asarray(want["len"]))
 
 
-def test_greedy_takes_the_first_maximum():
-    logits = torch.tensor([[0.0, 2.0, 2.0, 1.0], [5.0, 5.0, 5.0, 5.0]])
-    np.testing.assert_array_equal(greedy(logits).numpy(), [1, 0])
-    assert greedy(logits).dtype == torch.int32
+NAN, INF = float("nan"), float("inf")
+# one row of 8 logits a case, each exact in bf16; None: seeded rows only
+GREEDY_ROWS = {
+    "nan_first": [NAN, 1, 2, 3, 0, 5, 1, 2],
+    "nan_middle": [0, 1, NAN, 1, 7, 2, 1, 0],
+    "nan_last": [3, 1, 2, 3, 0, 5, 1, NAN],
+    "two_nans": [1, NAN, 4, 5, NAN, 2, 9, 1],
+    "nan_beside_inf": [0, INF, NAN, 1, 2, INF, NAN, 3],
+    "pm_inf": [INF, 1, INF, 0, -INF, 2, -INF, 3],
+    "all_neg_inf": [-INF] * 8,
+    "all_pos_inf": [INF] * 8,
+    "ties": [0, 2, 2, 1, 2, 0, 1, 2],
+    "all_equal": [5] * 8,
+    "plain": None,
+}
+
+
+def _greedy_logits(case: str) -> np.ndarray:
+    """The case's row above two seeded normal rows, (3, 8) f32."""
+    rows = np.random.default_rng(0).normal(size=(2, 8)).astype(np.float32)
+    if GREEDY_ROWS[case] is None:
+        return rows
+    return np.concatenate([np.asarray([GREEDY_ROWS[case]], np.float32),
+                           rows])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", list(GREEDY_ROWS))
+def test_greedy_takes_the_first_maximum(case, dtype):
+    """``greedy`` against ``jnp.argmax`` on the same logits in f32 and
+    bf16: the first maximum, a NaN counting as greater than every number
+    (so a row with a NaN gives its first NaN), int32, bit-equal indices;
+    a 1-D row as a batch of one."""
+    logits = _greedy_logits(case)
+    t = torch.from_numpy(logits).to(getattr(torch, dtype))
+    j = jnp.asarray(logits).astype(dtype)
+    np.testing.assert_array_equal(t.float().numpy(),
+                                  np.asarray(j.astype(jnp.float32)))
+    want = np.asarray(jnp.argmax(j, axis=-1)).astype(np.int32)
+    got = greedy(t)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert greedy(t[0]).dtype == torch.int32 and int(greedy(t[0])) == want[0]
+
+
+@pytest.mark.parametrize("seam", ["serve_step", "accuracy"])
+def test_launch_seams_choose_as_reference(seam):
+    """The launcher's serve step (``launch/steps.py``) and the train loss's
+    accuracy (``Model.train_loss_clients``) choose by the reference's rule
+    on every special row of ``GREEDY_ROWS``: the same logits through
+    stand-in models that return them, f32. Accuracy is read per row
+    against two targets, the reference's argmax and the first maximum
+    of the row's numbers."""
+    from types import SimpleNamespace
+
+    from repro.launch import steps as j_steps
+    from repro.models.transformer import Model as JModel
+    from repro_torch.launch import steps as t_steps
+    logits = np.stack([_greedy_logits(c)[0] for c in GREEDY_ROWS
+                       if GREEDY_ROWS[c] is not None])          # (R, V)
+    if seam == "serve_step":
+        tok, _ = t_steps.build_serve_step(SimpleNamespace(
+            decode_step=lambda *a, **k: (torch.from_numpy(logits)[:, None],
+                                         {})), 8)(None, {}, {})
+        jtok, _ = j_steps.build_serve_step(SimpleNamespace(
+            decode_step=lambda *a, **k: (jnp.asarray(logits)[:, None],
+                                         {})), 8)(None, {}, {})
+        assert tok.dtype == torch.int32
+        np.testing.assert_array_equal(tok.numpy(), np.asarray(jtok))
+        return
+    numbers = np.where(np.isnan(logits), -np.inf, logits)
+    for targets in (np.argmax(logits, -1), np.argmax(numbers, -1)):
+        _, metrics = Model.train_loss_clients(SimpleNamespace(
+            forward_seq_clients=lambda *a, **k: (
+                torch.from_numpy(logits)[:, None, None],
+                torch.zeros(len(logits)), None)),
+            None, None, {"targets": torch.from_numpy(targets)[:, None, None]},
+            None)
+        want = [float(JModel.train_loss(SimpleNamespace(
+            forward_seq=lambda *a, row=row, **k: (
+                jnp.asarray(row)[None, None], 0.0, None)),
+            None, {"targets": jnp.asarray([[t]])})[1]["accuracy"])
+            for row, t in zip(logits, targets)]
+        np.testing.assert_array_equal(metrics["accuracy"].numpy(), want)
 
 
 # ---------------------------------------------------------------------------
@@ -300,6 +380,102 @@ def test_e2e_greedy_matches_jax_engine_and_full_forward(qwen, two_tenants,
                                              rank))
         assert list(gen[row]) == _greedy_reference(model, merged,
                                                    prompts[row], 4), row
+
+
+def _with_nan(tree: dict) -> dict:
+    """A copy of a numpy adapter tree with a NaN at [0, 0, 0] of its first
+    ``lora_b`` leaf (group 0, output row 0, rank column 0: inside every
+    rank, so the store's rank mask keeps it)."""
+    hit = []
+
+    def walk(node):
+        out = {}
+        for key, leaf in node.items():
+            if isinstance(leaf, dict):
+                leaf = walk(leaf)
+            elif key == "lora_b" and not hit:
+                leaf = leaf.copy()
+                leaf[0, 0, 0] = np.nan
+                hit.append(key)
+            out[key] = leaf
+        return out
+    return walk(tree)
+
+
+@pytest.fixture(scope="module")
+def jax_faults(qwen, two_tenants):
+    """The reference engine on the two tenants with "hi" poisoned
+    (``_with_nan``): its tokens over admit plus two decode steps. Then, on
+    the same engine with "hi" clean again, the same three steps after
+    prompts whose slot 1 holds token V (one past the vocabulary) at
+    position 3."""
+    jcfg, jm, params, tcfg = qwen
+    hi, lo, prompts, _ = two_tenants
+    jstore = JStore(LEVELS)
+    jstore.put("hi", _with_nan(hi), 16)
+    jstore.put("lo", lo, 4)
+    jstore.publish()
+    jeng = JEngine(jm, params, jstore, max_len=11, slots=2)
+
+    def three_steps(p):
+        out = [np.asarray(jeng.admit([0, 1], jnp.asarray(p), ["hi", "lo"]))]
+        for _ in range(2):
+            out.append(np.asarray(jeng.decode(jnp.array([True, True]))))
+        return np.stack(out, axis=1)
+
+    poisoned = three_steps(prompts)
+    jstore.put("hi", hi, 16)
+    jstore.publish()
+    bad = prompts.copy()
+    bad[1, 3] = jcfg.vocab_size
+    return poisoned, bad, three_steps(bad)
+
+
+@pytest.mark.parametrize("use_kernels", [False, True])
+def test_nan_tenant_matches_jax_engine(qwen, two_tenants, jax_faults,
+                                       use_kernels):
+    """One tenant's B leaf holds a NaN: admit plus two decode steps give
+    the reference engine's tokens for every slot and raise nothing; the
+    poisoned slot's logits are NaN and its tokens in range (the first
+    NaN, as ``jnp.argmax``), the clean slot's tokens those of the run
+    without the NaN."""
+    jcfg, jm, params, tcfg = qwen
+    hi, lo, prompts, clean = two_tenants
+    want = jax_faults[0]
+    _, _, _, eng = _port_engine(
+        tcfg, params, {"hi": (_with_nan(hi), 16), "lo": (lo, 4)},
+        use_kernels=use_kernels, max_len=11)
+    gen = [eng.admit([0, 1], prompts, ["hi", "lo"]).numpy()]
+    for _ in range(2):
+        gen.append(eng.decode([True, True]).numpy())
+    gen = np.stack(gen, axis=1)
+    np.testing.assert_array_equal(gen, want)
+    assert torch.isnan(eng.last_logits[0]).all()
+    assert not torch.isnan(eng.last_logits[1]).any()
+    assert ((gen >= 0) & (gen < jcfg.vocab_size)).all()
+    np.testing.assert_array_equal(gen[1], clean[1, :3])
+
+
+def test_prompt_token_past_the_vocabulary_diverges(qwen, two_tenants,
+                                                   jax_faults):
+    """A deliberate divergence: a prompt token equal to V. The reference
+    embeds it by ``jnp.take``, whose default mode fills an out-of-range
+    row with NaN (it does not clamp): that slot's tokens are all 0 (the
+    first NaN of all-NaN logits), unlike the clamped token V - 1's, and
+    the other slot's are the clean run's. The port's embedding raises
+    ``IndexError`` on the CPU."""
+    jcfg, jm, params, tcfg = qwen
+    hi, lo, prompts, clean = two_tenants
+    _, bad, want = jax_faults
+    np.testing.assert_array_equal(want[0], clean[0, :3])
+    np.testing.assert_array_equal(want[1], [0, 0, 0])
+    _, _, _, eng = _port_engine(tcfg, params, {"hi": (hi, 16),
+                                               "lo": (lo, 4)}, max_len=11)
+    clamped = bad.copy()
+    clamped[1, 3] = jcfg.vocab_size - 1
+    assert int(eng.admit([0, 1], clamped, ["hi", "lo"])[1]) != 0
+    with pytest.raises(IndexError):
+        eng.admit([0, 1], bad, ["hi", "lo"])
 
 
 def test_ragged_admission_matches_full_forward(qwen, two_tenants):

@@ -8,6 +8,7 @@ identical QuantFactor stacks meets the kernel path's tolerances
 (``tests/test_torch_aggregation.py``: spectra within 1e-3 * sigma_max,
 products within 2e-3 * sigma_max); the kernel API's dequant entry is
 bit-equal to feeding it the dequantized tensors."""
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -65,6 +66,80 @@ def test_encode_pair_bit_equal(mode, top_k):
         assert td == jd
         for x, y in zip(ta, ja):
             np.testing.assert_array_equal(x, y)
+
+
+def _special_inputs(case: str):
+    """A (2, 6, 4) B and a (2, 4, 5) A from a seed, lead 0 made special:
+    "nan" a NaN in B's column 1; "inf" an inf in B's column 2; "zero"
+    columns 1-3 of both factors zero (fewer than k nonzero); "tie"
+    columns 0 and 2 equal, so they tie at the 2nd largest energy under
+    the scaled column 3. Residuals zero."""
+    rng = np.random.default_rng(11)
+    b = rng.normal(size=(2, 6, 4)).astype(np.float32)
+    a = rng.normal(size=(2, 4, 5)).astype(np.float32)
+    if case == "nan":
+        b[0, 2, 1] = np.nan
+    elif case == "inf":
+        b[0, 4, 2] = np.inf
+    elif case == "zero":
+        b[0, :, 1:] = 0.0
+        a[0, 1:] = 0.0
+    elif case == "tie":
+        b[0, :, 2], a[0, 2] = b[0, :, 0], a[0, 0]
+        b[0, :, 3] *= 4.0
+    return b, a, np.zeros_like(b), np.zeros_like(a)
+
+
+def _bits(x: np.ndarray) -> np.ndarray:
+    """f64 values as their bit patterns (signed zeros apart), every NaN as
+    one: torch's vectorized bf16 cast writes a NaN as 0xFFFF where XLA's
+    writes 0x7FC0, a sign and payload that no arithmetic reads."""
+    x = np.asarray(x, np.float64)
+    return np.ascontiguousarray(np.where(np.isnan(x), np.nan, x)).view(
+        np.int64)
+
+
+@pytest.mark.parametrize("mode", ["int8", "bf16"])
+@pytest.mark.parametrize("case", ["nan", "inf", "zero", "tie"])
+def test_topk_special_columns_bit_equal(case, mode):
+    """Top-2 of 4 rank columns with a NaN column, an inf column, fewer
+    than k nonzero columns and a tie at the k-th energy: the keep-mask
+    and ``_encode_pair``'s payload, scales and residuals bit for bit
+    (NaNs by their bits too). The k-th largest is taken with a NaN
+    sorted last, as the reference's ascending sort of -energy does."""
+    b, a, eb, ea = _special_inputs(case)
+    tb, ta = torch.from_numpy(b), torch.from_numpy(a)
+    mask = ttx._topk_mask(tb, ta, 2).numpy()
+    np.testing.assert_array_equal(
+        mask, np.asarray(jtx._topk_mask(jnp.asarray(b), jnp.asarray(a), 2)))
+    assert mask[1].sum() == 2
+    j = jtx._encode_pair(jnp.asarray(b), jnp.asarray(a), eb, ea,
+                         mode=mode, top_k=2)
+    t = ttx._encode_pair(tb, ta, *(torch.from_numpy(x) for x in (eb, ea)),
+                         mode=mode, top_k=2)
+    (ja, jd), (tt, td) = _flat(j), _flat(t)
+    assert td == jd
+    for x, y in zip(tt, ja):
+        np.testing.assert_array_equal(_bits(x), _bits(y))
+    if case == "nan":                   # the NaN reached B's residual
+        assert np.isnan(tt[4]).any()
+
+
+@pytest.mark.parametrize("value", [np.nan, np.inf, -np.inf])
+def test_quantize_int8_non_finite_column(value):
+    """An int8 ``_quantize`` of a (6, 4) factor whose column 1 holds one
+    non-finite entry, along both axes (B's and A's): payload and scales
+    bit-equal to the reference's compiled program (as ``_encode_pair``
+    runs it) on the CPU."""
+    x = np.random.default_rng(5).normal(size=(6, 4)).astype(np.float32)
+    x[3, 1] = value
+    quantize = jax.jit(jtx._quantize, static_argnums=(1, 2))
+    for axis in (-2, -1):
+        jq = quantize(jnp.asarray(x), axis, "int8")
+        tq = ttx._quantize(torch.from_numpy(x), axis, "int8")
+        np.testing.assert_array_equal(tq.q.numpy(), np.asarray(jq.q))
+        np.testing.assert_array_equal(_bits(tq.scale.numpy()),
+                                      _bits(np.asarray(jq.scale)))
 
 
 def test_half_to_even_ties_match_jax():
