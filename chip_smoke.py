@@ -679,6 +679,189 @@ def phase_non_finite(torch) -> None:
                 f"({case})")
     emit({"phase": "non_finite_topk", "k": 2, "lead0_masks": masks,
           "card_equal_cpu": True})
+    _non_finite_rules(torch, np, v)
+
+
+def _same_classes(torch, got, want) -> bool:
+    """NaN at the same places, and +-inf at the same places and signs."""
+    got, want = got.float().cpu(), want.float().cpu()
+    inf = torch.isinf(want)
+    return (torch.equal(got.isnan(), want.isnan())
+            and torch.equal(torch.isinf(got), inf)
+            and torch.equal(got[inf], want[inf]))
+
+
+def _nan_bits_equal(torch, got, want) -> bool:
+    """Bit-equal, every NaN counted as one pattern."""
+    got, want = got.cpu(), want.cpu()
+    keep = ~want.isnan()
+    return _same_classes(torch, got, want) and torch.equal(got[keep],
+                                                           want[keep])
+
+
+def _non_finite_rules(torch, np, v: int) -> None:
+    """The reference's rules for bad ids and special values on the card,
+    each against the CPU on the same inputs: the token lookup
+    (``take_rows``: NaN rows past [-V, V)) and the loss's gold logit
+    (``gold_logits``: 0 for a target outside [0, V), NaN beside an
+    infinite column) at Qwen2-7B's vocabulary, bit-equal; K4 at bad page
+    ids on its three routes, bit-equal to the call at ``page_index``'s
+    ids and within its tolerance of the plain version; the three 3xTF32
+    kernels (K5 above 32 rows, K6, K7) on infinite operands, NaN and
+    +-inf where the plain version has them and the rest within its
+    tolerance; K3 with inf and NaN at zero weights of dead and live
+    slabs, NaN where the einsum has NaN, then a clean call finite."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import lora_apply as la
+    from repro_torch.kernels import rank_partition_agg as rpa
+    from repro_torch.kernels import ssd_scan as k6
+    from repro_torch.models.transformer import gold_logits, take_rows
+    gen = torch.Generator().manual_seed(32)
+    eps = torch.finfo(torch.float32).eps
+    out = {}
+    table = torch.randn(v, 64, generator=gen)
+    ids = torch.tensor([[0, v, v + 7, -1, -v, -v - 1, 5, v - 1]])
+    for dtype in (torch.float32, torch.bfloat16):
+        cpu = take_rows(table.to(dtype), ids)
+        card = take_rows(table.to(dtype).to(DEV), ids.to(DEV))
+        require(_nan_bits_equal(torch, card, cpu) and bool(
+            cpu[0, [1, 2, 5]].isnan().all()) and not bool(
+            cpu[0, [0, 3, 4, 6, 7]].isnan().any()),
+            f"non_finite_rules: take_rows in {dtype} card != CPU")
+    out["take_rows"] = {"ids": ids[0].tolist(), "card_equal_cpu": True}
+    logits = torch.randn(6, v, generator=gen)
+    logits[0, 9], logits[1, 7], logits[2, 11] = -INF, INF, INF
+    logits[3, 4], logits[3, 5] = INF, -INF
+    targets = torch.tensor([3, 2, 11, 4, v, -1])
+    cpu = gold_logits(logits, targets)
+    card = gold_logits(logits.to(DEV), targets.to(DEV))
+    require(_nan_bits_equal(torch, card, cpu),
+            f"non_finite_rules: gold_logits card {card.tolist()} != CPU "
+            f"{cpu.tolist()}")
+    require(cpu[[0, 1, 3]].isnan().all()
+            and float(cpu[2]) == INF and cpu[4:].tolist() == [0.0, 0.0],
+            f"non_finite_rules: gold_logits {cpu.tolist()}")
+    out["gold_logits"] = {"targets": targets.tolist(),
+                          "gold": [str(x) for x in cpu.tolist()]}
+    k4 = {}
+    for label, m, k, dtype in (("gemv", 6, 64, torch.float32),
+                               ("sgemm", 40, 1024, torch.float32),
+                               ("mma_bf16", 40, 1024, torch.bfloat16)):
+        p, r, n = 3, 8, 40
+        x = torch.randn(m, k, generator=gen)
+        case = dict(x=x, w=torch.randn(k, n, generator=gen) * k ** -0.5,
+                    a_pages=torch.randn(p, r, k, generator=gen) * k ** -0.5,
+                    b_pages=torch.randn(p, n, r, generator=gen),
+                    scales=torch.rand(p, generator=gen) + 0.5)
+        case = {key: (t.to(dtype) if key != "scales" else t)
+                for key, t in case.items()}
+        bad = torch.randint(0, p, (m,), generator=gen, dtype=torch.int32)
+        bad[:5] = torch.tensor([p, p + 3, -1, -p, -p - 1])
+        dev = {key: t.to(DEV) for key, t in case.items()}
+        got = la.batched_lora_apply(ids=bad.to(DEV), **dev)
+        at = la.batched_lora_apply(ids=la.page_index(bad, p).int().to(DEV),
+                                   **dev)
+        want = la.batched_lora_apply_plain(ids=bad, **case).float()
+        mag = la.batched_lora_apply_plain(
+            ids=bad, **{key: t.float().abs() for key, t in case.items()})
+        err = float((got.float().cpu() - want).abs().max())
+        tol = ((k + r) * eps * float(mag.max()) if dtype == torch.float32
+               else float(want.abs().max()) * 2.0 ** -7)
+        require(torch.equal(got, at) and err <= tol,
+                f"non_finite_rules: K4 {label} at bad page ids: "
+                f"equal to clamped {torch.equal(got, at)}, err {err} > {tol}")
+        k4[label] = {"route": la.describe_plan(m, n, k, False,
+                                               dtype)["route"],
+                     "max_abs_err": err, "tol": tol}
+    out["k4_page_ids"] = k4
+    tc = {}
+    x = torch.randn(64, 300, generator=gen)
+    w = torch.randn(300, 40, generator=gen) * 300 ** -0.5
+    x[5, 7], w[7, 3], x[9, 20] = INF, 0.0, -INF
+    a, b = x.new_zeros(0, 300), x.new_zeros(40, 0)
+    got = la.lora_apply(x.to(DEV), w.to(DEV), a.to(DEV), b.to(DEV), 1.0)
+    want = la.lora_apply_plain(x, w, a, b, 1.0)
+    tc["lora_apply"] = _special_check(torch, got, want, 300 * eps * float(
+        la.lora_apply_plain(x.abs().nan_to_num(0, 0, 0), w.abs(), a, b,
+                            1.0).max()))
+    q, kk, vv = (torch.randn(1, 40, h, 16, generator=gen) for h in (2, 1, 1))
+    kk[0, 10, 0, 3] = INF
+    got = fa.flash_attention(q.to(DEV), kk.to(DEV), vv.to(DEV), True, 0)
+    want = fa.flash_attention_plain(q, kk, vv, True, 0)
+    tc["flash_attention"] = _special_check(torch, got, want, 2e-5, 1e-4)
+    require(bool(want[0, 10:][q[0, 10:, :, 3] < 0].isfinite().all()),
+            "non_finite_rules: K7's -inf scores did not drop the key")
+    shape = (1, 256, 4, 16, 1, 8, 64)
+    clean, _ = _scan_inputs(torch, shape, torch.Generator(
+        device=DEV).manual_seed(33), False)
+    clean = [t.cpu() for t in clean]
+    for label, tok in (("ssd_scan", 256 - 64 + 5), ("ssd_scan_last", 255)):
+        args = [t.clone() for t in clean]
+        args[0][0, tok, 1, 5] = INF
+        got, state = k6.ssd_scan(*[t.to(DEV) for t in args], shape[-1])
+        want, want_state = k6.ssd_scan_plain(*args, shape[-1])
+        tc[f"{label}_state"] = _special_check(
+            torch, state, want_state, SCAN_TOL["atol"], SCAN_TOL["rtol"])
+        if label == "ssd_scan":
+            tc[label] = _special_check(torch, got, want, SCAN_TOL["atol"],
+                                       SCAN_TOL["rtol"])
+            continue
+        # ROADMAP.md queue 3: K6 skips its 32-token stages above the
+        # diagonal, so the rows of the chunk before the inf's stage stay
+        # finite where the reference's 0 * inf over the chunk is NaN
+        skipped = torch.zeros_like(want, dtype=torch.bool)
+        skipped[0, tok - tok % 64:tok - tok % 32, 1, 5] = True
+        got_c = got.float().cpu()
+        require(torch.equal(got_c.isnan(), want.isnan() & ~skipped)
+                and bool(want[skipped].isnan().all())
+                and bool(got_c[skipped].isfinite().all()),
+                f"non_finite_rules: K6's skipped stages: NaN "
+                f"{int(got_c.isnan().sum())} against the plain's "
+                f"{int(want.isnan().sum())}")
+        tc[label] = {"nan": int(got_c.isnan().sum()),
+                     "plain_nan": int(want.isnan().sum()),
+                     "finite_where_plain_nan": int(skipped.sum())}
+    out["tf32x3_infinite"] = tc
+    bs = torch.randn(2, 4, 40, 8, generator=gen)
+    as_ = torch.randn(2, 4, 8, 24, generator=gen)
+    omega = torch.rand(4, 8, generator=gen)
+    omega[1], omega[2:4] = -omega[1], 0.0
+    omega[0, 2] = omega[1, 6] = 0.0
+    clean = bs.clone(), as_.clone()
+    bs[0, 2, 5, 3], as_[1, 3, 1, 7] = INF, NAN
+    bs[1, 1, 9, 6], as_[0, 0, 2, 11] = -INF, INF
+    dev = [t.to(DEV) for t in (bs, as_, omega)]
+    got = rpa.rank_partition_agg_layered(*dev)
+    want = rpa.rank_partition_agg_layered_plain(bs, as_, omega)
+    mag = rpa.rank_partition_agg_layered_plain(clean[0].abs(),
+                                               clean[1].abs(), omega.abs())
+    k3 = _special_check(torch, got, want, 34 * eps * float(mag.max()))
+    again = rpa.rank_partition_agg_layered(*[t.to(DEV) for t in clean],
+                                           dev[2])
+    require(bool(again.isfinite().all()),
+            "non_finite_rules: K3 left a flag set")
+    k3["nan_rows_cols"] = [int(want.isnan().all(-1).sum()),
+                           int(want.isnan().all(-2).sum())]
+    out["rank_partition_agg"] = k3
+    emit({"phase": "non_finite_rules", **out, "card_equal_cpu": True,
+          "card": card_line()})
+
+
+def _special_check(torch, got, want, atol: float, rtol: float = 0.0
+                   ) -> dict:
+    """``got`` (card) against ``want`` (CPU): the same NaN and +-inf
+    places, the finite rest within atol + rtol |want|."""
+    got, want = got.float().cpu(), want.float().cpu()
+    fin = torch.isfinite(want)
+    err = float((got[fin] - want[fin]).abs().max())
+    ok = _same_classes(torch, got, want) and bool(
+        ((got[fin] - want[fin]).abs() <= atol + rtol * want[fin].abs()).all())
+    require(ok, f"non_finite_rules: special values differ: NaN "
+                f"{int(got.isnan().sum())} / {int(want.isnan().sum())}, "
+                f"inf {int(got.isinf().sum())} / {int(want.isinf().sum())}, "
+                f"finite err {err}")
+    return {"nan": int(want.isnan().sum()), "inf": int(want.isinf().sum()),
+            "max_abs_err": err, "atol": atol, "rtol": rtol}
 
 
 def _topk_case(torch, np, case: str):
@@ -1301,6 +1484,7 @@ def _ops_cases(torch):
         v_lib = ab.reshape(*lead, depth, n)
         out_elems = (layers or 1) * d * n
         live = rpa.live_slabs(om)
+        dead = int((~live.repeat_interleave(16)[:depth]).sum())
         check = None
         if layers:
             def check(got):
@@ -1326,7 +1510,12 @@ def _ops_cases(torch):
             "plan": gemm_plan.plan_agg(layers or 1, om.shape[0], d,
                                        om.shape[1], n).report(),
             # the 16-deep slabs the kernel runs, of all
-            "live_slabs": [int(live.sum()), live.numel()]})
+            "live_slabs": [int(live.sum()), live.numel()],
+            # the flag pass: B's and A's entries at the dead slabs' depths
+            # read once each (no products), and their time at 3.35 TB/s
+            "dead_check_bytes": 4 * (layers or 1) * (d + n) * dead,
+            "dead_check_bound_ms": 4 * (layers or 1) * (d + n) * dead
+            / PEAK_BYTES_PER_S * 1e3})
 
     omega, fallback = omega_raflora(AGG_RANKS, AGG_SAMPLES, AGG_LEVELS)
     omega = torch.tensor(omega, dtype=torch.float32, device=DEV)
@@ -1490,7 +1679,8 @@ def phase_kernel_ops(torch, summary: dict) -> dict:
             # the parent's SIMT kernels faced this bound for the same work
             row["bound_simt_f32_ms"] = bound_ms(case["bytes"],
                                                 case["flop"])[0]
-        for key in ("flop_dense", "plan", "live_slabs"):
+        for key in ("flop_dense", "plan", "live_slabs", "dead_check_bytes",
+                    "dead_check_bound_ms"):
             if key in case:
                 row[key] = case[key]
         rows.append(row)
@@ -4203,7 +4393,10 @@ def phase_serve_nan_tenant_qwen2_7b(torch, eng, params, gen,
     token is in [0, V), the clean slots' tokens equal the clean run's,
     the poisoned slot's logits hold a NaN and its token is ``np.argmax``
     (the first NaN) of its logits on the host, and K4 launches 4 x 28
-    times a call."""
+    times a call. Then t8 clean again and slot 1's prompt holding V and
+    -V - 1 (the reference's ``jnp.take`` gives their rows NaN): slot 1's
+    logits all NaN and its token 0 at every step, the other slots' tokens
+    the clean run's, with no device assert."""
     import numpy as np
     from repro_torch.core.lora import flatten, unflatten
     from repro_torch.kernels import lora_apply as la
@@ -4217,15 +4410,19 @@ def phase_serve_nan_tenant_qwen2_7b(torch, eng, params, gen,
                             device=DEV)
     tenants = ["t16", "t8", "t4", "t16"]
     active = torch.ones(SLOTS, dtype=torch.bool, device=DEV)
+    bad_prompts = prompts.clone()
+    bad_prompts[NAN_SLOT, [5, 20]] = torch.tensor([v, -v - 1], device=DEV)
     runs = {}
-    for label, tree in (("clean", flat), ("nan", poisoned)):
+    for label, tree, ask in (("clean", flat, prompts),
+                             ("nan", poisoned, prompts),
+                             ("bad_token", flat, bad_prompts)):
         eng.store.put("t8", unflatten(tree), 8)
         eng.store.publish()
         toks, logits, launches, ms = [], [], [], []
         for step in range(NAN_STEPS):
             n, t = la.batched_lora_apply.launches, time.perf_counter()
             if step == 0:
-                eng.admit(range(SLOTS), prompts, tenants)
+                eng.admit(range(SLOTS), ask, tenants)
             else:
                 eng.decode(active)
             torch.cuda.synchronize()
@@ -4235,6 +4432,7 @@ def phase_serve_nan_tenant_qwen2_7b(torch, eng, params, gen,
             logits.append(eng.last_logits.float().cpu().numpy())
         runs[label] = (np.stack(toks), np.stack(logits), launches, ms)
     (ct, _, cl, cms), (nt, nl, nlaunch, nms) = runs["clean"], runs["nan"]
+    bt, bl, blaunch, bms = runs["bad_token"]
     clean = [s for s in range(SLOTS) if s != NAN_SLOT]
     first_nan = np.argmax(nl[:, NAN_SLOT], axis=-1)
     emit({"phase": "serve_nan_tenant_qwen2_7b", "vocab": v,
@@ -4243,9 +4441,23 @@ def phase_serve_nan_tenant_qwen2_7b(torch, eng, params, gen,
           "tokens_clean": ct.tolist(), "tokens_nan": nt.tolist(),
           "nan_slot_logits_nan_share": float(
               np.isnan(nl[:, NAN_SLOT]).mean()),
-          "k4_launches": {"clean": cl, "nan": nlaunch},
-          "step_ms": {"clean": cms, "nan": nms},
+          "k4_launches": {"clean": cl, "nan": nlaunch,
+                          "bad_token": blaunch},
+          "step_ms": {"clean": cms, "nan": nms, "bad_token": bms},
+          "bad_token": {"slot": NAN_SLOT, "ids": [v, -v - 1],
+                        "positions": [5, 20], "tokens": bt.tolist(),
+                        "slot_logits_nan_share": float(
+                            np.isnan(bl[:, NAN_SLOT]).mean())},
           "synchronized": True, "card": card_line()})
+    require(np.array_equal(bt[:, clean], ct[:, clean])
+            and (bt[:, NAN_SLOT] == 0).all()
+            and bool(np.isnan(bl[:, NAN_SLOT]).all())
+            and not np.isnan(bl[:, clean]).any(),
+            f"serve_nan_tenant: a prompt holding {v} and {-v - 1} in slot "
+            f"{NAN_SLOT}: tokens {bt.tolist()} against the clean run's "
+            f"{ct.tolist()}")
+    require(blaunch == [per_call] * NAN_STEPS,
+            f"serve_nan_tenant: K4 launched {blaunch} with the bad token")
     require(((nt >= 0) & (nt < v)).all() and ((ct >= 0) & (ct < v)).all(),
             f"serve_nan_tenant: a token outside [0, {v}): {nt.tolist()}")
     require(np.array_equal(nt[:, clean], ct[:, clean]),

@@ -46,7 +46,7 @@ SIGNATURES = {
         "lora_apply_f32": [_P] * 8 + [_I] * 4 + [_F] + [_I] * 4 + [_P],
     },
     "rank_partition_agg": {
-        "rank_partition_agg_f32": [_P] * 6 + [_I] * 7 + [_P],
+        "rank_partition_agg_f32": [_P] * 7 + [_I] * 9 + [_P],
     },
     "flash_attention": {
         "flash_attention_f32": [_P] * 4 + [_I] * 8 + [_F] + [_I] * 2

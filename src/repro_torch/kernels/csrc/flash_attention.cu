@@ -66,7 +66,13 @@
 // exactly nothing there: probabilities exp(-1e30 - m) = 0, or are wiped
 // by the rescale exp(-1e30 - m) = 0 once a row meets its first key); keys
 // past Lkv in the last tile read zero rows and get probability 0. The
-// finite fill (not -INFINITY) means exp never sees inf - inf. Every sum
+// finite fill (not -INFINITY) means exp never sees inf - inf. A row the
+// 3xTF32 passes turn NaN (an inf or NaN in q, k or v meets them) is
+// computed again at the end in IEEE f32, as the oracle computes it: an
+// infinite key entry whose score is -inf then drops that key, and one at
+// +inf gives NaN, as in f32. A value row past a row's band never reaches
+// its products (the oracle's 0 * inf there gives NaN: ROADMAP.md queue
+// 3; a key there is masked by a select in both). Every sum
 // runs in a fixed order, no atomics: a repeat gives the same bits, and
 // so does any other plan (a warp's rows, band and kv tiles do not depend
 // on w or the ring). The q tiles run longest first across the whole
@@ -151,6 +157,44 @@ __device__ __forceinline__ void load_rows(float* dst, int ld,
 template <int DT>
 constexpr int min_blocks() {
   return DT <= 8 ? 4 : DT <= 16 ? 3 : 2;
+}
+
+// The rare path of a row the 3xTF32 passes gave NaN: the oracle's
+// softmax over all Lkv keys in IEEE f32 (masked scores at the fill), then
+// its sum over the values for a thread's columns 8 d + 2 t + e, written to
+// mine[4 d + e]; returns the row's sum of probabilities. Not inlined, so
+// that the kernel's main loop keeps its registers.
+__device__ __noinline__ float ieee_row(float* mine, const float* qr,
+                                       const float* kb, const float* vb,
+                                       size_t kv_row, int Lkv, int D, int DT,
+                                       int row, int causal, int window,
+                                       float scale, int t) {
+  float mx = -__uint_as_float(0x7f800000u), l = 0.f;
+  for (int pass = 0; pass < 2; ++pass) {
+    for (int j = 0; j < Lkv; ++j) {
+      float x = kFill;
+      if ((!causal || j <= row) && (window <= 0 || j > row - window)) {
+        const float* kr = kb + (size_t)j * kv_row;
+        x = 0.f;
+        for (int c = 0; c < D; ++c) x = fmaf(qr[c], kr[c], x);
+        x *= scale;
+      }
+      if (pass == 0) {
+        mx = x != x || mx != mx ? x + mx : fmaxf(mx, x);
+        continue;
+      }
+      const float p = expf(x - mx);
+      const float* vr = vb + (size_t)j * kv_row;
+      l += p;
+      for (int d = 0; d < DT; ++d)
+        for (int e = 0; e < 2; ++e) {
+          const int col = 8 * d + 2 * t + e;
+          if (col < D) mine[4 * d + e] = fmaf(p, vr[col], j ? mine[4 * d + e]
+                                                            : 0.f);
+        }
+    }
+  }
+  return l;
 }
 
 // DT: 8-column groups of the padded head dim (D <= 8 DT; the tiles are
@@ -310,12 +354,46 @@ flash_attention_kernel(const float* __restrict__ q,
     }
   }
   sgemm::cp_async_wait<0>();           // no copy outlives the block
+  __syncthreads();                     // shared memory free for the repair
 
   if (!active) return;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 1);
     l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 2);
+  }
+  // a row the 3xTF32 passes gave NaN (an inf or NaN in q, k or v) again
+  // in IEEE f32: the oracle's softmax over all Lkv keys, masked scores at
+  // the fill, then its sum over the values, for this thread's columns.
+  // The rare path parks acc in the thread's own part of shared memory and
+  // works there in a function not inlined, adding no register to the main
+  // loop's.
+  bool bad[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    bad[r] = l_r[r] != l_r[r] && wq0 + g + 8 * r < Lq;
+#pragma unroll
+    for (int d = 0; d < DT; ++d)
+      bad[r] |= (acc[d][2 * r] != acc[d][2 * r] ||
+                 acc[d][2 * r + 1] != acc[d][2 * r + 1]) &&
+                wq0 + g + 8 * r < Lq;
+  }
+  if (bad[0] || bad[1]) {
+    float* mine = smem + threadIdx.x * 4 * DT;   // mine[4 d + e] = acc[d][e]
+#pragma unroll
+    for (int d = 0; d < DT; ++d)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mine[4 * d + e] = acc[d][e];
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      if (bad[r])
+        l_r[r] = ieee_row(mine + 2 * r, qb + (size_t)(wq0 + g + 8 * r) * q_row,
+                          kb, vb, kv_row, Lkv, D, DT, wq0 + g + 8 * r, causal,
+                          window, scale, t);
+#pragma unroll
+    for (int d = 0; d < DT; ++d)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[d][e] = mine[4 * d + e];
   }
 #pragma unroll
   for (int r = 0; r < 2; ++r) {

@@ -101,9 +101,9 @@
 //
 // Every sum has one fixed order (no atomic adds), so a repeat gives the
 // same bits. K4's f32 products and K5's shrink and expand are IEEE f32
-// FMAs (no TF32). A row whose page id lies outside [0, P) gets NaN in
-// every column: the wrapper does not read ids back to the host, so a bad
-// id shows in the output instead.
+// FMAs (no TF32). A row's page id is taken as the reference's gathers
+// take it (ref.py's a_pages[ids]): a negative id counts from the end, then
+// the id is clamped to [0, P), on the device, with no read to the host.
 #include <climits>
 
 #include <type_traits>
@@ -161,12 +161,13 @@ struct Adapter {
   float scale;              // K5's scale
 };
 
-// page of a row, or -1 for an id outside [0, P)
+// page of a row: p + P for a negative id p, then clamped to [0, P - 1]
+// (the wrapper refuses rows with no page, P = 0)
 template <bool kPaged, bool kBf16>
 __device__ __forceinline__ int page_of(const Adapter<kBf16>& ad, int row) {
   if (!kPaged) return 0;
   const int p = ad.ids[row];
-  return (p < 0 || p >= ad.P) ? -1 : p;
+  return min(max(p < 0 ? p + ad.P : p, 0), ad.P - 1);
 }
 
 template <bool kPaged, bool kBf16>
@@ -179,8 +180,6 @@ constexpr int kShrinkWarps = kThreads / 32;
 constexpr int kGemvMaxRows = 32;           // M above: an SGEMM / mma route
 constexpr int kDevices = 16;               // shared-memory grants kept
 
-__device__ __forceinline__ float nan_f32() { return __int_as_float(0x7fc00000); }
-
 template <bool kPaged, bool kBf16>
 __global__ void __launch_bounds__(kThreads)
 lora_shrink_kernel(const Elem<kBf16>* __restrict__ x, const Adapter<kBf16> ad,
@@ -190,10 +189,6 @@ lora_shrink_kernel(const Elem<kBf16>* __restrict__ x, const Adapter<kBf16> ad,
   const int j = blockIdx.y * kShrinkWarps + warp;
   if (t >= M || j >= R) return;
   const int p = page_of<kPaged, kBf16>(ad, t);
-  if (p < 0) {
-    if (lane == 0) z[(size_t)t * R + j] = nan_f32();
-    return;
-  }
   const Elem<kBf16>* xr = x + (size_t)t * K;
   const Elem<kBf16>* ar = ad.a + (size_t)p * ad.a_stride + (size_t)j * K;
   float acc = 0.f;
@@ -224,7 +219,6 @@ __device__ __forceinline__ float expand(float acc, int row, int col,
                                         const Adapter<kBf16>& ad,
                                         const float* __restrict__ z, int R) {
   const int p = page_of<kPaged, kBf16>(ad, row);
-  if (p < 0) return nan_f32();
   const float* zr = z + (size_t)row * R;
   const Elem<kBf16>* br = ad.b + (size_t)p * ad.b_stride + (size_t)col * R;
   float d = 0.f;
@@ -469,18 +463,16 @@ lora_gemv_kernel(const Elem<kBf16>* __restrict__ x,
 
 constexpr int kNoRow = -2;    // page slot of a tile row past M
 
-// acc[i][j] += s_p * z[row] . B_p[col] for each row of the tile on page p,
-// and NaN in every column of a row whose page id is bad. The tile's z rows
-// and B_p's BN rows are staged r-major in shared memory (zs: BK x LDX,
-// bs: BK x LDW, each read from contiguous memory with neighbouring threads
-// on neighbouring floats), z pre-multiplied by s_p, and summed by the
+// acc[i][j] += s_p * z[row] . B_p[col] for each row of the tile on page p. The
+// tile's z rows and B_p's BN rows are staged r-major in shared memory (zs: BK
+// x LDX, bs: BK x LDW, each read from contiguous memory with neighbouring
+// threads on neighbouring floats), z pre-multiplied by s_p, and summed by the
 // mainloop's register tile in r order. K4 walks the distinct pages of the
-// tile's rows in increasing order; a row only ever sees its own page.
-// kStage unrolls the staging loops: 1 (rolled) in the SGEMM's epilogue,
-// where the accumulators fill the registers and an unrolled epilogue
-// pushes the 128 x 128 tile past 128 registers; fully in the split
-// reduce, so that its staging loads are in flight together. The FMA loop
-// stays rolled in both.
+// tile's rows in increasing order; a row only ever sees its own page. kStage
+// unrolls the staging loops: 1 (rolled) in the SGEMM's epilogue, where the
+// accumulators fill the registers and an unrolled epilogue pushes the 128 x
+// 128 tile past 128 registers; fully in the split reduce, so that its staging
+// loads are in flight together. The FMA loop stays rolled in both.
 template <bool kPaged, class T, int kStage>
 __device__ void expand_tile(float* zs, float* bs, int* pg,
                             const Adapter<false>& ad,
@@ -538,11 +530,6 @@ __device__ void expand_tile(float* zs, float* bs, int* pg,
     if (!kPaged) break;
     last = p;
   }
-#pragma unroll
-  for (int i = 0; i < T::TM; ++i)
-    if (pg[sgemm::tile_row(i, ty)] == -1)
-#pragma unroll
-      for (int j = 0; j < T::TN; ++j) acc[i][j] = nan_f32();
 }
 
 // One BM x BN output tile over the depth [z * depth, (z + 1) * depth) of
@@ -776,6 +763,30 @@ __device__ __forceinline__ void store_frags(float* __restrict__ out,
     }
 }
 
+// x[row, kbeg:kend] . w[kbeg:kend, col] in IEEE f32 FMAs, k in order: the
+// repair of an output the 3xTF32 passes gave NaN (mma_tf32x3.cuh)
+__device__ __forceinline__ float ieee_dot(const float* __restrict__ xr,
+                                          const float* __restrict__ wc,
+                                          int N, int kbeg, int kend) {
+  float acc = 0.f;
+  for (int k = kbeg; k < kend; ++k)
+    acc = fmaf(xr[k], wc[(size_t)k * N], acc);
+  return acc;
+}
+
+// the thread's 64 outputs parked at `mine`: each NaN one summed again
+__device__ __noinline__ void repair(float* mine, const float* __restrict__ x,
+                                    const float* __restrict__ w, int M, int K,
+                                    int N, int r0, int c0, int kbeg,
+                                    int kend, int g, int t) {
+  for (int q = 0; q < 64; ++q) {
+    const int row = r0 + (q >> 4) * 16 + g + 8 * ((q & 3) >> 1);
+    const int col = c0 + ((q >> 2) & 3) * 8 + 2 * t + (q & 1);
+    if (mine[q] != mine[q] && row < M && col < N)
+      mine[q] = ieee_dot(x + (size_t)row * K, w + col, N, kbeg, kend);
+  }
+}
+
 }  // namespace tc
 
 // One 128 x 128 output tile of K5 over the depth [z * depth, (z + 1) *
@@ -841,6 +852,27 @@ lora_tc_kernel(const float* __restrict__ x, const float* __restrict__ w,
   }
   sgemm::cp_async_wait<0>();
   __syncthreads();                  // the ring is free for the epilogue
+  // an output the passes gave NaN (it met an inf or NaN operand) summed
+  // again in IEEE f32: the f32 product's +-inf or NaN. The rare path parks
+  // the thread's 64 outputs in its own part of the free ring and repairs
+  // them there in a function not inlined, so that it adds no register to
+  // the mainloop's (the epilogue's first barrier orders its reuse of the
+  // ring)
+  bool nan = false;
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) nan |= acc[mt][nt][e] != acc[mt][nt][e];
+  if (nan) {
+    float* mine = smem + threadIdx.x * 64;
+#pragma unroll
+    for (int q = 0; q < 64; ++q) mine[q] = acc[q >> 4][(q >> 2) & 3][q & 3];
+    tc::repair(mine, x, w, M, K, N, m0 + wr, n0 + wc, kbeg, kend, g, t);
+#pragma unroll
+    for (int q = 0; q < 64; ++q) acc[q >> 4][(q >> 2) & 3][q & 3] = mine[q];
+  }
 
   if (gridDim.z > 1) {
     tc::store_frags(part + (size_t)blockIdx.z * M * N, acc, M, N, m0 + wr,
@@ -1083,18 +1115,16 @@ __device__ __forceinline__ bool split_sum_tile(float* tile,
   return true;
 }
 
-// The expand and the store of K4's bf16 tile, once its splits are summed
-// into the tile in shared memory. Each thread owns one column and walks
-// every kStep-th row (the lanes of a warp share their row, so its page is
-// warp-uniform): acc + s_p z[row] . B_p[col] in r order (expand_tile's
-// IEEE arithmetic, acc = fma(s_p z, b, acc)), then y rounded to bf16 once,
-// NaN in every column of a row whose page id is bad. Rank columns go kR at
-// a time: the chunk of z (times each row's scale) is staged in shared
-// memory, and a thread holds its column's chunk of B_p in registers,
-// reloaded when its next row's page differs (a serving batch lays a
-// slot's rows out together), so a row only ever sees its own page. The
-// loops stay rolled: the code runs once a tile, its instructions fetched
-// cold.
+// The expand and the store of K4's bf16 tile, once its splits are summed into
+// the tile in shared memory. Each thread owns one column and walks every
+// kStep-th row (the lanes of a warp share their row, so its page is
+// warp-uniform): acc + s_p z[row] . B_p[col] in r order (expand_tile's IEEE
+// arithmetic, acc = fma(s_p z, b, acc)), then y rounded to bf16 once. Rank
+// columns go kR at a time: the chunk of z (times each row's scale) is staged
+// in shared memory, and a thread holds its column's chunk of B_p in registers,
+// reloaded when its next row's page differs (a serving batch lays a slot's
+// rows out together), so a row only ever sees its own page. The loops stay
+// rolled: the code runs once a tile, its instructions fetched cold.
 template <class T>
 __device__ void expand_store(float* tile, float* zs, int* pg,
                              float* sc, const Adapter<true>& ad,
@@ -1167,7 +1197,7 @@ __device__ void expand_store(float* tile, float* zs, int* pg,
           tile[(row0 + (i0 + j) * kStep) * LDT + col] = v[j];
         continue;
       }
-      // rows of several pages (or a bad id): one row at a time
+      // rows of several pages: one row at a time
 #pragma unroll 1
       for (int i = i0; i < i0 + kGroup; ++i) {
         const int row = row0 + i * kStep, q = pg[row];
@@ -1198,8 +1228,8 @@ __device__ void expand_store(float* tile, float* zs, int* pg,
   for (int i = 0; i < kRows; ++i) {
     const int row = row0 + i * kStep;
     if (m0 + row < M && in_n)
-      y[(size_t)(m0 + row) * N + n0 + col] = __float2bfloat16_rn(
-          pg[row] == -1 ? nan_f32() : tile[row * LDT + col]);
+      y[(size_t)(m0 + row) * N + n0 + col] =
+          __float2bfloat16_rn(tile[row * LDT + col]);
   }
 }
 

@@ -26,8 +26,17 @@
 // (0x7fffffff) into the sign and give -0. a - hi is NaN exactly where a is
 // NaN or infinite, so such an operand's lo is NaN, and the passes that
 // read lo carry it: a product with an infinite or NaN operand gives NaN,
-// where an IEEE product may give +-inf (a NaN's hi may be anything). The
-// CPU emulation is repro_torch.kernels.tf32x3.split_tf32.
+// where an IEEE product may give +-inf (a NaN's hi may be anything).
+//
+// So every kernel on this route repairs its NaN outputs: an output (or a
+// softmax row, K7) that comes out NaN is summed again from the same
+// operand values in IEEE f32 FMAs, which give the f32 product's +-inf or
+// NaN, and a finite output is left as it is. Only an output that met a
+// non-finite operand can be NaN, so on finite inputs the repair costs one
+// test an output and changes no bit. (An IEEE split in the passes, hi = +-1
+// and lo = +-inf for an infinity, took three more instructions a split
+// element: 14-22% of K5's, K6's and K7's device time.) The CPU emulation
+// is repro_torch.kernels.tf32x3.matmul.
 //
 // mma.sync and not wgmma: wgmma takes TF32 operands only K-major in shared
 // memory, and K5's W (K, N) and K7's V (Lkv, D) are N-major; mma.sync's

@@ -21,7 +21,8 @@
 //
 // Design. The TPU kernel walked the chunks in order with the state in
 // VMEM. dS_c depends on chunk c's tokens alone, so here the chunks run in
-// parallel, in four launches on one stream, sharing one scratch buffer:
+// parallel, in four launches on one stream, sharing one scratch buffer
+// (and a fifth, 5. repair, which reads one flag unless an output is NaN):
 //   1. cb:    C B^T once per (batch, chunk, group), 64 x 64 tiles on and
 //             below the diagonal, into scratch (B, nc, G, Qp, Qp); it does
 //             not depend on the head, and the group's heads all read it;
@@ -36,7 +37,15 @@
 //             L_ij = exp(cum_i - cum_j) for j <= i, masked before it is
 //             used (a select, so an exp of a positive difference, or a C B^T
 //             entry above the diagonal, never reaches a sum); the tiles
-//             above the diagonal are skipped.
+//             above the diagonal are skipped. (The reference multiplies C
+//             B^T by L = exp(-1e30) = 0 there and takes the product with
+//             x over the whole chunk, so an inf or NaN above the diagonal
+//             gives it NaN where this kernel stays finite: ROADMAP.md
+//             queue 3.)
+// Outputs that the 3xTF32 passes gave NaN (they met an inf or NaN
+// operand) are summed again in IEEE f32 from the same operand values
+// (mma_tf32x3.cuh): launches 1 and 2 repair their own in place, launch 4
+// flags its, and launch 5 repairs them.
 // The products (C B^T, depth N; (x w)^T B, depth Q; C S^T, depth N; the
 // causal (C B^T o L dt) x, depth Q) run as 3xTF32 mma.sync (see
 // mma_tf32x3.cuh): f32 accuracy, the reference's tolerance unchanged. A
@@ -154,9 +163,10 @@ __device__ __forceinline__ void load_rows(float* dst, int ld,
 // 1. C B^T tile (it, jt), jt <= it, of one (b, chunk, group)
 __global__ void __launch_bounds__(32 * kCBWarps)
 ssd_scan_cb(const float* __restrict__ bmat, const float* __restrict__ cmat,
-          float* __restrict__ cb, int L, int G, int N, int Q, int Qp,
-          int vec) {
+          float* __restrict__ cb, int* __restrict__ flag, int L, int G, int N,
+          int Q, int Qp, int vec) {
   extern __shared__ __align__(16) float smem[];
+  if (blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x == 0) *flag = 0;
   const int Np = up8(N), ld = ld_rows(Np);
   float* cs = smem;                     // C rows i0.., cs[i * ld + n]
   float* bs = smem + kCB * ld;          // B rows j0.., bs[j * ld + n]
@@ -197,6 +207,27 @@ ssd_scan_cb(const float* __restrict__ bmat, const float* __restrict__ cmat,
         make_float2(acc[n][0], acc[n][1]);
     *reinterpret_cast<float2*>(out + (size_t)(g + 8) * Qp + 8 * n + 2 * t) =
         make_float2(acc[n][2], acc[n][3]);
+  }
+  // an entry the 3xTF32 passes gave NaN summed again in IEEE f32 from the
+  // same rows (mma_tf32x3.cuh), in place, by the thread that stored it: a
+  // rolled loop apart from the products, so it adds no register to them
+  bool nan = false;
+#pragma unroll
+  for (int n = 0; n < kCB / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) nan |= acc[n][e] != acc[n][e];
+  if (!nan) return;
+#pragma unroll 1
+  for (int q = 0; q < kCB / 2; ++q) {
+    const int n = q / 4, e = q % 4;
+    float* o = out + (size_t)(g + 8 * (e >> 1)) * Qp + 8 * n + 2 * t + (e & 1);
+    if (*o == *o) continue;
+    const float* ci = cw + (g + 8 * (e >> 1)) * ld;
+    const float* bj = bs + (8 * n + 2 * t + (e & 1)) * ld;
+    float d = 0.f;
+#pragma unroll 1
+    for (int k = 0; k < N; ++k) d = fmaf(ci[k], bj[k], d);
+    *o = d;
   }
 }
 
@@ -323,7 +354,6 @@ ssd_scan_state(const float* __restrict__ x, const float* __restrict__ dt,
     }
   }
   sgemm::cp_async_wait<0>();
-
   float* out = dstate + (((size_t)bc * H + h) * P + p0) * N;
 #pragma unroll
   for (int m = 0; m < 2; ++m)
@@ -335,6 +365,32 @@ ssd_scan_state(const float* __restrict__ x, const float* __restrict__ dt,
         const int col = ncol + 8 * n + 2 * t + (e & 1);
         if (p < ps && col < N) out[(size_t)p * N + col] = acc[m][n][e];
       }
+  // an entry the passes gave NaN summed again in IEEE f32, in place, by the
+  // thread that stored it, the operand x w formed as above: a rolled loop
+  // apart from the products, so it adds no register to them
+  bool nan = false;
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int n = 0; n < NTW; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) nan |= acc[m][n][e] != acc[m][n][e];
+  if (!nan) return;
+#pragma unroll 1
+  for (int q = 0; q < 8 * NTW; ++q) {
+    const int m = q / (4 * NTW), n = q / 4 % NTW, e = q % 4;
+    const int p = prow + 16 * m + g + 8 * (e >> 1);
+    const int col = ncol + 8 * n + 2 * t + (e & 1);
+    if (p >= ps || col >= N) continue;
+    float* o = out + (size_t)p * N + col;
+    if (*o == *o) continue;
+    float d = 0.f;
+#pragma unroll 1
+    for (int j = 0; j < Q; ++j)
+      d = fmaf(xsrc[(size_t)j * H * P + p] * ws[j],
+               bsrc[(size_t)j * G * N + col], d);
+    *o = d;
+  }
 }
 
 // 3. the carry: S_0 = init (or 0), S_{c+1} = exp(cum_last) S_c + dS_c, in
@@ -391,9 +447,10 @@ __global__ void __launch_bounds__(32 * kOutWarps, kOutBlocks)
 ssd_scan_out(const float* __restrict__ x, const float* __restrict__ dt,
            const float* __restrict__ cmat, const float* __restrict__ d_skip,
            const float* __restrict__ cb, const float* __restrict__ cum,
-           const float* __restrict__ states, float* __restrict__ y, int L,
-           int H, int P, int G, int N, int Q, int Qp, int ps_width,
-           int slices, int row_tiles, int vec_x, int vec_c, int vec_s) {
+           const float* __restrict__ states, float* __restrict__ y,
+           int* __restrict__ flag, int L, int H, int P, int G, int N, int Q,
+           int Qp, int ps_width, int slices, int row_tiles, int vec_x,
+           int vec_c, int vec_s) {
   constexpr int PW = 8 * PT, LDX = ld_cols(PW), LDK = ld_rows(kTok);
   constexpr int kSlot = out_slot(PT);
   extern __shared__ __align__(16) float smem[];
@@ -534,6 +591,17 @@ ssd_scan_out(const float* __restrict__ x, const float* __restrict__ dt,
   sgemm::cp_async_wait<0>();
   if (!active) return;
 
+  // an output the passes gave NaN (it met an inf or NaN operand): the
+  // call's last launch (ssd_scan_repair) sums it again in IEEE f32
+  bool nan = false;
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int n = 0; n < PT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) nan |= acc[m][n][e] != acc[m][n][e];
+  if (nan) *flag = 1;
+
   const float dskip = d_skip[h];
 #pragma unroll
   for (int m = 0; m < 2; ++m)
@@ -592,9 +660,9 @@ int launch_state(const float* x, const float* dt, const float* a_log,
 template <int PT>
 int launch_out(const float* x, const float* dt, const float* c,
                const float* d_skip, const float* cb, const float* cum,
-               const float* states, float* y, int B, int L, int H, int P,
-               int G, int N, int Q, int Qp, int slices, int ps, int vec_x,
-               int vec_c, int vec_s, cudaStream_t stream) {
+               const float* states, float* y, int* flag, int B, int L,
+               int H, int P, int G, int N, int Q, int Qp, int slices, int ps,
+               int vec_x, int vec_c, int vec_s, cudaStream_t stream) {
   const int row_tiles = (Q + kOutRows - 1) / kOutRows;
   // cum and dt of the last row tile's tokens, and the ring
   const int Qt = (Q + kTok - 1) / kTok * kTok;
@@ -603,9 +671,55 @@ int launch_out(const float* x, const float* dt, const float* c,
   if (rc) return rc;
   dim3 grid(row_tiles * slices, H, B * (L / Q));
   ssd_scan_out<PT><<<grid, 32 * kOutWarps, smem, stream>>>(
-      x, dt, c, d_skip, cb, cum, states, y, L, H, P, G, N, Q, Qp, ps, slices,
-      row_tiles, vec_x, vec_c, vec_s);
+      x, dt, c, d_skip, cb, cum, states, y, flag, L, H, P, G, N, Q, Qp, ps,
+      slices, row_tiles, vec_x, vec_c, vec_s);
   return (int)cudaGetLastError();
+}
+
+// 5. the repair: where the outputs launch flagged a NaN, each NaN output
+// y[b, l, h, p] is summed again in IEEE f32 from the same operand values
+// as launch 4 forms them (the C B^T entries and the states already
+// repaired by launches 1 and 2): the readout over N, the tokens j <= i of
+// its chunk, then the reference's zero weight times x_j dt_j for the
+// chunk's tokens j > i (0 * inf = NaN there, as in its product over the
+// whole chunk), plus D x. Without a flag each block reads one word.
+constexpr int kRepairBlocks = 64, kRepairThreads = 256;
+
+__global__ void __launch_bounds__(kRepairThreads)
+ssd_scan_repair(const float* __restrict__ x, const float* __restrict__ dt,
+                const float* __restrict__ cmat,
+                const float* __restrict__ d_skip,
+                const float* __restrict__ cb, const float* __restrict__ cum,
+                const float* __restrict__ states, float* __restrict__ y,
+                const int* __restrict__ flag, int B, int L, int H, int P,
+                int G, int N, int Q, int Qp) {
+  if (!*flag) return;
+  const int nc = L / Q;
+  const long long total = (long long)B * L * H * P;
+  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       e < total; e += (long long)gridDim.x * blockDim.x) {
+    if (y[e] == y[e]) continue;
+    const int p = (int)(e % P), h = (int)(e / P % H);
+    const long long tok = e / ((long long)P * H);      // b L + l
+    const int bi = (int)(tok / L), l = (int)(tok % L);
+    const int ci = l / Q, i = l - ci * Q, g = h / (H / G);
+    const size_t bc = (size_t)bi * nc + ci, tok0 = (size_t)bi * L + ci * Q;
+    const float* cum_c = cum + (bc * H + h) * Q;
+    const float cil = cum_c[i] * kLog2e, di = exp2f(cil);
+    const float* crow = cmat + (tok0 + i) * G * N + (size_t)g * N;
+    const float* srow = states + ((bc * H + h) * P + p) * N;
+    const float* cbrow = cb + ((bc * G + g) * Qp + i) * (size_t)Qp;
+    float d = 0.f;
+    for (int c = 0; c < N; ++c) d = fmaf(crow[c] * di, srow[c], d);
+    for (int j = 0; j <= i; ++j)
+      d = fmaf(cbrow[j] * exp2f(cil - cum_c[j] * kLog2e) *
+                   dt[(tok0 + j) * H + h],
+               x[((tok0 + j) * H + h) * P + p], d);
+    for (int j = i + 1; j < Q; ++j)
+      d = fmaf(0.f, x[((tok0 + j) * H + h) * P + p] * dt[(tok0 + j) * H + h],
+               d);
+    y[e] = d + d_skip[h] * x[e];
+  }
 }
 
 bool aligned16(const void* p) {
@@ -614,11 +728,12 @@ bool aligned16(const void* p) {
 
 }  // namespace
 
-// Four launches on `stream` (repro_torch/kernels/ssd_scan.py::plan_scan):
-// C B^T, the chunk-local states and cumsums, the carry, the outputs.
-// `scratch` holds scratch_floats floats, at least C B^T (B, nc, G, Qp, Qp)
-// with Qp = Q rounded up to 64, the cumsums (B, nc, H, Q) and the states
-// (B, nc, H, P, N), each from a multiple of 4 floats. P is cut into
+// Five launches on `stream` (repro_torch/kernels/ssd_scan.py::plan_scan):
+// C B^T, the chunk-local states and cumsums, the carry, the outputs, the
+// repair of NaN outputs. `scratch` holds scratch_floats floats, at least
+// C B^T (B, nc, G, Qp, Qp) with Qp = Q rounded up to 64, the cumsums (B,
+// nc, H, Q) and the states (B, nc, H, P, N), each from a multiple of 4
+// floats, and a flag (4 floats). P is cut into
 // `slices` slices of ceil(P / slices) <= 64 rows. Returns the first
 // nonzero cudaGetLastError(), or cudaErrorInvalidValue for a shape the
 // kernel does not take.
@@ -639,7 +754,8 @@ extern "C" int ssd_scan_f32(const float* x, const float* dt,
   float* cb = scratch;
   float* cum = cb + up4((long long)B * nc * G * Qp * Qp);
   float* states = cum + up4(jobs * Q);
-  if (states + up4(jobs * P * N) > scratch + scratch_floats)
+  int* flag = reinterpret_cast<int*>(states + up4(jobs * P * N));
+  if (states + up4(jobs * P * N) + 4 > scratch + scratch_floats)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // 16-byte copies where every copied row starts 16-byte aligned
@@ -651,7 +767,7 @@ extern "C" int ssd_scan_f32(const float* x, const float* dt,
   int rc = grant<ssd_scan_cb>(cb_smem);
   if (rc) return rc;
   ssd_scan_cb<<<dim3(B * nc * G, tiles * (tiles + 1) / 2), 32 * kCBWarps,
-              cb_smem, s>>>(b, c, cb, L, G, N, Q, Qp, vec_bc);
+              cb_smem, s>>>(b, c, cb, flag, L, G, N, Q, Qp, vec_bc);
   rc = (int)cudaGetLastError();
   if (rc) return rc;
 
@@ -687,11 +803,16 @@ extern "C" int ssd_scan_f32(const float* x, const float* dt,
   if (rc) return rc;
 
   if (ps <= 16)
-    return launch_out<2>(x, dt, c, d_skip, cb, cum, states, y, B, L, H, P, G,
-                         N, Q, Qp, slices, ps, vec_x, vec_bc, vec_s, s);
-  if (ps <= 32)
-    return launch_out<4>(x, dt, c, d_skip, cb, cum, states, y, B, L, H, P, G,
-                         N, Q, Qp, slices, ps, vec_x, vec_bc, vec_s, s);
-  return launch_out<8>(x, dt, c, d_skip, cb, cum, states, y, B, L, H, P, G,
-                       N, Q, Qp, slices, ps, vec_x, vec_bc, vec_s, s);
+    rc = launch_out<2>(x, dt, c, d_skip, cb, cum, states, y, flag, B, L, H,
+                       P, G, N, Q, Qp, slices, ps, vec_x, vec_bc, vec_s, s);
+  else if (ps <= 32)
+    rc = launch_out<4>(x, dt, c, d_skip, cb, cum, states, y, flag, B, L, H,
+                       P, G, N, Q, Qp, slices, ps, vec_x, vec_bc, vec_s, s);
+  else
+    rc = launch_out<8>(x, dt, c, d_skip, cb, cum, states, y, flag, B, L, H,
+                       P, G, N, Q, Qp, slices, ps, vec_x, vec_bc, vec_s, s);
+  if (rc) return rc;
+  ssd_scan_repair<<<kRepairBlocks, kRepairThreads, 0, s>>>(
+      x, dt, c, d_skip, cb, cum, states, y, flag, B, L, H, P, G, N, Q, Qp);
+  return (int)cudaGetLastError();
 }

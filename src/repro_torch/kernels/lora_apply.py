@@ -51,15 +51,25 @@ from repro_torch.kernels.gemm_plan import (  # noqa: F401 (kept importable)
 from repro_torch.kernels.rank_partition_agg import _same_device, _stream
 
 
+def page_index(ids: torch.Tensor, pages: int) -> torch.Tensor:
+    """Page ids (...) as the reference's gathers take them (``ref.py``'s
+    ``a_pages[ids]``, the serving engine's ``leaf[page_ids]``): a negative
+    id counts from the end, then every id is clamped to [0, P - 1]; int64,
+    on the device, with no read to the host."""
+    ids = ids.long()
+    return torch.where(ids < 0, ids + pages, ids).clamp(0, pages - 1)
+
+
 def batched_lora_apply_plain(x: torch.Tensor, w: torch.Tensor,
                              a_pages: torch.Tensor, b_pages: torch.Tensor,
                              scales: torch.Tensor,
                              ids: torch.Tensor) -> torch.Tensor:
     """x (..., K); ids (...) int; a_pages (P, r, K); b_pages (P, N, r);
-    scales (P,) f32 -> (..., N) in x.dtype, computed in f32."""
+    scales (P,) f32 -> (..., N) in x.dtype, computed in f32; ids by
+    ``page_index``."""
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1]).float()
-    idf = ids.reshape(-1).long()
+    idf = page_index(ids.reshape(-1), a_pages.shape[0])
     a = a_pages.float()[idf]                      # (M, r, K)
     b = b_pages.float()[idf]                      # (M, N, r)
     s = scales.float()[idf]
@@ -175,7 +185,7 @@ def batched_lora_apply_split_plain(x: torch.Tensor, w: torch.Tensor,
     ``plan_gemm_bf16`` in bf16); (..., N) f32."""
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1]).float()
-    idf = ids.reshape(-1).long()
+    idf = page_index(ids.reshape(-1), a_pages.shape[0])
     z = torch.einsum("mk,mrk->mr", x2, a_pages.float()[idf])
     s = scales.float()[idf]
     y = _split_product(x2, w.float(), dtype=x.dtype) + torch.einsum(
@@ -223,11 +233,11 @@ def batched_lora_apply(x: torch.Tensor, w: torch.Tensor,
                        scales: torch.Tensor,
                        ids: torch.Tensor) -> torch.Tensor:
     """K4: x (..., K) contiguous; w (K, N) contiguous; a_pages (P, r, K);
-    b_pages (P, N, r); scales (P,) f32; ids (...) int32 page index per row
-    -> (..., N) in x's dtype. x, w and the pages are all f32 or all bf16
-    (``OPERAND_DTYPES``); bf16 operands are read as bf16, every product
-    and sum runs in f32 and y is rounded once (the reference's Pallas
-    body)."""
+    b_pages (P, N, r); scales (P,) f32; ids (...) int32 page index per row,
+    taken as ``page_index`` takes it -> (..., N) in x's dtype. x, w and the
+    pages are all f32 or all bf16 (``OPERAND_DTYPES``); bf16 operands are
+    read as bf16, every product and sum runs in f32 and y is rounded once
+    (the reference's Pallas body)."""
     if x.dtype not in OPERAND_DTYPES:
         raise TypeError(f"batched_lora_apply x: expected one of "
                         f"{OPERAND_DTYPES}, got {x.dtype}")
@@ -250,6 +260,8 @@ def batched_lora_apply(x: torch.Tensor, w: torch.Tensor,
             f"scales {tuple(scales.shape)} do not match {(p, r, k, n)}")
     if tuple(ids.shape) != tuple(x.shape[:-1]):
         raise ValueError(f"ids {tuple(ids.shape)} != rows {x.shape[:-1]}")
+    if p == 0 and ids.numel():
+        raise ValueError("batched_lora_apply: rows but no adapter page")
     if not (x.is_contiguous() and w.is_contiguous() and ids.is_contiguous()
             and scales.is_contiguous()):
         raise ValueError("batched_lora_apply: x, w, scales and ids must be "

@@ -130,17 +130,24 @@ def rank_partition_agg_layered_split_plain(bs: torch.Tensor,
                                            ) -> torch.Tensor:
     """``rank_partition_agg_layered_plain`` as K3 sums it: (B omega) @ A
     over the depth t = m r + c, cut as ``plan_agg`` cuts it, each range
-    over its live slabs only (``live_slabs``)."""
+    over its live slabs only (``live_slabs``); then NaN over each row with
+    a non-finite B entry and each column with a non-finite A entry at a
+    depth of a dead slab, where the reference's ``dot(b * om, a)`` has
+    0 * inf."""
     l, m, d, r = bs.shape
     n, k = as_.shape[-1], m * r
-    u = (bs * omega[None, :, None, :]).permute(0, 2, 1, 3).reshape(l, d, k)
+    b = bs.permute(0, 2, 1, 3).reshape(l, d, k)
+    u = b * omega.reshape(k)
     v = as_.reshape(l, k, n)
     cols = live_slabs(omega).repeat_interleave(SLAB)[:k]
 
     def part(k0, k1):
         idx = cols[k0:k1].nonzero().squeeze(1) + k0
         return u[..., idx] @ v[:, idx]
-    return split_sum(part, k, plan_agg(l, m, d, r, n).depth)
+    out = split_sum(part, k, plan_agg(l, m, d, r, n).depth)
+    rows = ~torch.isfinite(b[..., ~cols]).all(dim=-1)          # (l, d)
+    col = ~torch.isfinite(v[:, ~cols]).all(dim=1)              # (l, n)
+    return out.masked_fill(rows[..., None] | col[:, None], float("nan"))
 
 
 def rank_partition_agg_split_plain(bs: torch.Tensor, as_: torch.Tensor,
@@ -292,16 +299,50 @@ def gram_right(v_c: torch.Tensor) -> torch.Tensor:
     return g
 
 
+# K3's flags: device -> int32 (the two epochs' words, then a tag a row and
+# a column), zero when made; and the epoch of the device's last launch
+_FLAGS: Dict[torch.device, torch.Tensor] = {}
+_EPOCH: Dict[torch.device, int] = {}
+FLAG_BYTES_A_BLOCK = 1 << 18    # K3's B and A bytes a flag block may read
+
+
+def flag_blocks(layers: int, m: int, d: int, r: int, n: int) -> int:
+    """K3's flag blocks: one a ``FLAG_BYTES_A_BLOCK`` of the B and A bytes
+    the dead slabs could hold (all of the depth, at most), 1 to 2 ``SMS``
+    (enough loads in flight to finish before the tiles' first wave)."""
+    most = 4 * layers * (d + n) * m * r
+    return max(1, min(2 * SMS, -(-most // FLAG_BYTES_A_BLOCK)))
+
+
+def _flags(ints: int, device: torch.device) -> tuple:
+    """(flags pointer, epoch) for K3's next launch on ``device``: at least
+    ``ints`` int32s, zero when made (grown, never shrunk), and an epoch one
+    past the last, which tags what this launch flags."""
+    flags = _FLAGS.get(device)
+    epoch = _EPOCH.get(device, 0) + 1
+    if flags is None or flags.numel() < ints or epoch >= 2 ** 31 - 1:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("K3's flags grow: make the first call of "
+                               "this shape outside graph capture")
+        flags = torch.zeros(max(ints, 4096), dtype=torch.int32,
+                            device=device)
+        _FLAGS[device], epoch = flags, 1
+    _EPOCH[device] = epoch
+    return flags.data_ptr(), epoch
+
+
 def _launch_agg(bs: torch.Tensor, as_: torch.Tensor, omega: torch.Tensor,
                 out: torch.Tensor, layers: int) -> None:
     m, d, r = bs.shape[-3:]
     n = as_.shape[-1]
     plan = plan_agg(layers, m, d, r, n)
+    flags, epoch = _flags(2 + layers * (d + n), bs.device)
     fn = "rank_partition_agg_f32"
     rc = getattr(build.library("rank_partition_agg"), fn)(
         bs.data_ptr(), as_.data_ptr(), omega.data_ptr(), out.data_ptr(),
-        *_split_args(plan, bs.device), layers, m, d, r, n, plan.splits,
-        plan.depth, _stream(bs))
+        *_split_args(plan, bs.device), flags, layers, m, d, r, n,
+        plan.splits, plan.depth, flag_blocks(layers, m, d, r, n), epoch,
+        _stream(bs))
     build.check(rc, fn)
 
 

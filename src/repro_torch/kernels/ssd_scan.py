@@ -13,8 +13,10 @@ once per (batch, chunk, group), shared by the group's heads; every
 chunk's local state dS_c at once; an in-order pass over the chunks,
 S_{c+1} = exp(cum_last) S_c + dS_c; then every chunk's output at once.
 Its four products run as 3xTF32 on the tensor cores (f32 accuracy);
-``ssd_scan_tf32x3_plain`` repeats that arithmetic on the CPU.
-``plan_scan`` is the kernel's host plan: its four launches, their blocks
+``ssd_scan_tf32x3_plain`` repeats that arithmetic on the CPU. A fifth
+launch sums again in IEEE f32 each output the passes gave NaN (an inf or
+NaN operand; ``csrc/mma_tf32x3.cuh``), and reads one flag otherwise.
+``plan_scan`` is the kernel's host plan: its five launches, their blocks
 and the scratch they share.
 
 The wrapper ``ssd_scan`` computes the plain version for CPU tensors and
@@ -41,6 +43,7 @@ MAX_STATE = 128      # state width N (kMaxN)
 CB_TILE = 64         # C B^T tile of the first launch (kCB)
 OUT_ROWS = 128       # chunk rows an output block owns: 4 warps x 32 (kOutRows)
 CARRY_THREADS = 256  # threads a block of the carry pass (kCarryThreads)
+REPAIR_BLOCKS = 64   # blocks of the repair pass (kRepairBlocks)
 P_WIDTHS = (16, 32, 64)         # output kernel instances: slice width
 N_WIDTHS = (16, 32, 64, 128)    # state kernel instances: state width
 
@@ -253,11 +256,12 @@ def _up4(n: int) -> int:
 
 
 class ScanPlan(NamedTuple):
-    """The kernel's four launches for one call: C B^T tiles (``cb``), the
+    """The kernel's five launches for one call: C B^T tiles (``cb``), the
     chunk-local states (``state``, which also writes the cumsums), the
-    carry over the chunks (``carry``) and the outputs (``out``); the P
-    slices a (batch, chunk, head) is cut into, and the instances' widths.
-    The scratch holds C B^T, the cumsums and the states, in that order."""
+    carry over the chunks (``carry``), the outputs (``out``) and the
+    repair of NaN outputs (``repair``); the P slices a (batch, chunk,
+    head) is cut into, and the instances' widths. The scratch holds C B^T,
+    the cumsums, the states and the repair's flag, in that order."""
     chunks: int
     chunk: int
     slices: int
@@ -269,17 +273,18 @@ class ScanPlan(NamedTuple):
     carry_blocks: int
     out_blocks: int
     scratch_floats: int
-    flop: float              # products the four launches compute
+    flop: float              # products the first four launches compute
 
     @property
     def launches(self) -> int:
-        return 4
+        return 5
 
     def report(self) -> dict:
         return {"route": "mma_tf32x3", "launches": self.launches,
                 "blocks": {"cb": self.cb_blocks, "state": self.state_blocks,
                            "carry": self.carry_blocks,
-                           "out": self.out_blocks},
+                           "out": self.out_blocks,
+                           "repair": REPAIR_BLOCKS},
                 "chunks": self.chunks, "slices": self.slices,
                 "slice_rows": self.slice_rows, "n_width": self.n_width,
                 "p_width": self.p_width,
@@ -306,7 +311,7 @@ def plan_scan(bsz: int, length: int, nheads: int, hp: int, groups: int,
     qp = tiles * CB_TILE
     jobs = bsz * nc * nheads
     scratch = (_up4(bsz * nc * groups * qp * qp) + _up4(jobs * chunk)
-               + _up4(jobs * hp * n))
+               + _up4(jobs * hp * n) + 4)
     causal = chunk * (chunk + 1) / 2
     flop = 2.0 * (bsz * nc * groups * causal * n
                   + jobs * (2 * chunk * hp * n + causal * hp))

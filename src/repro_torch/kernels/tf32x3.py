@@ -6,12 +6,17 @@ K7 (``lora_apply.lora_apply_tf32x3_plain``,
 Each f32 operand is split in two TF32 values, hi = rna(a) and
 lo = rna(a - hi), rna rounding to the nearest TF32 value (10 mantissa
 bits) with ties away from zero on the int32 view, as ``cvt.rna.tf32.f32``
-does (the card rounds lo with that instruction); where a - hi is NaN (a is
-NaN or infinite) lo is NaN, so a product with such an operand is NaN. A
-product is summed as lo_a hi_b + hi_a lo_b + hi_a hi_b: every TF32 x TF32
-product is exact in f32, so the three f32 matrix products here hold the
-same terms as the kernels' three tensor-core passes, summed in another
-order.
+does (the card rounds lo with that instruction). A product is summed as
+lo_a hi_b + hi_a lo_b + hi_a hi_b: every TF32 x TF32 product is exact in
+f32, so the three f32 matrix products here hold the same terms as the
+kernels' three tensor-core passes, summed in another order.
+
+A product with an infinite or NaN operand comes out NaN from the passes
+(where a - hi is NaN, lo is NaN); the kernels then sum each NaN output
+again in IEEE f32, so ``matmul`` replaces its NaN outputs by the f32
+product's: +-inf, or NaN for inf * 0, opposite infinities and NaN
+operands, where the f32 product has them. Finite outputs are the three
+passes' sums, bit for bit.
 
 ``one_pass_matmul`` and ``one_pass_sigma`` are the yardstick that tells
 the three passes from one: the most accurate one-pass TF32 product, and
@@ -33,7 +38,8 @@ def _rna(a: torch.Tensor) -> torch.Tensor:
 
 def split_tf32(a: torch.Tensor) -> tuple:
     """(hi, lo) f32 tensors holding TF32 values with a ~ hi + lo: hi + lo is
-    within 2^-22 |a| of a, and each has its low 13 mantissa bits zero."""
+    within 2^-22 |a| of a, and each has its low 13 mantissa bits zero; an
+    infinite or NaN a has a NaN lo."""
     a = a.float().contiguous()
     hi = _rna(a)
     d = (a - hi).contiguous()
@@ -41,10 +47,14 @@ def split_tf32(a: torch.Tensor) -> tuple:
 
 
 def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a @ b (f32, batched as ``@`` is) from the three TF32 passes."""
+    """a @ b (f32, batched as ``@`` is) from the three TF32 passes, each
+    NaN output summed again in IEEE f32 (the kernels' repair)."""
     ah, al = split_tf32(a)
     bh, bl = split_tf32(b)
-    return al @ bh + ah @ bl + ah @ bh
+    out = al @ bh + ah @ bl + ah @ bh
+    nan = torch.isnan(out)
+    return torch.where(nan, a.float() @ b.float(), out) if bool(nan.any()) \
+        else out
 
 
 def one_pass_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -109,6 +109,40 @@ from repro_torch.models.layers.ssd import (ssd_dims, ssd_init,
                                            ssd_mixer_apply, ssd_mixer_decode)
 
 
+def take_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """Rows ``ids`` (...) of ``table`` (V, D) -> (..., D), by the rule of
+    the reference's ``jnp.take(table, ids, axis=0)``: an id in [-V, V)
+    selects row ``id mod V``, any other id gives a row of NaN in the
+    table's dtype. Computed on the device (a gather of the wrapped ids,
+    then one select), with no read of the ids to the host."""
+    v = table.shape[0]
+    ids = ids.long()
+    rows = table[ids.remainder(v)]
+    return torch.where(((ids >= -v) & (ids < v))[..., None], rows,
+                       float("nan"))
+
+
+def gold_logits(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """The reference's gold logit ``sum(logits * one_hot(targets, V), -1)``
+    without the (..., V) one-hot: ``logits[t]`` for a target t in [0, V),
+    0 for any other t, and NaN wherever a column other than t is infinite
+    (0 * inf in the contraction; a NaN column makes the loss NaN through
+    its logsumexp either way). That NaN is a constant, so the gradient
+    stays the contraction's: the one-hot, zero for an out-of-range
+    target."""
+    v = logits.shape[-1]
+    inside = (targets >= 0) & (targets < v)
+    picked = torch.gather(logits, -1,
+                          targets.clamp(0, v - 1)[..., None])[..., 0]
+    gold = torch.where(inside, picked, 0.0)
+    with torch.no_grad():
+        lg = logits.detach()
+        infinite = torch.isposinf(lg).sum(-1) + torch.isneginf(lg).sum(-1)
+        stray = infinite > (inside & torch.isinf(picked.detach())).long()
+        fill = torch.where(stray, float("nan"), 0.0)
+    return gold + fill
+
+
 def _lora_ranks_for(cfg: ModelConfig, lora: Optional[LoRAConfig]) -> dict:
     if lora is None:
         return {}
@@ -484,7 +518,8 @@ class Model:
             parts.append(dense_apply(base["frontend_proj"],
                                      batch["embeds"].to(self.dtype)))
         if "tokens" in batch:
-            tok = self._scale_embed(base["embed"][batch["tokens"].long()])
+            tok = self._scale_embed(take_rows(base["embed"],
+                                              batch["tokens"]))
             parts.append(tok.to(self.dtype))
         return parts[0] if len(parts) == 1 else torch.cat(parts, dim=-2)
 
@@ -592,7 +627,7 @@ class Model:
         if not self.cfg.supports_decode:
             raise ValueError(f"{self.cfg.name} is encoder-only")
         cfg = self.cfg
-        x = self._scale_embed(base["embed"][batch["token"].long()].to(
+        x = self._scale_embed(take_rows(base["embed"], batch["token"]).to(
             self.dtype))
         c, b = x.shape[:2]
         cache_len = torch.as_tensor(cache["len"], dtype=torch.int32,
@@ -626,7 +661,7 @@ class Model:
                               device=targets.device)
         mask = mask.float()
         logz = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, targets[..., None])[..., 0]
+        gold = gold_logits(logits, targets)
         red = tuple(range(1, targets.ndim))
         denom = torch.clamp(mask.sum(dim=red), min=1.0)
         loss = ((logz - gold) * mask).sum(dim=red) / denom

@@ -24,6 +24,7 @@ from typing import Any, List, Sequence
 import torch
 
 from repro_torch.core.lora import flatten, split_lora, unflatten
+from repro_torch.kernels.lora_apply import page_index
 from repro_torch.serving.adapter_store import AdapterStore
 
 _SEQ_KEYS = ("k", "v", "ckv", "krope")   # per-token cache leaves (seq axis 2)
@@ -79,10 +80,22 @@ def greedy(logits: torch.Tensor) -> torch.Tensor:
     return torch.argmax(logits, dim=-1).to(torch.int32)
 
 
+def _leaves(tree: dict):
+    for v in tree.values():
+        yield from (_leaves(v) if isinstance(v, dict) else (v,))
+
+
 def _gather(pages: dict, page_ids: torch.Tensor) -> dict:
-    return {k: (_gather(v, page_ids) if isinstance(v, dict)
-                else v[page_ids.to(v.device).long()])
-            for k, v in pages.items()}
+    """Every (P, ...) page leaf gathered by ``page_ids`` (S,) into (S,
+    ...), the ids taken as the reference's ``leaf[page_ids]`` takes them
+    (``page_index``: negative from the end, then clamped to [0, P - 1])."""
+    leaf = next(_leaves(pages))
+    idx = page_index(page_ids.to(leaf.device), leaf.shape[0])
+
+    def take(tree):
+        return {k: (take(v) if isinstance(v, dict) else v[idx])
+                for k, v in tree.items()}
+    return take(pages)
 
 
 class ServingEngine:

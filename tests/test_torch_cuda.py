@@ -364,9 +364,12 @@ def _tree_leaves(tree):
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,k", [(6, 64), (40, 1024)])
 def test_cuda_lora_apply_strided_pages_and_bad_ids(cuda_device, m, k):
-    """Per-layer page slices t[:, li] are read in place; a row whose page
-    id is out of range comes back NaN, the others unaffected. On the GEMV
-    route (6 rows) and on the SGEMM's split route (40 rows: 8 splits)."""
+    """Per-layer page slices t[:, li] are read in place; page ids out of
+    range (P, 7, -1, -P - 1) are taken as the reference's oracle takes
+    them (``page_index``: from the end, then clamped), bit-equal to the
+    same call at the clamped ids and within the tolerance of the plain
+    version. On the GEMV route (6 rows) and on the SGEMM's split route
+    (40 rows: 8 splits)."""
     case = _lora_case(11, m, k, 40, 3, 8, cuda_device)
     stacked_a = torch.stack([case["a_pages"] * 0, case["a_pages"]], dim=1)
     stacked_b = torch.stack([case["b_pages"] * 0, case["b_pages"]], dim=1)
@@ -375,17 +378,22 @@ def test_cuda_lora_apply_strided_pages_and_bad_ids(cuda_device, m, k):
     torch.testing.assert_close(got, la.batched_lora_apply(**case),
                                rtol=0, atol=0)
     bad = case["ids"].clone()
-    bad[2] = 7
+    bad[2:6] = torch.tensor([3, 7, -1, -4], dtype=torch.int32)
     out = la.batched_lora_apply(**dict(case, ids=bad))
-    assert torch.isnan(out[2]).all() and torch.isfinite(out[[0, 1, 3]]).all()
+    clamped = la.page_index(bad, 3).int()
+    assert clamped[2:6].tolist() == [2, 2, 2, 0]
+    assert torch.equal(out, la.batched_lora_apply(**dict(case, ids=clamped)))
+    want = la.batched_lora_apply_plain(**dict(case, ids=bad))
+    assert float((out - want).abs().max()) <= _lora_tol(case)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,k", [(6, 64), (40, 1024), (130, 1024)])
 def test_cuda_lora_apply_bf16_strided_pages_and_bad_ids(cuda_device, m, k):
     """The bf16 instances read per-layer page slices t[:, li] in place,
-    and a row whose page id is out of range comes back NaN, the others
-    finite: on the GEMV (6 rows), the tensor cores split over K (40 rows:
+    and take page ids out of range as the oracle does (bit-equal to the
+    call at ``page_index``'s ids, all finite): on the GEMV (6 rows), the
+    tensor cores split over K (40 rows:
     64 x 64 tiles) and two row tiles (130 rows)."""
     case = _lora_case(12, m, k, 40, 3, 8, cuda_device)
     case = {key: (v.bfloat16() if key in ("x", "w", "a_pages", "b_pages")
@@ -399,9 +407,11 @@ def test_cuda_lora_apply_bf16_strided_pages_and_bad_ids(cuda_device, m, k):
     bad = case["ids"].clone()
     bad[2] = 7
     bad[m - 1] = -1
+    bad[3] = -4
     out = la.batched_lora_apply(**dict(case, ids=bad))
-    assert torch.isnan(out[[2, m - 1]]).all()
-    assert torch.isfinite(out[[0, 1, 3]]).all()
+    clamped = la.page_index(bad, 3).int()
+    assert torch.equal(out, la.batched_lora_apply(**dict(case, ids=clamped)))
+    assert torch.isfinite(out).all()
 
 
 @pytest.mark.cuda
@@ -745,23 +755,40 @@ def test_cuda_rank_partition_agg_split_and_skip(cuda_device, layers, m, d,
 
 @pytest.mark.cuda
 def test_cuda_rank_partition_agg_skipped_slab_hides_non_finite(cuda_device):
-    """The deliberate divergence of ROADMAP.md queue 3: inf or NaN in B or
-    A at a zero-weight column of a slab whose 16 weights are all zero. The
-    plain einsum (like the reference) gives NaN; the kernel never reads
-    that slab and equals the plain version of the inputs with those
-    entries zeroed."""
-    bs, as_, omega = _agg_zero_slabs(21, 1, 4, 40, 8, 24, cuda_device)
+    """Once a pinned divergence, now the reference's rule: inf in B at a
+    zero-weight column of a slab whose 16 weights are all zero, NaN in A
+    at such a depth, inf in A and -inf in B at zero weights of a live
+    slab. The kernel skips the dead slab's products but flags it: its
+    output has NaN exactly where the plain einsum (like the reference)
+    has NaN, and where the CPU emulation has; the rest is within the
+    finite test's tolerance; only the layer that holds an entry is hit;
+    the flags are left clear (a clean call after it is finite and
+    bit-equal to a second one)."""
+    bs, as_, omega = _agg_zero_slabs(21, 2, 4, 40, 8, 24, cuda_device)
     assert rpa.live_slabs(omega).tolist() == [True, False]
     clean_b, clean_a = bs.clone(), as_.clone()
     bs[0, 2, 5, 3] = float("inf")
-    as_[0, 3, 1, 7] = float("nan")
+    as_[1, 3, 1, 7] = float("nan")
+    bs[1, 1, 9, 6] = float("-inf")
+    as_[0, 0, 2, 11] = float("inf")
+    omega[0, 2] = 0.0
+    omega[1, 6] = 0.0
     got = rpa.rank_partition_agg_layered(bs, as_, omega)
-    assert bool(torch.isnan(rpa.rank_partition_agg_layered_plain(
-        bs, as_, omega)).any())
-    assert bool(torch.isfinite(got).all())
-    torch.testing.assert_close(
-        got, rpa.rank_partition_agg_layered_plain(clean_b, clean_a, omega),
-        atol=1e-4, rtol=0)
+    want = rpa.rank_partition_agg_layered_plain(bs, as_, omega)
+    assert torch.equal(got.isnan(), want.isnan())
+    emulated = rpa.rank_partition_agg_layered_split_plain(
+        bs.cpu(), as_.cpu(), omega.cpu())
+    assert torch.equal(got.isnan().cpu(), emulated.isnan())
+    assert bool(got[0, 5].isnan().all()) and bool(got[1, :, 7].isnan().all())
+    keep = ~want.isnan()
+    mag = rpa.rank_partition_agg_layered_plain(
+        clean_b.abs(), clean_a.abs(), omega.abs())
+    tol = (4 * 8 + 2) * torch.finfo(torch.float32).eps * float(mag.max())
+    assert float((got[keep] - want[keep]).abs().max()) <= tol
+    again = rpa.rank_partition_agg_layered(clean_b, clean_a, omega)
+    assert bool(again.isfinite().all())
+    assert torch.equal(again, rpa.rank_partition_agg_layered(
+        clean_b, clean_a, omega))
 
 
 @pytest.mark.cuda
@@ -933,23 +960,24 @@ def test_cuda_lora_apply_tensor_cores_beat_one_pass_tf32(cuda_device, m, n):
 @pytest.mark.parametrize("m", [20, 64])
 def test_cuda_lora_apply_infinite_x_gives_nan_on_the_tensor_cores(
         cuda_device, m):
-    """The deliberate divergence of the 3xTF32 route: one infinite x turns
-    its row into NaN above 32 rows (its TF32 lo part is inf - inf), where
-    the plain version, like the GEMV at most 32 rows, gives +-inf; the
-    other rows stay within the tolerance."""
+    """Once a pinned divergence of the 3xTF32 route, now the IEEE result:
+    an infinite x gives +-inf along its row above 32 rows (its split is
+    +-1 and +-inf, so no pass multiplies inf by an exact W's lo of 0), NaN
+    where it meets a zero of W, as the plain version does and as the GEMV
+    at most 32 rows does; the other rows stay within the tolerance."""
     rng = np.random.default_rng(23)
     x, w = (torch.from_numpy(v.astype(np.float32)).to(cuda_device)
             for v in (rng.normal(size=(m, 300)),
                       rng.normal(size=(300, 40)) * 300 ** -0.5))
     a, b = x.new_zeros(0, 300), x.new_zeros(40, 0)
     x[5, 7] = float("inf")
+    w[7, 3] = 0.0
     got = la.lora_apply(x, w, a, b, 1.0)
     want = la.lora_apply_plain(x, w, a, b, 1.0)
-    assert bool(torch.isinf(want[5]).all())
-    if m > la.GEMV_MAX_ROWS:
-        assert bool(torch.isnan(got[5]).all())
-    else:
-        assert torch.equal(got[5], want[5])
+    assert bool(torch.isinf(want[5]).sum() == 39) and bool(want[5, 3].isnan())
+    assert torch.equal(got[5].isnan(), want[5].isnan())
+    fin = ~want[5].isnan()
+    assert torch.equal(got[5][fin], want[5][fin])
     keep = torch.arange(m, device=cuda_device) != 5
     mag = la.lora_apply_plain(x[keep].abs(), w.abs(), a, b, 1.0)
     tol = 300 * torch.finfo(torch.float32).eps * float(mag.max())
@@ -1063,11 +1091,11 @@ def test_cuda_flash_attention_matches_plain(cuda_device, b, lq, lkv, h, kvh,
 
 @pytest.mark.cuda
 def test_cuda_flash_attention_infinite_key_gives_nan(cuda_device):
-    """The deliberate divergence of the 3xTF32 route: with one infinite
-    entry in key 10, every row that sees that key gives NaN (its TF32 lo
-    part is inf - inf), where the plain version gives NaN only for the rows
-    whose score is +inf and finite rows for those at -inf; rows that do
-    not see the key stay within the tolerance."""
+    """Once a pinned divergence of the 3xTF32 route, now the IEEE result:
+    with one infinite entry in key 10, the rows whose score with it is
+    -inf drop that key and stay within the tolerance of the plain
+    version; those at +inf are NaN in both; rows that do not see the key
+    are unchanged."""
     rng = np.random.default_rng(24)
     q, k, v = (torch.from_numpy(x.astype(np.float32)).to(cuda_device)
                for x in (rng.normal(size=(1, 40, 2, 16)),
@@ -1076,10 +1104,13 @@ def test_cuda_flash_attention_infinite_key_gives_nan(cuda_device):
     k[0, 10, 0, 3] = float("inf")
     got = fa.flash_attention(q, k, v, True, 0)
     want = fa.flash_attention_plain(q, k, v, True, 0)
-    assert bool(torch.isnan(got[:, 10:]).all())
-    assert bool(torch.isfinite(want[:, 10:]).all(dim=-1).any())
-    torch.testing.assert_close(got[:, :10], want[:, :10], atol=2e-5,
-                               rtol=1e-4)
+    minus = q[0, 10:, :, 3] < 0                     # score -inf: dropped
+    assert bool(minus.any()) and bool((~minus).any())
+    assert torch.equal(got.isnan(), want.isnan())
+    assert bool(want[0, 10:][~minus].isnan().all())
+    assert bool(want[0, 10:][minus].isfinite().all())
+    keep = ~want.isnan()
+    torch.testing.assert_close(got[keep], want[keep], atol=2e-5, rtol=1e-4)
 
 
 @pytest.mark.cuda

@@ -214,3 +214,41 @@ def test_agg_split_plain_matches_oracle(layers, m, d, r, n, splits):
                                atol=(m * r + 2) * EPS * float(np.einsum(
                                    "mdr,mr,mrn->dn", np.abs(bs[0]),
                                    np.abs(omega), np.abs(as_[0])).max()))
+
+
+@pytest.mark.parametrize("layers,m,d,r,n", [
+    (1, 12, 300, 24, 520), (2, 40, 64, 8, 96)])
+def test_agg_split_plain_non_finite_in_dead_slabs_as_oracle(layers, m, d, r,
+                                                            n):
+    """The reference's dot(b * om, a) turns inf or NaN at a zero weight
+    into NaN (0 * inf): K3's emulation, which skips the dead slabs, flags
+    them instead. inf in B at a dead slab's column NaNs that output row,
+    NaN or -inf in A at a dead slab's depth that output column, and -inf
+    at a zero weight of a live slab reaches the products as in the
+    oracle: NaN exactly where ``ref.rank_partition_agg_ref`` has NaN per
+    layer, the rest within (M r + 2) eps max(|B| |omega| |A|)."""
+    bs, as_, omega = _agg_inputs(m + n, layers, m, d, r, n)
+    live = rpa.live_slabs(_t(omega)).repeat_interleave(gp.SLAB)[:m * r]
+    dead = np.flatnonzero(~live.numpy())
+    zero_live = np.flatnonzero(live.numpy() & (omega.reshape(-1) == 0))
+    assert len(dead) and len(zero_live)
+    t0, t1 = dead[0], dead[-1]
+    bs[0, t0 // r, 5, t0 % r] = np.inf
+    as_[-1, t1 // r, t1 % r, 7] = np.nan
+    as_[-1, t0 // r, t0 % r, 9] = -np.inf
+    bs[-1, zero_live[0] // r, 3, zero_live[0] % r] = -np.inf
+    got = rpa.rank_partition_agg_layered_split_plain(_t(bs), _t(as_),
+                                                     _t(omega)).numpy()
+    for ll in range(layers):
+        want = np.asarray(ref.rank_partition_agg_ref(
+            jnp.asarray(bs[ll]), jnp.asarray(as_[ll]), jnp.asarray(omega)))
+        np.testing.assert_array_equal(np.isnan(got[ll]), np.isnan(want))
+        finite = [np.where(np.isfinite(x), np.abs(x), 0) for x in
+                  (bs[ll], as_[ll])]
+        mag = np.einsum("mdr,mr,mrn->dn", finite[0], np.abs(omega),
+                        finite[1])
+        keep = ~np.isnan(want)
+        np.testing.assert_allclose(got[ll][keep], want[keep], rtol=0,
+                                   atol=(m * r + 2) * EPS * mag.max())
+    assert np.isnan(got[0, 5]).all() and np.isnan(got[-1, :, 7]).all()
+    assert np.isnan(got[-1, 3]).all() and np.isnan(got[-1, :, 9]).all()

@@ -70,6 +70,46 @@ def test_matches_pallas_entry_in_interpret_mode():
     np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
 
 
+def _bad_page_case(seed):
+    """``_case`` with every page-id rule of the reference's getitem: past
+    the end (P, P + 3), from the end (-1, -P), past the start (-P - 1)."""
+    case = _case(seed, lead=(8,), k=40, n=24)
+    p = case["a_pages"].shape[0]
+    case["ids"] = np.array([0, p, p + 3, -1, -p, -p - 1, 1, 2], np.int32)
+    return case
+
+
+@pytest.mark.parametrize("fn", [la.batched_lora_apply_plain,
+                                la.batched_lora_apply, tops.batched_lora_apply,
+                                la.batched_lora_apply_split_plain],
+                         ids=["plain", "wrapper", "ops", "split_plain"])
+def test_page_ids_as_ref_oracle(fn):
+    """Page ids outside [0, P) as ``ref.batched_lora_apply_ref`` gathers
+    them (``a_pages[ids]``: a negative id counts from the end, then the id
+    is clamped to [0, P - 1]), by every CPU route of K4 and by
+    ``page_index`` itself, at the oracle's tolerance."""
+    case = _bad_page_case(3)
+    got = fn(**_torch(case))
+    np.testing.assert_allclose(got.numpy(), _oracle(case), atol=1e-5,
+                               rtol=0)
+    assert la.page_index(torch.from_numpy(case["ids"]), 3).tolist() == \
+        [0, 2, 2, 2, 0, 0, 1, 2]
+
+
+def test_pallas_entry_differs_from_its_oracle_on_negative_page_ids():
+    """A reference inconsistency (ROADMAP.md queue 3), pinned: the JAX
+    package's Pallas entry (interpret mode) clamps ids past the end as its
+    oracle does, but not a negative id, which its SGMV grouping places
+    elsewhere (-1 reads page 1 here, not page P - 1); the port holds to
+    the oracle."""
+    case = _bad_page_case(4)
+    want = _oracle(case)
+    got = np.asarray(jops.batched_lora_apply(
+        **{k: jnp.asarray(v) for k, v in case.items()}))
+    rows = np.abs(got - want).max(axis=-1) > 1e-3
+    assert not rows[[0, 1, 2, 6, 7]].any() and rows[3]
+
+
 def test_zero_rank_columns_are_inert():
     """Against a per-row reference that truncates each page to its TRUE
     rank (not padding), computed in f64: the zero columns change nothing

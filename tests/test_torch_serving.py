@@ -458,24 +458,240 @@ def test_nan_tenant_matches_jax_engine(qwen, two_tenants, jax_faults,
 
 def test_prompt_token_past_the_vocabulary_diverges(qwen, two_tenants,
                                                    jax_faults):
-    """A deliberate divergence: a prompt token equal to V. The reference
-    embeds it by ``jnp.take``, whose default mode fills an out-of-range
-    row with NaN (it does not clamp): that slot's tokens are all 0 (the
-    first NaN of all-NaN logits), unlike the clamped token V - 1's, and
-    the other slot's are the clean run's. The port's embedding raises
-    ``IndexError`` on the CPU."""
+    """A prompt token equal to V, once a pinned divergence, now held equal
+    to the reference: the reference embeds it by ``jnp.take``, whose
+    default mode fills an out-of-range row with NaN (it does not clamp),
+    and so does the port (``take_rows``). Over admit plus two decode
+    steps that slot's tokens are all 0 (the first NaN of all-NaN logits),
+    unlike the clamped token V - 1's, and the other slot's are the clean
+    run's, on the plain route and the K4 route, with nothing raised."""
     jcfg, jm, params, tcfg = qwen
     hi, lo, prompts, clean = two_tenants
     _, bad, want = jax_faults
     np.testing.assert_array_equal(want[0], clean[0, :3])
     np.testing.assert_array_equal(want[1], [0, 0, 0])
-    _, _, _, eng = _port_engine(tcfg, params, {"hi": (hi, 16),
-                                               "lo": (lo, 4)}, max_len=11)
-    clamped = bad.copy()
-    clamped[1, 3] = jcfg.vocab_size - 1
-    assert int(eng.admit([0, 1], clamped, ["hi", "lo"])[1]) != 0
-    with pytest.raises(IndexError):
-        eng.admit([0, 1], bad, ["hi", "lo"])
+    for use_kernels in (False, True):
+        _, _, _, eng = _port_engine(tcfg, params, {"hi": (hi, 16),
+                                                   "lo": (lo, 4)},
+                                    use_kernels=use_kernels, max_len=11)
+        clamped = bad.copy()
+        clamped[1, 3] = jcfg.vocab_size - 1
+        assert int(eng.admit([0, 1], clamped, ["hi", "lo"])[1]) != 0
+        gen = [eng.admit([0, 1], bad, ["hi", "lo"]).numpy()]
+        assert torch.isnan(eng.last_logits[1]).all()
+        for _ in range(2):
+            gen.append(eng.decode([True, True]).numpy())
+        np.testing.assert_array_equal(np.stack(gen, axis=1), want)
+
+
+# ---------------------------------------------------------------------------
+# token ids and targets outside the vocabulary, as the reference takes them
+# ---------------------------------------------------------------------------
+
+def _bad_ids(v: int) -> tuple:
+    """The ids of every rule of ``jnp.take``: past the end (V, V + 7),
+    wrapped from the end (-1, -V) and past the start (-V - 1)."""
+    return v, v + 7, -1, -v, -v - 1
+
+
+def _same_with_nan(got, want, **tol):
+    """NaN exactly where the reference has NaN, the rest within tol."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    keep = ~np.isnan(want)
+    np.testing.assert_allclose(got[keep], want[keep], **tol)
+
+
+def test_page_gather_takes_ids_as_reference_engine():
+    """The engine's page gather (``_gather``) at ids past the end, from
+    the end and past the start: every leaf equal to the reference engine's
+    ``leaf[page_ids]`` (a negative id counts from the end, then clamped to
+    [0, P - 1]), nested trees included."""
+    from repro_torch.serving.engine import _gather
+    pages = {"a": np.arange(3 * 2 * 4, dtype=np.float32).reshape(3, 2, 4),
+             "sub": {"b": -np.arange(3 * 5, dtype=np.float32)
+                     .reshape(3, 5)}}
+    ids = np.array([0, 3, 6, -1, -3, -4, 2], np.int32)
+    got = _gather({"a": torch.from_numpy(pages["a"]),
+                   "sub": {"b": torch.from_numpy(pages["sub"]["b"])}},
+                  torch.from_numpy(ids))
+    for leaf, want in ((got["a"], pages["a"]), (got["sub"]["b"],
+                                                pages["sub"]["b"])):
+        np.testing.assert_array_equal(
+            leaf.numpy(), np.asarray(jnp.asarray(want)[jnp.asarray(ids)]))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_take_rows_as_jnp_take(dtype):
+    """Every id rule of ``jnp.take``'s default mode on a (5, 3) table of
+    either dtype: rows id mod V for ids in [-V, V), NaN rows in the
+    table's dtype for the others, bit for bit."""
+    from repro_torch.models.transformer import take_rows
+    table = np.arange(15, dtype=np.float32).reshape(5, 3) - 7.0
+    ids = np.array([[0, 4, *_bad_ids(5)], [2, -3, 1, 9, -11, 3, 0]],
+                   np.int32)
+    want = jnp.take(jnp.asarray(table, dtype), jnp.asarray(ids), axis=0)
+    got = take_rows(torch.from_numpy(table).to(getattr(torch, dtype)),
+                    torch.from_numpy(ids))
+    assert got.dtype == getattr(torch, dtype)
+    _same_with_nan(got.float().numpy(), np.asarray(want, np.float32),
+                   rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("entry", ["prefill", "decode", "train"])
+def test_out_of_range_tokens_match_reference(qwen, two_tenants, entry):
+    """Token ids V, V + 7, -1, -V and -V - 1 through the reference model
+    and the port at the same weights (tenant "hi" merged in): NaN logits
+    where the reference has them (a decode row from V, V + 7 or -V - 1;
+    in prefill every position of a sequence that holds one, whose NaN key
+    and value reach every query through the masked softmax's 0 * NaN),
+    the wrapped ids' rows and every other row within the decode tests'
+    tolerance; the prefill's k cache alike. Training gives the
+    reference's loss (NaN) and accuracy."""
+    from repro.core.lora import merge_lora as j_merge
+    jcfg, jm, params, tcfg = qwen
+    hi = two_tenants[0]
+    v = jcfg.vocab_size
+    jbase, _ = j_split(jax.tree.map(jnp.asarray, params))
+    jparams = j_merge(jbase, jax.tree.map(
+        lambda x: None if x is None else jnp.asarray(x), hi,
+        is_leaf=lambda x: x is None))
+    model = Model(tcfg, LoRAConfig(rank_levels=LEVELS), device="cpu")
+    base, _ = split_lora(params_from_numpy(params, "cpu"))
+    lora = flatten(params_from_numpy(hi, "cpu"))
+    from repro_torch.core.lora import unflatten
+    tparams = merge_lora(base, unflatten(lora))
+    bad = _bad_ids(v)
+    prompts = np.random.default_rng(11).integers(0, v, size=(3, 8))
+    prompts[0, [1, 5]] = bad[2:4]           # wrapped: every row finite
+    prompts[1, 6] = bad[0]                  # rows 6, 7 NaN
+    prompts[2, [2, 4]] = bad[1], bad[4]     # rows 2..7 NaN
+    prompts = prompts.astype(np.int32)
+    tol = dict(rtol=1e-4, atol=1e-5)
+    if entry == "decode":
+        tok = np.array([[t] for t in bad + (3,)], np.int32)
+        want, _ = jm.decode_step(jparams, {"token": jnp.asarray(tok)},
+                                 jm.init_cache(len(tok), 4))
+        with torch.no_grad():
+            got, _ = model.decode_step(tparams,
+                                       {"token": torch.from_numpy(tok)},
+                                       model.init_cache(len(tok), 4))
+        assert np.isnan(np.asarray(want))[[0, 1, 4]].all()
+        _same_with_nan(got.numpy(), want, **tol)
+        return
+    if entry == "prefill":
+        want, jcaches = jm.prefill(jparams, {"tokens": jnp.asarray(prompts)})
+        with torch.no_grad():
+            got, caches = model.prefill(tparams,
+                                        {"tokens": torch.from_numpy(prompts)})
+        _same_with_nan(got.numpy(), want, **tol)
+        _same_with_nan(caches["k"].numpy(), jcaches["k"], **tol)
+        assert not np.isnan(np.asarray(want)[0]).any()
+        return
+    batch = {"tokens": prompts, "targets": np.roll(prompts, -1, 1) % v}
+    j_val, j_metrics = jm.train_loss(jparams, batch, lora_rank=16)
+    with torch.no_grad():
+        t_val, t_metrics = model.train_loss(tparams, batch, lora_rank=16)
+    assert np.isnan(float(j_val)) and np.isnan(t_val.item())
+    for key in ("loss", "accuracy"):
+        _same_with_nan([t_metrics[key].item()], [float(j_metrics[key])],
+                       **tol)
+
+
+class _Offset:
+    """Within the block the reference model's logits carry ``offset``."""
+
+    def __init__(self, jm, offset):
+        self.jm, self.offset = jm, offset
+
+    def __enter__(self):
+        jm, off = self.jm, self.offset
+        jm._logits = lambda p, x: type(jm)._logits(jm, p, x) + off
+
+    def __exit__(self, *exc):
+        del self.jm._logits
+
+
+# the reference's compiled loss and LoRA gradients with an offset on its
+# logits: one program for every case of the test below
+_JAX_LOSS_GRAD: dict = {}
+
+
+def _jax_loss_grad(jm, jbase, jlora, batch, offset):
+    from repro.core.lora import merge_lora as j_merge
+    if jm not in _JAX_LOSS_GRAD:
+        def loss(lora_tree, off, b):
+            with _Offset(jm, off):
+                return jm.train_loss(j_merge(jbase, lora_tree), b,
+                                     lora_rank=16)[0]
+        _JAX_LOSS_GRAD[jm] = jax.jit(jax.value_and_grad(loss))
+    return _JAX_LOSS_GRAD[jm](jlora, jnp.asarray(offset),
+                              jax.tree.map(jnp.asarray, batch))
+
+
+@pytest.mark.parametrize("case", ["targets_outside", "minus_inf_column",
+                                  "plus_inf_column"])
+def test_loss_targets_and_infinite_logits_match_reference(
+        qwen, two_tenants, case):
+    """The reference's gold logit is the one-hot contraction sum(logits *
+    one_hot(t)), and the port's ``gold_logits`` its rule: targets V and -1
+    have gold 0 (the loss is their logsumexp), and an infinite non-target
+    logit column gives a NaN loss (0 * inf) with the contraction's
+    gradient, softmax - one-hot. The same offset (a -inf or +inf column,
+    or none) is added to both models' logits; the loss equals the
+    reference's ``train_loss`` and every LoRA gradient the reference's,
+    NaN where it has NaN, the rest within rtol 1e-4 (f32 sums in another
+    order). The reference's compiled program (its training steps') gives
+    the same gradients but takes the contraction as a select, with no
+    0 * inf, so its loss at a -inf column is finite where ``train_loss``
+    run as written gives NaN (ROADMAP.md queue 3)."""
+    from repro.core.lora import merge_lora as j_merge
+    from repro_torch.core.lora import unflatten
+    jcfg, jm, params, tcfg = qwen
+    hi = two_tenants[0]
+    v = jcfg.vocab_size
+    rng = np.random.default_rng(12)
+    tokens = rng.integers(0, v, size=(2, 6)).astype(np.int32)
+    targets = rng.integers(1, v, size=(2, 6)).astype(np.int32)
+    offset = np.zeros(v, np.float32)
+    if case == "targets_outside":
+        targets[0, 2], targets[1, 4] = v, -1
+    else:
+        offset[0] = -np.inf if case == "minus_inf_column" else np.inf
+    batch = {"tokens": tokens, "targets": targets,
+             "loss_mask": (rng.random((2, 6)) < 0.8).astype(np.float32)}
+    jbase, _ = j_split(jax.tree.map(jnp.asarray, params))
+    jlora = jax.tree.map(lambda x: None if x is None else jnp.asarray(x), hi,
+                         is_leaf=lambda x: x is None)
+    with _Offset(jm, jnp.asarray(offset)):
+        j_val = float(jm.train_loss(j_merge(jbase, jlora), batch,
+                                    lora_rank=16)[0])
+    compiled, j_grads = _jax_loss_grad(jm, jbase, jlora, batch, offset)
+    if case == "minus_inf_column":
+        assert np.isfinite(float(compiled)) and np.isnan(j_val)
+    else:
+        _same_with_nan([float(compiled)], [j_val], rtol=1e-6)
+    model = Model(tcfg, LoRAConfig(rank_levels=LEVELS), device="cpu")
+    t_logits = model._logits
+    model._logits = lambda p, x: t_logits(p, x) + torch.from_numpy(offset)
+    base, _ = split_lora(params_from_numpy(params, "cpu"))
+    lora = {p: t.requires_grad_(True)
+            for p, t in flatten(params_from_numpy(hi, "cpu")).items()}
+    t_val, _ = model.train_loss(merge_lora(base, unflatten(lora)), batch,
+                                lora_rank=16)
+    grads = torch.autograd.grad(t_val, list(lora.values()))
+    assert np.isnan(j_val) == (case != "targets_outside")
+    _same_with_nan([t_val.item()], [j_val], rtol=1e-4)
+    jflat = {tuple(str(getattr(k, "key", k)) for k in path): leaf
+             for path, leaf in jax.tree_util.tree_flatten_with_path(
+                 j_grads)[0]}
+    assert set(jflat) == set(lora)
+    for path, g in zip(lora, grads):
+        want = np.asarray(jflat[path])
+        if case != "plus_inf_column":
+            assert np.isfinite(want).all() and np.abs(want).max() > 0
+        floor = 1e-6 * max(float(np.nanmax(np.abs(want), initial=0)), 1e-30)
+        _same_with_nan(g.numpy(), want, rtol=1e-4, atol=floor)
 
 
 def test_ragged_admission_matches_full_forward(qwen, two_tenants):

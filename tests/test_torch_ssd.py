@@ -100,6 +100,26 @@ def test_scan_matches_reference_pallas_kernel():
     np.testing.assert_allclose(s.numpy(), np.asarray(js), **SCAN_TOL)
 
 
+def test_infinite_x_nans_the_chunk_rows_before_it_as_reference():
+    """An inf in x at a chunk's last token: the reference's Pallas
+    ``ops.ssd_scan`` (interpret mode) takes (C B^T * L) dtx over the whole
+    chunk, L = 0 above the diagonal, so 0 * inf makes that column NaN at
+    every earlier row of the chunk; the port's plain version gives the
+    same NaN and +-inf places (the pattern the card's K6 is held to,
+    ROADMAP.md queue 3), and the same final state."""
+    arrs = _scan_inputs(5, 1, 64, 2, 8, 1, 8)
+    arrs[0][0, 63, 1, 5] = np.inf
+    y, s = ops.ssd_scan(*_t(arrs), 32)
+    jy, js = (np.asarray(v) for v in jops.ssd_scan(*_j(arrs), chunk=32))
+    np.testing.assert_array_equal(np.isnan(y.numpy()), np.isnan(jy))
+    np.testing.assert_array_equal(np.isinf(y.numpy()), np.isinf(jy))
+    assert np.isnan(jy[0, 32:63, 1, 5]).all() and np.isinf(jy[0, 63, 1, 5])
+    assert not np.isnan(jy[0, :32]).any()
+    np.testing.assert_array_equal(np.isinf(s.numpy()), np.isinf(js))
+    keep = np.isfinite(jy)
+    np.testing.assert_allclose(y.numpy()[keep], jy[keep], **SCAN_TOL)
+
+
 def test_initial_state_carry():
     """Scanning the first half, then the second half from its final state,
     equals one scan of the whole (the prefill-continuation invariant)."""

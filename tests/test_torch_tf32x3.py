@@ -79,18 +79,38 @@ def test_tf32x3_matmul_is_f32_accurate(m, k, n):
 
 @pytest.mark.parametrize("bad", [float("inf"), float("-inf"), float("nan")])
 def test_tf32x3_matmul_turns_a_non_finite_operand_into_nan(bad):
-    """As on the card: an infinite or NaN entry of a makes its whole row of
-    a @ b NaN (its lo is NaN), where the IEEE product gives +-inf for an
-    infinity; the other rows stay finite."""
+    """As on the card, and once a pinned divergence from the IEEE product:
+    a @ b with special values gives the f32 product's classes (the passes'
+    NaN outputs summed again in IEEE f32). An infinite
+    entry of a gives +-inf along its row, NaN where it meets a zero of b
+    (inf * 0) or an infinity of the other sign, +-inf where it meets an
+    infinity of b; a NaN entry makes its row NaN. Every output equals the
+    f32 product's class and sign, and the finite ones are within K eps of
+    it; the rows that meet no special value are bit-equal to those of
+    the same inputs with the special values left out."""
     rng = np.random.default_rng(5)
     a = torch.from_numpy(rng.normal(size=(6, 40)).astype(np.float32))
     b = torch.from_numpy(rng.normal(size=(40, 9)).astype(np.float32))
+    clean = tf32x3.matmul(a, b)
     a[2, 7] = bad
-    got = tf32x3.matmul(a, b)
-    assert bool(got[2].isnan().all()) and bool(got[[0, 1, 3, 4, 5]]
-                                               .isfinite().all())
-    if abs(bad) == float("inf"):
-        assert bool((a @ b)[2].isinf().all())
+    b[7, 3] = 0.0                      # inf * 0
+    a[4, 11] = -bad                    # against b's infinities below
+    b[11, 5], b[11, 6] = float("inf"), float("-inf")
+    got, want = tf32x3.matmul(a, b), a @ b
+    assert torch.equal(got.isnan(), want.isnan())
+    assert torch.equal(got.isinf(), want.isinf())
+    special = ~torch.isfinite(want)
+    assert torch.equal(got[special & ~want.isnan()],
+                       want[special & ~want.isnan()])
+    if bad != bad:
+        assert bool(got[[2, 4]].isnan().all())
+    else:
+        assert bool(got[2].isinf().sum() == 7) and bool(got[2, 3].isnan())
+    tol = 40 * EPS * float((a.abs() @ b.abs())[~special].max())
+    assert float((got - want)[~special].abs().max()) <= tol
+    keep = [0, 1, 3, 5]
+    assert torch.equal(got[keep][:, [0, 1, 2, 4, 7, 8]],
+                       clean[keep][:, [0, 1, 2, 4, 7, 8]])
 
 
 @pytest.mark.parametrize("m,k,n", [(64, 3584, 256), (300, 130, 520)])
