@@ -484,6 +484,21 @@ DEV = "cuda"       # the card; the serving phases take their device here
 # GREEDY_ROWS (NaN, +-inf, all -inf, all +inf, ties), each tiled across the
 # vocabulary so that it repeats in every block of the card's reduction
 NAN, INF = float("nan"), float("inf")
+# K7 with one non-finite value entry (key kv, kv head 1, column 5) that
+# some rows' band leaves out: (Lkv, causal, window, kv) at Lq 40, D 16
+K7_PAST_BAND = {"causal": (40, True, 0, 30), "causal_window": (40, True, 8, 3),
+                "window": (40, False, 8, 3),
+                "causal_lkv_gt_lq": (48, True, 0, 44)}
+# K6 at (1, 256, 4, 16, groups, 8, 64) with one non-finite entry: (groups,
+# operand, token, value); x and dt at head 1, b and c at the last group.
+# Tokens in a chunk's first and last 32 (the kernel's stages).
+K6_SPECIAL = {"ssd_scan": (1, "x", 256 - 64 + 5, INF),
+              "ssd_scan_last": (1, "x", 255, INF),
+              "ssd_scan_nan": (1, "x", 40, NAN),
+              "ssd_scan_dt": (1, "dt", 64 + 40, INF),
+              "ssd_scan_b": (1, "b", 128 + 10, -INF),
+              "ssd_scan_b_g2": (2, "b", 128 + 50, INF),
+              "ssd_scan_c": (1, "c", 64 + 20, INF)}
 GREEDY_ROWS = {"nan_first": [NAN, 1, 2, 3, 0, 5, 1, 2],
                "nan_middle": [0, 1, NAN, 1, 7, 2, 1, 0],
                "nan_last": [3, 1, 2, 3, 0, 5, 1, NAN],
@@ -791,36 +806,52 @@ def _non_finite_rules(torch, np, v: int) -> None:
     tc["flash_attention"] = _special_check(torch, got, want, 2e-5, 1e-4)
     require(bool(want[0, 10:][q[0, 10:, :, 3] < 0].isfinite().all()),
             "non_finite_rules: K7's -inf scores did not drop the key")
-    shape = (1, 256, 4, 16, 1, 8, 64)
-    clean, _ = _scan_inputs(torch, shape, torch.Generator(
-        device=DEV).manual_seed(33), False)
-    clean = [t.cpu() for t in clean]
-    for label, tok in (("ssd_scan", 256 - 64 + 5), ("ssd_scan_last", 255)):
-        args = [t.clone() for t in clean]
-        args[0][0, tok, 1, 5] = INF
+    for label, (lkv, causal, window, kv) in K7_PAST_BAND.items():
+        for name, value in (("inf", INF), ("nan", NAN)):
+            q, kk, vv = (torch.randn(1, n, h, 16, generator=gen)
+                         for n, h in ((40, 4), (lkv, 2), (lkv, 2)))
+            clean_o = fa.flash_attention(q.to(DEV), kk.to(DEV), vv.to(DEV),
+                                         causal, window)
+            vv[0, kv, 1, 5] = value
+            got = fa.flash_attention(q.to(DEV), kk.to(DEV), vv.to(DEV),
+                                     causal, window)
+            want = fa.flash_attention_plain(q, kk, vv, causal, window)
+            tc[f"flash_attention_v_{name}_{label}"] = _special_check(
+                torch, got, want, 2e-5, 1e-4)
+            # query heads 0-1 read kv head 0, which the value cannot reach
+            require(torch.equal(got[:, :, :2], clean_o[:, :, :2]),
+                    f"non_finite_rules: K7 {label}: kv head 0 moved")
+    for label, (groups, op, tok, value) in K6_SPECIAL.items():
+        shape = (1, 256, 4, 16, groups, 8, 64)
+        clean, _ = _scan_inputs(torch, shape, torch.Generator(
+            device=DEV).manual_seed(33), False)
+        clean_y = k6.ssd_scan(*clean, shape[-1])[0].cpu()
+        args = [t.cpu().clone() for t in clean]
+        if op == "x":
+            args[0][0, tok, 1, 5] = value
+        elif op == "dt":
+            args[1][0, tok, 1] = value
+        else:
+            args[3 if op == "b" else 4][0, tok, groups - 1, 3] = value
         got, state = k6.ssd_scan(*[t.to(DEV) for t in args], shape[-1])
         want, want_state = k6.ssd_scan_plain(*args, shape[-1])
+        tc[label] = _special_check(torch, got, want, SCAN_TOL["atol"],
+                                   SCAN_TOL["rtol"])
         tc[f"{label}_state"] = _special_check(
             torch, state, want_state, SCAN_TOL["atol"], SCAN_TOL["rtol"])
-        if label == "ssd_scan":
-            tc[label] = _special_check(torch, got, want, SCAN_TOL["atol"],
-                                       SCAN_TOL["rtol"])
-            continue
-        # ROADMAP.md queue 3: K6 skips its 32-token stages above the
-        # diagonal, so the rows of the chunk before the inf's stage stay
-        # finite where the reference's 0 * inf over the chunk is NaN
-        skipped = torch.zeros_like(want, dtype=torch.bool)
-        skipped[0, tok - tok % 64:tok - tok % 32, 1, 5] = True
-        got_c = got.float().cpu()
-        require(torch.equal(got_c.isnan(), want.isnan() & ~skipped)
-                and bool(want[skipped].isnan().all())
-                and bool(got_c[skipped].isfinite().all()),
-                f"non_finite_rules: K6's skipped stages: NaN "
-                f"{int(got_c.isnan().sum())} against the plain's "
-                f"{int(want.isnan().sum())}")
-        tc[label] = {"nan": int(got_c.isnan().sum()),
-                     "plain_nan": int(want.isnan().sum()),
-                     "finite_where_plain_nan": int(skipped.sum())}
+        # what the value cannot reach: the chunks before its own, and the
+        # heads that read neither it nor its group
+        reach = torch.ones(4, dtype=torch.bool)
+        if op in ("x", "dt"):
+            reach[[0, 2, 3]] = False
+        elif groups == 2:
+            reach[:2] = False
+        c0 = tok - tok % shape[-1]
+        got_c = got.cpu()
+        require(torch.equal(got_c[:, :c0], clean_y[:, :c0])
+                and torch.equal(got_c[:, :, ~reach], clean_y[:, :, ~reach]),
+                f"non_finite_rules: K6 {label} moved outputs it cannot "
+                "reach")
     out["tf32x3_infinite"] = tc
     bs = torch.randn(2, 4, 40, 8, generator=gen)
     as_ = torch.randn(2, 4, 8, 24, generator=gen)
@@ -845,6 +876,43 @@ def _non_finite_rules(torch, np, v: int) -> None:
     out["rank_partition_agg"] = k3
     emit({"phase": "non_finite_rules", **out, "card_equal_cpu": True,
           "card": card_line()})
+    _k7_past_band_full(torch)
+
+
+def _k7_past_band_full(torch) -> None:
+    """K7 at Qwen2-7B's causal prefill (row 10a of PERF.md: B 4, L 1024, H
+    28, KVH 4, D 128) with one inf value entry at key 1000 of batch row 1,
+    kv head 2: the rows before it do not see the key and are NaN in its
+    column, as in the plain version (the pass over V, then the IEEE rows);
+    the query heads of the other kv heads and the other batch rows are
+    bit-equal to the clean call's. Prints both calls' device times."""
+    from repro_torch.kernels import flash_attention as fa
+    _, b, length, h, kvh, d, causal, window = ATTN_SHAPES[0]
+    gen = torch.Generator(device=DEV).manual_seed(34)
+    q, k, v = (torch.randn(b, length, n, d, generator=gen, device=DEV)
+               for n in (h, kvh, kvh))
+    clean = fa.flash_attention(q, k, v, causal, window)
+    clean_ms = time_ms(torch, lambda: fa.flash_attention(q, k, v, causal,
+                                                         window), 5, 1)
+    v[1, 1000, 2, 7] = INF
+    got = fa.flash_attention(q, k, v, causal, window)
+    want = fa.flash_attention_plain(q, k, v, causal, window)
+    check = _special_check(torch, got, want, 2e-5, 1e-4)
+    group = h // kvh
+    heads = torch.zeros(h, dtype=torch.bool, device=DEV)
+    heads[2 * group:3 * group] = True
+    require(torch.equal(got[:, :, ~heads], clean[:, :, ~heads])
+            and torch.equal(got[[0, 2, 3]], clean[[0, 2, 3]]),
+            "non_finite_rules: K7 at full width moved outputs the value "
+            "cannot reach")
+    require(check["nan"] == 1000 * group,
+            f"non_finite_rules: K7 at full width: {check['nan']} NaN, not "
+            f"{1000 * group}")
+    emit({"phase": "non_finite_k7_full", "shape": ATTN_SHAPES[0][1:],
+          "v_inf_at": [1, 1000, 2, 7], **check,
+          "kernel_ms": time_ms(torch, lambda: fa.flash_attention(
+              q, k, v, causal, window), 5, 1),
+          "clean_kernel_ms": clean_ms, "card": card_line()})
 
 
 def _special_check(torch, got, want, atol: float, rtol: float = 0.0
@@ -861,6 +929,8 @@ def _special_check(torch, got, want, atol: float, rtol: float = 0.0
                 f"inf {int(got.isinf().sum())} / {int(want.isinf().sum())}, "
                 f"finite err {err}")
     return {"nan": int(want.isnan().sum()), "inf": int(want.isinf().sum()),
+            "finite_where_plain_nan": int((want.isnan()
+                                           & got.isfinite()).sum()),
             "max_abs_err": err, "atol": atol, "rtol": rtol}
 
 

@@ -49,7 +49,7 @@ SIGNATURES = {
         "rank_partition_agg_f32": [_P] * 7 + [_I] * 9 + [_P],
     },
     "flash_attention": {
-        "flash_attention_f32": [_P] * 4 + [_I] * 8 + [_F] + [_I] * 2
+        "flash_attention_f32": [_P] * 5 + [_I] * 8 + [_F] + [_I] * 2
         + [_P],
     },
     "ssd_scan": {

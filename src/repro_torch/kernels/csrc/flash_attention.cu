@@ -70,9 +70,16 @@
 // 3xTF32 passes turn NaN (an inf or NaN in q, k or v meets them) is
 // computed again at the end in IEEE f32, as the oracle computes it: an
 // infinite key entry whose score is -inf then drops that key, and one at
-// +inf gives NaN, as in f32. A value row past a row's band never reaches
-// its products (the oracle's 0 * inf there gives NaN: ROADMAP.md queue
-// 3; a key there is masked by a select in both). Every sum
+// +inf gives NaN, as in f32. Past a row's band the oracle still takes
+// p v with p = 0 over every key, so a non-finite value entry there makes
+// its column NaN (0 * inf), though no product of this kernel reads it (a
+// key there is masked by a select in both, so only V matters). Where some
+// row's band leaves out a key, a pass launched before the main kernel
+// (flash_attention_v_range, running beside its main loop) reads V once
+// and keeps, per (b, kv head), the first and last key with a non-finite
+// value entry; the epilogue sends a row whose band leaves out one of them
+// to the IEEE path above, which sums over all Lkv keys and so gives the
+// oracle's NaN. Every sum
 // runs in a fixed order, no atomics: a repeat gives the same bits, and
 // so does any other plan (a warp's rows, band and kv tiles do not depend
 // on w or the ring). The q tiles run longest first across the whole
@@ -112,12 +119,13 @@ __host__ __device__ constexpr size_t smem_bytes(int dp, int bkv,
 // keys [lo, hi] that some row of [qa, qb] can see; every key where a row
 // of it sees none (the oracle's softmax over an all-fill row averages all
 // Lkv keys)
-__device__ __forceinline__ void band(int qa, int qb, int Lkv, int causal,
-                                     int window, int& lo, int& hi) {
+__host__ __device__ __forceinline__ void band(int qa, int qb, int Lkv,
+                                              int causal, int window,
+                                              int& lo, int& hi) {
   lo = 0;
   hi = Lkv - 1;
-  if (causal) hi = min(hi, qb);
-  if (window > 0) lo = max(0, qa - window + 1);
+  if (causal && qb < hi) hi = qb;
+  if (window > 0 && qa - window + 1 > 0) lo = qa - window + 1;
   if (window > 0 && qb - window + 1 > Lkv - 1) {
     lo = 0;
     hi = Lkv - 1;
@@ -147,6 +155,75 @@ __device__ __forceinline__ void load_rows(float* dst, int ld,
                        in ? src + (size_t)(r0 + r) * stride + c : src,
                        in ? 4 : 0);
     }
+  }
+}
+
+// The pass over V: one block a (b, kv head) reads its value rows once, 16
+// bytes a load where D and v allow, and writes range[2 bk] the smallest
+// key with a non-finite entry and range[2 bk + 1] the largest (kNoKey and
+// -1 where there is none). Its first instruction lets the main launch
+// start (programmatic dependent launch), which waits for it only in its
+// epilogue, so the pass runs beside the main loop.
+constexpr int kRangeThreads = 512;
+constexpr int kNoKey = 0x7f7f7f7f;
+
+__device__ __forceinline__ bool finite(float x) {
+  return fabsf(x) <= 3.402823466e38f;
+}
+
+__global__ void __launch_bounds__(kRangeThreads)
+flash_attention_v_range(const float* __restrict__ v, int* __restrict__ range,
+                        int Lkv, int KVH, int D, int vec) {
+  asm volatile("griddepcontrol.launch_dependents;");
+  __shared__ int lo_s[kRangeThreads / 32], hi_s[kRangeThreads / 32];
+  const int bk = blockIdx.x, b = bk / KVH, kvh = bk - b * KVH;
+  const size_t kv_row = (size_t)KVH * D;
+  const float* vb = v + (size_t)b * Lkv * kv_row + (size_t)kvh * D;
+  // a thread owns one column (of floats, or of 16-byte groups) and walks
+  // the rows r0, r0 + step, ...
+  const int per = vec ? D / 4 : D, step = kRangeThreads / per;
+  const int col = threadIdx.x % per, r0 = threadIdx.x / per;
+  int lo = kNoKey, hi = -1;
+  if (r0 < step) {
+    if (vec) {
+      const float* p = vb + 4 * col;
+#pragma unroll 8
+      for (int r = r0; r < Lkv; r += step) {
+        const float4 x =
+            *reinterpret_cast<const float4*>(p + (size_t)r * kv_row);
+        if (!(finite(x.x) && finite(x.y) && finite(x.z) && finite(x.w))) {
+          lo = min(lo, r);
+          hi = max(hi, r);
+        }
+      }
+    } else {
+      const float* p = vb + col;
+#pragma unroll 8
+      for (int r = r0; r < Lkv; r += step)
+        if (!finite(p[(size_t)r * kv_row])) {
+          lo = min(lo, r);
+          hi = max(hi, r);
+        }
+    }
+  }
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+#pragma unroll
+  for (int o = 16; o; o >>= 1) {
+    lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, o));
+    hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, o));
+  }
+  if (lane == 0) {
+    lo_s[warp] = lo;
+    hi_s[warp] = hi;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int w = 1; w < kRangeThreads / 32; ++w) {
+      lo = min(lo, lo_s[w]);
+      hi = max(hi, hi_s[w]);
+    }
+    range[2 * bk] = lo;
+    range[2 * bk + 1] = hi;
   }
 }
 
@@ -205,9 +282,9 @@ __global__ void __launch_bounds__(32 * kMaxWarps, min_blocks<DT>())
 flash_attention_kernel(const float* __restrict__ q,
                        const float* __restrict__ k,
                        const float* __restrict__ v, float* __restrict__ o,
-                       int B, int Lq, int Lkv, int H, int KVH, int D,
-                       int causal, int window, float scale, int q_tiles,
-                       int vec) {
+                       const int* __restrict__ vrange, int B, int Lq,
+                       int Lkv, int H, int KVH, int D, int causal,
+                       int window, float scale, int q_tiles, int vec) {
   constexpr int NT = BKV / 8;          // 8-key column groups a tile
   constexpr int DP = 8 * DT;
   constexpr int LDQ = ld_qk(DP), LDV = ld_v(DP);
@@ -357,26 +434,38 @@ flash_attention_kernel(const float* __restrict__ q,
   __syncthreads();                     // shared memory free for the repair
 
   if (!active) return;
+  // the first and last key of (b, kv head) with a non-finite value entry,
+  // where the pass over V ran (else none)
+  int v_lo = kNoKey, v_hi = -1;
+  if (vrange) {
+    asm volatile("griddepcontrol.wait;" ::: "memory");   // the pass is done
+    v_lo = __ldcg(vrange + 2 * (b * KVH + kvh));
+    v_hi = __ldcg(vrange + 2 * (b * KVH + kvh) + 1);
+  }
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 1);
     l_r[r] += __shfl_xor_sync(0xffffffffu, l_r[r], 2);
   }
-  // a row the 3xTF32 passes gave NaN (an inf or NaN in q, k or v) again
-  // in IEEE f32: the oracle's softmax over all Lkv keys, masked scores at
-  // the fill, then its sum over the values, for this thread's columns.
+  // a row the 3xTF32 passes gave NaN (an inf or NaN in q, k or v), or
+  // whose band leaves out a key with a non-finite value entry, again in
+  // IEEE f32: the oracle's softmax over all Lkv keys, masked scores at the
+  // fill, then its sum over the values, for this thread's columns.
   // The rare path parks acc in the thread's own part of shared memory and
   // works there in a function not inlined, adding no register to the main
   // loop's.
   bool bad[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    bad[r] = l_r[r] != l_r[r] && wq0 + g + 8 * r < Lq;
+    const int row = wq0 + g + 8 * r;
+    int lo, hi;                        // the row's keys
+    band(row, row, Lkv, causal, window, lo, hi);
+    bad[r] = l_r[r] != l_r[r] || v_lo < lo || v_hi > hi;
 #pragma unroll
     for (int d = 0; d < DT; ++d)
-      bad[r] |= (acc[d][2 * r] != acc[d][2 * r] ||
-                 acc[d][2 * r + 1] != acc[d][2 * r + 1]) &&
-                wq0 + g + 8 * r < Lq;
+      bad[r] |= acc[d][2 * r] != acc[d][2 * r] ||
+                acc[d][2 * r + 1] != acc[d][2 * r + 1];
+    bad[r] &= row < Lq;
   }
   if (bad[0] || bad[1]) {
     float* mine = smem + threadIdx.x * 4 * DT;   // mine[4 d + e] = acc[d][e]
@@ -411,9 +500,10 @@ flash_attention_kernel(const float* __restrict__ q,
 }
 
 template <int DT, int BKV>
-int launch(const float* q, const float* k, const float* v, float* o, int B,
-           int Lq, int Lkv, int H, int KVH, int D, int causal, int window,
-           float scale, int warps, int vec, cudaStream_t stream) {
+int launch(const float* q, const float* k, const float* v, float* o,
+           const int* vrange, int B, int Lq, int Lkv, int H, int KVH, int D,
+           int causal, int window, float scale, int warps, int vec,
+           cudaStream_t stream) {
   const size_t smem = smem_bytes(8 * DT, BKV, warps);
   if (smem > 232448) return (int)cudaErrorInvalidValue;
   // the shared memory this instance may take, per device: raised only when
@@ -432,41 +522,75 @@ int launch(const float* q, const float* k, const float* v, float* o, int B,
   const int q_tiles = (Lq + 16 * warps - 1) / (16 * warps);
   const long long blocks = (long long)q_tiles * H * B;
   if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
-  flash_attention_kernel<DT, BKV><<<(unsigned)blocks, 32 * warps, smem,
-                                    stream>>>(
-      q, k, v, o, B, Lq, Lkv, H, KVH, D, causal, window, scale, q_tiles,
-      vec);
-  return (int)cudaGetLastError();
+  // after the pass over V, a programmatic dependent launch: it starts as
+  // the pass starts, and waits for it in the epilogue
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)blocks);
+  cfg.blockDim = dim3(32 * warps);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = vrange ? 1 : 0;
+  return (int)cudaLaunchKernelEx(&cfg, flash_attention_kernel<DT, BKV>, q, k,
+                                 v, o, vrange, B, Lq, Lkv, H, KVH, D, causal,
+                                 window, scale, q_tiles, vec);
+}
+
+// Whether some row of [0, Lq) leaves out a key of [0, Lkv): then the pass
+// over V runs. A causal call meets one at row 0 unless Lkv is 1.
+bool excludes_a_key(int Lq, int Lkv, int causal, int window) {
+  if (!causal && window <= 0) return false;
+  for (int row = 0; row < Lq; ++row) {
+    int lo, hi;
+    band(row, row, Lkv, causal, window, lo, hi);
+    if (lo > 0 || hi < Lkv - 1) return true;
+  }
+  return false;
 }
 
 }  // namespace
 
-// One launch on `stream`, grid (q tiles x H x B), `warps` warps a block.
-// q, k, v, o contiguous in the reference's (B, L, heads, D) layout. The
-// plan (flash_attention.py::plan_attention): `warps` (1..4, a q tile of
-// 16 warps rows), the kv tile `kv_tile`, which must be the one built for
-// D's width (flash_attention.py::INSTANCES). Returns cudaGetLastError(), or
+// One launch on `stream`, grid (q tiles x H x B), `warps` warps a block,
+// after the pass over V (one launch, a block a (b, kv head)) where some
+// row's band leaves out a key. q, k, v, o contiguous in the reference's (B, L,
+// heads, D) layout; `vrange` scratch of 2 B KVH ints. The plan
+// (flash_attention.py::plan_attention): `warps` (1..4, a q tile of 16
+// warps rows), the kv tile `kv_tile`, which must be the one built for D's
+// width (flash_attention.py::INSTANCES). Returns cudaGetLastError(), or
 // cudaErrorInvalidValue for a shape or plan the kernel does not take.
 extern "C" int flash_attention_f32(const float* q, const float* k,
-                                   const float* v, float* o, int B, int Lq,
-                                   int Lkv, int H, int KVH, int D, int causal,
-                                   int window, float scale, int warps,
-                                   int kv_tile, void* stream) {
+                                   const float* v, float* o, int* vrange,
+                                   int B, int Lq, int Lkv, int H, int KVH,
+                                   int D, int causal, int window,
+                                   float scale, int warps, int kv_tile,
+                                   void* stream) {
   if (B < 0 || Lq < 0 || H < 1 || KVH < 1 || H % KVH != 0 || D < 1 ||
       D > kMaxD || Lkv < 1 || window < 0 || warps < 1 || warps > kMaxWarps)
     return (int)cudaErrorInvalidValue;
   if (B == 0 || Lq == 0) return 0;
+  const int dt = (D + 7) / 8;
+  const int tile = dt <= 8 ? 64 : dt <= 24 ? 32 : 16;   // D's instance
+  if (kv_tile != tile) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // 16-byte copies where every row is 16-byte aligned
   const int vec = D % 4 == 0 && (reinterpret_cast<uintptr_t>(q) |
                                  reinterpret_cast<uintptr_t>(k) |
                                  reinterpret_cast<uintptr_t>(v)) % 16 == 0;
-  const int dt = (D + 7) / 8;
+  const int* range = nullptr;
+  if (excludes_a_key(Lq, Lkv, causal, window)) {
+    if ((long long)B * KVH > INT_MAX) return (int)cudaErrorInvalidValue;
+    flash_attention_v_range<<<(unsigned)(B * KVH), kRangeThreads, 0, s>>>(
+        v, vrange, Lkv, KVH, D, vec);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+    range = vrange;
+  }
 #define K7_LAUNCH(DT, BKV)                                                 \
-  return kv_tile == BKV                                                    \
-             ? launch<DT, BKV>(q, k, v, o, B, Lq, Lkv, H, KVH, D, causal,  \
-                               window, scale, warps, vec, s)               \
-             : (int)cudaErrorInvalidValue
+  return launch<DT, BKV>(q, k, v, o, range, B, Lq, Lkv, H, KVH, D, causal, \
+                         window, scale, warps, vec, s)
   if (dt <= 2) K7_LAUNCH(2, 64);
   if (dt <= 4) K7_LAUNCH(4, 64);
   if (dt <= 8) K7_LAUNCH(8, 64);

@@ -37,15 +37,24 @@
 //             L_ij = exp(cum_i - cum_j) for j <= i, masked before it is
 //             used (a select, so an exp of a positive difference, or a C B^T
 //             entry above the diagonal, never reaches a sum); the tiles
-//             above the diagonal are skipped. (The reference multiplies C
-//             B^T by L = exp(-1e30) = 0 there and takes the product with
-//             x over the whole chunk, so an inf or NaN above the diagonal
-//             gives it NaN where this kernel stays finite: ROADMAP.md
-//             queue 3.)
+//             above the diagonal are skipped.
 // Outputs that the 3xTF32 passes gave NaN (they met an inf or NaN
 // operand) are summed again in IEEE f32 from the same operand values
 // (mma_tf32x3.cuh): launches 1 and 2 repair their own in place, launch 4
 // flags its, and launch 5 repairs them.
+// Above the diagonal. The reference multiplies C B^T by L = exp(-1e30) = 0
+// there and takes the product with dt x over the whole chunk, so y[i, p]
+// is NaN wherever a token j > i of the chunk has a non-finite x[j, p]
+// dt[j] or C[i] . B[j]: 0 * inf. Launch 4 never reads those tokens for
+// row i; the rule is applied where the inputs are already read. A
+// non-finite x[j, p] dt[j], dt[j] or B[j] makes the chunk-local state dS_c
+// non-finite, which launch 3 tests as it loads it (no byte added), and a
+// non-finite C[i] makes row i NaN in launch 4's passes; either raises the
+// (b, chunk, h)'s flag. Launch 5 visits every output of a flagged (b,
+// chunk, h): NaN where the rule says so, the IEEE re-sum where launch 4
+// gave NaN, launch 4's bits elsewhere. Not covered: finite operands whose
+// product overflows f32 above the diagonal, with no other non-finite
+// value in the (b, chunk, h) (ROADMAP.md queue 3).
 // The products (C B^T, depth N; (x w)^T B, depth Q; C S^T, depth N; the
 // causal (C B^T o L dt) x, depth Q) run as 3xTF32 mma.sync (see
 // mma_tf32x3.cuh): f32 accuracy, the reference's tolerance unchanged. A
@@ -262,14 +271,15 @@ __device__ void block_scan(float* v, int Q, float* warp_sums) {
 
 // 2. the chunk-local state of one (b, chunk, h, P slice): dS[p][n] =
 // sum_q x[q][p] w_q B[q][n]. Warp w owns p rows 32 (w / 2) .. + 31 (two m
-// tiles) and n tiles NTW (w % 2) .. + NTW - 1.
+// tiles) and n tiles NTW (w % 2) .. + NTW - 1. The P slice 0 block clears
+// the (b, chunk, h)'s flag, flag[1 + (b nc + chunk) H + h].
 template <int NTW>
 __global__ void __launch_bounds__(128)
 ssd_scan_state(const float* __restrict__ x, const float* __restrict__ dt,
              const float* __restrict__ a_log, const float* __restrict__ bmat,
-             float* __restrict__ cum_out, float* __restrict__ dstate, int L,
-             int H, int P, int G, int N, int Q, int ps_width, int vec_x,
-             int vec_b) {
+             float* __restrict__ cum_out, float* __restrict__ dstate,
+             int* __restrict__ flag, int L, int H, int P, int G, int N, int Q,
+             int ps_width, int vec_x, int vec_b) {
   constexpr int NW = 16 * NTW;          // the instance's state width
   constexpr int LDB = ld_cols(NW);
   extern __shared__ __align__(16) float smem[];
@@ -277,6 +287,7 @@ ssd_scan_state(const float* __restrict__ x, const float* __restrict__ dt,
   const int nc = L / Q, bi = bc / nc, ci = bc - bi * nc;
   const int p0 = slice * ps_width, ps = min(ps_width, P - p0);
   const int PW = 32 * (blockDim.x / 64);   // padded slice rows
+  if (slice == 0 && threadIdx.x == 0) flag[1 + (size_t)bc * H + h] = 0;
   const int LDX = ld_cols(PW);
   const int Qt = (Q + kTok - 1) / kTok * kTok;
   float* cum = smem;                    // Qt each
@@ -397,12 +408,22 @@ ssd_scan_state(const float* __restrict__ x, const float* __restrict__ dt,
 // chunk order; S_c replaces dS_c in the scratch, the last S is the final
 // state. A thread owns W consecutive entries of one (b, h) and loads
 // kCarryAhead chunks' dS before it stores, so that many loads are in flight
-// (the pass moves bytes: the states are read once and written once).
+// (the pass moves bytes: the states are read once and written once). A
+// non-finite dS_c entry (a non-finite x dt, dt or B in the chunk) raises
+// the (b, chunk, h)'s flag and the call's.
+__device__ __forceinline__ bool finite(float v) {
+  return fabsf(v) <= 3.402823466e38f;
+}
+__device__ __forceinline__ bool finite(float4 v) {
+  return finite(v.x) && finite(v.y) && finite(v.z) && finite(v.w);
+}
+
 template <int W>
 __global__ void __launch_bounds__(kCarryThreads)
 ssd_scan_carry(const float* __restrict__ init, const float* __restrict__ cum,
              float* __restrict__ states, float* __restrict__ final_state,
-             int B, int H, int P, int N, int Q, int nc) {
+             int* __restrict__ flag, int B, int H, int P, int N, int Q,
+             int nc) {
   using T = typename Vec<W>::T;
   const size_t per_b = (size_t)H * P * N / W;      // T entries a batch row
   const size_t e = (size_t)blockIdx.x * kCarryThreads + threadIdx.x;
@@ -427,6 +448,10 @@ ssd_scan_carry(const float* __restrict__ init, const float* __restrict__ cum,
       if (c0 + u < nc) {
         st[(bi * nc + c0 + u) * per_b + rem] = s;
         s = axpy(s, dec[u], ds[u]);
+        if (!finite(ds[u])) {
+          flag[1 + (bi * nc + c0 + u) * H + h] = 1;
+          flag[0] = 1;
+        }
       }
     }
   }
@@ -600,7 +625,10 @@ ssd_scan_out(const float* __restrict__ x, const float* __restrict__ dt,
     for (int n = 0; n < PT; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) nan |= acc[m][n][e] != acc[m][n][e];
-  if (nan) *flag = 1;
+  if (nan) {   // the (b, chunk, h)'s flag: blockIdx.z H + blockIdx.y
+    flag[1 + (size_t)blockIdx.z * gridDim.y + blockIdx.y] = 1;
+    flag[0] = 1;
+  }
 
   const float dskip = d_skip[h];
 #pragma unroll
@@ -641,8 +669,8 @@ int grant(size_t bytes) {
 
 template <int NTW>
 int launch_state(const float* x, const float* dt, const float* a_log,
-                 const float* b, float* cum, float* states, int B, int L,
-                 int H, int P, int G, int N, int Q, int slices, int ps,
+                 const float* b, float* cum, float* states, int* flag, int B,
+                 int L, int H, int P, int G, int N, int Q, int slices, int ps,
                  int vec_x, int vec_b, cudaStream_t stream) {
   const int pw = ps <= 32 ? 32 : 64;
   const int Qt = (Q + kTok - 1) / kTok * kTok;
@@ -653,7 +681,8 @@ int launch_state(const float* x, const float* dt, const float* a_log,
   if (rc) return rc;
   dim3 grid(slices, H, B * (L / Q));
   ssd_scan_state<NTW><<<grid, 2 * pw, smem, stream>>>(
-      x, dt, a_log, b, cum, states, L, H, P, G, N, Q, ps, vec_x, vec_b);
+      x, dt, a_log, b, cum, states, flag, L, H, P, G, N, Q, ps, vec_x,
+      vec_b);
   return (int)cudaGetLastError();
 }
 
@@ -676,49 +705,87 @@ int launch_out(const float* x, const float* dt, const float* c,
   return (int)cudaGetLastError();
 }
 
-// 5. the repair: where the outputs launch flagged a NaN, each NaN output
-// y[b, l, h, p] is summed again in IEEE f32 from the same operand values
-// as launch 4 forms them (the C B^T entries and the states already
-// repaired by launches 1 and 2): the readout over N, the tokens j <= i of
-// its chunk, then the reference's zero weight times x_j dt_j for the
-// chunk's tokens j > i (0 * inf = NaN there, as in its product over the
-// whole chunk), plus D x. Without a flag each block reads one word.
+// 5. the repair: a block for each flagged (b, chunk, h), the grid walking
+// them in turn; without the call's flag each block reads one word. For
+// column p of the chunk, the rule above needs the last token j with a
+// non-finite x[j, p] dt[j] (jx[p]; a non-finite dt[j] makes it so for
+// every p) and the last with a non-finite B[j] (jall), found in shared
+// memory from the operands. Then each output
+// y[i, p]: NaN where i < jall or i < jx[p]; else, where launch 4 gave NaN,
+// NaN if C[i] is non-finite and a token follows row i, or else summed
+// again in IEEE f32 from the same operand values as launch 4 forms them
+// (the C B^T entries and the states already repaired by launches 1 and 2):
+// the readout over N, the tokens j <= i of its chunk, plus D x. (A
+// non-finite C[i] gives row i NaN in launch 4's passes, so only those
+// outputs need the test.) The tokens j > i add 0 there.
 constexpr int kRepairBlocks = 64, kRepairThreads = 256;
 
 __global__ void __launch_bounds__(kRepairThreads)
 ssd_scan_repair(const float* __restrict__ x, const float* __restrict__ dt,
+                const float* __restrict__ bmat,
                 const float* __restrict__ cmat,
                 const float* __restrict__ d_skip,
                 const float* __restrict__ cb, const float* __restrict__ cum,
                 const float* __restrict__ states, float* __restrict__ y,
                 const int* __restrict__ flag, int B, int L, int H, int P,
                 int G, int N, int Q, int Qp) {
-  if (!*flag) return;
-  const int nc = L / Q;
-  const long long total = (long long)B * L * H * P;
-  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       e < total; e += (long long)gridDim.x * blockDim.x) {
-    if (y[e] == y[e]) continue;
-    const int p = (int)(e % P), h = (int)(e / P % H);
-    const long long tok = e / ((long long)P * H);      // b L + l
-    const int bi = (int)(tok / L), l = (int)(tok % L);
-    const int ci = l / Q, i = l - ci * Q, g = h / (H / G);
-    const size_t bc = (size_t)bi * nc + ci, tok0 = (size_t)bi * L + ci * Q;
+  if (!flag[0]) return;
+  __shared__ int jx[kRepairThreads];    // a strip of columns
+  __shared__ int jall;
+  const int nc = L / Q, tid = threadIdx.x;
+  const float nan = __int_as_float(0x7fffffff);
+  for (long long job = blockIdx.x; job < (long long)B * nc * H;
+       job += gridDim.x) {
+    if (!flag[1 + job]) continue;
+    const int h = (int)(job % H), g = h / (H / G);
+    const size_t bc = (size_t)(job / H);
+    const size_t tok0 = bc / nc * L + bc % nc * Q;
     const float* cum_c = cum + (bc * H + h) * Q;
-    const float cil = cum_c[i] * kLog2e, di = exp2f(cil);
-    const float* crow = cmat + (tok0 + i) * G * N + (size_t)g * N;
-    const float* srow = states + ((bc * H + h) * P + p) * N;
-    const float* cbrow = cb + ((bc * G + g) * Qp + i) * (size_t)Qp;
-    float d = 0.f;
-    for (int c = 0; c < N; ++c) d = fmaf(crow[c] * di, srow[c], d);
-    for (int j = 0; j <= i; ++j)
-      d = fmaf(cbrow[j] * exp2f(cil - cum_c[j] * kLog2e) *
-                   dt[(tok0 + j) * H + h],
-               x[((tok0 + j) * H + h) * P + p], d);
-    for (int j = i + 1; j < Q; ++j)
-      d = fmaf(0.f, x[((tok0 + j) * H + h) * P + p] * dt[(tok0 + j) * H + h],
-               d);
-    y[e] = d + d_skip[h] * x[e];
+    if (tid == 0) jall = -1;
+    __syncthreads();
+    for (int e = tid; e < Q * N; e += blockDim.x) {
+      const int j = e / N;
+      if (!finite(bmat[(tok0 + j) * G * N + (size_t)g * N + e - j * N]))
+        atomicMax(&jall, j);
+    }
+    for (int p0 = 0; p0 < P; p0 += kRepairThreads) {
+      const int pw = min(kRepairThreads, P - p0);
+      jx[tid] = -1;
+      __syncthreads();
+      for (int e = tid; e < Q * pw; e += blockDim.x) {
+        const int j = e / pw, p = p0 + e - j * pw;
+        if (!finite(x[((tok0 + j) * H + h) * P + p] * dt[(tok0 + j) * H + h]))
+          atomicMax(&jx[p - p0], j);
+      }
+      __syncthreads();
+      for (int e = tid; e < Q * pw; e += blockDim.x) {
+        const int i = e / pw, p = p0 + e - i * pw;
+        const size_t o = ((tok0 + i) * H + h) * P + p;
+        if (i < jall || i < jx[p - p0]) {
+          y[o] = nan;
+          continue;
+        }
+        if (y[o] == y[o]) continue;
+        const float* crow = cmat + (tok0 + i) * G * N + (size_t)g * N;
+        bool c_bad = false;
+        for (int c = 0; c < N; ++c) c_bad |= !finite(crow[c]);
+        if (c_bad && i + 1 < Q) {
+          y[o] = nan;
+          continue;
+        }
+        const float cil = cum_c[i] * kLog2e, di = exp2f(cil);
+        const float* srow = states + ((bc * H + h) * P + p) * N;
+        const float* cbrow = cb + ((bc * G + g) * Qp + i) * (size_t)Qp;
+        float d = 0.f;
+        for (int c = 0; c < N; ++c) d = fmaf(crow[c] * di, srow[c], d);
+        for (int j = 0; j <= i; ++j)
+          d = fmaf(cbrow[j] * exp2f(cil - cum_c[j] * kLog2e) *
+                       dt[(tok0 + j) * H + h],
+                   x[((tok0 + j) * H + h) * P + p], d);
+        y[o] = d + d_skip[h] * x[o];
+      }
+      __syncthreads();                  // jx and jall free for the next
+    }
   }
 }
 
@@ -733,7 +800,8 @@ bool aligned16(const void* p) {
 // repair of NaN outputs. `scratch` holds scratch_floats floats, at least
 // C B^T (B, nc, G, Qp, Qp) with Qp = Q rounded up to 64, the cumsums (B,
 // nc, H, Q) and the states (B, nc, H, P, N), each from a multiple of 4
-// floats, and a flag (4 floats). P is cut into
+// floats, and the flags (1 + B nc H ints: the call's, then one a (b,
+// chunk, h)). P is cut into
 // `slices` slices of ceil(P / slices) <= 64 rows. Returns the first
 // nonzero cudaGetLastError(), or cudaErrorInvalidValue for a shape the
 // kernel does not take.
@@ -755,7 +823,7 @@ extern "C" int ssd_scan_f32(const float* x, const float* dt,
   float* cum = cb + up4((long long)B * nc * G * Qp * Qp);
   float* states = cum + up4(jobs * Q);
   int* flag = reinterpret_cast<int*>(states + up4(jobs * P * N));
-  if (states + up4(jobs * P * N) + 4 > scratch + scratch_floats)
+  if (states + up4(jobs * P * N) + up4(1 + jobs) > scratch + scratch_floats)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // 16-byte copies where every copied row starts 16-byte aligned
@@ -772,17 +840,17 @@ extern "C" int ssd_scan_f32(const float* x, const float* dt,
   if (rc) return rc;
 
   if (N <= 16)
-    rc = launch_state<1>(x, dt, a_log, b, cum, states, B, L, H, P, G, N, Q,
-                         slices, ps, vec_x, vec_bc, s);
+    rc = launch_state<1>(x, dt, a_log, b, cum, states, flag, B, L, H, P, G,
+                         N, Q, slices, ps, vec_x, vec_bc, s);
   else if (N <= 32)
-    rc = launch_state<2>(x, dt, a_log, b, cum, states, B, L, H, P, G, N, Q,
-                         slices, ps, vec_x, vec_bc, s);
+    rc = launch_state<2>(x, dt, a_log, b, cum, states, flag, B, L, H, P, G,
+                         N, Q, slices, ps, vec_x, vec_bc, s);
   else if (N <= 64)
-    rc = launch_state<4>(x, dt, a_log, b, cum, states, B, L, H, P, G, N, Q,
-                         slices, ps, vec_x, vec_bc, s);
+    rc = launch_state<4>(x, dt, a_log, b, cum, states, flag, B, L, H, P, G,
+                         N, Q, slices, ps, vec_x, vec_bc, s);
   else
-    rc = launch_state<8>(x, dt, a_log, b, cum, states, B, L, H, P, G, N, Q,
-                         slices, ps, vec_x, vec_bc, s);
+    rc = launch_state<8>(x, dt, a_log, b, cum, states, flag, B, L, H, P, G,
+                         N, Q, slices, ps, vec_x, vec_bc, s);
   if (rc) return rc;
 
   // the carry moves 16 bytes a thread where a (b, h)'s P N entries and
@@ -795,10 +863,10 @@ extern "C" int ssd_scan_f32(const float* x, const float* dt,
       (unsigned)((entries / per + kCarryThreads - 1) / kCarryThreads);
   if (vec_carry)
     ssd_scan_carry<4><<<carry_blocks, kCarryThreads, 0, s>>>(
-        init, cum, states, final_state, B, H, P, N, Q, nc);
+        init, cum, states, final_state, flag, B, H, P, N, Q, nc);
   else
     ssd_scan_carry<1><<<carry_blocks, kCarryThreads, 0, s>>>(
-        init, cum, states, final_state, B, H, P, N, Q, nc);
+        init, cum, states, final_state, flag, B, H, P, N, Q, nc);
   rc = (int)cudaGetLastError();
   if (rc) return rc;
 
@@ -813,6 +881,6 @@ extern "C" int ssd_scan_f32(const float* x, const float* dt,
                        P, G, N, Q, Qp, slices, ps, vec_x, vec_bc, vec_s, s);
   if (rc) return rc;
   ssd_scan_repair<<<kRepairBlocks, kRepairThreads, 0, s>>>(
-      x, dt, c, d_skip, cb, cum, states, y, flag, B, L, H, P, G, N, Q, Qp);
+      x, dt, b, c, d_skip, cb, cum, states, y, flag, B, L, H, P, G, N, Q, Qp);
   return (int)cudaGetLastError();
 }

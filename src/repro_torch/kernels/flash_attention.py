@@ -15,10 +15,17 @@ kernel (``csrc/flash_attention.cu``, both products 3xTF32 on the tensor
 cores) for CUDA tensors, with no fallback: a failed build or launch
 raises. ``plan_attention`` picks the kernel's tiles on the host;
 ``flash_attention_tf32x3_plain`` repeats its product precision in
-PyTorch. ``flash_attention.launches`` counts kernel launches and nothing
-else. The kernel has no backward, so the wrapper refuses inputs that need
-a gradient. No model calls it (the reference's models attend in plain jnp
-too); the kernel API ``ops`` does.
+PyTorch. The kernel walks only the kv tiles of each block's band, but the
+oracle takes p v over all Lkv keys with p = 0 outside a row's band, so a
+non-finite value entry there makes its column NaN (0 * inf). Where some
+row's band leaves out a key, a pass before the main launch reads V once
+for the first and last key with a non-finite entry per (batch, kv head),
+and a row whose band leaves one out is summed again over all keys in IEEE
+f32, as the oracle sums it. ``flash_attention.launches`` counts the
+wrapper's calls that ran on the card (one main launch each, whether or
+not the pass over V ran) and nothing else. The kernel has no backward, so
+the wrapper refuses inputs that need a gradient. No model calls it (the
+reference's models attend in plain jnp too); the kernel API ``ops`` does.
 """
 from __future__ import annotations
 
@@ -214,11 +221,12 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
     lkv, kvh = k.shape[1], k.shape[2]
     qf, kf, vf = (t.float().contiguous() for t in (q, k, v))
     o = torch.empty((b, lq, h, d), dtype=torch.float32, device=q.device)
+    vrange = torch.empty(2 * b * kvh, dtype=torch.int32, device=q.device)
     fn = "flash_attention_f32"
     rc = getattr(build.library("flash_attention"), fn)(
-        qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), o.data_ptr(), b, lq, lkv,
-        h, kvh, d, int(bool(causal)), window, d ** -0.5, plan.warps,
-        plan.kv_tile, _stream(q))
+        qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), o.data_ptr(),
+        vrange.data_ptr(), b, lq, lkv, h, kvh, d, int(bool(causal)), window,
+        d ** -0.5, plan.warps, plan.kv_tile, _stream(q))
     build.check(rc, fn)
     flash_attention.launches += 1
     return o.to(q.dtype)

@@ -16,8 +16,15 @@ Its four products run as 3xTF32 on the tensor cores (f32 accuracy);
 ``ssd_scan_tf32x3_plain`` repeats that arithmetic on the CPU. A fifth
 launch sums again in IEEE f32 each output the passes gave NaN (an inf or
 NaN operand; ``csrc/mma_tf32x3.cuh``), and reads one flag otherwise.
-``plan_scan`` is the kernel's host plan: its five launches, their blocks
-and the scratch they share.
+It also applies the reference's rule above the diagonal, which the
+products never read: the reference takes (C B^T * L) dt x over the whole
+chunk with L = 0 there, so y[i, p] is NaN wherever a later token j of the
+chunk has a non-finite x[j, p] dt[j] or C[i] . B[j] (0 * inf), as
+``ssd_scan_plain`` gives it. The carry launch flags each (batch, chunk,
+head) whose chunk-local state is non-finite, the output launch each that
+has a NaN output, and the repair visits only those. ``plan_scan`` is the
+kernel's host plan: its five launches, their blocks and the scratch they
+share.
 
 The wrapper ``ssd_scan`` computes the plain version for CPU tensors and
 launches the kernel for CUDA tensors, with no fallback: a failed build or
@@ -261,7 +268,8 @@ class ScanPlan(NamedTuple):
     carry over the chunks (``carry``), the outputs (``out``) and the
     repair of NaN outputs (``repair``); the P slices a (batch, chunk,
     head) is cut into, and the instances' widths. The scratch holds C B^T,
-    the cumsums, the states and the repair's flag, in that order."""
+    the cumsums, the states and the repair's flags (the call's, then one
+    a (batch, chunk, head)), in that order."""
     chunks: int
     chunk: int
     slices: int
@@ -311,7 +319,7 @@ def plan_scan(bsz: int, length: int, nheads: int, hp: int, groups: int,
     qp = tiles * CB_TILE
     jobs = bsz * nc * nheads
     scratch = (_up4(bsz * nc * groups * qp * qp) + _up4(jobs * chunk)
-               + _up4(jobs * hp * n) + 4)
+               + _up4(jobs * hp * n) + _up4(1 + jobs))
     causal = chunk * (chunk + 1) / 2
     flop = 2.0 * (bsz * nc * groups * causal * n
                   + jobs * (2 * chunk * hp * n + causal * hp))

@@ -17,6 +17,7 @@ from repro_torch.core import aggregation as tagg
 from repro_torch.core import energy as tenergy
 from repro_torch.core import partitions as tparts
 from repro_torch.core.svd import svd_realloc_gram as t_realloc
+from _torch_one_core import one_core  # noqa: F401  (autouse fixture)
 
 LEVELS = (4, 8, 16)
 RANK_CASES = [[4, 8, 16, 16], [4, 4, 8], [16], [8, 4, 8, 4, 4]]

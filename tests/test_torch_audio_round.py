@@ -37,6 +37,7 @@ from repro_torch.federation.experiment import make_batch_fn
 from repro_torch.federation.server import FederatedLoRA
 from repro_torch.kernels import ops
 from repro_torch.models.transformer import Model
+from _torch_one_core import one_core  # noqa: F401  (autouse fixture)
 
 torch.set_num_threads(1)
 

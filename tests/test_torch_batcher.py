@@ -39,6 +39,7 @@ from repro_torch.launch import serve
 from repro_torch.models.transformer import Model
 from repro_torch.serving import (AdapterStore, ContinuousBatcher,
                                  ServeRequest, ServingEngine)
+from _torch_one_core import one_core  # noqa: F401  (autouse fixture)
 
 torch.set_num_threads(1)
 

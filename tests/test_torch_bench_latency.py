@@ -5,7 +5,8 @@ round a study from the weights of the JAX study's own experiments (see
 transport's bytes and the momentum audit exactly, the event sweep's fires
 and virtual times exactly and its final energies at atol 1e-3. Times are
 not compared; both packages write their artifacts into a temporary
-directory."""
+directory. The engines' studies are here, the buffered server's (async,
+transport, event) in ``test_torch_bench_latency_buffered.py``."""
 import json
 
 import pytest
@@ -53,19 +54,23 @@ SECTIONS = {"run": None, "run_kernel_backend": "kernel_backend",
     ("run", dict(rounds=1, warmup=0)),
     ("run_kernel_backend", dict(rounds=1, warmup=0)),
     ("run_sharded", dict(rounds=1, warmup=0)),
-    ("run_async", dict(rounds=1, warmup=0, depths=(2,),
-                       rounds_per_block=2, d_model=32)),
-    ("run_transport", dict(rounds=1, warmup=0)),
-], ids=["engines", "kernel_backend", "sharded", "async", "transport"])
+], ids=["engines", "kernel_backend", "sharded"])
 def test_round_latency_study_matches_reference(study, kw, latency):
-    """One timed round (a block of two for async depth 2) per engine:
-    the same rows and artifact keys; the transport's bytes exactly; the
-    momentum audit's counts equal. ``run_kernel_backend`` includes its
-    sharded half on both sides: the reference on its one-device mesh, the
-    port on a one-rank group, which it destroys after. ``run_sharded``:
-    the reference sweeps the devices this process sees (one); the port
-    spawns a gloo group of S ranks for each S that fits, 1 and 2 on the
-    CPU, so it adds the S 2 row."""
+    """One timed round per engine: the same rows and artifact keys.
+    ``run_kernel_backend`` includes its sharded half on both sides: the
+    reference on its one-device mesh, the port on a one-rank group, which
+    it destroys after. ``run_sharded``: the reference sweeps the devices
+    this process sees (one); the port spawns a gloo group of S ranks for
+    each S that fits, 1 and 2 on the CPU, so it adds the S 2 row. The
+    buffered server's studies are in ``test_torch_bench_latency_buffered.py``
+    (one file a worker under the tier-1 run's ``--dist loadfile``)."""
+    check_study(study, kw, latency)
+
+
+def check_study(study, kw, latency):
+    """Runs ``study`` of both packages with ``kw``: the same rows and
+    artifact keys; the transport's bytes exactly; the momentum audit's
+    counts equal."""
     j_res = getattr(j_latency, study)(**kw)
     t_res = getattr(t_latency, study)(device="cpu", **kw)
     assert not dist.is_initialized()       # no study leaves a group behind
@@ -90,23 +95,3 @@ def test_round_latency_study_matches_reference(study, kw, latency):
     section = SECTIONS[study]
     assert (saved[section] if section else saved)["median_s"] == \
         t_res["median_s"]
-
-
-def test_round_latency_event_matches_reference(latency):
-    """The event sweep at one round and the drain, straggler fraction
-    0.5, each trigger: the same fires, updates, staleness and virtual times, the
-    final energy at atol 1e-3."""
-    j_res = j_latency.run_event(rounds=1, straggler_fracs=(0.5,))
-    t_res = t_latency.run_event(rounds=1, straggler_fracs=(0.5,),
-                                device="cpu")
-    t_names, j_names = _names()
-    assert t_names == j_names
-    assert len(t_res["rows"]) == len(j_res["rows"]) == 3
-    for t, j in zip(t_res["rows"], j_res["rows"]):
-        for key in ("trigger", "straggler_frac", "aggregations",
-                    "updates_aggregated", "max_staleness", "rounds"):
-            assert t[key] == j[key], key
-        assert t["virtual_time_total"] == pytest.approx(
-            j["virtual_time_total"], rel=1e-12)
-        assert abs(t["final_higher_rank_energy"]
-                   - j["final_higher_rank_energy"]) <= 1e-3

@@ -33,6 +33,7 @@ from repro_torch.benchmarks import bench_sensitivity as t_sensitivity
 from repro_torch.benchmarks import common as t_common
 from repro_torch.benchmarks import run as t_run
 from repro_torch.convert import params_from_numpy
+from _torch_one_core import one_core  # noqa: F401  (autouse fixture)
 
 torch.set_num_threads(1)
 

@@ -561,6 +561,85 @@ def test_cuda_ssd_scan_tensor_cores_beat_one_pass_tf32(
     assert float(((one_pass - want).abs() / bound).max()) > 1
 
 
+def _same_special_places(got, want):
+    """NaN at the same places, +-inf at the same places and signs."""
+    got, want = got.float().cpu(), want.float().cpu()
+    inf = torch.isinf(want)
+    return (torch.equal(got.isnan(), want.isnan())
+            and torch.equal(torch.isinf(got), inf)
+            and torch.equal(got[inf], want[inf]))
+
+
+# one non-finite entry: operand, token (a chunk's first or last 32), value;
+# x and dt at head 1, b and c at the last group
+SCAN_SPECIAL = [("x", 255, float("inf")), ("x", 197, float("nan")),
+                ("x", 40, float("-inf")), ("dt", 104, float("inf")),
+                ("dt", 70, float("nan")), ("b", 138, float("-inf")),
+                ("b", 120, float("nan")), ("c", 84, float("inf")),
+                ("c", 127, float("nan"))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("groups", [1, 2])
+@pytest.mark.parametrize("op,tok,value", SCAN_SPECIAL,
+                         ids=[f"{o}-{t}-{v}" for o, t, v in SCAN_SPECIAL])
+def test_cuda_ssd_scan_special_values_follow_the_plain_version(
+        cuda_device, op, tok, value, groups):
+    """K6 with one inf or NaN in x, dt, B or C, before and inside the
+    diagonal of its chunk: the NaN and +-inf places of y and the final
+    state equal the plain version's (the reference's 0 * inf above the
+    diagonal included), the finite rest within the scan's tolerance; the
+    chunks before the token's and the heads that read neither the value
+    nor its group bit-equal to the clean call's."""
+    shape = (1, 256, 4, 16, groups, 8, 64)
+    arrs, _ = _scan_case(15, *shape[:-1], cuda_device, False)
+    clean_y, _ = k6.ssd_scan(*arrs, 64)
+    arrs = [t.clone() for t in arrs]
+    if op == "x":
+        arrs[0][0, tok, 1, 5] = value
+    elif op == "dt":
+        arrs[1][0, tok, 1] = value
+    else:
+        arrs[3 if op == "b" else 4][0, tok, groups - 1, 3] = value
+    y, s = k6.ssd_scan(*arrs, 64)
+    want_y, want_s = k6.ssd_scan_plain(*arrs, 64)
+    for got, want in ((y, want_y), (s, want_s)):
+        assert _same_special_places(got, want)
+        keep = torch.isfinite(want)
+        torch.testing.assert_close(got[keep], want[keep], atol=2e-4,
+                                   rtol=1e-3)
+    assert bool(want_y.isnan().any())
+    reach = torch.ones(4, dtype=torch.bool)
+    if op in ("x", "dt"):
+        reach[[0, 2, 3]] = False
+    elif groups == 2:
+        reach[:2] = False
+    c0 = tok - tok % 64
+    assert torch.equal(y[:, :c0], clean_y[:, :c0])
+    assert torch.equal(y[:, :, ~reach.to(cuda_device)],
+                       clean_y[:, :, ~reach.to(cuda_device)])
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_scan_pins_an_overflow_above_the_diagonal(cuda_device):
+    """The limit of K6's masked-region rule (ROADMAP.md queue 3): finite
+    C[i] and B[j], j > i in one chunk, whose product overflows f32. The
+    reference's C B^T * L is inf * 0 = NaN there, so the plain version's
+    row i is NaN; no operand is non-finite, so nothing flags the (batch,
+    chunk, head) and the card's row i stays finite. Every other output
+    agrees with the plain version."""
+    arrs, _ = _scan_case(16, 1, 128, 2, 8, 1, 8, cuda_device, False)
+    arrs[4][0, 70, 0, 3] = 3e19        # C, row 70
+    arrs[3][0, 90, 0, 3] = 3e19        # B, token 90: C[70] . B[90] = inf
+    y, _ = k6.ssd_scan(*arrs, 64)
+    want, _ = k6.ssd_scan_plain(*arrs, 64)
+    row = torch.zeros_like(want, dtype=torch.bool)
+    row[0, 70] = True
+    assert bool(want[row].isnan().all())
+    assert bool(y[row].isfinite().all())
+    assert torch.equal(y.isnan() | row, want.isnan())
+
+
 @pytest.mark.cuda
 def test_cuda_ssd_scan_rejects_ragged_length(cuda_device):
     arrs, _ = _scan_case(13, 1, 48, 4, 8, 1, 16, cuda_device, False)
@@ -1111,6 +1190,45 @@ def test_cuda_flash_attention_infinite_key_gives_nan(cuda_device):
     assert bool(want[0, 10:][minus].isfinite().all())
     keep = ~want.isnan()
     torch.testing.assert_close(got[keep], want[keep], atol=2e-5, rtol=1e-4)
+
+
+# one non-finite value entry that some rows' band leaves out: (Lkv,
+# causal, window, key) at Lq 40
+PAST_BAND = {"causal": (40, True, 0, 30), "causal-window": (40, True, 8, 3),
+             "window": (40, False, 8, 3), "causal-lkv-gt-lq": (48, True, 0,
+                                                               44)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("value", [float("inf"), float("nan")],
+                         ids=["inf", "nan"])
+@pytest.mark.parametrize("case", list(PAST_BAND))
+def test_cuda_flash_attention_value_past_the_band_gives_nan(cuda_device,
+                                                            case, value):
+    """The oracle takes p v over all Lkv keys with p = 0 outside a row's
+    band: one inf or NaN value entry there makes its column NaN at every
+    row that does not see the key. K7 (the pass over V, then those rows
+    again in IEEE f32) has the plain version's NaN and +-inf places and
+    its finite values within the tolerance; the query heads of the other
+    kv head are bit-equal to the clean call's; one wrapper call counted."""
+    lkv, causal, window, key = PAST_BAND[case]
+    rng = np.random.default_rng(25)
+    q, k, v = (torch.from_numpy(x.astype(np.float32)).to(cuda_device)
+               for x in (rng.normal(size=(1, 40, 4, 16)),
+                         rng.normal(size=(1, lkv, 2, 16)),
+                         rng.normal(size=(1, lkv, 2, 16))))
+    clean = fa.flash_attention(q, k, v, causal, window)
+    v[0, key, 1, 5] = value
+    before = fa.flash_attention.launches
+    got = fa.flash_attention(q, k, v, causal, window)
+    want = fa.flash_attention_plain(q, k, v, causal, window)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    assert _same_special_places(got, want)
+    assert bool(want[0, :, 2:, 5].isnan().any())
+    keep = torch.isfinite(want)
+    torch.testing.assert_close(got[keep], want[keep], atol=2e-5, rtol=1e-4)
+    assert torch.equal(got[:, :, :2], clean[:, :, :2])
 
 
 @pytest.mark.cuda

@@ -26,6 +26,7 @@ from repro_torch.convert import params_from_numpy
 from repro_torch.models.layers import attention as tattn
 from repro_torch.models.layers import rope as trope
 from repro_torch.models.transformer import Model
+from _torch_one_core import one_core  # noqa: F401  (autouse fixture)
 
 torch.set_num_threads(1)
 

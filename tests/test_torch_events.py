@@ -32,6 +32,7 @@ from repro_torch.federation import events as tev
 from repro_torch.federation.experiment import build_experiment as t_build
 from repro_torch.federation.topology import ClientRegistry as TReg
 from repro_torch.federation.transport import TransportConfig as TTx
+from _torch_one_core import one_core  # noqa: F401  (autouse fixture)
 
 torch.set_num_threads(1)
 

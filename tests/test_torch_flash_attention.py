@@ -18,6 +18,7 @@ from repro.kernels import ref
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import ops as tops
 from repro_torch.models.layers.attention import causal_attention
+from _torch_one_core import one_core  # noqa: F401  (autouse fixture)
 
 torch.set_num_threads(1)
 
@@ -139,3 +140,37 @@ def test_wrapper_checks_inputs_and_counts_no_cpu_launch():
         fa.flash_attention(q, k[:, :0], v[:, :0])
     with pytest.raises(NotImplementedError, match="backward"):
         fa.flash_attention(q.requires_grad_(), k, v)
+
+
+# a value entry past the band: the key lies outside some rows' band, and
+# the oracle's p v over all Lkv keys (p = 0 there) gives those rows NaN
+# in its column (0 * inf), whatever the rest of the row
+PAST_BAND = {"causal": (40, True, 0, 30), "causal-window": (40, True, 8, 3),
+             "window": (40, False, 8, 3), "causal-lkv-gt-lq": (48, True, 0,
+                                                               44)}
+
+
+@pytest.mark.parametrize("value", [np.inf, np.nan], ids=["inf", "nan"])
+@pytest.mark.parametrize("case", list(PAST_BAND))
+def test_value_past_the_band_nans_its_column_as_reference(case, value):
+    """One non-finite V entry (key ``kv``, column 5) that some rows' band
+    leaves out: the plain version (the card's target) has the oracle's
+    NaN and +-inf places, NaN at every row that does not see the key, and
+    its finite values within the file's tolerance. The causal call with
+    Lkv > Lq puts it at a key no row sees."""
+    lkv, causal, window, kv = PAST_BAND[case]
+    q, k, v = _qkv(37, 1, 40, 2, 1, 16, lkv)
+    v[0, kv, 0, 5] = value
+    got = fa.flash_attention_plain(*(torch.from_numpy(t) for t in (q, k, v)),
+                                   causal=causal, window=window).numpy()
+    want = np.asarray(ref.flash_attention_ref(
+        *(jnp.asarray(t) for t in (q, k, v)), causal=causal, window=window))
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    np.testing.assert_array_equal(got[np.isinf(want)], want[np.isinf(want)])
+    rows = np.arange(40)
+    unseen = np.zeros(40, bool) if not causal else kv > rows
+    if window:
+        unseen |= kv <= rows - window
+    assert unseen.any() and np.isnan(want[0, unseen][:, :, 5]).all()
+    keep = np.isfinite(want)
+    np.testing.assert_allclose(got[keep], want[keep], **TOL)

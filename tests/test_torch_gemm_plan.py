@@ -15,6 +15,7 @@ from repro.kernels import ref
 from repro_torch.core.partitions import omega_raflora
 from repro_torch.kernels import gemm_plan as gp
 from repro_torch.kernels import rank_partition_agg as rpa
+from _torch_one_core import one_core  # noqa: F401  (autouse fixture)
 
 torch.set_num_threads(1)
 

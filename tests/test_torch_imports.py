@@ -74,7 +74,7 @@ MODULES = [
     "repro_torch.analysis.rules",
     "repro_torch.tools", "repro_torch.tools.bench_trend",
     "repro_torch.tools.certify_scaling", "repro_torch.tools.chip_phases",
-    "repro_torch.tools.ci",
+    "repro_torch.tools.ci", "repro_torch.tools.kernel_ab",
     "repro_torch.tools.lint_programs", "repro_torch.tools.verify_protocol",
 ]
 

@@ -15,6 +15,7 @@ from repro_torch.core.aggregation import (aggregate_flexlora,
                                           aggregate_raflora, pad_stack)
 from repro_torch.core.energy import rho
 from repro_torch.core.partitions import omega_raflora
+from _torch_one_core import one_core  # noqa: F401  (autouse fixture)
 
 torch.set_num_threads(1)
 

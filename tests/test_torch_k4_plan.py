@@ -11,6 +11,7 @@ import torch
 from repro.kernels import ref
 from repro_torch.kernels import gemm_plan as gp
 from repro_torch.kernels import lora_apply as la
+from _torch_one_core import one_core  # noqa: F401  (autouse fixture)
 
 torch.set_num_threads(1)
 

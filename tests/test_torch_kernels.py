@@ -15,6 +15,7 @@ from repro.kernels import ref
 from repro_torch.core import svd as tsvd
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import rank_partition_agg as rpa
+from _torch_one_core import one_core  # noqa: F401  (autouse fixture)
 
 # tiny CPU matmuls: one torch thread keeps parallel test workers (and
 # JAX's own thread pool in the same process) from oversubscribing cores

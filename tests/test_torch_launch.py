@@ -17,6 +17,7 @@ from repro.federation.experiment import build_experiment as j_build
 from repro.launch import train as j_train
 from repro_torch.convert import params_from_numpy
 from repro_torch.launch import train as t_train
+from _torch_one_core import one_core  # noqa: F401  (autouse fixture)
 
 torch.set_num_threads(1)
 

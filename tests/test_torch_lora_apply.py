@@ -14,6 +14,7 @@ from repro.kernels import ref
 from repro_torch.kernels import lora_apply as la
 from repro_torch.kernels import ops as tops
 from repro_torch.models.layers.dense import dense_apply
+from _torch_one_core import one_core  # noqa: F401  (autouse fixture)
 
 torch.set_num_threads(1)
 

@@ -8,6 +8,7 @@ import torch
 
 from repro.core import lora as jlora
 from repro_torch.core import lora as tlora
+from _torch_one_core import one_core  # noqa: F401  (autouse fixture)
 
 R_MAX = 16
 

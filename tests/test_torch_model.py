@@ -24,6 +24,7 @@ from repro_torch.core.lora import flatten, split_lora, unflatten
 from repro_torch.federation.client import LocalTrainer
 from repro_torch.federation.experiment import fedvit_config
 from repro_torch.models.transformer import Model
+from _torch_one_core import one_core  # noqa: F401  (autouse fixture)
 
 LEVELS = (4, 8, 16)
 D, PATCHES, CLASSES = 32, 8, 6

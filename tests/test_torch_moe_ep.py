@@ -37,6 +37,7 @@ from repro_torch.models.layers import moe as tmoe
 from repro_torch.models.transformer import Model
 from test_torch_moe_mla import (LORA, REDUCED, TOL, _assert_margin, _batch,
                                 _pair, _router_margins)
+from _torch_one_core import one_core  # noqa: F401  (autouse fixture)
 
 torch.set_num_threads(1)
 

@@ -59,6 +59,7 @@ from repro_torch.models.layers import mla as tmla
 from repro_torch.models.layers import moe as tmoe
 from repro_torch.models.transformer import Model
 from repro_torch.serving import AdapterStore, ServingEngine
+from _torch_one_core import one_core  # noqa: F401  (autouse fixture)
 
 torch.set_num_threads(1)
 

@@ -23,6 +23,7 @@ from repro_torch.configs.base import FrontendConfig, ModelConfig
 from repro_torch.convert import params_from_numpy
 from repro_torch.data import SequenceCopy
 from repro_torch.models.transformer import Model
+from _torch_one_core import one_core  # noqa: F401  (autouse fixture)
 
 torch.set_num_threads(1)
 

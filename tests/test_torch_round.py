@@ -20,6 +20,7 @@ from repro.federation.experiment import build_experiment as j_build
 from repro_torch.convert import params_from_numpy
 from repro_torch.core.lora import flatten
 from repro_torch.federation.experiment import build_experiment as t_build
+from _torch_one_core import one_core  # noqa: F401  (autouse fixture)
 
 SMALL = dict(fl_overrides={"num_rounds": 1, "num_clients": 8,
                            "participation": 0.5},

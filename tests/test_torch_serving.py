@@ -28,6 +28,7 @@ from repro_torch.core.lora import flatten, merge_lora, split_lora
 from repro_torch.models.transformer import Model
 from repro_torch.serving import AdapterStore, ServingEngine, seed_cache
 from repro_torch.serving.engine import greedy
+from _torch_one_core import one_core  # noqa: F401  (autouse fixture)
 
 torch.set_num_threads(1)
 

@@ -34,6 +34,7 @@ from repro_torch.convert import params_from_numpy
 from repro_torch.kernels import ops
 from repro_torch.models.layers import ssd as tssd
 from repro_torch.models.transformer import Model
+from _torch_one_core import one_core  # noqa: F401  (autouse fixture)
 
 torch.set_num_threads(1)
 
@@ -100,24 +101,85 @@ def test_scan_matches_reference_pallas_kernel():
     np.testing.assert_allclose(s.numpy(), np.asarray(js), **SCAN_TOL)
 
 
-def test_infinite_x_nans_the_chunk_rows_before_it_as_reference():
-    """An inf in x at a chunk's last token: the reference's Pallas
-    ``ops.ssd_scan`` (interpret mode) takes (C B^T * L) dtx over the whole
-    chunk, L = 0 above the diagonal, so 0 * inf makes that column NaN at
-    every earlier row of the chunk; the port's plain version gives the
-    same NaN and +-inf places (the pattern the card's K6 is held to,
-    ROADMAP.md queue 3), and the same final state."""
-    arrs = _scan_inputs(5, 1, 64, 2, 8, 1, 8)
-    arrs[0][0, 63, 1, 5] = np.inf
-    y, s = ops.ssd_scan(*_t(arrs), 32)
-    jy, js = (np.asarray(v) for v in jops.ssd_scan(*_j(arrs), chunk=32))
-    np.testing.assert_array_equal(np.isnan(y.numpy()), np.isnan(jy))
-    np.testing.assert_array_equal(np.isinf(y.numpy()), np.isinf(jy))
-    assert np.isnan(jy[0, 32:63, 1, 5]).all() and np.isinf(jy[0, 63, 1, 5])
-    assert not np.isnan(jy[0, :32]).any()
-    np.testing.assert_array_equal(np.isinf(s.numpy()), np.isinf(js))
+# one non-finite entry (operand, value, token) at the scan of the
+# Motivation's shape, B 1, L 64, H 2, P 8, N 8, chunk 32: x at head 1,
+# column 5; dt at head 1; B at column 3 of the last group; C at column 3
+# of group 0. A token in the first chunk and one in the last.
+SPECIAL_OPERANDS = {"x": 1, "dt": 1, "b-g1": 1, "b-g2": 2, "c": 1}
+SPECIAL_VALUES = {"inf": np.inf, "-inf": -np.inf, "nan": np.nan}
+SPECIAL_TOKENS = (20, 50)
+SPECIAL_CASES = [(op, val, tok) for op in SPECIAL_OPERANDS
+                 for val in SPECIAL_VALUES for tok in SPECIAL_TOKENS]
+
+
+def _special_inputs(op, val, tok):
+    groups = SPECIAL_OPERANDS[op]
+    arrs = _scan_inputs(5, 1, 64, 2, 8, groups, 8)
+    value = SPECIAL_VALUES[val]
+    if op == "x":
+        arrs[0][0, tok, 1, 5] = value
+    elif op == "dt":
+        arrs[1][0, tok, 1] = value
+    elif op == "c":
+        arrs[4][0, tok, 0, 3] = value
+    else:
+        arrs[3][0, tok, groups - 1, 3] = value
+    return arrs
+
+
+@pytest.fixture(scope="module")
+def special_reference():
+    """The reference's Pallas ``ops.ssd_scan`` (interpret mode) of every
+    special case, once a group count: the cases stacked on the batch axis,
+    whose rows the scan keeps apart."""
+    out = {}
+    for groups in sorted(set(SPECIAL_OPERANDS.values())):
+        cases = [c for c in SPECIAL_CASES
+                 if SPECIAL_OPERANDS[c[0]] == groups]
+        arrs = [_special_inputs(*c) for c in cases]
+        stacked = [a if i in (2, 5) else np.concatenate(
+            [case[i] for case in arrs]) for i, a in enumerate(arrs[0])]
+        jy, js = (np.asarray(v) for v in jops.ssd_scan(*_j(stacked),
+                                                       chunk=32))
+        out.update({c: (jy[n], js[n]) for n, c in enumerate(cases)})
+    return out
+
+
+@pytest.mark.parametrize("op,val,tok", SPECIAL_CASES,
+                         ids=[f"{o}-{v}-{t}" for o, v, t in SPECIAL_CASES])
+def test_infinite_x_nans_the_chunk_rows_before_it_as_reference(
+        op, val, tok, special_reference):
+    """A non-finite x, dt, B (one group or two) or C, +-inf or NaN, in the
+    first or the last chunk: the reference takes (C B^T * L) dtx over the
+    whole chunk, L = 0 above the diagonal, so 0 * inf makes y NaN at every
+    earlier row of the chunk where the token's x dt (column p) or C[i] .
+    B[j] (every column, every head of the group) is non-finite, and a
+    non-finite C[i] NaNs its own row unless it is the chunk's last. The
+    port's plain version (what the card's K6 is held to) gives the same
+    NaN and +-inf places in y and the final state, and its finite values
+    within the scan's tolerance."""
+    arrs = _special_inputs(op, val, tok)
+    y, s = (t.numpy()[0] for t in ops.ssd_scan(*_t(arrs), 32))
+    jy, js = special_reference[(op, val, tok)]
+    for got, want in ((y, jy), (s, js)):
+        np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+        np.testing.assert_array_equal(got[np.isinf(want)],
+                                      want[np.isinf(want)])
+    before = np.zeros(jy.shape, bool)            # the rule, (L, H, P)
+    rows = slice(tok - tok % 32, tok)
+    if op == "x":
+        before[rows, 1, 5] = True
+    elif op == "dt":
+        before[rows, 1] = True
+    elif op == "b-g2":
+        before[rows, 1] = True
+    elif op == "b-g1":
+        before[rows] = True
+    elif tok % 32 != 31:
+        before[tok] = True
+    assert before.any() and np.isnan(jy[before]).all()
     keep = np.isfinite(jy)
-    np.testing.assert_allclose(y.numpy()[keep], jy[keep], **SCAN_TOL)
+    np.testing.assert_allclose(y[keep], jy[keep], **SCAN_TOL)
 
 
 def test_initial_state_carry():

@@ -12,6 +12,7 @@ import torch
 from repro.core import svd as jsvd
 from repro.core.partitions import omega_flexlora, omega_raflora
 from repro_torch.core import svd as tsvd
+from _torch_one_core import one_core  # noqa: F401  (autouse fixture)
 
 LEVELS = [4, 8, 16]
 R_MAX = 16

@@ -16,6 +16,7 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import gemm_plan as gp
 from repro_torch.kernels import lora_apply as la
 from repro_torch.kernels import tf32x3
+from _torch_one_core import one_core  # noqa: F401  (autouse fixture)
 
 torch.set_num_threads(1)
 

@@ -19,6 +19,7 @@ from repro.federation import transport as jtx
 from repro_torch.core import aggregation as tagg
 from repro_torch.federation import transport as ttx
 from repro_torch.kernels import ops
+from _torch_one_core import one_core  # noqa: F401  (autouse fixture)
 
 torch.set_num_threads(1)
 

@@ -54,6 +54,7 @@ from repro_torch.launch import steps as t_steps
 from repro_torch.models.layers import dense as td
 from repro_torch.models.transformer import Model
 from repro_torch.serving.adapter_store import AdapterStore
+from _torch_one_core import one_core  # noqa: F401  (autouse fixture)
 
 torch.set_num_threads(1)
 
