@@ -491,14 +491,22 @@ K7_PAST_BAND = {"causal": (40, True, 0, 30), "causal_window": (40, True, 8, 3),
                 "causal_lkv_gt_lq": (48, True, 0, 44)}
 # K6 at (1, 256, 4, 16, groups, 8, 64) with one non-finite entry: (groups,
 # operand, token, value); x and dt at head 1, b and c at the last group.
-# Tokens in a chunk's first and last 32 (the kernel's stages).
+# Tokens in a chunk's first and last 32 (the kernel's stages). Then finite
+# entries whose intermediates the reference makes non-finite
+# (``_k6_special``): C . B overflowing above the diagonal, x dt
+# overflowing before a strong decay or in the band, and B inf beside f32
+# denormal decays, which the reference flushes to 0.
 K6_SPECIAL = {"ssd_scan": (1, "x", 256 - 64 + 5, INF),
               "ssd_scan_last": (1, "x", 255, INF),
               "ssd_scan_nan": (1, "x", 40, NAN),
               "ssd_scan_dt": (1, "dt", 64 + 40, INF),
               "ssd_scan_b": (1, "b", 128 + 10, -INF),
               "ssd_scan_b_g2": (2, "b", 128 + 50, INF),
-              "ssd_scan_c": (1, "c", 64 + 20, INF)}
+              "ssd_scan_c": (1, "c", 64 + 20, INF),
+              "ssd_scan_cb_overflow": (1, "cb_overflow", 64 + 6, 3e19),
+              "ssd_scan_dtx_decay": (1, "dtx_decay", 64 + 10, 1e10),
+              "ssd_scan_dtx_band": (1, "dtx_band", 64 + 40, 1e10),
+              "ssd_scan_b_denormal": (2, "b_denormal", 20, INF)}
 GREEDY_ROWS = {"nan_first": [NAN, 1, 2, 3, 0, 5, 1, 2],
                "nan_middle": [0, 1, NAN, 1, 7, 2, 1, 0],
                "nan_last": [3, 1, 2, 3, 0, 5, 1, NAN],
@@ -697,6 +705,47 @@ def phase_non_finite(torch) -> None:
     _non_finite_rules(torch, np, v)
 
 
+def _k6_special(torch, args, op: str, tok: int, value: float,
+                groups: int):
+    """K6_SPECIAL's entry applied to ``args`` (x, dt, a_log, b, c, d) of 4
+    heads in place; returns the heads it reaches (a bool mask). x, dt: one
+    entry at head 1. b, c: one entry at the last group. cb_overflow: C[tok]
+    and B[tok + 20] at column 3 of the last group, whose product overflows.
+    dtx_decay: x[tok] dt[tok] overflows at head 1, dt[tok + 1] = 1e3 after
+    it. dtx_band: the same inside the band, B[tok] = e0 and C[tok] = 1e-20
+    e0 at head 1's group. b_denormal: B inf at column 3 of the last group,
+    A = -1 and dt = 3 at head 3 after it, so that rows tok + 30 .. + 34 see
+    decays exp(-90 .. -102), f32 denormals."""
+    x, dt, a_log, b, c, _ = args
+    g = groups - 1
+    if op == "x":
+        x[0, tok, 1, 5] = value
+    elif op == "dt":
+        dt[0, tok, 1] = value
+    elif op in ("b", "c"):
+        (b if op == "b" else c)[0, tok, g, 3] = value
+    elif op == "cb_overflow":
+        c[0, tok, g, 3] = b[0, tok + 20, g, 3] = value
+    elif op in ("dtx_decay", "dtx_band"):
+        x[0, tok, 1, 3], dt[0, tok, 1] = 1e30, value
+        if op == "dtx_decay":
+            dt[0, tok + 1, 1] = 1e3
+        else:                                   # head 1 reads group 0
+            b[0, tok, 0], c[0, tok, 0] = 0.0, 0.0
+            b[0, tok, 0, 0], c[0, tok, 0, 0] = 1.0, 1e-20
+    else:                       # b_denormal: head 3 reads the last group
+        a_log[3] = 0.0
+        dt[0, tok + 1:tok - tok % 64 + 64, 3] = 3.0
+        b[0, tok, g, 3] = value
+    reach = torch.ones(4, dtype=torch.bool)
+    if op in ("x", "dt", "dtx_decay"):
+        reach[[0, 2, 3]] = False
+    elif groups == 2:                           # the group of heads 0-1
+        reach[:2] = op == "dtx_band"            # or of heads 2-3
+        reach[2:] = op != "dtx_band"
+    return reach
+
+
 def _same_classes(torch, got, want) -> bool:
     """NaN at the same places, and +-inf at the same places and signs."""
     got, want = got.float().cpu(), want.float().cpu()
@@ -817,7 +866,7 @@ def _non_finite_rules(torch, np, v: int) -> None:
                                      causal, window)
             want = fa.flash_attention_plain(q, kk, vv, causal, window)
             tc[f"flash_attention_v_{name}_{label}"] = _special_check(
-                torch, got, want, 2e-5, 1e-4)
+                torch, got, want, 2e-5, 1e-4, f"K7 v {name} {label}")
             # query heads 0-1 read kv head 0, which the value cannot reach
             require(torch.equal(got[:, :, :2], clean_o[:, :, :2]),
                     f"non_finite_rules: K7 {label}: kv head 0 moved")
@@ -827,26 +876,17 @@ def _non_finite_rules(torch, np, v: int) -> None:
             device=DEV).manual_seed(33), False)
         clean_y = k6.ssd_scan(*clean, shape[-1])[0].cpu()
         args = [t.cpu().clone() for t in clean]
-        if op == "x":
-            args[0][0, tok, 1, 5] = value
-        elif op == "dt":
-            args[1][0, tok, 1] = value
-        else:
-            args[3 if op == "b" else 4][0, tok, groups - 1, 3] = value
+        reach = _k6_special(torch, args, op, tok, value, groups)
         got, state = k6.ssd_scan(*[t.to(DEV) for t in args], shape[-1])
         want, want_state = k6.ssd_scan_plain(*args, shape[-1])
         tc[label] = _special_check(torch, got, want, SCAN_TOL["atol"],
-                                   SCAN_TOL["rtol"])
+                                   SCAN_TOL["rtol"], label)
         tc[f"{label}_state"] = _special_check(
-            torch, state, want_state, SCAN_TOL["atol"], SCAN_TOL["rtol"])
+            torch, state, want_state, SCAN_TOL["atol"], SCAN_TOL["rtol"],
+            f"{label}_state")
         # what the value cannot reach: the chunks before its own, and the
         # heads that read neither it nor its group
-        reach = torch.ones(4, dtype=torch.bool)
-        if op in ("x", "dt"):
-            reach[[0, 2, 3]] = False
-        elif groups == 2:
-            reach[:2] = False
-        c0 = tok - tok % shape[-1]
+        c0 = tok - tok % shape[-1] if op != "b_denormal" else 0
         got_c = got.cpu()
         require(torch.equal(got_c[:, :c0], clean_y[:, :c0])
                 and torch.equal(got_c[:, :, ~reach], clean_y[:, :, ~reach]),
@@ -915,16 +955,18 @@ def _k7_past_band_full(torch) -> None:
           "clean_kernel_ms": clean_ms, "card": card_line()})
 
 
-def _special_check(torch, got, want, atol: float, rtol: float = 0.0
-                   ) -> dict:
+def _special_check(torch, got, want, atol: float, rtol: float = 0.0,
+                   label: str = "") -> dict:
     """``got`` (card) against ``want`` (CPU): the same NaN and +-inf
-    places, the finite rest within atol + rtol |want|."""
+    places, the finite rest within atol + rtol |want|; ``label`` names
+    the case in a failure."""
     got, want = got.float().cpu(), want.float().cpu()
     fin = torch.isfinite(want)
-    err = float((got[fin] - want[fin]).abs().max())
+    err = float((got[fin] - want[fin]).abs().max()) if bool(fin.any()) \
+        else 0.0
     ok = _same_classes(torch, got, want) and bool(
         ((got[fin] - want[fin]).abs() <= atol + rtol * want[fin].abs()).all())
-    require(ok, f"non_finite_rules: special values differ: NaN "
+    require(ok, f"non_finite_rules: {label} special values differ: NaN "
                 f"{int(got.isnan().sum())} / {int(want.isnan().sum())}, "
                 f"inf {int(got.isinf().sum())} / {int(want.isinf().sum())}, "
                 f"finite err {err}")

@@ -50,8 +50,6 @@ SPILL_WAIVERS: Dict[str, Tuple[int, int]] = {
     "lora_tc_kernel<true>": (4, 4),
     "rank_partition_agg_kernel<false>": (16, 32),
     "rank_partition_agg_kernel<true>": (12, 20),
-    "ssd_scan_out<8>": (24, 48),
-    "ssd_scan_state<4>": (8, 8),
 }
 
 
@@ -197,7 +195,7 @@ def ptxas_reports() -> Dict[str, str]:
     nvcc = build._nvcc()
     with tempfile.TemporaryDirectory() as tmp:
         procs = {s: subprocess.Popen(
-            [nvcc, *build.NVCC_FLAGS, "-o", os.path.join(tmp, f"{s}.so"),
+            [nvcc, *build.nvcc_flags(s), "-o", os.path.join(tmp, f"{s}.so"),
              str(build.CSRC / f"{s}.cu")], stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True) for s in missing}
         for stem, proc in procs.items():
@@ -368,7 +366,7 @@ def oversized_control() -> CudaPrograms:
         "ptxas info    : Used 255 registers, used 1 barriers, "
         "98304 bytes smem",
         "ptxas info    : Compiling entry function "
-        "'_ZN13_GLOBAL__N__x14ssd_scan_stateILi4EEEvPKf' for 'sm_90a'",
+        "'_ZN13_GLOBAL__N__x14lora_tc_kernelILb1EEEvPKf' for 'sm_90a'",
         "    16 bytes stack frame, 16 bytes spill stores, "
         "16 bytes spill loads",
         "ptxas info    : Used 80 registers, used 1 barriers",

@@ -5,8 +5,9 @@ Each ``csrc/*.cu`` source has a plain C interface and is compiled by
 ``ctypes``. Builds happen at first use (never at import: the CPU test
 machines have no ``nvcc``), all sources at once in parallel, into
 ``build/kernels/`` at the repository root, a directory git ignores. A
-library's file name carries a hash of its source and of the shared
-headers (``csrc/*.cuh``), so an edited kernel is always rebuilt.
+library's file name carries a hash of its source, of the shared headers
+(``csrc/*.cuh``) and of its nvcc flags, so an edited kernel or a changed
+flag is always rebuilt.
 """
 from __future__ import annotations
 
@@ -23,6 +24,9 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+# flags of one source: K6 flushes f32 denormals to zero, in its results and
+# its operands, as XLA's CPU backend and the TPU compute the reference
+SOURCE_FLAGS = {"ssd_scan": ["-ftz=true"]}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -76,12 +80,18 @@ def _nvcc() -> str:
     return str(path)
 
 
+def nvcc_flags(stem: str) -> list:
+    """nvcc's flags for one source: the common ones and its own."""
+    return [*NVCC_FLAGS, *SOURCE_FLAGS.get(stem, [])]
+
+
 def _lib_path(stem: str) -> Path:
-    """The library's path, named by a hash of its source and of every
-    header in ``csrc/`` (a source may include any of them)."""
+    """The library's path, named by a hash of its source, of every header
+    in ``csrc/`` (a source may include any of them) and of its flags."""
     digest = hashlib.sha1((CSRC / f"{stem}.cu").read_bytes())
     for header in sorted(CSRC.glob("*.cuh")):
         digest.update(header.read_bytes())
+    digest.update(" ".join(nvcc_flags(stem)).encode())
     digest = digest.hexdigest()[:12]
     return BUILD_DIR / f"lib{stem}-{digest}.so"
 
@@ -100,7 +110,8 @@ def build_all() -> Dict[str, ctypes.CDLL]:
         procs = {}
         for stem, out in missing.items():
             tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{stem}.cu")]
+            cmd = [nvcc, *nvcc_flags(stem), "-o", str(tmp),
+                   str(CSRC / f"{stem}.cu")]
             builds += 1
             procs[stem] = (tmp, out, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,

@@ -7,11 +7,11 @@
 // head h, with A = -exp(a_log[h]) and chunks of Q tokens:
 //
 //     cum_i   = sum_{q <= i} dt_q A                (inclusive, in the chunk)
-//     y_i     = sum_{j <= i} (C_i . B_j) exp(cum_i - cum_j) dt_j x_j
+//     y_i     = sum_{j <= i} ((C_i . B_j) exp(cum_i - cum_j)) dtx_j
 //             + exp(cum_i) C_i . S_c               (S_c: state entering chunk c)
-//             + D x_i
+//             + D x_i,                             dtx_j = x_j dt_j
 //     S_{c+1} = exp(cum_{Q-1}) S_c + dS_c,
-//     dS_c    = sum_q exp(cum_{Q-1} - cum_q) dt_q B_q x_q^T
+//     dS_c    = sum_q (dtx_q exp(cum_{Q-1} - cum_q)) B_q^T
 //
 // x (B, L, H, P), dt (B, L, H), b and c (B, L, G, N), a_log and d_skip
 // (H,), init (B, H, P, N) or null (a zero state); y (B, L, H, P) and the
@@ -25,15 +25,17 @@
 // (and a fifth, 5. repair, which reads one flag unless an output is NaN):
 //   1. cb:    C B^T once per (batch, chunk, group), 64 x 64 tiles on and
 //             below the diagonal, into scratch (B, nc, G, Qp, Qp); it does
-//             not depend on the head, and the group's heads all read it;
+//             not depend on the head, and the group's heads all read it.
+//             The diagonal tiles, which hold every row of the chunk's C and
+//             B between them, also write their rows' max |C| and max |B|;
 //   2. state: one block per (b, chunk, h, P slice): the chunk's cumsum by
 //             a block scan (written to scratch for launches 3 and 4), then
-//             dS_c = (x w)^T B over the chunk's tokens, w_q = dt_q
+//             dS_c = (dtx o decay)^T B over the chunk's tokens, decay_q =
 //             exp(cum_last - cum_q), into scratch (B, nc, H, P, N);
 //   3. carry: a thread per four entries (b, h, p, n..n+3) walks the chunks
 //             in order, replacing dS_c by S_c and writing the final state;
 //   4. out:   one block per (b, chunk, h, P slice, 128 rows of the chunk):
-//             y = (C exp(cum)) S_c^T + (C B^T o L dt) x + D x, with
+//             y = (C exp(cum)) S_c^T + (C B^T o L) dtx + D x, with
 //             L_ij = exp(cum_i - cum_j) for j <= i, masked before it is
 //             used (a select, so an exp of a positive difference, or a C B^T
 //             entry above the diagonal, never reaches a sum); the tiles
@@ -42,37 +44,53 @@
 // operand) are summed again in IEEE f32 from the same operand values
 // (mma_tf32x3.cuh): launches 1 and 2 repair their own in place, launch 4
 // flags its, and launch 5 repairs them.
+// The reference's intermediates. The kernel forms dtx = x dt, C B^T, L,
+// C B^T o L and the decays as the reference names them, so that an
+// intermediate that overflows or underflows does so as there: dtx as an x
+// element's fragment loads (launches 2 and 4), never folded into a decay
+// or into C B^T. The file is compiled with -ftz=true (kernels/build.py):
+// every f32 result below 2^-126 is 0 and every such operand read as 0, as
+// XLA's CPU backend and the TPU compute f32, so a decay exp(cum_i - cum_j)
+// beyond -87.3 is 0 and 0 * inf = NaN beside it as in the reference.
 // Above the diagonal. The reference multiplies C B^T by L = exp(-1e30) = 0
-// there and takes the product with dt x over the whole chunk, so y[i, p]
-// is NaN wherever a token j > i of the chunk has a non-finite x[j, p]
-// dt[j] or C[i] . B[j]: 0 * inf. Launch 4 never reads those tokens for
-// row i; the rule is applied where the inputs are already read. A
-// non-finite x[j, p] dt[j], dt[j] or B[j] makes the chunk-local state dS_c
-// non-finite, which launch 3 tests as it loads it (no byte added), and a
-// non-finite C[i] makes row i NaN in launch 4's passes; either raises the
-// (b, chunk, h)'s flag. Launch 5 visits every output of a flagged (b,
-// chunk, h): NaN where the rule says so, the IEEE re-sum where launch 4
-// gave NaN, launch 4's bits elsewhere. Not covered: finite operands whose
-// product overflows f32 above the diagonal, with no other non-finite
-// value in the (b, chunk, h) (ROADMAP.md queue 3).
-// The products (C B^T, depth N; (x w)^T B, depth Q; C S^T, depth N; the
-// causal (C B^T o L dt) x, depth Q) run as 3xTF32 mma.sync (see
+// there and takes the product with dtx over the whole chunk, so y[i, p]
+// is NaN wherever a token j > i of the chunk has a non-finite dtx[j, p]
+// or C[i] . B[j]: 0 * inf. Launch 4 never reads those tokens for row i;
+// the rule is applied where the inputs are already read. A non-finite
+// dtx[j, p], dt[j] or B[j] makes the chunk-local state dS_c non-finite
+// (inf * 0 is NaN too, where a decay is 0), which launch 3 tests as it
+// loads it (no byte added), and a non-finite C[i] makes row i NaN in
+// launch 4's passes; either raises the (b, chunk, h)'s flag. Finite C[i]
+// and B[j] whose product overflows can do so only where max |C| max |B| N
+// reaches 2^127 (launch 1's maxima, which launch 2 reads as it writes the
+// flag). Launch 5 visits every output of a flagged (b, chunk, h): NaN
+// where the rule says so, the IEEE re-sum where launch 4 gave NaN, launch
+// 4's bits elsewhere. Out of scope, as order-dependent in both packages:
+// the overflow of a partial sum inside a contraction or the cumsum, the
+// grouping that XLA picks inside the reference's three-operand products,
+// and a denormal input that a product reads straight from memory (B and C
+// in C B^T, B in the states, the states in the readout).
+// The products (C B^T, depth N; (dtx o decay)^T B, depth Q; C S^T, depth
+// N; the causal (C B^T o L) dtx, depth Q) run as 3xTF32 mma.sync (see
 // mma_tf32x3.cuh): f32 accuracy, the reference's tolerance unchanged. A
 // warp owns two 16-row m tiles; both operands of every product reach it
 // from shared memory, filled by cp.async through a ring of two slots (one
 // barrier a stage: the copy of stage k + 1 runs during stage k's products)
 // and padded so that every fragment load is conflict-free. The decay's
-// exps, 8 a lane each k-step of launch 4, are exp2 of cumsums kept in
-// log2 units. Every sum runs in a fixed order with no atomics: two
-// launches on the same inputs are bit-equal.
+// exps, 8 a lane each k-step of launch 4, are exp2 of the difference of
+// two cumsums times log2(e), the difference formed first, as the
+// reference forms cum_i - cum_j: cumsums kept in log2 units round each
+// product cum log2(e) on its own, and near 1e9 their difference can lie
+// hundreds from the reference's, an exp of 0 turned into a normal number.
+// Every sum runs in a fixed order with no atomics: two launches on the
+// same inputs are bit-equal.
 //
 // On an H100 (PERF.md) launch 4 takes most of the time; in design probes
 // three output blocks an SM with a two-slot ring ran faster than two
-// blocks with a deeper ring, and exp2 of log2-unit cumsums faster than
-// expf.
+// blocks with a deeper ring, and exp2 faster than expf.
 //
 // Bound. Every token needs the recurrence's two state products, the
-// update S += B (dt x)^T and the readout C . S: 2 P N multiply-adds per
+// update S += B dtx^T and the readout C . S: 2 P N multiply-adds per
 // (token, head), 8.59 GFLOP for mamba2-1.3b's prefill layer (B 4, L 1024,
 // H 64, P 64, N 128), against 148 MB of inputs and outputs: bound by
 // operations, 0.052 ms at 3xTF32's 165 TFLOP/s. The chunked form also does
@@ -133,6 +151,11 @@ template <> __device__ __forceinline__ float zero<float>() { return 0.f; }
 template <> __device__ __forceinline__ float4 zero<float4>() {
   return make_float4(0.f, 0.f, 0.f, 0.f);
 }
+// exp(d) as exp2 of d log2(e); d a cumsum or a difference of two, formed
+// as the reference forms it before its exp
+__device__ __forceinline__ float exp_of(float d) {
+  return exp2f(d * kLog2e);
+}
 // s d + x
 __device__ __forceinline__ float axpy(float s, float d, float x) {
   return s * d + x;
@@ -169,11 +192,47 @@ __device__ __forceinline__ void load_rows(float* dst, int ld,
   }
 }
 
-// 1. C B^T tile (it, jt), jt <= it, of one (b, chunk, group)
+// the largest |v| over a rows x cols tile of v (row stride ld), by the
+// whole block; every thread gets it, NaN entries left out
+__device__ float block_absmax(const float* v, int rows, int cols, int ld,
+                              float* red) {
+  float m = 0.f;
+  for (int e = threadIdx.x; e < rows * cols; e += blockDim.x)
+    m = fmaxf(m, fabsf(v[e / cols * ld + e % cols]));
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1)
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = m;
+  __syncthreads();
+  m = 0.f;
+  for (int w = 0; w < (int)(blockDim.x >> 5); ++w) m = fmaxf(m, red[w]);
+  __syncthreads();                      // red free for the next call
+  return m;
+}
+
+// whether C[i] . B[j] of a (b, chunk, group) can overflow f32 for some
+// rows i, j: |C[i] . B[j]| <= N max |C| max |B|, and a factor 2 covers the
+// rounding of the partial sums. An infinite maximum counts, a NaN one
+// cannot arise (block_absmax leaves NaN out).
+__device__ __forceinline__ bool cb_may_overflow(const float2* cbmax,
+                                                size_t bcg, int tiles,
+                                                int N) {
+  float mc = 0.f, mb = 0.f;
+  for (int t = 0; t < tiles; ++t) {
+    const float2 m = cbmax[bcg * tiles + t];
+    mc = fmaxf(mc, m.x);
+    mb = fmaxf(mb, m.y);
+  }
+  return !((double)mc * (double)mb * N < 0x1p127);
+}
+
+// 1. C B^T tile (it, jt), jt <= it, of one (b, chunk, group); a diagonal
+// tile writes the max |C| and max |B| of its rows to cbmax[bcg tiles + it]
 __global__ void __launch_bounds__(32 * kCBWarps)
 ssd_scan_cb(const float* __restrict__ bmat, const float* __restrict__ cmat,
-          float* __restrict__ cb, int* __restrict__ flag, int L, int G, int N,
-          int Q, int Qp, int vec) {
+          float* __restrict__ cb, float2* __restrict__ cbmax,
+          int* __restrict__ flag, int L, int G, int N, int Q, int Qp,
+          int vec) {
   extern __shared__ __align__(16) float smem[];
   if (blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x == 0) *flag = 0;
   const int Np = up8(N), ld = ld_rows(Np);
@@ -193,6 +252,13 @@ ssd_scan_cb(const float* __restrict__ bmat, const float* __restrict__ cmat,
   sgemm::cp_async_commit();
   sgemm::cp_async_wait<0>();
   __syncthreads();
+  if (it == jt) {                       // rows past Q, columns past N are 0
+    __shared__ float red[kCBWarps];
+    const float mc = block_absmax(cs, kCB, Np, ld, red);
+    const float mb = block_absmax(bs, kCB, Np, ld, red);
+    if (threadIdx.x == 0)
+      cbmax[(size_t)bcg * (Qp / kCB) + it] = make_float2(mc, mb);
+  }
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -270,16 +336,18 @@ __device__ void block_scan(float* v, int Q, float* warp_sums) {
 }
 
 // 2. the chunk-local state of one (b, chunk, h, P slice): dS[p][n] =
-// sum_q x[q][p] w_q B[q][n]. Warp w owns p rows 32 (w / 2) .. + 31 (two m
-// tiles) and n tiles NTW (w % 2) .. + NTW - 1. The P slice 0 block clears
-// the (b, chunk, h)'s flag, flag[1 + (b nc + chunk) H + h].
+// sum_q (x[q][p] dt_q) decay_q B[q][n]. Warp w owns p rows 32 (w / 2) ..
+// + 31 (two m tiles) and n tiles NTW (w % 2) .. + NTW - 1. The P slice 0
+// block writes the (b, chunk, h)'s flag, flag[1 + (b nc + chunk) H + h]:
+// 1 where its group's C B^T may overflow (launch 1's maxima; the call's
+// flag raised with it), else 0.
 template <int NTW>
 __global__ void __launch_bounds__(128)
 ssd_scan_state(const float* __restrict__ x, const float* __restrict__ dt,
              const float* __restrict__ a_log, const float* __restrict__ bmat,
-             float* __restrict__ cum_out, float* __restrict__ dstate,
-             int* __restrict__ flag, int L, int H, int P, int G, int N, int Q,
-             int ps_width, int vec_x, int vec_b) {
+             const float2* __restrict__ cbmax, float* __restrict__ cum_out,
+             float* __restrict__ dstate, int* __restrict__ flag, int L, int H,
+             int P, int G, int N, int Q, int ps_width, int vec_x, int vec_b) {
   constexpr int NW = 16 * NTW;          // the instance's state width
   constexpr int LDB = ld_cols(NW);
   extern __shared__ __align__(16) float smem[];
@@ -287,15 +355,21 @@ ssd_scan_state(const float* __restrict__ x, const float* __restrict__ dt,
   const int nc = L / Q, bi = bc / nc, ci = bc - bi * nc;
   const int p0 = slice * ps_width, ps = min(ps_width, P - p0);
   const int PW = 32 * (blockDim.x / 64);   // padded slice rows
-  if (slice == 0 && threadIdx.x == 0) flag[1 + (size_t)bc * H + h] = 0;
+  const int g_idx = h / (H / G);
+  if (slice == 0 && threadIdx.x == 0) {
+    const bool may = cb_may_overflow(cbmax, (size_t)bc * G + g_idx,
+                                     (Q + kCB - 1) / kCB, N);
+    flag[1 + (size_t)bc * H + h] = may;
+    if (may) flag[0] = 1;
+  }
   const int LDX = ld_cols(PW);
   const int Qt = (Q + kTok - 1) / kTok * kTok;
   float* cum = smem;                    // Qt each
-  float* ws = cum + Qt;
-  float* warp_sums = ws + Qt;           // 32
+  float* ws = cum + Qt;                 // the decays
+  float* dts = ws + Qt;                 // dt
+  float* warp_sums = dts + Qt;          // 32
   float* ring = warp_sums + 32;         // 2 x (xs, bs)
   const int slot = kTok * (LDX + LDB);
-  const int g_idx = h / (H / G);
   const size_t tok0 = (size_t)bi * L + (size_t)ci * Q;
   const float* xsrc = x + tok0 * H * P + (size_t)h * P + p0;
   const float* bsrc = bmat + tok0 * G * N + (size_t)g_idx * N;
@@ -313,15 +387,17 @@ ssd_scan_state(const float* __restrict__ x, const float* __restrict__ dt,
     sgemm::cp_async_commit();           // an empty group keeps the count
   }
 
-  // the cumsum and the weights, while the first tile is in flight
+  // the cumsum, dt and the decays, while the first tile is in flight
   const float A = -expf(a_log[h]);
-  for (int q = threadIdx.x; q < Qt; q += blockDim.x)
-    cum[q] = q < Q ? dt[(tok0 + q) * H + h] * A : 0.f;
+  for (int q = threadIdx.x; q < Qt; q += blockDim.x) {
+    dts[q] = q < Q ? dt[(tok0 + q) * H + h] : 0.f;
+    cum[q] = q < Q ? dts[q] * A : 0.f;
+  }
   __syncthreads();
   block_scan(cum, Q, warp_sums);
   const float last = cum[Q - 1];
   for (int q = threadIdx.x; q < Qt; q += blockDim.x) {
-    ws[q] = q < Q ? dt[(tok0 + q) * H + h] * expf(last - cum[q]) : 0.f;
+    ws[q] = q < Q ? expf(last - cum[q]) : 0.f;
     if (slice == 0 && q < Q) cum_out[((size_t)bc * H + h) * Q + q] = cum[q];
   }
 
@@ -345,16 +421,18 @@ ssd_scan_state(const float* __restrict__ x, const float* __restrict__ dt,
     const float* xs = ring + (tile % kRing) * slot;
     const float* bs = xs + kTok * LDX;
     const float* wt = ws + tile * kTok;
+    const float* dtt = dts + tile * kTok;
 #pragma unroll
     for (int k0 = 0; k0 < kTok; k0 += 8) {
       const float w0 = wt[k0 + 2 * t], w1 = wt[k0 + 2 * t + 1];
+      const float d0 = dtt[k0 + 2 * t], d1 = dtt[k0 + 2 * t + 1];
       const float* r0 = xs + (k0 + 2 * t) * LDX + prow + g;
       const float* r1 = r0 + LDX;
-      tf32x3::FragA a[2];
+      tf32x3::FragA a[2];   // (x dt) decay: dtx first, as the reference
 #pragma unroll
       for (int m = 0; m < 2; ++m)
-        a[m] = tf32x3::frag_a(r0[16 * m] * w0, r0[16 * m + 8] * w0,
-                              r1[16 * m] * w1, r1[16 * m + 8] * w1);
+        a[m] = tf32x3::frag_a(r0[16 * m] * d0 * w0, r0[16 * m + 8] * d0 * w0,
+                              r1[16 * m] * d1 * w1, r1[16 * m + 8] * d1 * w1);
 #pragma unroll
       for (int n = 0; n < NTW; ++n) {
         const tf32x3::FragB bf =
@@ -377,8 +455,8 @@ ssd_scan_state(const float* __restrict__ x, const float* __restrict__ dt,
         if (p < ps && col < N) out[(size_t)p * N + col] = acc[m][n][e];
       }
   // an entry the passes gave NaN summed again in IEEE f32, in place, by the
-  // thread that stored it, the operand x w formed as above: a rolled loop
-  // apart from the products, so it adds no register to them
+  // thread that stored it, the operand (x dt) decay formed as above: a
+  // rolled loop apart from the products, so it adds no register to them
   bool nan = false;
 #pragma unroll
   for (int m = 0; m < 2; ++m)
@@ -398,7 +476,7 @@ ssd_scan_state(const float* __restrict__ x, const float* __restrict__ dt,
     float d = 0.f;
 #pragma unroll 1
     for (int j = 0; j < Q; ++j)
-      d = fmaf(xsrc[(size_t)j * H * P + p] * ws[j],
+      d = fmaf(xsrc[(size_t)j * H * P + p] * dts[j] * ws[j],
                bsrc[(size_t)j * G * N + col], d);
     *o = d;
   }
@@ -409,7 +487,7 @@ ssd_scan_state(const float* __restrict__ x, const float* __restrict__ dt,
 // state. A thread owns W consecutive entries of one (b, h) and loads
 // kCarryAhead chunks' dS before it stores, so that many loads are in flight
 // (the pass moves bytes: the states are read once and written once). A
-// non-finite dS_c entry (a non-finite x dt, dt or B in the chunk) raises
+// non-finite dS_c entry (a non-finite dtx, dt or B in the chunk) raises
 // the (b, chunk, h)'s flag and the call's.
 __device__ __forceinline__ bool finite(float v) {
   return fabsf(v) <= 3.402823466e38f;
@@ -464,9 +542,10 @@ ssd_scan_carry(const float* __restrict__ init, const float* __restrict__ cum,
 // terms, kTok deep a stage: first the readout (C_i exp(cum_i)) . S_c over
 // the depth N (a C chunk of the block's rows and an S chunk of the slice's
 // rows a stage), then the intra-chunk term over the tokens j0 <= the rows
-// (a C B^T tile of the block's rows and an x tile a stage), so that both
-// operands of every product come from shared memory, the next stage's
-// copy in flight while this one's products run.
+// (a C B^T tile of the block's rows and an x tile a stage, x dt formed as
+// its fragments load), so that both operands of every product come from
+// shared memory, the next stage's copy in flight while this one's
+// products run.
 template <int PT>
 __global__ void __launch_bounds__(32 * kOutWarps, kOutBlocks)
 ssd_scan_out(const float* __restrict__ x, const float* __restrict__ dt,
@@ -519,8 +598,8 @@ ssd_scan_out(const float* __restrict__ x, const float* __restrict__ dt,
     sgemm::cp_async_commit();           // an empty group keeps the count
   }
   for (int q = threadIdx.x; q < Qt; q += blockDim.x) {
-    cum_s[q] = q < i_end ? cum[bch * Q + q] * kLog2e : 0.f;   // in log2 units
-    dt_s[q] = q < i_end ? dt[(tok0 + q) * H + h] : 0.f;
+    cum_s[q] = q < i_end ? cum[bch * Q + q] : 0.f;
+    dt_s[q] = q < Q ? dt[(tok0 + q) * H + h] : 0.f;
   }
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -528,7 +607,7 @@ ssd_scan_out(const float* __restrict__ x, const float* __restrict__ dt,
   const int wi0 = i0 + 32 * warp;       // the warp's first row
   const bool active = wi0 < i_end;
   const int wlast = min(wi0 + 31, i_end - 1);
-  // rows i0 + 32 w + 16 m + g + 8 r: cumsum (log2 units) and exp(cumsum)
+  // rows i0 + 32 w + 16 m + g + 8 r: cumsum and exp(cumsum)
   float ci_r[2][2], dec[2][2];
 #pragma unroll
   for (int m = 0; m < 2; ++m)
@@ -536,7 +615,7 @@ ssd_scan_out(const float* __restrict__ x, const float* __restrict__ dt,
     for (int r = 0; r < 2; ++r) {
       const int i = wi0 + 16 * m + g + 8 * r;
       ci_r[m][r] = i < i_end ? cum_s[i] : 0.f;
-      dec[m][r] = i < i_end ? exp2f(ci_r[m][r]) : 0.f;
+      dec[m][r] = i < i_end ? exp_of(ci_r[m][r]) : 0.f;
     }
   float acc[2][PT][4];
 #pragma unroll
@@ -596,16 +675,17 @@ ssd_scan_out(const float* __restrict__ x, const float* __restrict__ dt,
 #pragma unroll
             for (int r = 0; r < 2; ++r) {
               const int i = wi0 + 16 * m + g + 8 * r;
-              v[r] = j <= i ? cb_r[r].x * exp2f(ci_r[m][r] - cj0) * dj0 : 0.f;
+              v[r] = j <= i ? cb_r[r].x * exp_of(ci_r[m][r] - cj0) : 0.f;
               v[r + 2] =
-                  j + 1 <= i ? cb_r[r].y * exp2f(ci_r[m][r] - cj1) * dj1 : 0.f;
+                  j + 1 <= i ? cb_r[r].y * exp_of(ci_r[m][r] - cj1) : 0.f;
             }
             a[m] = tf32x3::frag_a(v[0], v[1], v[2], v[3]);
           }
 #pragma unroll
-          for (int n = 0; n < PT; ++n) {
+          for (int n = 0; n < PT; ++n) {   // rows j, j + 1 of dtx, column g
+            const float* xb = bt + (k0 + 2 * t) * LDX + 8 * n + g;
             const tf32x3::FragB bf =
-                tf32x3::load_b_cols(bt + 8 * n, LDX, k0, g, t);
+                tf32x3::frag_b(xb[0] * dj0, xb[LDX] * dj1);
 #pragma unroll
             for (int m = 0; m < 2; ++m) tf32x3::mma3(acc[m][n], a[m], bf);
           }
@@ -669,19 +749,20 @@ int grant(size_t bytes) {
 
 template <int NTW>
 int launch_state(const float* x, const float* dt, const float* a_log,
-                 const float* b, float* cum, float* states, int* flag, int B,
-                 int L, int H, int P, int G, int N, int Q, int slices, int ps,
-                 int vec_x, int vec_b, cudaStream_t stream) {
+                 const float* b, const float2* cbmax, float* cum,
+                 float* states, int* flag, int B, int L, int H, int P, int G,
+                 int N, int Q, int slices, int ps, int vec_x, int vec_b,
+                 cudaStream_t stream) {
   const int pw = ps <= 32 ? 32 : 64;
   const int Qt = (Q + kTok - 1) / kTok * kTok;
   const size_t smem =
-      ((size_t)2 * Qt + 32 + kRing * kTok * (ld_cols(pw) + ld_cols(16 * NTW))) *
+      ((size_t)3 * Qt + 32 + kRing * kTok * (ld_cols(pw) + ld_cols(16 * NTW))) *
       sizeof(float);
   int rc = grant<ssd_scan_state<NTW>>(smem);
   if (rc) return rc;
   dim3 grid(slices, H, B * (L / Q));
   ssd_scan_state<NTW><<<grid, 2 * pw, smem, stream>>>(
-      x, dt, a_log, b, cum, states, flag, L, H, P, G, N, Q, ps, vec_x,
+      x, dt, a_log, b, cbmax, cum, states, flag, L, H, P, G, N, Q, ps, vec_x,
       vec_b);
   return (int)cudaGetLastError();
 }
@@ -708,16 +789,18 @@ int launch_out(const float* x, const float* dt, const float* c,
 // 5. the repair: a block for each flagged (b, chunk, h), the grid walking
 // them in turn; without the call's flag each block reads one word. For
 // column p of the chunk, the rule above needs the last token j with a
-// non-finite x[j, p] dt[j] (jx[p]; a non-finite dt[j] makes it so for
-// every p) and the last with a non-finite B[j] (jall), found in shared
-// memory from the operands. Then each output
-// y[i, p]: NaN where i < jall or i < jx[p]; else, where launch 4 gave NaN,
-// NaN if C[i] is non-finite and a token follows row i, or else summed
-// again in IEEE f32 from the same operand values as launch 4 forms them
-// (the C B^T entries and the states already repaired by launches 1 and 2):
-// the readout over N, the tokens j <= i of its chunk, plus D x. (A
-// non-finite C[i] gives row i NaN in launch 4's passes, so only those
-// outputs need the test.) The tokens j > i add 0 there.
+// non-finite dtx[j, p] (jx[p]; a non-finite dt[j] makes it so for every
+// p) and the last with a non-finite B[j] (jall), found in shared memory
+// from the operands. Then each output y[i, p]: NaN where i < jall or i <
+// jx[p]; else, where launch 4 gave NaN, NaN if C[i] is non-finite and a
+// token follows row i, or else summed again in IEEE f32 from the same
+// operand values as launch 4 forms them (the C B^T entries and the states
+// already repaired by launches 1 and 2): the readout over N, the tokens j
+// <= i of its chunk, plus D x. (A non-finite C[i] gives row i NaN in
+// launch 4's passes, so only those outputs need the test.) The tokens j >
+// i add 0 there. Last, where the group's C B^T may overflow (launch 1's
+// maxima), row i is NaN wherever C[i] . B[j], summed in IEEE f32 for
+// each j > i, is not finite.
 constexpr int kRepairBlocks = 64, kRepairThreads = 256;
 
 __global__ void __launch_bounds__(kRepairThreads)
@@ -726,7 +809,8 @@ ssd_scan_repair(const float* __restrict__ x, const float* __restrict__ dt,
                 const float* __restrict__ cmat,
                 const float* __restrict__ d_skip,
                 const float* __restrict__ cb, const float* __restrict__ cum,
-                const float* __restrict__ states, float* __restrict__ y,
+                const float* __restrict__ states,
+                const float2* __restrict__ cbmax, float* __restrict__ y,
                 const int* __restrict__ flag, int B, int L, int H, int P,
                 int G, int N, int Q, int Qp) {
   if (!flag[0]) return;
@@ -773,18 +857,31 @@ ssd_scan_repair(const float* __restrict__ x, const float* __restrict__ dt,
           y[o] = nan;
           continue;
         }
-        const float cil = cum_c[i] * kLog2e, di = exp2f(cil);
+        const float di = exp_of(cum_c[i]);
         const float* srow = states + ((bc * H + h) * P + p) * N;
         const float* cbrow = cb + ((bc * G + g) * Qp + i) * (size_t)Qp;
         float d = 0.f;
         for (int c = 0; c < N; ++c) d = fmaf(crow[c] * di, srow[c], d);
         for (int j = 0; j <= i; ++j)
-          d = fmaf(cbrow[j] * exp2f(cil - cum_c[j] * kLog2e) *
-                       dt[(tok0 + j) * H + h],
-                   x[((tok0 + j) * H + h) * P + p], d);
+          d = fmaf(cbrow[j] * exp_of(cum_c[i] - cum_c[j]),
+                   x[((tok0 + j) * H + h) * P + p] * dt[(tok0 + j) * H + h],
+                   d);
         y[o] = d + d_skip[h] * x[o];
       }
       __syncthreads();                  // jx and jall free for the next
+    }
+    if (!cb_may_overflow(cbmax, bc * G + g, (Q + kCB - 1) / kCB, N)) continue;
+    for (int i = tid; i < Q - 1; i += blockDim.x) {
+      const float* crow = cmat + (tok0 + i) * G * N + (size_t)g * N;
+      bool over = false;
+      for (int j = i + 1; j < Q && !over; ++j) {
+        const float* brow = bmat + (tok0 + j) * G * N + (size_t)g * N;
+        float d = 0.f;
+        for (int c = 0; c < N; ++c) d = fmaf(crow[c], brow[c], d);
+        over = !finite(d);
+      }
+      if (over)
+        for (int p = 0; p < P; ++p) y[((tok0 + i) * H + h) * P + p] = nan;
     }
   }
 }
@@ -799,9 +896,10 @@ bool aligned16(const void* p) {
 // C B^T, the chunk-local states and cumsums, the carry, the outputs, the
 // repair of NaN outputs. `scratch` holds scratch_floats floats, at least
 // C B^T (B, nc, G, Qp, Qp) with Qp = Q rounded up to 64, the cumsums (B,
-// nc, H, Q) and the states (B, nc, H, P, N), each from a multiple of 4
-// floats, and the flags (1 + B nc H ints: the call's, then one a (b,
-// chunk, h)). P is cut into
+// nc, H, Q), the states (B, nc, H, P, N), the diagonal tiles' max |C| and
+// max |B| (B, nc, G, Qp / 64, 2), each from a multiple of 4 floats, and
+// the flags (1 + B nc H ints: the call's, then one a (b, chunk, h)). P is
+// cut into
 // `slices` slices of ceil(P / slices) <= 64 rows. Returns the first
 // nonzero cudaGetLastError(), or cudaErrorInvalidValue for a shape the
 // kernel does not take.
@@ -822,8 +920,11 @@ extern "C" int ssd_scan_f32(const float* x, const float* dt,
   float* cb = scratch;
   float* cum = cb + up4((long long)B * nc * G * Qp * Qp);
   float* states = cum + up4(jobs * Q);
-  int* flag = reinterpret_cast<int*>(states + up4(jobs * P * N));
-  if (states + up4(jobs * P * N) + up4(1 + jobs) > scratch + scratch_floats)
+  float* maxima = states + up4(jobs * P * N);
+  const long long n_max = up4(2LL * B * nc * G * tiles);
+  float2* cbmax = reinterpret_cast<float2*>(maxima);
+  int* flag = reinterpret_cast<int*>(maxima + n_max);
+  if (maxima + n_max + up4(1 + jobs) > scratch + scratch_floats)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   // 16-byte copies where every copied row starts 16-byte aligned
@@ -835,22 +936,22 @@ extern "C" int ssd_scan_f32(const float* x, const float* dt,
   int rc = grant<ssd_scan_cb>(cb_smem);
   if (rc) return rc;
   ssd_scan_cb<<<dim3(B * nc * G, tiles * (tiles + 1) / 2), 32 * kCBWarps,
-              cb_smem, s>>>(b, c, cb, flag, L, G, N, Q, Qp, vec_bc);
+              cb_smem, s>>>(b, c, cb, cbmax, flag, L, G, N, Q, Qp, vec_bc);
   rc = (int)cudaGetLastError();
   if (rc) return rc;
 
   if (N <= 16)
-    rc = launch_state<1>(x, dt, a_log, b, cum, states, flag, B, L, H, P, G,
-                         N, Q, slices, ps, vec_x, vec_bc, s);
+    rc = launch_state<1>(x, dt, a_log, b, cbmax, cum, states, flag, B, L,
+                         H, P, G, N, Q, slices, ps, vec_x, vec_bc, s);
   else if (N <= 32)
-    rc = launch_state<2>(x, dt, a_log, b, cum, states, flag, B, L, H, P, G,
-                         N, Q, slices, ps, vec_x, vec_bc, s);
+    rc = launch_state<2>(x, dt, a_log, b, cbmax, cum, states, flag, B, L,
+                         H, P, G, N, Q, slices, ps, vec_x, vec_bc, s);
   else if (N <= 64)
-    rc = launch_state<4>(x, dt, a_log, b, cum, states, flag, B, L, H, P, G,
-                         N, Q, slices, ps, vec_x, vec_bc, s);
+    rc = launch_state<4>(x, dt, a_log, b, cbmax, cum, states, flag, B, L,
+                         H, P, G, N, Q, slices, ps, vec_x, vec_bc, s);
   else
-    rc = launch_state<8>(x, dt, a_log, b, cum, states, flag, B, L, H, P, G,
-                         N, Q, slices, ps, vec_x, vec_bc, s);
+    rc = launch_state<8>(x, dt, a_log, b, cbmax, cum, states, flag, B, L,
+                         H, P, G, N, Q, slices, ps, vec_x, vec_bc, s);
   if (rc) return rc;
 
   // the carry moves 16 bytes a thread where a (b, h)'s P N entries and
@@ -881,6 +982,7 @@ extern "C" int ssd_scan_f32(const float* x, const float* dt,
                        P, G, N, Q, Qp, slices, ps, vec_x, vec_bc, vec_s, s);
   if (rc) return rc;
   ssd_scan_repair<<<kRepairBlocks, kRepairThreads, 0, s>>>(
-      x, dt, b, c, d_skip, cb, cum, states, y, flag, B, L, H, P, G, N, Q, Qp);
+      x, dt, b, c, d_skip, cb, cum, states, cbmax, y, flag, B, L, H, P, G, N,
+      Q, Qp);
   return (int)cudaGetLastError();
 }

@@ -7,6 +7,19 @@ from ``repro/kernels/ssd_scan.py::ssd_scan_pallas`` and its wrapper
 intra-chunk (C B^T masked by the causal decay) product, the carried
 state's term, the state update and the D skip, in f32.
 
+Every version here and the kernel form the reference's intermediates as
+it forms them (dtx = x dt, C B^T, L = exp(cum_i - cum_j), C B^T * L over
+the whole chunk, the decays) and flush every f32 result below 2^-126 to
+zero, as XLA's CPU backend and the TPU do (``_ftz`` here, ``-ftz=true``
+for the kernel), so that an intermediate that overflows or underflows
+does so as in the reference and meets 0 or inf as there: which outputs
+are NaN, +-inf or finite follows the reference. Out of scope, as they
+depend on the order of operations in both packages: a partial sum that
+overflows inside a contraction or the cumsum, the grouping inside a
+three-operand product (the plain version groups as XLA does, the kernel
+as its decomposition does), and a denormal input read straight into a
+product.
+
 The kernel (``csrc/ssd_scan.cu``) computes the same function with the
 chunks in parallel, as ``ssd_scan_parallel_plain`` writes it out: C B^T
 once per (batch, chunk, group), shared by the group's heads; every
@@ -17,14 +30,15 @@ Its four products run as 3xTF32 on the tensor cores (f32 accuracy);
 launch sums again in IEEE f32 each output the passes gave NaN (an inf or
 NaN operand; ``csrc/mma_tf32x3.cuh``), and reads one flag otherwise.
 It also applies the reference's rule above the diagonal, which the
-products never read: the reference takes (C B^T * L) dt x over the whole
+products never read: the reference takes (C B^T * L) dtx over the whole
 chunk with L = 0 there, so y[i, p] is NaN wherever a later token j of the
-chunk has a non-finite x[j, p] dt[j] or C[i] . B[j] (0 * inf), as
-``ssd_scan_plain`` gives it. The carry launch flags each (batch, chunk,
-head) whose chunk-local state is non-finite, the output launch each that
-has a NaN output, and the repair visits only those. ``plan_scan`` is the
-kernel's host plan: its five launches, their blocks and the scratch they
-share.
+chunk has a non-finite dtx[j, p] or C[i] . B[j] (0 * inf), as the plain
+versions give it. The state launch flags each (batch, chunk, head) whose
+group's max |C| max |B| N (from the C B^T launch) could overflow, the
+carry launch each whose chunk-local state is non-finite, the output
+launch each that has a NaN output, and the repair visits only those.
+``plan_scan`` is the kernel's host plan: its five launches, their blocks
+and the scratch they share.
 
 The wrapper ``ssd_scan`` computes the plain version for CPU tensors and
 launches the kernel for CUDA tensors, with no fallback: a failed build or
@@ -51,8 +65,19 @@ CB_TILE = 64         # C B^T tile of the first launch (kCB)
 OUT_ROWS = 128       # chunk rows an output block owns: 4 warps x 32 (kOutRows)
 CARRY_THREADS = 256  # threads a block of the carry pass (kCarryThreads)
 REPAIR_BLOCKS = 64   # blocks of the repair pass (kRepairBlocks)
+_TINY = torch.finfo(torch.float32).tiny     # 2^-126
 P_WIDTHS = (16, 32, 64)         # output kernel instances: slice width
 N_WIDTHS = (16, 32, 64, 128)    # state kernel instances: state width
+
+
+def _ftz(t: torch.Tensor) -> torch.Tensor:
+    """t with every entry below 2^-126 in magnitude (an f32 denormal) a
+    zero of its sign, as XLA's CPU backend and the TPU give every f32
+    result and read every f32 operand. A select, so the plain versions
+    flush alike on any device and any number of threads (the CPU's
+    flush-to-zero mode, ``torch.set_flush_denormal``, is a setting of the
+    calling thread)."""
+    return torch.where(t.abs() < _TINY, t * 0, t)
 
 
 def _expand_groups(t: torch.Tensor, nheads: int) -> torch.Tensor:
@@ -71,14 +96,14 @@ def ssd_scan_plain(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
     groups, n = b.shape[-2:]
     chunk = _chunk(chunk, length)
     nc = length // chunk
-    a_neg = -torch.exp(a_log.float())                            # (H,) < 0
+    a_neg = -_ftz(torch.exp(a_log.float()))                      # (H,) < 0
 
     xf = x.float().reshape(bsz, nc, chunk, nheads, hp)
     dtf = dt.float().reshape(bsz, nc, chunk, nheads)
     bh = _expand_groups(b.float().reshape(bsz, nc, chunk, groups, n), nheads)
     ch = _expand_groups(c.float().reshape(bsz, nc, chunk, groups, n), nheads)
-    cum = torch.cumsum(dtf * a_neg, dim=2)                       # inclusive
-    dtx = xf * dtf[..., None]                                    # dt folded in
+    cum = _ftz(torch.cumsum(_ftz(dtf * a_neg), dim=2))           # inclusive
+    dtx = _ftz(xf * dtf[..., None])                              # dt folded in
     state = (torch.zeros((bsz, nheads, hp, n), dtype=torch.float32,
                          device=x.device)
              if init_state is None else init_state.float())
@@ -89,21 +114,25 @@ def ssd_scan_plain(x: torch.Tensor, dt: torch.Tensor, a_log: torch.Tensor,
         dtxq, cq, bq, cumq = dtx[:, ci], ch[:, ci], bh[:, ci], cum[:, ci]
         # mask BEFORE exp: the masked differences are positive
         diff = cumq[:, :, None, :] - cumq[:, None, :, :]         # (B,Q,Q,H)
-        lmat = torch.exp(torch.where(causal, diff,
-                                     torch.full_like(diff, -1e30)))
-        cb = torch.einsum("bihn,bjhn->bijh", cq, bq)
-        y_intra = torch.einsum("bijh,bjhp->bihp", cb * lmat, dtxq)
-        decay_in = torch.exp(cumq)                               # (B,Q,H)
-        y_inter = torch.einsum("bqhn,bhpn,bqh->bqhp", cq, state, decay_in)
-        decay_out = torch.exp(cumq[:, -1:, :] - cumq)
-        new_contrib = torch.einsum("bqhn,bqhp,bqh->bhpn", bq, dtxq,
-                                   decay_out)
-        chunk_decay = torch.exp(cumq[:, -1, :])                  # (B,H)
-        state = state * chunk_decay[..., None, None] + new_contrib
-        ys.append(y_intra + y_inter)
+        lmat = _ftz(torch.exp(torch.where(causal, diff,
+                                          torch.full_like(diff, -1e30))))
+        cb = _ftz(torch.einsum("bihn,bjhn->bijh", cq, bq))
+        y_intra = _ftz(torch.einsum("bijh,bjhp->bihp", _ftz(cb * lmat),
+                                    dtxq))
+        # the three-operand products grouped as XLA groups the reference's
+        decay_in = _ftz(torch.exp(cumq))                         # (B,Q,H)
+        y_inter = _ftz(_ftz(torch.einsum("bqhn,bhpn->bqhp", cq, state))
+                       * decay_in[..., None])
+        decay_out = _ftz(torch.exp(cumq[:, -1:, :] - cumq))
+        new_contrib = _ftz(torch.einsum(
+            "bqhn,bqhp->bhpn", bq, _ftz(dtxq * decay_out[..., None])))
+        chunk_decay = _ftz(torch.exp(cumq[:, -1, :]))            # (B,H)
+        state = _ftz(_ftz(state * chunk_decay[..., None, None])
+                     + new_contrib)
+        ys.append(_ftz(y_intra + y_inter))
     y = torch.stack(ys, dim=1).reshape(bsz, length, nheads, hp)
-    y = y + xf.reshape(bsz, length, nheads, hp) \
-        * d_skip.float()[None, None, :, None]
+    y = _ftz(y + _ftz(xf.reshape(bsz, length, nheads, hp)
+                      * d_skip.float()[None, None, :, None]))
     return y.to(x.dtype), state
 
 
@@ -135,13 +164,14 @@ def _scan_chunk_parallel(x, dt, a_log, b, c, d_skip, chunk, init_state,
                          matmul: Callable, dtype=torch.float32):
     """The kernel's decomposition with ``matmul`` for its four products
     (C B^T, the states, the intra-chunk term, the readout, in that order),
-    computed in ``dtype``. Heads are viewed as (G, H / G), so a group's
-    C B^T is computed once and broadcast to its heads, never expanded."""
+    computed in ``dtype``, every elementwise result flushed as the kernel
+    flushes it. Heads are viewed as (G, H / G), so a group's C B^T is
+    computed once and broadcast to its heads, never expanded."""
     bsz, length, nheads, hp = x.shape
     groups, n = b.shape[-2:]
     chunk = _chunk(chunk, length)
     nc, rep = length // chunk, nheads // groups
-    a_neg = -torch.exp(a_log.to(dtype))
+    a_neg = -_ftz(torch.exp(a_log.to(dtype)))
     # heads last-but-one as (G, rep): (B, nc, G, rep, Q, ...)
     xf = x.to(dtype).reshape(bsz, nc, chunk, groups, rep, hp) \
         .permute(0, 1, 3, 4, 2, 5)                               # (.., Q, P)
@@ -149,34 +179,40 @@ def _scan_chunk_parallel(x, dt, a_log, b, c, d_skip, chunk, init_state,
         .permute(0, 1, 3, 4, 2)                                  # (.., Q)
     bf = b.to(dtype).reshape(bsz, nc, chunk, groups, n).permute(0, 1, 3, 2, 4)
     cf = c.to(dtype).reshape(bsz, nc, chunk, groups, n).permute(0, 1, 3, 2, 4)
-    cum = torch.cumsum(dtf * a_neg.reshape(groups, rep)[..., None], dim=-1)
+    cum = _ftz(torch.cumsum(
+        _ftz(dtf * a_neg.reshape(groups, rep)[..., None]), dim=-1))
     last = cum[..., -1:]
+    dtx = _ftz(xf * dtf[..., None])                              # (.., Q, P)
     # C B^T once per (batch, chunk, group): (B, nc, G, 1, Q, Q)
-    cb = matmul(cf, bf.mT)[:, :, :, None]
-    # (a) chunk-local states dS = sum_q (x_q w_q) B_q^T, w_q = dt_q
-    # exp(cum_last - cum_q): (B, nc, G, rep, P, N)
-    w = dtf * torch.exp(last - cum)
-    ds = matmul((xf * w[..., None]).mT, bf[:, :, :, None])
+    cb = _ftz(matmul(cf, bf.mT))[:, :, :, None]
+    # (a) chunk-local states dS = sum_q (dtx_q exp(cum_last - cum_q)) B_q^T:
+    # (B, nc, G, rep, P, N)
+    decay_out = _ftz(torch.exp(last - cum))
+    ds = _ftz(matmul(_ftz(dtx * decay_out[..., None]).mT, bf[:, :, :, None]))
     # (b) the carry, in order: S_0 = init, S_{c+1} = exp(cum_last) S_c + dS_c
     state = (torch.zeros((bsz, groups, rep, hp, n), dtype=dtype,
                          device=x.device) if init_state is None else
              init_state.to(dtype).reshape(bsz, groups, rep, hp, n))
-    decay = torch.exp(last[..., 0])                          # (B, nc, G, rep)
+    decay = _ftz(torch.exp(last[..., 0]))                    # (B, nc, G, rep)
     entering = []
     for ci in range(nc):
         entering.append(state)
-        state = state * decay[:, ci, ..., None, None] + ds[:, ci]
+        state = _ftz(_ftz(state * decay[:, ci, ..., None, None]) + ds[:, ci])
     s_in = torch.stack(entering, dim=1)          # (B, nc, G, rep, P, N)
-    # (c) outputs: (C B^T o L dt) x + (C exp(cum)) S^T + D x, masked
-    # before exp
+    # (c) outputs: (C B^T o L) dtx + (C exp(cum)) S^T + D x over the whole
+    # chunk, L = exp(-1e30) = 0 above the diagonal (masked before exp), so
+    # a non-finite C B^T entry or dtx there gives 0 * inf = NaN as in the
+    # reference
     idx = torch.arange(chunk, device=x.device)
     causal = idx[:, None] >= idx[None, :]
     diff = cum[..., :, None] - cum[..., None, :]
-    lmat = torch.exp(torch.where(causal, diff, torch.full_like(diff, -1e30)))
-    intra = torch.where(causal, cb * lmat * dtf[..., None, :], 0.0)
-    readout = cf[:, :, :, None] * torch.exp(cum)[..., None]
-    y = matmul(intra, xf) + matmul(readout, s_in.mT)
-    y = y + xf * d_skip.to(dtype).reshape(groups, rep)[..., None, None]
+    lmat = _ftz(torch.exp(torch.where(causal, diff,
+                                      torch.full_like(diff, -1e30))))
+    intra = _ftz(cb * lmat)
+    readout = _ftz(cf[:, :, :, None] * _ftz(torch.exp(cum))[..., None])
+    y = _ftz(matmul(intra, dtx)) + _ftz(matmul(readout, s_in.mT))
+    y = _ftz(_ftz(y) + _ftz(
+        xf * d_skip.to(dtype).reshape(groups, rep)[..., None, None]))
     y = y.permute(0, 1, 4, 2, 3, 5).reshape(bsz, length, nheads, hp)
     out = x.dtype if dtype == torch.float32 else dtype
     return y.to(out), state.reshape(bsz, nheads, hp, n)
@@ -194,8 +230,8 @@ def ssd_scan_tf32x3_plain(x, dt, a_log, b, c, d_skip, chunk,
                           init_state=None):
     """The kernel's arithmetic on the CPU: the chunk-parallel form with its
     four products from the three TF32 passes (``tf32x3.matmul``), the
-    operands scaled as the kernel scales them (dt and the decay on C B^T,
-    exp(cum) on C, dt exp(cum_last - cum) on x)."""
+    operands formed as the kernel forms them (the decay on C B^T, exp(cum)
+    on C, dtx = x dt, and dtx exp(cum_last - cum) for the states)."""
     return _scan_chunk_parallel(x, dt, a_log, b, c, d_skip, chunk,
                                 init_state, tf32x3.matmul)
 
@@ -268,8 +304,9 @@ class ScanPlan(NamedTuple):
     carry over the chunks (``carry``), the outputs (``out``) and the
     repair of NaN outputs (``repair``); the P slices a (batch, chunk,
     head) is cut into, and the instances' widths. The scratch holds C B^T,
-    the cumsums, the states and the repair's flags (the call's, then one
-    a (batch, chunk, head)), in that order."""
+    the cumsums, the states, the max |C| and max |B| of each diagonal C
+    B^T tile and the repair's flags (the call's, then one a (batch, chunk,
+    head)), in that order."""
     chunks: int
     chunk: int
     slices: int
@@ -319,7 +356,8 @@ def plan_scan(bsz: int, length: int, nheads: int, hp: int, groups: int,
     qp = tiles * CB_TILE
     jobs = bsz * nc * nheads
     scratch = (_up4(bsz * nc * groups * qp * qp) + _up4(jobs * chunk)
-               + _up4(jobs * hp * n) + _up4(1 + jobs))
+               + _up4(jobs * hp * n) + _up4(2 * bsz * nc * groups * tiles)
+               + _up4(1 + jobs))
     causal = chunk * (chunk + 1) / 2
     flop = 2.0 * (bsz * nc * groups * causal * n
                   + jobs * (2 * chunk * hp * n + causal * hp))

@@ -571,12 +571,53 @@ def _same_special_places(got, want):
 
 
 # one non-finite entry: operand, token (a chunk's first or last 32), value;
-# x and dt at head 1, b and c at the last group
+# x and dt at head 1, b and c at the last group. Then finite entries whose
+# intermediates the reference makes non-finite: C[tok] . B[tok + 20] above
+# the diagonal overflows; x dt overflows at head 1, a strong decay after it
+# ("dtx_decay") or inside the band beside a small C . B ("dtx_band"); and
+# B inf beside decays exp(cum_i - cum_j) that are f32 denormals, flushed
+# to 0 as the reference computes ("b_denormal": A = -1 and dt = 3 at head 3
+# after the token, so rows tok + 30 .. + 34 see exp(-90 .. -102))
 SCAN_SPECIAL = [("x", 255, float("inf")), ("x", 197, float("nan")),
                 ("x", 40, float("-inf")), ("dt", 104, float("inf")),
                 ("dt", 70, float("nan")), ("b", 138, float("-inf")),
                 ("b", 120, float("nan")), ("c", 84, float("inf")),
-                ("c", 127, float("nan"))]
+                ("c", 127, float("nan")), ("cb_overflow", 70, 3e19),
+                ("dtx_decay", 74, 1e10), ("dtx_band", 104, 1e10),
+                ("b_denormal", 20, float("inf"))]
+
+
+def _scan_special(arrs, op, tok, value, groups):
+    """``arrs`` (x, dt, a_log, b, c, d) with SCAN_SPECIAL's entry applied,
+    in place; the heads it reaches (a bool mask over the 4 heads)."""
+    x, dt, a_log, b, c, _ = arrs
+    g = groups - 1
+    if op == "x":
+        x[0, tok, 1, 5] = value
+    elif op == "dt":
+        dt[0, tok, 1] = value
+    elif op in ("b", "c"):
+        (b if op == "b" else c)[0, tok, g, 3] = value
+    elif op == "cb_overflow":
+        c[0, tok, g, 3] = b[0, tok + 20, g, 3] = value
+    elif op in ("dtx_decay", "dtx_band"):
+        x[0, tok, 1, 3], dt[0, tok, 1] = 1e30, value
+        if op == "dtx_decay":
+            dt[0, tok + 1, 1] = 1e3
+        else:                                   # head 1 reads group 0
+            b[0, tok, 0], c[0, tok, 0] = 0.0, 0.0
+            b[0, tok, 0, 0], c[0, tok, 0, 0] = 1.0, 1e-20
+    else:                       # b_denormal: head 3 reads the last group
+        a_log[3] = 0.0
+        dt[0, tok + 1:tok - tok % 64 + 64, 3] = 3.0
+        b[0, tok, g, 3] = value
+    reach = torch.ones(4, dtype=torch.bool)
+    if op in ("x", "dt", "dtx_decay"):
+        reach[[0, 2, 3]] = False
+    elif groups == 2:                           # the group of heads 0-1
+        reach[:2] = op == "dtx_band"            # or of heads 2-3
+        reach[2:] = op != "dtx_band"
+    return reach
 
 
 @pytest.mark.cuda
@@ -586,21 +627,17 @@ SCAN_SPECIAL = [("x", 255, float("inf")), ("x", 197, float("nan")),
 def test_cuda_ssd_scan_special_values_follow_the_plain_version(
         cuda_device, op, tok, value, groups):
     """K6 with one inf or NaN in x, dt, B or C, before and inside the
-    diagonal of its chunk: the NaN and +-inf places of y and the final
-    state equal the plain version's (the reference's 0 * inf above the
-    diagonal included), the finite rest within the scan's tolerance; the
-    chunks before the token's and the heads that read neither the value
-    nor its group bit-equal to the clean call's."""
+    diagonal of its chunk, or with finite entries whose products overflow
+    or whose decays are denormals: the NaN and +-inf places of y and the
+    final state equal the plain version's (the reference's 0 * inf above
+    the diagonal included), the finite rest within the scan's tolerance;
+    the chunks before the token's and the heads that read neither the
+    entries nor their group bit-equal to the clean call's."""
     shape = (1, 256, 4, 16, groups, 8, 64)
     arrs, _ = _scan_case(15, *shape[:-1], cuda_device, False)
     clean_y, _ = k6.ssd_scan(*arrs, 64)
     arrs = [t.clone() for t in arrs]
-    if op == "x":
-        arrs[0][0, tok, 1, 5] = value
-    elif op == "dt":
-        arrs[1][0, tok, 1] = value
-    else:
-        arrs[3 if op == "b" else 4][0, tok, groups - 1, 3] = value
+    reach = _scan_special(arrs, op, tok, value, groups)
     y, s = k6.ssd_scan(*arrs, 64)
     want_y, want_s = k6.ssd_scan_plain(*arrs, 64)
     for got, want in ((y, want_y), (s, want_s)):
@@ -609,35 +646,34 @@ def test_cuda_ssd_scan_special_values_follow_the_plain_version(
         torch.testing.assert_close(got[keep], want[keep], atol=2e-4,
                                    rtol=1e-3)
     assert bool(want_y.isnan().any())
-    reach = torch.ones(4, dtype=torch.bool)
-    if op in ("x", "dt"):
-        reach[[0, 2, 3]] = False
-    elif groups == 2:
-        reach[:2] = False
-    c0 = tok - tok % 64
+    c0 = tok - tok % 64 if op != "b_denormal" else 0
     assert torch.equal(y[:, :c0], clean_y[:, :c0])
     assert torch.equal(y[:, :, ~reach.to(cuda_device)],
                        clean_y[:, :, ~reach.to(cuda_device)])
 
 
 @pytest.mark.cuda
-def test_cuda_ssd_scan_pins_an_overflow_above_the_diagonal(cuda_device):
-    """The limit of K6's masked-region rule (ROADMAP.md queue 3): finite
-    C[i] and B[j], j > i in one chunk, whose product overflows f32. The
-    reference's C B^T * L is inf * 0 = NaN there, so the plain version's
-    row i is NaN; no operand is non-finite, so nothing flags the (batch,
-    chunk, head) and the card's row i stays finite. Every other output
-    agrees with the plain version."""
+def test_cuda_ssd_scan_overflow_above_the_diagonal_nans_the_row_as_plain(
+        cuda_device):
+    """Finite C[i] and B[j], j > i in one chunk, whose product overflows
+    f32: the reference's C B^T * L is inf * 0 = NaN there, so row i is NaN
+    at every column of the group's heads. Launch 1's max |C| max |B| N
+    flags the (batch, chunk, head)s and the repair sums C[i] . B[j] again;
+    the card's NaN places equal the plain version's, the rest within the
+    scan's tolerance."""
     arrs, _ = _scan_case(16, 1, 128, 2, 8, 1, 8, cuda_device, False)
     arrs[4][0, 70, 0, 3] = 3e19        # C, row 70
     arrs[3][0, 90, 0, 3] = 3e19        # B, token 90: C[70] . B[90] = inf
-    y, _ = k6.ssd_scan(*arrs, 64)
-    want, _ = k6.ssd_scan_plain(*arrs, 64)
+    y, s = k6.ssd_scan(*arrs, 64)
+    want, want_s = k6.ssd_scan_plain(*arrs, 64)
     row = torch.zeros_like(want, dtype=torch.bool)
     row[0, 70] = True
-    assert bool(want[row].isnan().all())
-    assert bool(y[row].isfinite().all())
-    assert torch.equal(y.isnan() | row, want.isnan())
+    assert torch.equal(want.isnan(), row)
+    for got, ref in ((y, want), (s, want_s)):
+        assert _same_special_places(got, ref)
+        keep = torch.isfinite(ref)
+        torch.testing.assert_close(got[keep], ref[keep], atol=2e-4,
+                                   rtol=1e-3)
 
 
 @pytest.mark.cuda

@@ -32,6 +32,7 @@ from repro.models.layers import ssd as jssd
 from repro_torch.configs import LoRAConfig, SSMConfig, get_config
 from repro_torch.convert import params_from_numpy
 from repro_torch.kernels import ops
+from repro_torch.kernels import ssd_scan as k6
 from repro_torch.models.layers import ssd as tssd
 from repro_torch.models.transformer import Model
 from _torch_one_core import one_core  # noqa: F401  (autouse fixture)
@@ -127,22 +128,75 @@ def _special_inputs(op, val, tok):
     return arrs
 
 
+# finite entries whose intermediates the reference makes non-finite, and
+# a non-finite one beside decays that are f32 denormals: (scan inputs'
+# shape B, L, H, P, G, N; chunk; entries (operand, index, value)).
+# cb-overflow: C[70] . B[90] above the diagonal overflows f32. dtx-decay:
+# x dt overflows at token 10, a strong decay after it (dtx inf meets a
+# decay of 0). dtx-band: x dt overflows at token 40 inside the band beside
+# C[40] . B[40] = 1e-20 (y[40] inf). b-denormal: B inf at token 20 of a
+# 64-token chunk, where exp(cum_63 - cum_20) is an f32 denormal that XLA
+# flushes to 0 (row 63 NaN, not -inf).
+OVERFLOW_CASES = {
+    "cb-overflow": ((1, 128, 2, 8, 1, 8), 64,
+                    [("c", (0, 70, 0, 3), 3e19), ("b", (0, 90, 0, 3), 3e19)]),
+    "dtx-decay": ((1, 64, 2, 8, 1, 16), 32,
+                  [("x", (0, 10, 0, 3), 1e30), ("dt", (0, 10, 0), 1e10),
+                   ("dt", (0, 11, 0), 1e3)]),
+    "dtx-band": ((1, 64, 2, 8, 1, 16), 32,
+                 [("x", (0, 40, 0, 3), 1e30), ("dt", (0, 40, 0), 1e10),
+                  ("b", (0, 40, 0), 0.0), ("b", (0, 40, 0, 0), 1.0),
+                  ("c", (0, 40, 0), 0.0), ("c", (0, 40, 0, 0), 1e-20)]),
+    "b-denormal": ((1, 64, 2, 8, 1, 8), 64, [("b", (0, 20, 0, 3), np.inf)]),
+}
+OPERAND_INDEX = {"x": 0, "dt": 1, "b": 3, "c": 4}
+FORMS = {"plain": k6.ssd_scan_plain, "tf32x3": k6.ssd_scan_tf32x3_plain}
+
+
+def _overflow_inputs(case):
+    shape, chunk, entries = OVERFLOW_CASES[case]
+    arrs = _scan_inputs(5, *shape)
+    for op, index, value in entries:
+        arrs[OPERAND_INDEX[op]][index] = value
+    return arrs, chunk
+
+
+def _reference_stacked(arrs, chunk):
+    """The reference's Pallas ``ops.ssd_scan`` (interpret mode) of cases
+    of one shape stacked on the batch axis, whose rows the scan keeps
+    apart: (y, final state) a case."""
+    stacked = [a if i in (2, 5) else np.concatenate(
+        [case[i] for case in arrs]) for i, a in enumerate(arrs[0])]
+    jy, js = (np.asarray(v) for v in jops.ssd_scan(*_j(stacked),
+                                                   chunk=chunk))
+    return [(jy[n], js[n]) for n in range(len(arrs))]
+
+
 @pytest.fixture(scope="module")
 def special_reference():
-    """The reference's Pallas ``ops.ssd_scan`` (interpret mode) of every
-    special case, once a group count: the cases stacked on the batch axis,
-    whose rows the scan keeps apart."""
+    """The reference of every special case, one call a group count, and of
+    every overflow case, one call a shape and chunk."""
     out = {}
     for groups in sorted(set(SPECIAL_OPERANDS.values())):
         cases = [c for c in SPECIAL_CASES
                  if SPECIAL_OPERANDS[c[0]] == groups]
-        arrs = [_special_inputs(*c) for c in cases]
-        stacked = [a if i in (2, 5) else np.concatenate(
-            [case[i] for case in arrs]) for i, a in enumerate(arrs[0])]
-        jy, js = (np.asarray(v) for v in jops.ssd_scan(*_j(stacked),
-                                                       chunk=32))
-        out.update({c: (jy[n], js[n]) for n, c in enumerate(cases)})
+        out.update(zip(cases, _reference_stacked(
+            [_special_inputs(*c) for c in cases], 32)))
+    for shape, chunk in sorted({v[:2] for v in OVERFLOW_CASES.values()}):
+        cases = sorted(c for c, v in OVERFLOW_CASES.items()
+                       if v[:2] == (shape, chunk))
+        out.update(zip(cases, _reference_stacked(
+            [_overflow_inputs(c)[0] for c in cases], chunk)))
     return out
+
+
+def _assert_special_places(got, want):
+    """NaN and +-inf at the reference's places (and signs), the finite
+    rest within the scan's tolerance."""
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    np.testing.assert_array_equal(got[np.isinf(want)], want[np.isinf(want)])
+    keep = np.isfinite(want)
+    np.testing.assert_allclose(got[keep], want[keep], **SCAN_TOL)
 
 
 @pytest.mark.parametrize("op,val,tok", SPECIAL_CASES,
@@ -180,6 +234,42 @@ def test_infinite_x_nans_the_chunk_rows_before_it_as_reference(
     assert before.any() and np.isnan(jy[before]).all()
     keep = np.isfinite(jy)
     np.testing.assert_allclose(y[keep], jy[keep], **SCAN_TOL)
+
+
+@pytest.mark.parametrize("op,val,tok", SPECIAL_CASES,
+                         ids=[f"{o}-{v}-{t}" for o, v, t in SPECIAL_CASES])
+def test_tf32x3_form_gives_the_reference_special_places(
+        op, val, tok, special_reference):
+    """The kernel's arithmetic on the CPU (``ssd_scan_tf32x3_plain``: the
+    chunk-parallel decomposition, 3xTF32 products) on the same cases: the
+    reference's NaN and +-inf places in y and the final state, above the
+    diagonal included, the finite rest within the scan's tolerance."""
+    arrs = _special_inputs(op, val, tok)
+    y, s = (t.numpy()[0] for t in k6.ssd_scan_tf32x3_plain(*_t(arrs), 32))
+    for got, want in zip((y, s), special_reference[(op, val, tok)]):
+        _assert_special_places(got, want)
+
+
+@pytest.mark.parametrize("form", sorted(FORMS))
+@pytest.mark.parametrize("case", sorted(OVERFLOW_CASES))
+def test_overflow_and_denormal_decays_follow_the_reference(
+        case, form, special_reference):
+    """Finite inputs whose intermediates overflow, and a B inf beside
+    denormal decays: the reference forms dtx = x dt, C B^T and C B^T * L
+    over the whole chunk and flushes every f32 result below 2^-126 to 0
+    (XLA's CPU backend), so dtx inf meets a decay of 0, C[i] . B[j] inf
+    meets L = 0 above the diagonal and B inf meets a flushed decay: NaN.
+    The plain version and the kernel's decomposition on the CPU give its
+    NaN and +-inf places in y and the final state, the finite rest within
+    the scan's tolerance."""
+    arrs, chunk = _overflow_inputs(case)
+    y, s = (t.numpy()[0] for t in FORMS[form](*_t(arrs), chunk))
+    jy, js = special_reference[case]
+    for got, want in ((y, jy), (s, js)):
+        _assert_special_places(got, want)
+    nan_y = {"cb-overflow": 16, "dtx-decay": 63, "dtx-band": 8,
+             "b-denormal": 328}[case]
+    assert int(np.isnan(jy).sum()) == nan_y
 
 
 def test_initial_state_carry():

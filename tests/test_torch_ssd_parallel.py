@@ -151,8 +151,10 @@ def test_plan_scan_at_mamba2_prefill():
     chunk 256): five launches (the last the repair of NaN outputs); 10 C
     B^T tiles a (batch, chunk, group), one state job a (batch, chunk,
     head), two 128-row output tiles of it; the work done, 13.04 GFLOP,
-    against the recurrence's 8.59; the scratch ends with the repair's
-    flags, the call's and one a (batch, chunk, head), rounded up to 4."""
+    against the recurrence's 8.59; the scratch ends with the max |C| and
+    max |B| of the 4 diagonal C B^T tiles a (batch, chunk, group), then
+    the repair's flags, the call's and one a (batch, chunk, head), rounded
+    up to 4."""
     plan = k6.plan_scan(4, 1024, 64, 64, 1, 128, 256)
     assert plan.launches == 5
     assert (plan.chunks, plan.slices, plan.slice_rows) == (4, 1, 64)
@@ -160,7 +162,7 @@ def test_plan_scan_at_mamba2_prefill():
     assert (plan.cb_blocks, plan.state_blocks, plan.carry_blocks,
             plan.out_blocks) == (160, 1024, 2048, 2048)
     assert plan.scratch_floats == 4 * 4 * 256 * 256 + 1024 * 256 \
-        + 1024 * 64 * 128 + 1028
+        + 1024 * 64 * 128 + 2 * 4 * 4 * 4 + 1028
     assert plan.flop == pytest.approx(13.036e9, rel=1e-3)
     rep = plan.report()
     assert rep["route"] == "mma_tf32x3" and rep["launches"] == 5
@@ -177,7 +179,8 @@ def test_plan_scan_odd_shapes(shape, want):
     and output blocks): P 128 cut in two slices of 64, ragged P and N
     rounded up to the instances' widths, one 64-tile of C B^T a group
     below 64 tokens, and the scratch covers C B^T (Q rounded up to 64),
-    the cumsums, the states and the repair's flags."""
+    the cumsums, the states, the diagonal tiles' max |C| and max |B| and
+    the repair's flags."""
     plan = k6.plan_scan(*shape)
     got = (plan.chunks, plan.slices, plan.slice_rows, plan.n_width,
            plan.p_width, plan.cb_blocks, plan.state_blocks, plan.out_blocks)
@@ -186,7 +189,8 @@ def test_plan_scan_odd_shapes(shape, want):
     jobs = bsz * (length // q) * h
     qp = -(-q // 64) * 64
     assert plan.scratch_floats >= bsz * (length // q) * g * qp * qp \
-        + jobs * q + jobs * p * n + 1 + jobs
+        + jobs * q + jobs * p * n + 2 * bsz * (length // q) * g * qp // 64 \
+        + 1 + jobs
 
 
 def test_plan_scan_refuses_a_wide_state():
